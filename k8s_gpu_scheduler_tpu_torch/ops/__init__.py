@@ -1,0 +1,22 @@
+"""Core ops of the port: transformer primitives, weight-only int8, dense
+attention, and the paged attention entry points whose CUDA kernels live
+in ``csrc/`` (built at first use by ``_build``)."""
+from .attention import dense_attention
+from .decode_attention import (
+    DEFAULT_PAGE_SIZE, dense_decode_reference, dense_prefill_reference,
+    gather_paged_kv, paged_decode_attention, paged_decode_reference,
+    paged_plan, paged_prefill_attention,
+)
+from .layers import apply_rope, rms_norm, rope_freqs, swiglu
+from .quant import (
+    Int8Weight, dequantize_weight, qdot, quantize_llama_params,
+    quantize_weight,
+)
+
+__all__ = [
+    "DEFAULT_PAGE_SIZE", "Int8Weight", "apply_rope", "dense_attention",
+    "dense_decode_reference", "dense_prefill_reference", "dequantize_weight",
+    "gather_paged_kv", "paged_decode_attention", "paged_decode_reference",
+    "paged_plan", "paged_prefill_attention", "qdot", "quantize_llama_params",
+    "quantize_weight", "rms_norm", "rope_freqs", "swiglu",
+]

@@ -1,0 +1,134 @@
+"""Build and bind the CUDA kernels in ``csrc/`` (route (b): ``nvcc`` into a
+shared library with a plain C interface, loaded with ``ctypes``).
+
+The build runs at first use — never at import — into ``build/kernels/``
+at the repository root (listed in ``.gitignore``), from the repository's
+sources only. The library's file name carries a hash of the source and
+the flags, so an edited source is rebuilt and a stale library is never
+loaded. ``nvcc -Xptxas -v`` reports each kernel's registers, shared
+memory and spills; the report is kept beside the library
+(``ptxas_report()``).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, List, Optional
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = _CSRC / "paged_attention.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib: Optional[ctypes.CDLL] = None
+_report: str = ""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    # PyTorch's guess: $CUDA_HOME, $CUDA_PATH, else /usr/local/cuda.
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built at first "
+                       "use and need the CUDA toolkit (set CUDA_HOME)")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"paged_attention-{digest[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless this source's library already exists.
+    Writes to a temporary name and renames, so a concurrent build never
+    sees a half-written library."""
+    global _report
+    so = library_path()
+    log = so.with_suffix(".ptxas.txt")
+    if so.exists():
+        _report = log.read_text() if log.exists() else ""
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    _report = proc.stdout + proc.stderr
+    log.write_text(_report)
+    os.replace(tmp, so)
+    return so
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built on first call."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.paged_decode_attention_launch.argtypes = (
+        [vp] * 10 + [i] * 9 + [vp])
+    lib.paged_decode_attention_launch.restype = i
+    lib.paged_prefill_attention_launch.argtypes = (
+        [vp] * 10 + [i] * 9 + [vp])
+    lib.paged_prefill_attention_launch.restype = i
+    lib.paged_attention_error_string.argtypes = [i]
+    lib.paged_attention_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def error_string(err: int) -> str:
+    return load_library().paged_attention_error_string(err).decode()
+
+
+def ptxas_report() -> List[Dict[str, object]]:
+    """Per-kernel resource use from the build's ``-Xptxas -v`` output:
+    ``{"kernel", "registers", "smem_bytes", "spill_stores",
+    "spill_loads"}``, kernel names demangled where ``c++filt`` exists."""
+    out: List[Dict[str, object]] = []
+    cur: Optional[Dict[str, object]] = None
+    for line in _report.splitlines():
+        mt = re.search(r"Compiling entry function '(\S+)'", line)
+        if mt:
+            cur = {"kernel": mt.group(1), "registers": None,
+                   "smem_bytes": 0, "spill_stores": 0, "spill_loads": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        mt = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        if mt:
+            cur["spill_stores"] = int(mt.group(1))
+            cur["spill_loads"] = int(mt.group(2))
+        mt = re.search(r"Used (\d+) registers", line)
+        if mt:
+            cur["registers"] = int(mt.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(
+            str(r["kernel"]) for r in out), capture_output=True,
+            text=True).stdout.splitlines()
+        if len(names) == len(out):
+            for r, n in zip(out, names):
+                r["kernel"] = n.replace("(anonymous namespace)::", "")
+    return out

@@ -1,0 +1,546 @@
+// Paged attention kernels for the serving engine, for Hopper (sm_90a).
+//
+// K1 paged_decode_kernel replaces the Pallas kernel behind
+//    k8s_gpu_scheduler_tpu/ops/decode_attention.py paged_decode_attention
+//    (_paged_kernel -> _decode_kernel): one query row per slot against a
+//    shared page pool through a block table, masked to col < length.
+// K2 paged_prefill_kernel replaces the Pallas kernel behind
+//    k8s_gpu_scheduler_tpu/ops/decode_attention.py paged_prefill_attention
+//    (_prefill_kernel): the prefix-cache tail prefill, cached prefix pages
+//    (fully visible below hit_len) then the tail's own K/V (causal).
+//
+// What bounds them on an H100 and what the design does about it:
+//
+// K1 is bound by bytes: every live K/V row is read once and used for g
+//    query heads, about g*4 flops per byte in bf16, far below the ~295
+//    flops/byte where the tensor cores would be the limit. So the design
+//    reads each row once and never more: one block per (slot, kv head,
+//    split) keeps the g query heads of the group in registers and streams
+//    the group's rows with 16-byte loads (8 elements per lane, hd/8 lanes
+//    per row, several rows in flight per warp). Pages past ceil(len/ps)
+//    are never touched, so traffic is O(length), and int8 pages are
+//    dequantized in registers, so they move half the bytes of bf16. The
+//    split count fills the 132 SMs when slots x kv heads alone would not;
+//    each split writes unnormalised (acc, m, l) that a log-sum-exp merge
+//    outside the kernel combines, as the JAX package did.
+// K2 does tb*g query rows against hit_len + tb keys per (entry, kv head):
+//    at the serving shapes that is tens of flops per byte, so it is bound
+//    by operations. This first version runs them on the CUDA cores in f32
+//    (the JAX kernel's numerics) from shared memory: one block per (entry,
+//    kv head, 32-row q tile) stages the q tile once, then streams 32-row
+//    K/V chunks (prefix through the table, then the tail up to the tile's
+//    last token) through shared memory, where all 32 q rows reuse them.
+//    The tile replaces the TPU's PREFILL_MAX_Q_ROWS cap: any tb works.
+//    Tensor-core MMA, TMA and a pipelined producer warp are later work.
+//
+// Numerics follow the JAX kernels: scores, softmax statistics and the PV
+// accumulator in f32, int8 rows dequantized (value * row scale) on load,
+// masked columns contribute exactly zero, a fully masked row yields zero,
+// and the output is cast to q's dtype (round to nearest even for bf16).
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -shared -Xcompiler -fPIC (ops/_build.py). Plain C interface for
+//        ctypes; each launch function returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kThreads = 128;
+
+// -- loads of 8 consecutive elements as f32 ----------------------------------
+
+__device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&o)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const int8_t* p, float (&o)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = static_cast<float>(c[i]);
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+template <typename T>
+struct IsInt8 { static constexpr bool value = false; };
+template <>
+struct IsInt8<int8_t> { static constexpr bool value = true; };
+
+// -- K1: paged decode ---------------------------------------------------------
+//
+// grid (B * Hkv, n_splits), 128 threads. A key row is read by hd/8 lanes
+// (8 dims each); a warp covers 32/(hd/8) rows per step and the block
+// NG = 4 * that many row groups. Each row group keeps its own running
+// (m, l, acc) for the g heads; the groups merge through shared memory at
+// the end. Split s covers logical pages [s*pps, (s+1)*pps) of the slot's
+// live pages, pps = ceil(live pages / n_splits): the splits share the
+// live length, not the table width, so a short slot in a long table still
+// spreads over every split.
+template <typename QT, typename KT, int HD, int G>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
+                    const KT* __restrict__ vp, const float* __restrict__ ks,
+                    const float* __restrict__ vs,
+                    const int* __restrict__ table,
+                    const int* __restrict__ lengths,
+                    float* __restrict__ acc_out, float* __restrict__ m_out,
+                    float* __restrict__ l_out, int n_kv, int ps,
+                    int n_blocks, int n_splits, float scale) {
+  constexpr bool kQuant = IsInt8<KT>::value;
+  constexpr int LPR = HD / 8;             // lanes per key row
+  constexpr int RPW = 32 / LPR;           // key rows per warp step
+  constexpr int NG = (kThreads / 32) * RPW;
+  constexpr int U = G <= 2 ? 4 : 2;       // row steps in flight per lane
+
+  __shared__ float sm_m[NG][G];
+  __shared__ float sm_l[NG][G];
+  __shared__ float sm_acc[NG][G][HD];
+
+  const int bh = blockIdx.x;
+  const int split = blockIdx.y;
+  const int b = bh / n_kv;
+  const int kvh = bh - b * n_kv;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane / LPR;
+  const int seg = lane - sub * LPR;
+  const int grp = warp * RPW + sub;
+  const int n_heads = n_kv * G;
+
+  int len = lengths[b];
+  len = min(max(len, 0), n_blocks * ps);
+  const int pages_live = (len + ps - 1) / ps;
+  const int pps = (pages_live + n_splits - 1) / n_splits;
+  const int p0 = split * pps;
+  const int p1 = min(p0 + pps, pages_live);
+  const int row_lo = p0 * ps;
+  const int row_hi = min(p1 * ps, len);   // <= row_lo: nothing to read
+
+  float qv[G][8];
+#pragma unroll
+  for (int h = 0; h < G; ++h)
+    load8(q + (static_cast<size_t>(b) * n_heads + kvh * G + h) * HD + seg * 8,
+          qv[h]);
+
+  float m[G], l[G], acc[G][8];
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    m[h] = kNegInf;
+    l[h] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[h][e] = 0.f;
+  }
+
+  const int* trow = table + static_cast<size_t>(b) * n_blocks;
+  // Every lane of a warp runs the same number of steps (the shuffles
+  // below need the whole warp); rows past row_hi are loaded as nothing
+  // and skipped in the update.
+  for (int base = row_lo + warp * RPW; base < row_hi; base += NG * U) {
+    float kf[U][8], vf[U][8];
+    bool valid[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = base + u * NG + sub;
+      valid[u] = c < row_hi;
+      if (valid[u]) {
+        const int page = trow[c / ps];
+        const size_t row =
+            (static_cast<size_t>(page) * ps + (c % ps)) * n_kv + kvh;
+        load8(kp + row * HD + seg * 8, kf[u]);
+        load8(vp + row * HD + seg * 8, vf[u]);
+        if (kQuant) {
+          const float a = ks[row];
+          const float s = vs[row];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            kf[u][e] *= a;
+            vf[u][e] *= s;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kf[u][e] = vf[u][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int h = 0; h < G; ++h) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d += qv[h][e] * kf[u][e];
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, o);
+        if (valid[u]) {
+          const float s = d * scale;
+          const float mn = fmaxf(m[h], s);
+          const float alpha = expf(m[h] - mn);
+          const float p = expf(s - mn);
+          l[h] = l[h] * alpha + p;
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            acc[h][e] = acc[h][e] * alpha + p * vf[u][e];
+          m[h] = mn;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    if (seg == 0) {
+      sm_m[grp][h] = m[h];
+      sm_l[grp][h] = l[h];
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sm_acc[grp][h][seg * 8 + e] = acc[h][e];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * HD; i += kThreads) {
+    const int h = i / HD;
+    const int d = i - h * HD;
+    float mx = kNegInf;
+#pragma unroll
+    for (int r = 0; r < NG; ++r) mx = fmaxf(mx, sm_m[r][h]);
+    float a = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int r = 0; r < NG; ++r) {
+      const float w = expf(sm_m[r][h] - mx);
+      a += w * sm_acc[r][h][d];
+      lsum += w * sm_l[r][h];
+    }
+    const size_t o = (static_cast<size_t>(bh) * n_splits + split) * G + h;
+    acc_out[o * HD + d] = a;
+    if (d == 0) {
+      m_out[o] = mx;
+      l_out[o] = lsum;
+    }
+  }
+}
+
+// -- K2: prefix-attention prefill ---------------------------------------------
+//
+// grid (ceil(tb*g / 32), Hkv, M), 128 threads; q row r of the (entry, kv
+// head) stack is tail token r / g, group head r % g. Thread t owns q row
+// t / 4 of the tile; the four threads of a row split its score columns
+// (col = t%4 + 4k) and its output dims (d = t%4 + 4j).
+constexpr int kQRows = 32;
+constexpr int kKRows = 32;
+
+template <int HD>
+constexpr int prefill_smem_floats() {
+  return kQRows * (HD + 1) + kKRows * (HD + 1) + kKRows * HD +
+         kQRows * (kKRows + 1);
+}
+
+template <typename QT, typename PT, int HD>
+__global__ void __launch_bounds__(kThreads)
+paged_prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
+                     const PT* __restrict__ vp, const float* __restrict__ ks,
+                     const float* __restrict__ vs,
+                     const int* __restrict__ table,
+                     const int* __restrict__ hit_lens,
+                     const QT* __restrict__ tk, const QT* __restrict__ tv,
+                     QT* __restrict__ out, int tb, int n_kv, int g, int ps,
+                     int hb, float scale) {
+  constexpr bool kQuant = IsInt8<PT>::value;
+  constexpr int HDP = HD + 1;             // padded rows: no bank conflicts
+  constexpr int KCP = kKRows + 1;
+  constexpr int SEGS = HD / 8;
+  extern __shared__ float smem[];
+  float* Qs = smem;                       // [kQRows][HDP]
+  float* Ks = Qs + kQRows * HDP;          // [kKRows][HDP]
+  float* Vs = Ks + kKRows * HDP;          // [kKRows][HD]
+  float* Ps = Vs + kKRows * HD;           // [kQRows][KCP]
+
+  const int tile = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int ent = blockIdx.z;
+  const int n_heads = n_kv * g;
+  const int rows_total = tb * g;
+  const int r0 = tile * kQRows;
+  const int t = threadIdx.x;
+  const int r = t >> 2;
+  const int quad = t & 3;
+  const int grow = r0 + r;
+  const bool row_ok = grow < rows_total;
+  const int my_tok = row_ok ? grow / g : tb;
+  const int tok_hi = (min(r0 + kQRows, rows_total) - 1) / g;
+  const int hit = min(max(hit_lens[ent], 0), hb * ps);
+
+  for (int i = t; i < kQRows * SEGS; i += kThreads) {
+    const int rr = i / SEGS;
+    const int sg = i - rr * SEGS;
+    const int gr = r0 + rr;
+    float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (gr < rows_total) {
+      const int tok = gr / g;
+      const int j = gr - tok * g;
+      load8(q + ((static_cast<size_t>(ent) * tb + tok) * n_heads +
+                 kvh * g + j) * HD + sg * 8, v8);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) Qs[rr * HDP + sg * 8 + e] = v8[e];
+  }
+
+  float mrow = kNegInf, lrow = 0.f;
+  float acc[HD / 4];
+#pragma unroll
+  for (int j = 0; j < HD / 4; ++j) acc[j] = 0.f;
+
+  const int n_pre = (hit + kKRows - 1) / kKRows;
+  const int tail_len = tok_hi + 1;        // tail cols this tile can see
+  const int n_all = n_pre + (tail_len + kKRows - 1) / kKRows;
+  const int* trow = table + static_cast<size_t>(ent) * hb;
+
+  for (int ch = 0; ch < n_all; ++ch) {
+    const bool prefix = ch < n_pre;
+    const int c0 = (prefix ? ch : ch - n_pre) * kKRows;
+    const int c_end = prefix ? hit : tail_len;
+    __syncthreads();                      // last chunk's readers are done
+    for (int i = t; i < kKRows * SEGS; i += kThreads) {
+      const int kr = i / SEGS;
+      const int sg = i - kr * SEGS;
+      const int c = c0 + kr;
+      float k8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (c < c_end) {
+        if (prefix) {
+          const int page = trow[c / ps];
+          const size_t row =
+              (static_cast<size_t>(page) * ps + (c % ps)) * n_kv + kvh;
+          load8(kp + row * HD + sg * 8, k8);
+          load8(vp + row * HD + sg * 8, v8);
+          if (kQuant) {
+            const float a = ks[row];
+            const float s = vs[row];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              k8[e] *= a;
+              v8[e] *= s;
+            }
+          }
+        } else {
+          const size_t row =
+              (static_cast<size_t>(ent) * tb + c) * n_kv + kvh;
+          load8(tk + row * HD + sg * 8, k8);
+          load8(tv + row * HD + sg * 8, v8);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        Ks[kr * HDP + sg * 8 + e] = k8[e];
+        Vs[kr * HD + sg * 8 + e] = v8[e];
+      }
+    }
+    __syncthreads();
+
+    float s[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s[k] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < HD; ++d) {
+      const float qd = Qs[r * HDP + d];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s[k] += qd * Ks[(quad + 4 * k) * HDP + d];
+    }
+    bool vis[8];
+    float cmax = kNegInf;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int c = c0 + quad + 4 * k;
+      vis[k] = c < c_end && (prefix || c <= my_tok);
+      s[k] = vis[k] ? s[k] * scale : kNegInf;
+      cmax = fmaxf(cmax, s[k]);
+    }
+    cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
+    cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 2));
+    const float mn = fmaxf(mrow, cmax);
+    const float alpha = expf(mrow - mn);
+    float psum = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float p = vis[k] ? expf(s[k] - mn) : 0.f;
+      Ps[r * KCP + quad + 4 * k] = p;
+      psum += p;
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    lrow = lrow * alpha + psum;
+    mrow = mn;
+    __syncwarp();                         // the row's P is one quad's work
+#pragma unroll
+    for (int j = 0; j < HD / 4; ++j) acc[j] *= alpha;
+#pragma unroll 4
+    for (int c = 0; c < kKRows; ++c) {
+      const float p = Ps[r * KCP + c];
+#pragma unroll
+      for (int j = 0; j < HD / 4; ++j) acc[j] += p * Vs[c * HD + quad + 4 * j];
+    }
+  }
+
+  if (row_ok) {
+    const int j = grow - my_tok * g;
+    QT* o = out + ((static_cast<size_t>(ent) * tb + my_tok) * n_heads +
+                   kvh * g + j) * HD;
+    const float den = fmaxf(lrow, 1e-20f);
+#pragma unroll
+    for (int jj = 0; jj < HD / 4; ++jj) store1(o + quad + 4 * jj, acc[jj] / den);
+  }
+}
+
+// -- host-side dispatch -------------------------------------------------------
+
+inline float softmax_scale(int hd) {
+  return static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
+}
+
+template <typename QT, typename KT, int HD>
+cudaError_t launch_decode(int g, const void* q, const void* k, const void* v,
+                          const void* ks, const void* vs, const void* table,
+                          const void* lengths, void* acc, void* m, void* l,
+                          int B, int Hkv, int ps, int n_blocks, int n_splits,
+                          cudaStream_t stream) {
+  const dim3 grid(B * Hkv, n_splits);
+  const float scale = softmax_scale(HD);
+#define K1_LAUNCH(GV)                                                       \
+  paged_decode_kernel<QT, KT, HD, GV><<<grid, kThreads, 0, stream>>>(      \
+      static_cast<const QT*>(q), static_cast<const KT*>(k),                 \
+      static_cast<const KT*>(v), static_cast<const float*>(ks),             \
+      static_cast<const float*>(vs), static_cast<const int*>(table),        \
+      static_cast<const int*>(lengths), static_cast<float*>(acc),           \
+      static_cast<float*>(m), static_cast<float*>(l), Hkv, ps, n_blocks,    \
+      n_splits, scale)
+  switch (g) {
+    case 1: K1_LAUNCH(1); break;
+    case 2: K1_LAUNCH(2); break;
+    case 4: K1_LAUNCH(4); break;
+    case 8: K1_LAUNCH(8); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef K1_LAUNCH
+  return cudaGetLastError();
+}
+
+template <typename QT, typename PT, int HD>
+cudaError_t launch_prefill(const void* q, const void* k, const void* v,
+                           const void* ks, const void* vs, const void* table,
+                           const void* hits, const void* tk, const void* tv,
+                           void* out, int M, int tb, int H, int Hkv, int ps,
+                           int hb, cudaStream_t stream) {
+  const int g = H / Hkv;
+  const dim3 grid((tb * g + kQRows - 1) / kQRows, Hkv, M);
+  const size_t smem = sizeof(float) * prefill_smem_floats<HD>();
+  static bool configured = false;         // once per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_prefill_kernel<QT, PT, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  paged_prefill_kernel<QT, PT, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const PT*>(k),
+      static_cast<const PT*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(table),
+      static_cast<const int*>(hits), static_cast<const QT*>(tk),
+      static_cast<const QT*>(tv), static_cast<QT*>(out), tb, Hkv, g, ps, hb,
+      softmax_scale(HD));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q [B, H, hd]; k/v [n_pages, ps, Hkv, hd]; ks/vs [n_pages, ps, Hkv, 1]
+// f32 (int8 pools only, else null); table [B, n_blocks] i32; lengths [B]
+// i32 -> acc [B*Hkv, n_splits, g, hd], m/l [B*Hkv, n_splits, g] f32.
+int paged_decode_attention_launch(const void* q, const void* k, const void* v,
+                                  const void* ks, const void* vs,
+                                  const void* table, const void* lengths,
+                                  void* acc, void* m, void* l, int B, int H,
+                                  int Hkv, int hd, int ps, int n_blocks,
+                                  int n_splits, int q_bf16, int kv_int8,
+                                  void* stream) {
+  const int g = H / Hkv;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define K1_ARGS g, q, k, v, ks, vs, table, lengths, acc, m, l, B, Hkv, ps, \
+                n_blocks, n_splits, st
+  if (hd == 64) {
+    if (q_bf16)
+      return kv_int8 ? launch_decode<__nv_bfloat16, int8_t, 64>(K1_ARGS)
+                     : launch_decode<__nv_bfloat16, __nv_bfloat16, 64>(K1_ARGS);
+    return kv_int8 ? launch_decode<float, int8_t, 64>(K1_ARGS)
+                   : launch_decode<float, float, 64>(K1_ARGS);
+  }
+  if (hd == 128) {
+    if (q_bf16)
+      return kv_int8 ? launch_decode<__nv_bfloat16, int8_t, 128>(K1_ARGS)
+                     : launch_decode<__nv_bfloat16, __nv_bfloat16, 128>(K1_ARGS);
+    return kv_int8 ? launch_decode<float, int8_t, 128>(K1_ARGS)
+                   : launch_decode<float, float, 128>(K1_ARGS);
+  }
+#undef K1_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// q [M, tb, H, hd]; k/v/ks/vs as above; table [M, hb] i32; hits [M] i32;
+// tail k/v [M, tb, Hkv, hd] in q's dtype -> out [M, tb, H, hd].
+int paged_prefill_attention_launch(const void* q, const void* k, const void* v,
+                                   const void* ks, const void* vs,
+                                   const void* table, const void* hits,
+                                   const void* tk, const void* tv, void* out,
+                                   int M, int tb, int H, int Hkv, int hd,
+                                   int ps, int hb, int q_bf16, int kv_int8,
+                                   void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define K2_ARGS q, k, v, ks, vs, table, hits, tk, tv, out, M, tb, H, Hkv, ps, \
+                hb, st
+  if (hd == 64) {
+    if (q_bf16)
+      return kv_int8 ? launch_prefill<__nv_bfloat16, int8_t, 64>(K2_ARGS)
+                     : launch_prefill<__nv_bfloat16, __nv_bfloat16, 64>(K2_ARGS);
+    return kv_int8 ? launch_prefill<float, int8_t, 64>(K2_ARGS)
+                   : launch_prefill<float, float, 64>(K2_ARGS);
+  }
+  if (hd == 128) {
+    if (q_bf16)
+      return kv_int8 ? launch_prefill<__nv_bfloat16, int8_t, 128>(K2_ARGS)
+                     : launch_prefill<__nv_bfloat16, __nv_bfloat16, 128>(K2_ARGS);
+    return kv_int8 ? launch_prefill<float, int8_t, 128>(K2_ARGS)
+                   : launch_prefill<float, float, 128>(K2_ARGS);
+  }
+#undef K2_ARGS
+  return cudaErrorInvalidValue;
+}
+
+const char* paged_attention_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

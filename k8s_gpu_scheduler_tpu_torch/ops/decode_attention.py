@@ -1,0 +1,392 @@
+"""Paged attention for the serving engine: two hand-written CUDA kernels
+and their plain PyTorch versions.
+
+- ``paged_decode_attention`` (K1) replaces the JAX package's Pallas
+  ``paged_decode_attention`` (``k8s_gpu_scheduler_tpu/ops/
+  decode_attention.py``): one query row per slot against a shared page
+  pool ``[n_pages, ps, Hkv, hd]`` through a ``[B, n_blocks]`` block table,
+  masked to ``col < lengths``, pages past the length skipped, int8 K/V
+  dequantized with per-row f32 scales, split-K partials merged by the
+  log-sum-exp combine (``_combine_splits``, a PyTorch op as it was XLA
+  code in the JAX package).
+- ``paged_prefill_attention`` (K2) replaces the Pallas
+  ``paged_prefill_attention``: the prefix-cache tail prefill — cached
+  prefix pages through ``prefix_table`` (fully visible below
+  ``hit_lens``) plus the tail's own K/V (causal), one online softmax.
+
+Each wrapper runs its kernel on CUDA tensors (``ops/csrc/
+paged_attention.cu``, built at first use by ``ops/_build.py``) and its
+plain version on CPU tensors; any other device raises, and a CUDA tensor
+never reaches the plain version. ``paged_decode_reference`` (=
+``gather_paged_kv`` + ``dense_decode_reference``) and
+``dense_prefill_reference`` are those plain versions, ported op for op
+from the JAX package's references. Each wrapper counts its kernel
+launches (``.launches``) and each plain version its calls (``.calls``).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+DEFAULT_PAGE_SIZE = 64
+NEG_INF = -1e30
+
+# The kernels' contract (ops/csrc/paged_attention.cu).
+KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_GROUPS = (1, 2, 4, 8)          # g = n_heads / n_kv_heads
+_SM_COUNT_H100 = 132
+
+
+def paged_plan(n_blocks: int, page_size: int, batch: int = 1,
+               n_kv: int = 1) -> Optional[int]:
+    """K1's split count on the card for a ``[batch, n_blocks]`` block
+    table over an ``n_kv``-head pool, or None when the shape is not
+    pageable (page sizes are powers of two from 8 to 256; at least one
+    block). The JAX package's rule fits the TPU's sequential grid; on the
+    card the splits are there to fill the SMs: enough (slot x kv head x
+    split) blocks for about two per SM, never more splits than pages. The
+    kernel divides each slot's live pages, not the table, among them."""
+    if page_size < 8 or page_size > 256 or page_size & (page_size - 1):
+        return None
+    if n_blocks < 1:
+        return None
+    want = -(-2 * _SM_COUNT_H100 // max(1, batch * n_kv))
+    return max(1, min(n_blocks, want))
+
+
+# -- plain versions -------------------------------------------------------------
+
+def gather_paged_kv(pages: torch.Tensor,
+                    block_table: torch.Tensor) -> torch.Tensor:
+    """pages [n_pages, ps, ...] gathered through block_table [B, n_blocks]
+    → [B, n_blocks*ps, ...]: the sequence-contiguous view."""
+    g = pages[block_table.long()]                   # [B, n_blocks, ps, ...]
+    b, n_blocks, ps = g.shape[:3]
+    return g.reshape(b, n_blocks * ps, *pages.shape[2:])
+
+
+def dense_decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths=None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """Grouped-einsum decode attention: q [B, H, hd] against the cache
+    [B, S, Hkv, hd] → [B, H, hd]. int8-KV (``k_scale``/``v_scale``
+    [B, S, Hkv, 1]) factors the per-row scales onto the scores and the
+    probabilities. A fully masked row softmaxes uniform (garbage by
+    contract)."""
+    b, n_heads, hd = q.shape
+    s, h_kv = k.shape[1], k.shape[2]
+    if n_heads % h_kv:
+        raise ValueError(
+            f"GQA needs n_heads ({n_heads}) divisible by kv heads ({h_kv})")
+    g = n_heads // h_kv
+    quant = k_scale is not None
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, h_kv, g, hd)
+    kf = k.to(q.dtype) if quant else k
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg, kf).float() * scale
+    if quant:
+        scores = scores * k_scale[..., 0].permute(0, 2, 1)[:, :, None]
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, dtype=torch.int32,
+                                  device=q.device).reshape(-1)
+        cols = torch.arange(s, device=q.device)[None, :]
+        mask = cols < lengths[:, None]                       # [B, S]
+        scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if quant:
+        probs = probs * v_scale[..., 0].permute(0, 2, 1)[:, :, None].to(
+            q.dtype)
+        vf = v.to(q.dtype)
+    else:
+        vf = v
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, vf)
+    return out.reshape(b, n_heads, hd)
+
+
+def paged_decode_reference(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_table: torch.Tensor,
+                           lengths, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """K1's plain version: the table gather + the grouped dense decode."""
+    paged_decode_reference.calls += 1
+    sc = {}
+    if k_scale is not None:
+        sc = dict(k_scale=gather_paged_kv(k_scale, block_table),
+                  v_scale=gather_paged_kv(v_scale, block_table))
+    return dense_decode_reference(
+        q, gather_paged_kv(k_pages, block_table),
+        gather_paged_kv(v_pages, block_table), lengths=lengths, **sc)
+
+
+paged_decode_reference.calls = 0
+
+
+def dense_prefill_reference(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor,
+                            prefix_table: torch.Tensor, hit_lens,
+                            tail_k: torch.Tensor, tail_v: torch.Tensor,
+                            k_scale=None, v_scale=None) -> torch.Tensor:
+    """K2's plain version: the tail window q [M, tb, H, hd] against [the
+    cached prefix gathered through ``prefix_table`` [M, hb]] ++ [the
+    tail's own K/V [M, tb, Hkv, hd]] → [M, tb, H, hd]. Prefix column c is
+    visible iff c < hit_len; tail column j is visible to tail query i iff
+    j <= i. int8-KV dequantizes the gathered prefix only — the tail K/V
+    are exact-dtype rows this dispatch computed."""
+    dense_prefill_reference.calls += 1
+    m, tb, n_heads, hd = q.shape
+    ps, h_kv = k_pages.shape[1], k_pages.shape[2]
+    if n_heads % h_kv:
+        raise ValueError(
+            f"GQA needs n_heads ({n_heads}) divisible by kv heads ({h_kv})")
+    hb = prefix_table.shape[1]
+    hp = hb * ps
+    quant = k_scale is not None
+    if quant and v_scale is None:
+        raise ValueError("int8-KV mode needs both k_scale and v_scale")
+    hit_lens = torch.as_tensor(hit_lens, dtype=torch.int32, device=q.device)
+    if hit_lens.ndim == 0:
+        hit_lens = hit_lens.expand(m)
+    idx = prefix_table.long()
+
+    def gather(pool):
+        return pool[idx].reshape(m, hp, *pool.shape[2:])
+
+    if quant:
+        pk = (gather(k_pages).float() * gather(k_scale)).to(q.dtype)
+        pv = (gather(v_pages).float() * gather(v_scale)).to(q.dtype)
+    else:
+        pk, pv = gather(k_pages), gather(v_pages)
+    kf = torch.cat([pk, tail_k], dim=1)              # [M, hp+tb, Hkv, hd]
+    vf = torch.cat([pv, tail_v], dim=1)
+    kcol = torch.arange(hp + tb, device=q.device)[None, None, :]
+    qrow = torch.arange(tb, device=q.device)[None, :, None]
+    valid = torch.where(kcol < hp, kcol < hit_lens[:, None, None],
+                        (kcol - hp) <= qrow)         # [M, tb, hp+tb]
+    g = n_heads // h_kv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(m, tb, h_kv, g, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf).float() * scale
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, vf)
+    return out.reshape(m, tb, n_heads, hd)
+
+
+dense_prefill_reference.calls = 0
+
+
+def _combine_splits(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                    b: int, n_heads: int, hd: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """Split-K combine: LSE merge of K1's unnormalised partials acc
+    [B*Hkv, ns, g, hd], m/l [B*Hkv, ns, g, 1]. An empty split (acc 0,
+    m -1e30, l 0) drops out; a fully masked row yields zeros."""
+    m_tot = m.amax(dim=1, keepdim=True)
+    w = torch.exp(m - m_tot)
+    l_tot = (l * w).sum(dim=1)                       # [BH, g, 1]
+    out = (acc * w).sum(dim=1) / torch.clamp(l_tot, min=1e-20)
+    return out.reshape(b, n_heads, hd).to(dtype)
+
+
+# -- wrappers -------------------------------------------------------------------
+
+def _route(t: torch.Tensor) -> bool:
+    """True for the kernel (CUDA tensor), False for the plain version
+    (CPU tensor); any other device raises."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"paged attention takes CUDA or CPU tensors, got "
+                     f"{t.device}")
+
+
+def _check_kernel_args(name: str, q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, k_scale, v_scale,
+                       n_heads: int, n_kv: int, hd: int) -> bool:
+    """Validate what the CUDA kernel takes; returns the int8-KV flag."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: q must be float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not in {KERNEL_HEAD_DIMS}")
+    if n_heads % n_kv or n_heads // n_kv not in KERNEL_GROUPS:
+        raise ValueError(f"{name}: n_heads/n_kv_heads = {n_heads}/{n_kv} "
+                         f"must be a group size in {KERNEL_GROUPS}")
+    quant = k_pages.dtype == torch.int8
+    if not quant and k_pages.dtype != q.dtype:
+        raise ValueError(f"{name}: pool dtype {k_pages.dtype} must be q's "
+                         f"({q.dtype}) or int8")
+    if v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"{name}: k/v pool dtypes differ")
+    if quant != (k_scale is not None) or quant != (v_scale is not None):
+        raise ValueError(f"{name}: an int8 pool needs k_scale and v_scale "
+                         f"(and only an int8 pool takes them)")
+    if quant and (k_scale.dtype != torch.float32
+                  or v_scale.dtype != torch.float32):
+        raise ValueError(f"{name}: scales must be float32")
+    for t in (q, k_pages, v_pages) + ((k_scale, v_scale) if quant else ()):
+        if t.device != q.device:
+            raise ValueError(f"{name}: all operands must be on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    return quant
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        from ._build import error_string
+
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{error_string(err)} ({err})")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_table: torch.Tensor,
+                           lengths, k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Decode attention over a paged KV cache: q [B, H, hd] against the
+    pool k/v [n_pages, ps, Hkv, hd] through ``block_table`` [B, n_blocks]
+    int32, masked to logical rows < ``lengths`` [B] → [B, H, hd] in q's
+    dtype. ``k_scale``/``v_scale`` [n_pages, ps, Hkv, 1] f32 switch to an
+    int8 pool. Rows past a length may be garbage; they never contribute."""
+    b, n_heads, hd = q.shape
+    if k_pages.shape[3] != hd or v_pages.shape != k_pages.shape:
+        raise ValueError(f"page pool shape {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if block_table.ndim != 2 or block_table.shape[0] != b:
+        raise ValueError(f"block_table must be [B={b}, n_blocks], got "
+                         f"{tuple(block_table.shape)}")
+    ps, n_kv = k_pages.shape[1], k_pages.shape[2]
+    n_blocks = block_table.shape[1]
+    ns = paged_plan(n_blocks, ps, b, n_kv)
+    if ns is None:
+        raise ValueError(f"no legal paged blocking for n_blocks={n_blocks}, "
+                         f"page_size={ps}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("int8-KV mode needs both k_scale and v_scale")
+    if not _route(q):
+        return paged_decode_reference(q, k_pages, v_pages, block_table,
+                                      lengths, k_scale, v_scale)
+    quant = _check_kernel_args("paged_decode_attention", q, k_pages,
+                               v_pages, k_scale, v_scale, n_heads, n_kv, hd)
+    table = block_table.to(device=q.device, dtype=torch.int32).contiguous()
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
+    lens = lens.expand(b).contiguous() if lens.ndim == 0 else lens.contiguous()
+    g = n_heads // n_kv
+    acc = torch.empty((b * n_kv, ns, g, hd), dtype=torch.float32,
+                      device=q.device)
+    mx = torch.empty((b * n_kv, ns, g, 1), dtype=torch.float32,
+                     device=q.device)
+    sm = torch.empty_like(mx)
+    from ._build import load_library
+
+    lib = load_library()
+    err = lib.paged_decode_attention_launch(
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
+        _ptr(table), _ptr(lens), _ptr(acc), _ptr(mx), _ptr(sm),
+        b, n_heads, n_kv, hd, ps, n_blocks, ns,
+        int(q.dtype == torch.bfloat16), int(quant),
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    _raise_on(err, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return _combine_splits(acc, mx, sm, b, n_heads, hd, q.dtype)
+
+
+paged_decode_attention.launches = 0
+
+
+def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor,
+                            prefix_table: torch.Tensor, hit_lens,
+                            tail_k: torch.Tensor, tail_v: torch.Tensor,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Prefix-attention prefill over a paged KV cache: the tail window q
+    [M, tb, H, hd] (tail query i at absolute position hit_len + i, rope
+    applied) against [each entry's cached prefix, read from the pool
+    through ``prefix_table`` [M, hb] int32] ++ [the tail's own K/V
+    [M, tb, Hkv, hd], q's dtype] → [M, tb, H, hd]. ``hit_lens`` [M]
+    counts cached prefix rows (<= hb·ps; table entries past them are
+    never read). ``tb`` must be a multiple of the page size. hb == 0 is
+    the pure causal window. An int8 pool dequantizes the prefix only."""
+    m, tb, n_heads, hd = q.shape
+    if k_pages.shape[3] != hd or v_pages.shape != k_pages.shape:
+        raise ValueError(f"page pool shape {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if prefix_table.ndim != 2 or prefix_table.shape[0] != m:
+        raise ValueError(f"prefix_table must be [M={m}, hb], got "
+                         f"{tuple(prefix_table.shape)}")
+    ps, n_kv = k_pages.shape[1], k_pages.shape[2]
+    if tuple(tail_k.shape) != (m, tb, n_kv, hd) \
+            or tail_v.shape != tail_k.shape:
+        raise ValueError(f"tail K/V {tuple(tail_k.shape)}/"
+                         f"{tuple(tail_v.shape)} must be [M={m}, tb={tb}, "
+                         f"Hkv={n_kv}, hd={hd}]")
+    if tb % ps:
+        raise ValueError(f"tail bucket tb={tb} must be a multiple of the "
+                         f"page size {ps}")
+    if paged_plan(1, ps) is None:
+        raise ValueError(f"no legal paged blocking for page_size={ps}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("int8-KV mode needs both k_scale and v_scale")
+    if not _route(q):
+        return dense_prefill_reference(q, k_pages, v_pages, prefix_table,
+                                       hit_lens, tail_k, tail_v,
+                                       k_scale, v_scale)
+    quant = _check_kernel_args("paged_prefill_attention", q, k_pages,
+                               v_pages, k_scale, v_scale, n_heads, n_kv, hd)
+    for t in (tail_k, tail_v):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("paged_prefill_attention: tail K/V must have "
+                             "q's dtype and device")
+    tail_k, tail_v, q = tail_k.contiguous(), tail_v.contiguous(), \
+        q.contiguous()
+    hb = prefix_table.shape[1]
+    table = prefix_table.to(device=q.device, dtype=torch.int32).contiguous()
+    hits = torch.as_tensor(hit_lens, dtype=torch.int32, device=q.device)
+    hits = hits.expand(m).contiguous() if hits.ndim == 0 else hits.contiguous()
+    out = torch.empty_like(q)
+    from ._build import load_library
+
+    lib = load_library()
+    err = lib.paged_prefill_attention_launch(
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
+        _ptr(table), _ptr(hits), _ptr(tail_k), _ptr(tail_v), _ptr(out),
+        m, tb, n_heads, n_kv, hd, ps, hb,
+        int(q.dtype == torch.bfloat16), int(quant),
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    _raise_on(err, "paged_prefill_attention")
+    paged_prefill_attention.launches += 1
+    return out
+
+
+paged_prefill_attention.launches = 0
+
+
+def reset_counters() -> None:
+    """Zero every kernel launch counter and plain-version call counter."""
+    paged_decode_attention.launches = 0
+    paged_prefill_attention.launches = 0
+    paged_decode_reference.calls = 0
+    dense_prefill_reference.calls = 0
+
+
+def counters() -> dict:
+    return {
+        "paged_decode_attention": paged_decode_attention.launches,
+        "paged_prefill_attention": paged_prefill_attention.launches,
+        "paged_decode_reference": paged_decode_reference.calls,
+        "dense_prefill_reference": dense_prefill_reference.calls,
+    }

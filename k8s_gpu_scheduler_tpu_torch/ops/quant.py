@@ -1,0 +1,80 @@
+"""Weight-only int8 quantization for serving (port of the JAX package's
+``ops/quant.py``).
+
+Scheme: symmetric per-output-channel int8. For a weight ``w [..., K, N]``
+(``x @ w`` orientation, K = contraction dim), ``s = max|w| / 127`` over K
+gives ``s [..., 1, N]`` and ``q = round(w / s)``; by linearity
+``(x @ q) * s == x @ (q * s)``, so ``qdot`` applies the scale after the
+matmul. ``qdot`` stays a PyTorch op: the JAX package left the int8
+convert to XLA's fusion, and no Pallas kernel sits behind it.
+
+A quantized weight is an ``Int8Weight`` module (buffers ``q`` int8 and
+``s`` f32) or, for functional callers, a ``{"q", "s"}`` dict.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Dict, Union
+
+import torch
+from torch import nn
+
+# Block weights that are matmul operands; norms and the embedding gather
+# stay in the model dtype.
+BLOCK_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+class Int8Weight(nn.Module):
+    """A quantized matmul weight: ``q`` int8 [..., K, N], ``s`` f32
+    [..., 1, N]."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor) -> None:
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        return {"q": self.q, "s": self.s}[key]
+
+
+Weight = Union[torch.Tensor, Int8Weight, Dict[str, torch.Tensor]]
+
+
+def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """w [..., K, N] → {"q": int8, "s": f32 [..., 1, N]}; exact for the
+    all-zero channel (scale floored). ``torch.round`` rounds half to even,
+    as ``jnp.round`` does."""
+    w32 = w.float()
+    s = torch.clamp(w32.abs().amax(dim=-2, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def dequantize_weight(wq: Weight, dtype: torch.dtype) -> torch.Tensor:
+    return (wq["q"].float() * wq["s"]).to(dtype)
+
+
+def qdot(x: torch.Tensor, w: Weight) -> torch.Tensor:
+    """x @ w for a plain tensor or a quantized weight. The int8 operand is
+    converted to x's dtype for the product; the per-channel scale applies
+    to the [..., N] result in f32."""
+    if isinstance(w, (Int8Weight, dict)):
+        y = x @ w["q"].to(x.dtype)
+        return (y.float() * w["s"]).to(x.dtype)
+    return x @ w
+
+
+def quantize_llama_params(model: nn.Module) -> nn.Module:
+    """A copy of a ``models.llama.Llama`` with every block matmul weight and
+    the lm_head replaced by ``Int8Weight`` modules (the JAX function's
+    tree rewrite, on modules). The source model is left untouched."""
+    out = copy.deepcopy(model)
+    for blk in out.blocks:
+        for name in BLOCK_WEIGHTS:
+            w = getattr(blk, name)
+            delattr(blk, name)
+            setattr(blk, name, Int8Weight(**quantize_weight(w)))
+    w = out.lm_head
+    del out.lm_head
+    out.lm_head = Int8Weight(**quantize_weight(w))
+    return out

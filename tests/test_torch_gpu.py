@@ -1,0 +1,157 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here carries the ``gpu`` marker and skips without a CUDA
+device: the kernels have no CPU mode. The card's machine has no JAX, so
+this file imports only torch and the port, and runs there without the
+repository's conftest (which imports JAX):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances: 2e-5 at f32 (the kernel and the plain version sum in other
+orders), 2e-2 at bf16 (the plain version rounds its probabilities to
+bf16 before the PV product; the kernel keeps them in f32). A row with
+length 0 is compared against zeros: the plain version's softmax over a
+fully masked row is uniform garbage by contract."""
+import numpy as np
+import pytest
+import torch
+
+from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig, init_params
+from k8s_gpu_scheduler_tpu_torch.models.serving import (
+    ContinuousBatcher, _kv_quant)
+from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                 ids=["f32", "bf16"])
+QUANT = pytest.mark.parametrize("quant", [False, True],
+                                ids=["exact", "int8"])
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pool(gen, n_pages, ps, n_kv, hd, dtype, quant, dev):
+    kv = [torch.randn((n_pages, ps, n_kv, hd), generator=gen).to(dtype)
+          for _ in range(2)]
+    if not quant:
+        return kv[0].to(dev), kv[1].to(dev), {}
+    (kq, ks), (vq, vs) = (_kv_quant(x) for x in kv)
+    return kq.to(dev), vq.to(dev), dict(k_scale=ks.to(dev),
+                                        v_scale=vs.to(dev))
+
+
+def _close(got, ref, dtype):
+    torch.testing.assert_close(got.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,n_heads,n_kv,ps,n_blocks", [
+    (64, 16, 16, 64, 32), (128, 32, 8, 16, 12), (64, 8, 1, 8, 5),
+    (128, 4, 2, 256, 2)], ids=["serve", "gqa4-hd128", "g8-ps8", "g2-ps256"])
+@DTYPES
+@QUANT
+def test_decode_kernel_matches_plain(cuda, hd, n_heads, n_kv, ps, n_blocks,
+                                     dtype, quant):
+    gen = torch.Generator().manual_seed(hd + n_heads + ps)
+    B = 5
+    n_pages = 1 + B * n_blocks
+    q = torch.randn((B, n_heads, hd), generator=gen).to(dtype).to(cuda)
+    kp, vp, sc = _pool(gen, n_pages, ps, n_kv, hd, dtype, quant, cuda)
+    table = (torch.randperm(n_pages - 1, generator=gen)[:B * n_blocks] + 1) \
+        .reshape(B, n_blocks).to(torch.int32).to(cuda)
+    S = n_blocks * ps
+    lens = torch.tensor([S, 1, 0, S // 2 + 3, min(ps + 1, S)],
+                        dtype=torch.int32, device=cuda)
+    n0 = da.paged_decode_reference.calls
+    launches = da.paged_decode_attention.launches
+    got = da.paged_decode_attention(q, kp, vp, table, lens, **sc)
+    assert da.paged_decode_attention.launches == launches + 1
+    assert da.paged_decode_reference.calls == n0
+    ref = da.paged_decode_reference(q, kp, vp, table, lens, **sc)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    live = lens > 0
+    _close(got[live], ref[live], dtype)
+    assert not got[~live].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,n_heads,n_kv,ps,tb,hb", [
+    (64, 16, 16, 64, 128, 4), (128, 32, 8, 16, 48, 3), (64, 8, 1, 8, 8, 2),
+    (64, 4, 2, 32, 64, 0)], ids=["serve", "gqa4-hd128", "g8-ps8", "hb0"])
+@DTYPES
+@QUANT
+def test_prefill_kernel_matches_plain(cuda, hd, n_heads, n_kv, ps, tb, hb,
+                                      dtype, quant):
+    gen = torch.Generator().manual_seed(hd + tb + hb)
+    M = 4
+    n_pages = 1 + M * max(hb, 1)
+    q = torch.randn((M, tb, n_heads, hd), generator=gen).to(dtype).to(cuda)
+    tk = torch.randn((M, tb, n_kv, hd), generator=gen).to(dtype).to(cuda)
+    tv = torch.randn((M, tb, n_kv, hd), generator=gen).to(dtype).to(cuda)
+    kp, vp, sc = _pool(gen, n_pages, ps, n_kv, hd, dtype, quant, cuda)
+    table = (torch.randperm(n_pages - 1, generator=gen)[:M * hb] + 1) \
+        .reshape(M, hb).to(torch.int32).to(cuda)
+    # Ragged page-aligned hits: full, half, none, one page.
+    hits = torch.tensor([hb * ps, (hb // 2) * ps, 0, min(hb, 1) * ps],
+                        dtype=torch.int32, device=cuda)
+    args = (q, kp, vp, table, hits, tk, tv)
+    n0 = da.dense_prefill_reference.calls
+    got = da.paged_prefill_attention(*args, **sc)
+    assert da.dense_prefill_reference.calls == n0
+    ref = da.dense_prefill_reference(*args, **sc)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+def test_kernel_contract_raises_on_card(cuda):
+    """What the kernels do not take raises before any launch; nothing
+    falls back to the plain version."""
+    gen = torch.Generator().manual_seed(0)
+    table = torch.ones((2, 2), dtype=torch.int32, device=cuda)
+    lens = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    calls = da.paged_decode_reference.calls
+    for H, n_kv, hd, dtype in [(4, 4, 32, torch.float32),
+                               (6, 2, 64, torch.float32),
+                               (4, 4, 64, torch.float16)]:
+        q = torch.randn((2, H, hd), generator=gen).to(dtype).to(cuda)
+        kv = torch.randn((3, 8, n_kv, hd), generator=gen).to(dtype).to(cuda)
+        with pytest.raises(ValueError):
+            da.paged_decode_attention(q, kv, kv, table, lens)
+    assert da.paged_decode_reference.calls == calls
+
+
+@pytest.mark.gpu
+def test_engine_on_card_matches_cpu(cuda):
+    """The engine on the card (kernels) and on the CPU (plain versions)
+    give identical greedy streams over prefix-hit traffic at f32."""
+    cfg = LlamaConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
+                      n_kv_heads=1, d_ff=256, max_seq=128,
+                      dtype=torch.float32, decode_attn="fused", remat=False)
+    got = []
+    for dev in ("cpu", cuda):
+        model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        eng = ContinuousBatcher(model, cfg, n_slots=3, max_len=128, chunk=4,
+                                prefill_bucket=16, page_size=16,
+                                prefix_cache=True, device=dev)
+        rng = np.random.default_rng(0)
+        system = list(rng.integers(0, cfg.vocab, 32))
+        ids = [eng.submit(system + list(rng.integers(0, cfg.vocab, 7)), 10)
+               for _ in range(5)]
+        done = {}
+        while eng.pending:
+            done.update(eng.step())
+        eng._alloc.assert_consistent()
+        got.append(([done[i] for i in ids],
+                    eng.pool_metrics()["prefill_tokens_skipped"]))
+    assert got[0] == got[1]
+    assert got[1][1] > 0

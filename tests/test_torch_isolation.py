@@ -1,0 +1,59 @@
+"""The port stands alone: it imports with JAX blocked and references no
+module of the JAX package (its own name, k8s_gpu_scheduler_tpu_torch,
+shares the prefix, so the scan matches the JAX package's name only when
+followed by a dot or a word boundary)."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "k8s_gpu_scheduler_tpu_torch"
+# chip_smoke.py and the card tests run where JAX is not installed.
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "tests" / "test_torch_gpu.py"]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
+        ".__init__", "")
+    for p in PORT.rglob("*.py"))
+
+JAX_PKG = re.compile(
+    r"^\s*(from|import)\s+k8s_gpu_scheduler_tpu(\.|\b)"
+    r"|import_module\(\s*['\"]k8s_gpu_scheduler_tpu(\.|\b)", re.M)
+JAX = re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.M)
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['jaxlib'] = None\n"
+            "import importlib\n"
+            f"for name in {MODULES!r}:\n"
+            "    importlib.import_module(name)\n"
+            "leaked = sorted(m for m in sys.modules\n"
+            "                if m.startswith('k8s_gpu_scheduler_tpu')\n"
+            "                and not m.startswith('k8s_gpu_scheduler_tpu_torch'))\n"
+            "assert not leaked, leaked\n"
+            "print(len(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert len(MODULES) >= 12
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_reference_no_jax(path):
+    text = path.read_text()
+    assert not JAX_PKG.search(text), "imports the JAX package"
+    assert not JAX.search(text), "imports jax"
+
+
+def test_scan_has_teeth():
+    assert JAX_PKG.search("from k8s_gpu_scheduler_tpu.ops import quant")
+    assert JAX_PKG.search("import k8s_gpu_scheduler_tpu")
+    assert not JAX_PKG.search("from k8s_gpu_scheduler_tpu_torch import ops")
+    assert JAX.search("import jax.numpy as jnp")
+    assert not JAX.search("import jaxtyping")
