@@ -10,26 +10,38 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    kernel's registers, shared memory and spills, and the card's name and
    power limit (nvidia-smi).
 1. kernels against their plain PyTorch versions on the card: K1
-   (paged_decode_attention) and K2 (paged_prefill_attention) at the serve
-   width (B 8, H = Hkv = 16, hd 64, page 64, 32 blocks, lengths up to
-   2048; K2 with tb 512, hb 8) and at a GQA shape (H 32, Hkv 8, hd 128),
-   each in bf16 and with an int8 KV pool. Max error against a stated
-   tolerance; CUDA-event times of the kernel, the plain version and one
-   library call (scaled_dot_product_attention over the gathered K/V, a
-   yardstick the port never calls), beside the least time the card could
-   take (bytes over 3.35 TB/s or operations over 989 TFLOP/s).
-2. the engine on the card against the engine on the CPU: a small f32
-   config; greedy streams and prefill_tokens_skipped must be identical.
-3. the slice at full width: the serve config (d_model 1024, 8 layers, 16
-   heads, vocab 32000) in bf16 with 8 slots, page 64, chunk 64 and
+   (paged_decode_attention), K2 (paged_prefill_attention) and K3
+   (paged_verify_attention, window t = 5) at the serve width (B 8, H =
+   Hkv = 16, hd 64, page 64, 32 blocks, lengths up to 2048; K2 with tb
+   512, hb 8) and at a GQA shape (H 32, Hkv 8, hd 128), each in bf16 and
+   with an int8 KV pool. Max error against a stated tolerance; CUDA-event
+   times of the kernel, the plain version and one library call
+   (scaled_dot_product_attention over the gathered K/V, a yardstick the
+   port never calls), beside the least time the card could take (bytes
+   over 3.35 TB/s or operations over 989 TFLOP/s).
+2. the engine on the card against the engine on the CPU, a small f32
+   config: plain, speculative (bigram, gamma 3) and chunked-prefill (2
+   pages a step) engines; greedy streams, prefill_tokens_skipped and the
+   accept counts must be identical, and the card must have run K2 and K3
+   and no plain version.
+3. the main path at full width: the serve config (d_model 1024, 8 layers,
+   16 heads, vocab 32000) in bf16 with 8 slots, page 64, chunk 64 and
    prefill bucket 512, 32 requests of 512-token prompts sharing a
    384-token system prompt. Counters are zeroed just before and read just
-   after: both kernels must have launched and neither plain version been
-   called. A second greedy run must reproduce the streams. Then a shorter
-   pass with int8 weights and an int8 KV pool.
+   after: K1 and K2 must have launched and no plain version been called.
+   A second greedy run must reproduce the streams. Then a shorter pass
+   with int8 weights and an int8 KV pool.
+4. the speculative path at full width: the same config with
+   speculative=True, gamma 4, the bigram proposer, prefill bucket 128, on
+   32 requests of a random 16-token phrase repeated 8 times, max_new 64
+   (the JAX bench's speculative leg); the same traffic with speculation
+   off; an int8-KV sampled run at temperature 0.005, twice (the replay
+   must match); and 8 random 1024-token prompts with
+   prefill_chunk_tokens=256. K3 must have launched, the accept rate be
+   above 0, and no plain version been called.
 
-``--profile`` adds a profiled serving run: the card's busy share and its
-time by kernel.
+``--profile`` adds profiled serving runs (plain decode and speculative):
+the card's busy share and its time by kernel.
 
 The line before the last is a JSON object listing every kernel with its
 launches on the main path, error and times; the last line is
@@ -55,7 +67,11 @@ REPLACES = {
         "k8s_gpu_scheduler_tpu/ops/decode_attention.py:497",
     "paged_prefill_attention":
         "k8s_gpu_scheduler_tpu/ops/decode_attention.py:999",
+    "paged_verify_attention":
+        "k8s_gpu_scheduler_tpu/ops/decode_attention.py:688",
 }
+PLAIN = ("paged_decode_reference", "dense_prefill_reference",
+         "paged_verify_reference")
 
 
 def log(*parts) -> None:
@@ -240,6 +256,55 @@ def prefill_case(name, M, tb, hb, H, n_kv, hd, ps, int8, dev, flush,
                 **_bound(nbytes, flops, dtype))
 
 
+def verify_case(name, B, t, H, n_kv, hd, ps, n_blocks, int8, dev, flush,
+                seed=2):
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(seed)
+    n_pages = 1 + B * n_blocks
+    q = torch.randn((B, t, H, hd), generator=gen).to(dtype).to(dev)
+    kp, vp, sc = _pool(gen, n_pages, ps, n_kv, hd, dtype, int8, dev)
+    table = (torch.randperm(n_pages - 1, generator=gen)[:B * n_blocks] + 1) \
+        .reshape(B, n_blocks).to(torch.int32).to(dev)
+    S = n_blocks * ps
+    lens = torch.randint(0, S - t + 1, (B,), generator=gen)
+    lens[0], lens[-1] = S - t, 0
+    lens = lens.to(torch.int32).to(dev)
+    args = (q, kp, vp, table, lens)
+    out = da.paged_verify_attention(*args, **sc)
+    ref = da.paged_verify_reference(*args, **sc)
+    torch.cuda.synchronize()
+    err, ok = max_err(out, ref, TOL[dtype])
+    ms = time_ms(lambda: da.paged_verify_attention(*args, **sc), flush)
+    plain_ms = time_ms(lambda: da.paged_verify_reference(*args, **sc), flush)
+    # Library yardstick: SDPA over the gathered K/V, a [B, 1, t, S] mask.
+    K = _heads(_deq(da.gather_paged_kv(kp, table),
+                    _gather(sc.get("k_scale"), table), dtype), H)
+    V = _heads(_deq(da.gather_paged_kv(vp, table),
+                    _gather(sc.get("v_scale"), table), dtype), H)
+    bound = lens[:, None].long() + torch.arange(t, device=dev)[None] + 1
+    mask = (torch.arange(S, device=dev)[None, None] < bound[..., None]
+            )[:, None]
+    qt = q.transpose(1, 2)
+    lib = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: lib(qt, K, V, attn_mask=mask), flush)
+    lib_err, _ = max_err(lib(qt, K, V, attn_mask=mask).transpose(1, 2), ref,
+                         TOL[dtype])
+    rows = int(torch.clamp(lens.long() + t, max=S).sum())   # K/V rows read
+    eb = 1 if int8 else 2
+    nbytes = (B * t * H * hd * 2 * 2 + rows * n_kv * hd * eb * 2
+              + (rows * n_kv * 4 * 2 if int8 else 0) + B * n_blocks * 4
+              + B * 4)
+    cols = int((lens.long()[:, None] + torch.arange(
+        1, t + 1, device=dev)[None]).sum())                 # visible (q, k)
+    flops = 4 * H * hd * cols
+    return dict(case=name, kernel="paged_verify_attention", int8=int8,
+                max_abs_err=err, tol=TOL[dtype], ok=ok, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
+                **_bound(nbytes, flops, dtype))
+
+
 def _bound(nbytes: int, flops: int, dtype) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -260,6 +325,10 @@ def phase_kernels(dev) -> list:
                                   int8, dev, flush))
         cases.append(prefill_case(f"gqa128-{tag}", 8, 512, 8, 32, 8, 128, 64,
                                   int8, dev, flush))
+        cases.append(verify_case(f"serve-{tag}", 8, 5, 16, 16, 64, 64, 32,
+                                 int8, dev, flush))
+        cases.append(verify_case(f"gqa128-{tag}", 8, 5, 32, 8, 128, 64, 32,
+                                 int8, dev, flush))
     for c in cases:
         log(f"  {c['kernel']:24s} {c['case']:14s} max_abs_err "
             f"{c['max_abs_err']:.3e} (tol {c['tol']}) ms {c['ms']:.4f} "
@@ -292,6 +361,9 @@ def shared_prefix_traffic(rng, vocab, n, sys_len, uniq_len):
 
 
 def phase_engine_vs_cpu(dev) -> dict:
+    """Plain, speculative and chunked-prefill engines, each on the CPU and
+    on the card, f32: identical streams and gauges; the card runs the
+    kernels and never a plain version."""
     from k8s_gpu_scheduler_tpu_torch.models.llama import (
         LlamaConfig, init_params)
     from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
@@ -300,77 +372,102 @@ def phase_engine_vs_cpu(dev) -> dict:
     cfg = LlamaConfig(vocab=256, d_model=256, n_layers=2, n_heads=4,
                       n_kv_heads=2, d_ff=512, max_seq=256,
                       dtype=torch.float32, decode_attn="fused", remat=False)
-    got = {}
-    for where in ("cpu", dev):
-        model = init_params(cfg, torch.Generator().manual_seed(0), where)
-        eng = ContinuousBatcher(model, cfg, n_slots=4, max_len=128, chunk=4,
-                                prefill_bucket=16, page_size=16,
-                                prefix_cache=True, device=where)
-        rng = np.random.default_rng(0)
-        da.reset_counters()
-        streams = []
-        for _ in range(2):              # the second wave hits the cache
-            streams += drive(eng, shared_prefix_traffic(rng, cfg.vocab, 4,
-                                                        32, 9), 12)
-        conv = shared_prefix_traffic(rng, cfg.vocab, 1, 32, 9)[0]
-        streams += drive(eng, [conv], 8)
-        streams += drive(eng, [conv + streams[-1] + [7, 8, 9]], 8)
-        eng._alloc.assert_consistent()
-        got[str(where)] = (streams,
-                           eng.pool_metrics()["prefill_tokens_skipped"],
-                           da.counters())
-    (cs, cskip, ccnt), (gs, gskip, gcnt) = got["cpu"], got[str(dev)]
-    log(f"  cpu skipped {cskip} counters {ccnt}")
-    log(f"  gpu skipped {gskip} counters {gcnt}")
-    if gs != cs or gskip != cskip:
-        raise SystemExit(f"engine on the card diverges from the CPU engine:"
-                         f"\n  gpu {gs}\n  cpu {cs}")
-    if not (gcnt["paged_decode_attention"] and gcnt["paged_prefill_attention"]
-            and cskip > 0):
-        raise SystemExit(f"card engine did not run both kernels on a "
-                         f"prefix hit: {gcnt}, skipped {gskip}")
-    if gcnt["paged_decode_reference"] or gcnt["dense_prefill_reference"]:
-        raise SystemExit(f"card engine called a plain version: {gcnt}")
-    return dict(streams=len(gs), tokens=sum(map(len, gs)), skipped=gskip)
+    engines = {"plain": {}, "spec": dict(speculative=True, gamma=3),
+               "chunked": dict(prefill_chunk_tokens=32)}
+    out = {}
+    for name, kw in engines.items():
+        got = {}
+        for where in ("cpu", dev):
+            model = init_params(cfg, torch.Generator().manual_seed(0), where)
+            eng = ContinuousBatcher(model, cfg, n_slots=4, max_len=128,
+                                    chunk=4, prefill_bucket=16, page_size=16,
+                                    prefix_cache=True, device=where, **kw)
+            rng = np.random.default_rng(0)
+            da.reset_counters()
+            streams = []
+            for _ in range(2):          # the second wave hits the cache
+                streams += drive(eng, shared_prefix_traffic(
+                    rng, cfg.vocab, 4, 32, 9), 12)
+            conv = shared_prefix_traffic(rng, cfg.vocab, 1, 32, 9)[0]
+            streams += drive(eng, [conv], 8)
+            streams += drive(eng, [conv + streams[-1] + [7, 8, 9]], 8)
+            phrase = list(rng.integers(0, cfg.vocab, 6))
+            streams += drive(eng, [phrase * 5, phrase * 3 + [1, 2]], 20)
+            eng._alloc.assert_consistent()
+            m = eng.pool_metrics()
+            got[str(where)] = (streams, m["prefill_tokens_skipped"],
+                               m.get("spec_accept_rate"),
+                               m["prefill_chunks_total"], da.counters())
+        cpu, gpu = got["cpu"], got[str(dev)]
+        log(f"  {name}: cpu skipped {cpu[1]} accept {cpu[2]} chunks "
+            f"{cpu[3]} counters {cpu[4]}")
+        log(f"  {name}: gpu skipped {gpu[1]} accept {gpu[2]} chunks "
+            f"{gpu[3]} counters {gpu[4]}")
+        if gpu[:4] != cpu[:4]:
+            raise SystemExit(f"{name} engine on the card diverges from the "
+                             f"CPU engine:\n  gpu {gpu[:4]}\n  cpu {cpu[:4]}")
+        c = gpu[4]
+        need = ["paged_prefill_attention"] + (
+            ["paged_verify_attention"] if name == "spec"
+            else ["paged_decode_attention"])
+        if not all(c[k] for k in need) or cpu[1] <= 0:
+            raise SystemExit(f"{name} engine on the card missed {need} or "
+                             f"the cache: {c}, skipped {gpu[1]}")
+        if any(c[k] for k in PLAIN):
+            raise SystemExit(f"{name} engine on the card called a plain "
+                             f"version: {c}")
+        if name == "spec" and not gpu[2]:
+            raise SystemExit("speculative engine accepted nothing")
+        out[name] = dict(streams=len(gpu[0]), tokens=sum(map(len, gpu[0])),
+                         skipped=gpu[1], accept_rate=gpu[2], chunks=gpu[3])
+    return out
 
 
 class _DecodeTimer:
-    """Times the engine's decode-chunk dispatches on the host clock,
-    synchronised at both ends, by wrapping the module function the engine
-    calls for the duration of a ``with`` block."""
+    """Times the engine's decode-chunk and verify dispatches on the host
+    clock, synchronised at both ends, by wrapping the module functions the
+    engine calls for the duration of a ``with`` block."""
+
+    NAMES = ("_decode_chunk_paged_fn", "_verify_chunk_paged_fn")
 
     def __enter__(self):
         from k8s_gpu_scheduler_tpu_torch.models import serving
 
         self.seconds, self._mod = 0.0, serving
-        self._orig = orig = serving._decode_chunk_paged_fn
+        self._orig = {n: getattr(serving, n) for n in self.NAMES}
 
-        def timed(*args, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = orig(*args, **kw)
-            torch.cuda.synchronize()
-            self.seconds += time.perf_counter() - t
-            return out
+        def wrap(orig):
+            def timed(*args, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = orig(*args, **kw)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t
+                return out
+            return timed
 
-        serving._decode_chunk_paged_fn = timed
+        for n, fn in self._orig.items():
+            setattr(serving, n, wrap(fn))
         return self
 
     def __exit__(self, *exc):
-        self._mod._decode_chunk_paged_fn = self._orig
+        for n, fn in self._orig.items():
+            setattr(self._mod, n, fn)
 
 
 def serve_run(model, cfg, prompts, max_new, **kw):
     """One measured serving run on a fresh engine: (streams, stats).
     Decode tokens are every emitted token but each request's first (the
     prefill's); ``decode_tokens_per_s`` divides them by the time spent in
-    decode-chunk dispatches."""
+    decode-chunk or verify dispatches. ``kw`` overrides the engine's
+    settings (8 slots, chunk = max_new, prefill bucket 512, page 64,
+    prefix cache on)."""
     from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
     from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
 
-    eng = ContinuousBatcher(model, cfg, n_slots=8, max_len=cfg.max_seq,
-                            chunk=max_new, prefill_bucket=512, page_size=64,
-                            prefix_cache=True, device=model.device, **kw)
+    eng = ContinuousBatcher(model, cfg, device=model.device, **{
+        **dict(n_slots=8, max_len=cfg.max_seq, chunk=max_new,
+               prefill_bucket=512, page_size=64, prefix_cache=True), **kw})
     torch.cuda.synchronize()
     da.reset_counters()
     t0 = time.perf_counter()
@@ -384,12 +481,16 @@ def serve_run(model, cfg, prompts, max_new, **kw):
     pool = eng.pool_metrics()
     eng._alloc.assert_consistent()
     n_tok = sum(map(len, streams))
+    spec = {k: pool[k] for k in ("spec_accept_rate",
+                                 "spec_tokens_per_dispatch",
+                                 "spec_rewound_tokens_total") if k in pool}
     return streams, dict(
         requests=len(prompts), tokens=n_tok, wall_s=wall,
         tokens_per_s=n_tok / wall, decode_s=dec.seconds,
         decode_tokens_per_s=(n_tok - len(prompts)) / dec.seconds,
         ttft_p50_ms=1e3 * ttft[len(ttft) // 2],
         prefill_tokens_skipped=pool["prefill_tokens_skipped"],
+        prefill_chunks_total=pool["prefill_chunks_total"], **spec,
         rungs={f"{tb}x{hb}": n for (tb, hb), n in
                sorted(eng.prefill_rungs.items())},
         launches=counts)
@@ -415,10 +516,9 @@ def phase_full_width(dev, card) -> dict:
             and c["paged_prefill_attention"] > 0
             and st["prefill_tokens_skipped"] > 0):
         raise SystemExit(f"main path missed a kernel or the cache: {st}")
-    if c["paged_decode_reference"] or c["dense_prefill_reference"]:
+    if any(c[k] for k in PLAIN):
         raise SystemExit(f"main path called a plain version: {c}")
-    if any(len(s) != max_new or min(s) < 0 or max(s) >= cfg.vocab
-           for s in streams):
+    if malformed(streams, max_new, cfg.vocab):
         raise SystemExit("malformed streams on the main path")
     again, st2 = serve_run(model, cfg, prompts, max_new)
     if again != streams:
@@ -432,34 +532,93 @@ def phase_full_width(dev, card) -> dict:
     qc = qst["launches"]
     if not (qc["paged_decode_attention"] > 0
             and qc["paged_prefill_attention"] > 0) \
-            or qc["paged_decode_reference"] or qc["dense_prefill_reference"]:
+            or any(qc[k] for k in PLAIN):
         raise SystemExit(f"int8 pass missed a kernel: {qst}")
-    if any(len(s) != max_new or min(s) < 0 or max(s) >= cfg.vocab
-           for s in qs):
+    if malformed(qs, max_new, cfg.vocab):
         raise SystemExit("malformed streams in the int8 pass")
     return dict(bf16=st, int8=qst)
 
 
-def phase_profile(dev, card) -> None:
-    """``--profile``: 16 full-width bf16 requests (two waves) under
-    torch.profiler; prints the card's busy share of the wall time and the
-    device time by kernel. The profiler slows the host, so the busy share
-    is a lower bound on an unprofiled run's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def malformed(streams, max_new, vocab) -> bool:
+    return any(len(s) != max_new or min(s) < 0 or max(s) >= vocab
+               for s in streams)
 
+
+SPEC_ENGINE = dict(speculative=True, gamma=4, proposer="bigram",
+                   prefill_bucket=128)
+
+
+def repeated_phrases(rng, vocab, n, phrase_len=16, reps=8):
+    """The speculative leg's traffic: each request a random phrase
+    repeated, the regime where prompt lookup hits (code, boilerplate,
+    templated text)."""
+    return [list(rng.integers(0, vocab, phrase_len)) * reps
+            for _ in range(n)]
+
+
+def phase_speculative(dev, card) -> dict:
+    """The speculative path at full width (phase 4)."""
     from k8s_gpu_scheduler_tpu_torch.models.llama import (
         LlamaConfig, init_params)
 
     cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
     model = init_params(cfg, torch.Generator().manual_seed(0), dev)
-    rng = np.random.default_rng(1)
-    serve_run(model, cfg, shared_prefix_traffic(rng, cfg.vocab, 8, 384, 128),
-              64)
-    prompts = shared_prefix_traffic(rng, cfg.vocab, 16, 384, 128)
+    rng = np.random.default_rng(2)
+    max_new = 64
+    serve_run(model, cfg, repeated_phrases(rng, cfg.vocab, 8), 16,
+              **SPEC_ENGINE)                     # warm-up, other prompts
+    prompts = repeated_phrases(rng, cfg.vocab, 32)
+    streams, st = serve_run(model, cfg, prompts, max_new, **SPEC_ENGINE)
+    log(f"  [{card}] speculative bf16: {json.dumps(st)}")
+    c = st["launches"]
+    if not c["paged_verify_attention"]:
+        raise SystemExit(f"the speculative path never launched K3: {c}")
+    if any(c[k] for k in PLAIN):
+        raise SystemExit(f"the speculative path called a plain version: {c}")
+    if not st["spec_accept_rate"] > 0:
+        raise SystemExit(f"the speculative path accepted nothing: {st}")
+    if malformed(streams, max_new, cfg.vocab):
+        raise SystemExit("malformed streams on the speculative path")
+    _, off = serve_run(model, cfg, prompts, max_new, prefill_bucket=128,
+                       chunk=8)
+    log(f"  [{card}] speculation off (chunk 8): {json.dumps(off)}")
+    sampled = []
+    for _ in range(2):
+        s_streams, s_st = serve_run(model, cfg, prompts, max_new,
+                                    kv_dtype="int8", temperature=0.005,
+                                    **SPEC_ENGINE)
+        sampled.append(s_streams)
+        log(f"  [{card}] int8 KV, temperature 0.005: {json.dumps(s_st)}")
+        sc = s_st["launches"]
+        if not sc["paged_verify_attention"] or any(sc[k] for k in PLAIN) \
+                or malformed(s_streams, max_new, cfg.vocab):
+            raise SystemExit(f"sampled speculative run failed: {s_st}")
+    if sampled[0] != sampled[1]:
+        raise SystemExit("the sampled speculative run did not replay")
+    log(f"  [{card}] sampled replay identical over {len(prompts)} streams")
+    long_prompts = [list(rng.integers(0, cfg.vocab, 1024)) for _ in range(8)]
+    ch_streams, ch = serve_run(model, cfg, long_prompts, 16,
+                               prefill_chunk_tokens=256, **SPEC_ENGINE)
+    log(f"  [{card}] chunked prefill (256 tokens a step): {json.dumps(ch)}")
+    cc = ch["launches"]
+    if not (cc["paged_prefill_attention"] and cc["paged_verify_attention"]
+            and ch["prefill_chunks_total"] > 0) or any(cc[k] for k in PLAIN) \
+            or malformed(ch_streams, 16, cfg.vocab):
+        raise SystemExit(f"chunked-prefill run failed: {ch}")
+    return dict(spec=st, off=off, chunked=ch)
+
+
+def profiled(card, label, fn) -> None:
+    """Run ``fn`` (returning (streams, stats)) under torch.profiler and
+    print the card's busy share of the wall time and its device time by
+    kernel. The profiler slows the host, so the busy share is a lower
+    bound on an unprofiled run's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, st = serve_run(model, cfg, prompts, 64)
+        _, st = fn()
     rows = {}
     for e in prof.key_averages():
         # Device-side rows only: a CPU op's device time is the sum of the
@@ -470,10 +629,31 @@ def phase_profile(dev, card) -> None:
             rows[e.key] = (e.self_device_time_total / 1e3, e.count)
     busy = sum(ms for ms, _ in rows.values())
     wall = st["wall_s"] * 1e3
-    log(f"  [{card}] profiled: wall {wall:.3f} ms, device busy {busy:.3f} ms"
-        f" ({100 * busy / wall:.1f} %), {json.dumps(st)}")
+    log(f"  [{card}] {label} profiled: wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall:.1f} %), {json.dumps(st)}")
     for key, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:20]:
         log(f"    {ms:10.3f} ms {n:7d}x {100 * ms / busy:5.1f} %  {key[:100]}")
+
+
+def phase_profile(dev, card) -> None:
+    """``--profile``: 16 full-width bf16 requests (two waves) of the main
+    path's traffic, then 16 of the speculative path's, each profiled."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+
+    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    rng = np.random.default_rng(1)
+    serve_run(model, cfg, shared_prefix_traffic(rng, cfg.vocab, 8, 384, 128),
+              64)
+    prompts = shared_prefix_traffic(rng, cfg.vocab, 16, 384, 128)
+    profiled(card, "plain decode",
+             lambda: serve_run(model, cfg, prompts, 64))
+    serve_run(model, cfg, repeated_phrases(rng, cfg.vocab, 8), 16,
+              **SPEC_ENGINE)
+    phrases = repeated_phrases(rng, cfg.vocab, 16)
+    profiled(card, "speculative",
+             lambda: serve_run(model, cfg, phrases, 64, **SPEC_ENGINE))
 
 
 # -- main ---------------------------------------------------------------------------
@@ -506,18 +686,24 @@ def main() -> int:
     log("phase 1: kernels against their plain versions "
         "(atol = rtol = 2e-2 in bf16)")
     cases = phase_kernels(dev)
-    log("phase 2: engine on the card against the engine on the CPU "
+    log("phase 2: engines on the card against the engines on the CPU "
         "(f32, TF32 off)")
     e2 = phase_engine_vs_cpu(dev)
     log(f"  identical greedy streams: {json.dumps(e2)}")
     log("phase 3: full-width serve config, bf16")
     full = phase_full_width(dev, card)
-    launches = full["bf16"]["launches"]
+    log("phase 4: full-width speculative path, bf16")
+    spec = phase_speculative(dev, card)
+    # Each kernel's launches come from the run of the path that runs it:
+    # K1 and K2 from phase 3's main path, K3 from phase 4's.
+    launches = dict(full["bf16"]["launches"])
+    launches["paged_verify_attention"] = \
+        spec["spec"]["launches"]["paged_verify_attention"]
     if profile_too:
         log("profile: where a serving run's device time goes")
         phase_profile(dev, card)
     kernels = []
-    for name in ("paged_decode_attention", "paged_prefill_attention"):
+    for name in REPLACES:
         c = next(c for c in cases
                  if c["kernel"] == name and c["case"] == "serve-bf16")
         kernels.append(dict(

@@ -9,9 +9,16 @@ A request goes through four steps:
 2. one batched paged prefill (``_prefill_multi_paged_fn``): the hb == 0
    rung runs the dense causal forward (``forward_with_cache``); the hb > 0
    rung prefills only the uncached tail through K2
-   (``ops.paged_prefill_attention``);
+   (``ops.paged_prefill_attention``). With ``prefill_chunk_tokens`` the
+   prompt is prefilled a budget of pages per step instead
+   (``_advance_prefill``), each continuation chunk an hb > 0 prefill over
+   the slot's own earlier chunks;
 3. decode chunks (``_decode_chunk_paged_fn``): ``chunk`` ticks, each one
-   K1 launch (``ops.paged_decode_attention``) per layer;
+   K1 launch (``ops.paged_decode_attention``) per layer — or, with
+   ``speculative=True``, one verify of a 1 + gamma proposal window per
+   step (``_verify_chunk_paged_fn``), one K3 launch
+   (``ops.paged_verify_attention``) per layer, read back at once because
+   the next proposals depend on it;
 4. reaping (``_free_slot_pages``/``_retire_pages``): pages are freed and
    the conversation's full pages donated into the radix tree.
 
@@ -26,7 +33,9 @@ slot); there is no global RNG.
 """
 from __future__ import annotations
 
+import math
 import time
+from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -35,16 +44,20 @@ import torch
 from ..device import resolve_device
 from ..ops.decode_attention import (
     DEFAULT_PAGE_SIZE, paged_decode_attention, paged_plan,
-    paged_prefill_attention,
+    paged_prefill_attention, paged_verify_attention,
 )
 from ..ops.layers import apply_rope, rms_norm, rope_freqs
 from ..ops.quant import qdot
 from .llama import Block, Llama, LlamaConfig, mlp_sublayer
 from .paging import NULL_PAGE, PageAllocator
 from .prefix_cache import PrefixCache
+from .proposers import SlotView, resolve_proposer
 
 NEG_INF = -1e30
 _MASK64 = (1 << 64) - 1
+# Adaptive gamma: per-request and fleet accept-rate EMA weights.
+_SPEC_EMA_ALPHA = 0.3
+_SPEC_FLEET_ALPHA = 0.05
 
 
 def _generator(device: torch.device, *key: int) -> torch.Generator:
@@ -133,6 +146,17 @@ def _kv_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), s
 
 
+def _shaped_logits(logits: torch.Tensor, temperature: float,
+                   top_k: int) -> torch.Tensor:
+    """The logits temperature/top-k sampling draws from: scaled by
+    1/temperature, every logit below the top_k-th set to NEG_INF."""
+    logits = logits / temperature
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    return logits
+
+
 def _sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
                    temperature: float, top_k: int) -> torch.Tensor:
     """Next token from [..., vocab] logits: argmax when temperature == 0,
@@ -140,10 +164,7 @@ def _sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
     with noise from ``generator`` (each row draws independently)."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    logits = logits / temperature
-    if top_k > 0:
-        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-        logits = torch.where(logits < kth, NEG_INF, logits)
+    logits = _shaped_logits(logits, temperature, top_k)
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
     return torch.argmax(logits + gumbel, dim=-1)
@@ -204,6 +225,125 @@ def _decode_chunk_paged_fn(model: Llama, cfg: LlamaConfig, chunk: int,
         last = torch.where(active, nxt, last)
         lens = lens + active.to(lens.dtype)
     return lens, last, torch.stack(toks, dim=1)
+
+
+def _verify_chunk_paged_fn(model: Llama, cfg: LlamaConfig, gamma: int,
+                           page_size: int, k, v, k_s, v_s,
+                           table: torch.Tensor, lens: torch.Tensor,
+                           last: torch.Tensor, props: torch.Tensor,
+                           active: torch.Tensor, angles_full: torch.Tensor,
+                           seed: Tuple[int, ...],
+                           eff: Optional[torch.Tensor] = None,
+                           q: Optional[torch.Tensor] = None,
+                           temperature: float = 0.0, top_k: int = 0):
+    """One batched speculative verify dispatch over every slot: score the
+    t = 1 + gamma window [last, props...] of each active slot in one
+    forward, accept the longest valid proposal prefix, and commit the
+    accepted tokens plus one model token.
+
+    The window's K/V rows are written at logical rows lens..lens+gamma
+    first (inactive slots write to the null page; a row past the table
+    clamps into the slot's last block, as in the JAX engine), then K3
+    (``paged_verify_attention``) attends with row i bounded by lens + i +
+    1. ``lens`` advances by accepts + 1 only: the rejected overshoot rows
+    stay above it, inside the slot's own reserved pages, masked by every
+    later read until the next window overwrites them. That clamp is the
+    whole rewind.
+
+    ``temperature == 0``: exact match against the verify pass's own
+    argmax (cumprod of hits). ``temperature > 0``: rejection sampling —
+    proposal i accepts with prob ``min(1, p_i/q_i)`` at its token, or
+    ``p_i[prop_i]`` when ``q`` is None (a deterministic proposer); on the
+    first rejection the continuation is drawn from ``max(0, p - q)`` (p
+    with the proposal zeroed for delta-q), on full acceptance the bonus
+    token from p. One generator per dispatch draws [B, gamma] uniforms and
+    [B, V] Gumbel noise, so a slot's draws depend on (seed, slot) only.
+    ``eff`` [B] is the per-slot effective window: proposal rows at or past
+    it never accept. Returns (lens, last, emitted [B, t] with -1 past the
+    commit and for inactive slots, accepts [B])."""
+    quant = k_s is not None
+    B = last.shape[0]
+    t = 1 + gamma
+    n_blocks = table.shape[1]
+    S = n_blocks * page_size
+    dev = last.device
+    row_ids = torch.arange(B, device=dev)
+    hidden = cfg.n_heads * cfg.head_dim
+    window = torch.cat([last[:, None], props.to(last.dtype)], dim=1)  # [B, t]
+    pos = lens[:, None] + torch.arange(t, dtype=lens.dtype, device=dev)
+    pg = table[row_ids[:, None], torch.clamp(pos // page_size,
+                                             max=n_blocks - 1)]
+    pg_w = torch.where(active[:, None], pg, NULL_PAGE).long()
+    off_w = torch.where(active[:, None], pos % page_size, 0).long()
+    angles = angles_full[torch.clamp(pos, max=S - 1)]           # [B, t, hd/2]
+    x = model.embed[window.long()].to(cfg.dtype)                # [B, t, D]
+    for layer, blk in enumerate(model.blocks):
+        h = rms_norm(x, blk.attn_norm)
+        qq, kk, vv = _qkv(cfg, h, blk, angles, (B, t))
+        scales = {}
+        if quant:
+            kq, ksn = _kv_quant(kk)
+            vq, vsn = _kv_quant(vv)
+            k[layer][pg_w, off_w] = kq
+            v[layer][pg_w, off_w] = vq
+            k_s[layer][pg_w, off_w] = ksn
+            v_s[layer][pg_w, off_w] = vsn
+            scales = dict(k_scale=k_s[layer], v_scale=v_s[layer])
+        else:
+            k[layer][pg_w, off_w] = kk
+            v[layer][pg_w, off_w] = vv
+        attn = paged_verify_attention(qq, k[layer], v[layer], table, lens,
+                                      **scales)
+        x = x + qdot(attn.reshape(B, t, hidden), blk.wo)
+        x = mlp_sublayer(cfg, x, blk)
+    x = rms_norm(x, model.final_norm)
+    logits = qdot(x, model.lm_head).float()                     # [B, t, V]
+    eff_i = (torch.full((B,), gamma, dtype=torch.int64, device=dev)
+             if eff is None else eff.to(torch.int64))
+    pos_ok = torch.arange(gamma, device=dev)[None, :] < eff_i[:, None]
+    prop_t = window[:, 1:].long()                               # [B, gamma]
+    if temperature <= 0.0:
+        greedy = torch.argmax(logits, dim=-1)                   # [B, t]
+        hits = ((prop_t == greedy[:, :-1]) & pos_ok).long()
+        accepts = torch.cumprod(hits, dim=1).sum(dim=1)
+        toks = greedy
+    else:
+        p = torch.softmax(_shaped_logits(logits, temperature, top_k),
+                          dim=-1)                               # [B, t, V]
+        vocab = p.shape[-1]
+        gen = _generator(dev, *seed)
+        u = torch.rand((B, gamma), generator=gen, device=dev)
+        p_prop = p[:, :gamma].gather(-1, prop_t[..., None])[..., 0]
+        if q is None:
+            a_prob = p_prop
+        else:
+            q_prop = q.gather(-1, prop_t[..., None])[..., 0]
+            a_prob = torch.clamp(p_prop / torch.clamp(q_prop, min=1e-20),
+                                 max=1.0)
+        acc = (pos_ok & (u < a_prob)).long()
+        accepts = torch.cumprod(acc, dim=1).sum(dim=1)          # [B]
+        p_at = p.gather(1, accepts[:, None, None].expand(B, 1, vocab))[:, 0]
+        safe = torch.clamp(accepts, max=gamma - 1)
+        if q is None:
+            rej = prop_t.gather(1, safe[:, None])[:, 0]
+            resid = p_at * (1.0 - torch.nn.functional.one_hot(
+                rej, vocab).to(p_at.dtype))
+        else:
+            q_at = q.gather(1, safe[:, None, None].expand(B, 1, vocab))[:, 0]
+            resid = torch.clamp(p_at - q_at, min=0.0)
+        corr_dist = torch.where((accepts >= eff_i)[:, None], p_at, resid)
+        corr = _sample_tokens(torch.log(corr_dist + 1e-20), gen, 1.0, 0)
+        idx_t = torch.arange(t, device=dev)[None, :]
+        prop_pad = torch.cat([prop_t, prop_t[:, -1:]], dim=1)
+        toks = torch.where(idx_t == accepts[:, None], corr[:, None], prop_pad)
+    toks = toks.to(last.dtype)
+    commit = torch.arange(t, device=dev)[None, :] <= accepts[:, None]
+    emitted = torch.where(commit & active[:, None], toks, -1)
+    new_last = toks.gather(1, accepts[:, None])[:, 0]
+    last = torch.where(active, new_last, last)
+    lens = lens + torch.where(active, accepts + 1, 0).to(lens.dtype)
+    accepts = torch.where(active, accepts, 0)
+    return lens, last, emitted, accepts
 
 
 def _prefill_multi_paged_fn(model: Llama, cfg: LlamaConfig, page_size: int,
@@ -317,9 +457,7 @@ def _prefill_multi_paged_fn(model: Llama, cfg: LlamaConfig, page_size: int,
 # value that means "off".
 _LATER_SLICES = {
     "kv_layout": ("paged", "the contiguous-engine slice"),
-    "speculative": (False, "the speculative-decoding slice (kernel K3)"),
     "kv_tiering": (False, "the lifecycle and tiering slice"),
-    "prefill_chunk_tokens": (None, "the chunked-prefill slice"),
     "mesh": (None, "the multi-device slice"),
     "role": ("mixed", "the fleet slice"),
     "fault_injector": (None, "the lifecycle slice"),
@@ -335,6 +473,14 @@ class ContinuousBatcher:
     slot ``chunk`` tokens per step, and free each finished slot's pages at
     once (donating its full pages into the prefix tree).
 
+    ``speculative=True`` replaces each decode chunk with one verify
+    dispatch (``_verify_chunk_paged_fn``, kernel K3) over a 1 + ``gamma``
+    window of proposals from ``proposer`` (``models/proposers.py``);
+    ``spec_adaptive`` sizes each request's effective window from its
+    accept-rate EMA. ``prefill_chunk_tokens`` (a page multiple) caps the
+    prompt tokens prefilled per step: admission only binds the slot and
+    ``_advance_prefill`` spends the budget page by page, round robin.
+
     ``model`` must live on ``device`` (default ``"cuda"``; the CPU only
     when asked). ``cfg.decode_attn`` must be ``"fused"``: the port serves
     through the paged kernels. The JAX engine's other options raise
@@ -347,13 +493,12 @@ class ContinuousBatcher:
                  kv_dtype: Optional[str] = None, kv_layout: str = "paged",
                  page_size: int = DEFAULT_PAGE_SIZE,
                  n_pages: Optional[int] = None, prefix_cache: bool = False,
-                 seed: int = 0, device="cuda", speculative: bool = False, kv_tiering: bool = False,
-                 prefill_chunk_tokens: Optional[int] = None, mesh=None,
-                 role: str = "mixed", fault_injector=None, tracer=None,
-                 flight_capacity: int = 0):
-        given = dict(kv_layout=kv_layout, speculative=speculative,
-                     kv_tiering=kv_tiering,
-                     prefill_chunk_tokens=prefill_chunk_tokens, mesh=mesh,
+                 seed: int = 0, device="cuda", speculative: bool = False,
+                 gamma: int = 4, proposer=None, spec_adaptive: bool = False,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 kv_tiering: bool = False, mesh=None, role: str = "mixed",
+                 fault_injector=None, tracer=None, flight_capacity: int = 0):
+        given = dict(kv_layout=kv_layout, kv_tiering=kv_tiering, mesh=mesh,
                      role=role, fault_injector=fault_injector, tracer=tracer,
                      flight_capacity=flight_capacity)
         for name, (off, slice_name) in _LATER_SLICES.items():
@@ -396,6 +541,41 @@ class ContinuousBatcher:
         if paged_plan(self.n_blocks, page_size) is None:
             raise ValueError(f"page_size {page_size} is not a power of two "
                              f"in [8, 256]")
+        self.spec = bool(speculative)
+        self.gamma = int(gamma)
+        self.spec_adaptive = bool(spec_adaptive) and self.spec
+        if self.spec:
+            if self.gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
+            self._proposer = resolve_proposer(proposer)
+            # Speculation gauges: proposals accepted and proposed, tokens
+            # committed per active slot per dispatch, overshoot rewound.
+            self._spec_slot_steps = 0
+            self._spec_proposed = 0
+            self._spec_accepted = 0
+            self._spec_emitted = 0
+            self._spec_rewound = 0
+            self._spec_accept_buf: list = []     # per-dispatch accept rates
+            # Adaptive gamma: per-request accept-rate EMA, last effective
+            # window, and the overshoot rows pinned at submit (the
+            # effective window never exceeds them, so accepted rows land
+            # inside reserved pages).
+            self._spec_ema: Dict[int, float] = {}
+            self._spec_eff_last: Dict[int, int] = {}
+            self._spec_reserve: Dict[int, int] = {}
+            self._spec_fleet_ema = 1.0
+        if prefill_chunk_tokens is not None:
+            prefill_chunk_tokens = int(prefill_chunk_tokens)
+            if (prefill_chunk_tokens < page_size
+                    or prefill_chunk_tokens % page_size):
+                raise ValueError(
+                    f"prefill_chunk_tokens ({prefill_chunk_tokens}) must be "
+                    f"a positive multiple of page_size ({page_size})")
+        self._prefill_chunk = prefill_chunk_tokens
+        # slot -> prompt tokens already resident; insertion order is the
+        # budget's FCFS order.
+        self._prefill_pending: "OrderedDict[int, int]" = OrderedDict()
+        self._prefill_chunks_total = 0
         n_pages = n_pages or (1 + n_slots * self.n_blocks)
         self._alloc = PageAllocator(n_pages)
         pool = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
@@ -441,6 +621,8 @@ class ContinuousBatcher:
         self._arrival: Dict[int, float] = {}
         self._first_tok: Dict[int, float] = {}
         self._metrics: Dict[int, Dict[str, float]] = {}
+        self.errors: Dict[int, str] = {}         # req id -> failure text
+        self._request_errors = 0
 
     # -- API ---------------------------------------------------------------
     def submit(self, prompt, max_new: int) -> int:
@@ -463,6 +645,11 @@ class ContinuousBatcher:
         self._next_id += 1
         self._budget[req_id] = max_new
         self._out[req_id] = []
+        if self.spec:
+            # Pin the overshoot this request's pages are reserved for at
+            # submit: admission quotes the same figure on every retry.
+            self._spec_reserve[req_id] = self._spec_overshoot()
+            self._spec_ema[req_id] = self._spec_fleet_ema
         self._arrival[req_id] = time.monotonic()
         self._queue.append((req_id, prompt))
         return req_id
@@ -488,15 +675,34 @@ class ContinuousBatcher:
             tb *= 2
         return min(tb, self.S)
 
-    def _rows_needed(self, budget: int) -> int:
-        """Worst-case decode rows: remaining steps rounded up to chunks."""
+    def _spec_overshoot(self, rid: Optional[int] = None) -> int:
+        """Overshoot rows reserved beyond the committed stream: gamma, or
+        under adaptive gamma the request's pinned reservation (the fleet
+        estimate for a request not yet pinned)."""
+        if not self.spec_adaptive:
+            return self.gamma
+        if rid is not None and rid in self._spec_reserve:
+            return self._spec_reserve[rid]
+        est = int(math.ceil(self._spec_fleet_ema * self.gamma))
+        return max(1, min(self.gamma, est))
+
+    def _rows_needed(self, budget: int, rid: Optional[int] = None) -> int:
+        """Worst-case decode rows: remaining steps rounded up to chunks;
+        speculative mode commits one row per token but each verify writes
+        up to its window past the committed rows, so the overshoot is
+        reserved too (that is what makes rewind a lens clamp inside the
+        slot's own pages)."""
         steps = max(0, budget - 1)                   # first token = prefill
+        if self.spec:
+            return steps + self._spec_overshoot(rid)
         return -(-steps // self.chunk) * self.chunk
 
-    def _pages_needed(self, prompt_len: int, budget: int) -> int:
+    def _pages_needed(self, prompt_len: int, budget: int,
+                      rid: Optional[int] = None) -> int:
         """Worst-case pages a request can touch, reserved in full at
         admission so a request in flight never waits for a page."""
-        return -(-(prompt_len + self._rows_needed(budget)) // self.page_size)
+        return -(-(prompt_len + self._rows_needed(budget, rid))
+                 // self.page_size)
 
     def _hb_bucket(self, n_hit_pages: int) -> int:
         """Prefix-table width rung: 0, or the next power of two clamped to
@@ -558,11 +764,41 @@ class ContinuousBatcher:
 
     def _free_slot_pages(self, slot: int,
                          decoded: Optional[list] = None) -> None:
+        """Retire a slot's whole reservation. A slot still mid-prefill has
+        only ``prefill_done`` prompt rows resident, so its donation stops
+        there."""
+        prompt = self._slot_prompt.pop(slot, None)
+        done = self._prefill_pending.pop(slot, None)
+        if done is not None and prompt is not None:
+            prompt, decoded = prompt[:done], None
         self._retire_pages(self._slot_pages.pop(slot),
-                           self._slot_shared.pop(slot, []),
-                           self._slot_prompt.pop(slot, None), decoded)
+                           self._slot_shared.pop(slot, []), prompt, decoded)
         self._table_np[slot] = NULL_PAGE
         self._table_dirty = True
+
+    def _drop_spec(self, slot: int, rid: int) -> None:
+        """Forget a freed slot's proposer mirror and its request's
+        speculation state."""
+        if self.spec:
+            self._proposer.drop(slot)
+            self._spec_ema.pop(rid, None)
+            self._spec_eff_last.pop(rid, None)
+            self._spec_reserve.pop(rid, None)
+
+    def _fail_request(self, slot: int, rid: int, exc: BaseException) -> None:
+        """Per-request error isolation: a request whose proposal failed is
+        retired with its error in ``self.errors``; every other slot keeps
+        its pages and its stream."""
+        self.errors[rid] = f"{type(exc).__name__}: {exc}"
+        self._request_errors += 1
+        self._slot_req.pop(slot, None)
+        self._budget.pop(rid, None)
+        self._eos_scanned.pop(rid, None)
+        self._drop_spec(slot, rid)
+        self._free_slot_pages(slot)
+        self._out.pop(rid, None)
+        self._arrival.pop(rid, None)
+        self._first_tok.pop(rid, None)
 
     # -- step --------------------------------------------------------------
     def _admit_paged(self) -> list:
@@ -586,7 +822,8 @@ class ContinuousBatcher:
                     prompt, count=req_id != self._last_denied)
                 if hits:
                     self._alloc.retain(hits)
-            need = self._pages_needed(P, self._budget[req_id]) - len(hits)
+            need = (self._pages_needed(P, self._budget[req_id], req_id)
+                    - len(hits))
             if self._prefix is not None and need > self._alloc.free_count:
                 self._prefix.evict(need - self._alloc.free_count)
             pages = self._alloc.alloc(
@@ -612,10 +849,21 @@ class ContinuousBatcher:
             tb = -(-self._ladder(P - hit_tok) // ps) * ps
             adm.append((req_id, slot, pages, prompt,
                         (tb, self._hb_bucket(len(hits))), hits))
+            if self._prefill_chunk is not None:
+                # Chunked admission: bind the slot and queue its prefill
+                # for _advance_prefill; the first token (and the budget
+                # decrement) come with its final chunk.
+                self._slot_req[slot] = req_id
+                self._slot_pages[slot] = pages
+                self._slot_shared[slot] = hits
+                self._slot_prompt[slot] = prompt
+                self._prefill_pending[slot] = hit_tok
+                continue
             self._budget[req_id] -= 1                # first token = prefill
             if self._budget[req_id] <= 0:            # max_new == 1
                 finished.append(req_id)
                 del self._budget[req_id]
+                self._drop_spec(slot, req_id)
                 free.append(slot)
                 free_after.append((pages, hits, prompt))
             else:
@@ -623,6 +871,8 @@ class ContinuousBatcher:
                 self._slot_pages[slot] = pages
                 self._slot_shared[slot] = hits
                 self._slot_prompt[slot] = prompt
+        if self._prefill_chunk is not None:
+            return finished                  # _advance_prefill dispatches
         for run in self._group_admissions(adm):
             tb, hb = run[0][4]
             npg = -(-tb // ps)
@@ -670,25 +920,140 @@ class ContinuousBatcher:
             self._table_dirty = False
         return self._table
 
+    # -- chunked prefill ---------------------------------------------------
+    def _chunk_ladder(self, n: int) -> int:
+        """Prefill-chunk bucket: the page size doubled until the chunk
+        fits, clamped to the cache capacity (page multiple by
+        construction)."""
+        tb = self.page_size
+        while tb < n:
+            tb *= 2
+        return min(tb, self.S)
+
+    def _prefill_backlog(self) -> int:
+        """Admitted but not yet prefilled prompt tokens."""
+        return sum(len(self._slot_prompt[s]) - d
+                   for s, d in self._prefill_pending.items())
+
+    def _advance_prefill(self) -> list:
+        """Spend the per-step prefill budget on partially prefilled slots,
+        page-quantum round robin, oldest admission first: each pass hands
+        every pending slot one page of its prompt (or its final partial
+        remainder) until the budget is spent, so a short prompt slips in
+        beside a long one. One dispatch per (tb, hb) rung through
+        ``_dispatch_prefill_paged``: a continuation chunk is a prefix-hit
+        tail prefill whose "hit" is the rows the slot's own earlier chunks
+        made resident (K2). The final chunk emits the first token, where
+        the budget decrement and the max_new == 1 finish happen. Returns
+        the requests that finished."""
+        if not self._prefill_pending:
+            return []
+        ps = self.page_size
+        remaining = {s: len(self._slot_prompt[s]) - d
+                     for s, d in self._prefill_pending.items()}
+        grants: Dict[int, int] = {}
+        left = self._prefill_chunk
+        progressed = True
+        while progressed and left > 0:
+            progressed = False
+            for slot in self._prefill_pending:
+                rem = remaining[slot] - grants.get(slot, 0)
+                if rem <= 0:
+                    continue
+                # A whole page or the final partial tail, never a partial
+                # non-final quantum; one the leftover cannot fund waits
+                # for the next step, where the slot draws first.
+                q = min(ps, rem)
+                if q > left:
+                    continue
+                grants[slot] = grants.get(slot, 0) + q
+                left -= q
+                progressed = True
+                if left <= 0:
+                    break
+        # (rid, slot, chunk page ids, chunk tokens, (tb, hb), done, size,
+        # final): slot at [1] and the rung at [4], as _group_admissions
+        # reads them.
+        entries: list = []
+        for slot, done in list(self._prefill_pending.items()):
+            cb = grants.get(slot, 0)
+            if cb <= 0:
+                continue
+            prompt = self._slot_prompt[slot]
+            tb = self._chunk_ladder(cb)
+            start_pg = done // ps
+            row = self._table_np[slot]
+            pids = [int(row[start_pg + j]) if start_pg + j < self.n_blocks
+                    else NULL_PAGE for j in range(tb // ps)]
+            entries.append((self._slot_req[slot], slot, pids,
+                            [int(t) for t in prompt[done:done + cb]],
+                            (tb, self._hb_bucket(start_pg)), done, cb,
+                            done + cb >= len(prompt)))
+        for run in self._group_admissions(entries):
+            tb, hb = run[0][4]
+            rows = run + [run[-1]] * (self.n_slots - len(run))
+            # Resident prefix: the table row below prefill_done (shared
+            # hit pages, then this slot's earlier chunks), null-padded.
+            norm = [(e[1], e[2],
+                     [int(self._table_np[e[1]][j]) if j < e[5] // ps
+                      else NULL_PAGE for j in range(hb)],
+                     e[5], e[3], e[6]) for e in rows]
+            firsts = self._dispatch_prefill_paged(norm, tb, hb)
+            # Only final chunks carry a first token; the others read back
+            # as None and _flush drops them.
+            self._reads.append(("firsts", firsts,
+                                [e[0] if e[7] else None for e in run]))
+            self._prefill_chunks_total += len(run)
+        finished: list = []
+        retire: list = []
+        for rid, slot, _, _, _, done, cb, fin in entries:
+            if not fin:
+                self._prefill_pending[slot] = done + cb
+                continue
+            del self._prefill_pending[slot]
+            self._budget[rid] -= 1                   # first token
+            if self._budget[rid] <= 0:               # max_new == 1
+                finished.append(rid)
+                del self._budget[rid]
+                del self._slot_req[slot]
+                self._drop_spec(slot, rid)
+                retire.append(slot)
+        for slot in retire:                          # after every dispatch
+            self._free_slot_pages(slot)
+        return finished
+
+    # -- step --------------------------------------------------------------
     @torch.no_grad()
     def _step_lazy(self) -> list:
-        """Admit, then dispatch one decode chunk over the occupied slots —
-        without reading anything back. Returns the finished req ids."""
+        """Admit, advance pending prefill chunks, then dispatch one decode
+        chunk (or, speculative, one verify) over the fully prefilled
+        slots — mid-prefill slots ride it inactive. Only the verify reads
+        back. Returns the finished req ids."""
         finished = self._admit_paged()
-        ready = dict(self._slot_req)
-        if not ready:
-            return finished
-        active = torch.as_tensor(
-            [s in ready for s in range(self.n_slots)], device=self.device)
-        table = self._device_table()
+        finished.extend(self._advance_prefill())
+        ready = {s: r for s, r in self._slot_req.items()
+                 if s not in self._prefill_pending}
+        if ready:
+            step = self._verify_step if self.spec else self._decode_step
+            finished.extend(step(ready))
+        return finished
+
+    def _active(self, ready: dict) -> torch.Tensor:
+        return torch.as_tensor([s in ready for s in range(self.n_slots)],
+                               device=self.device)
+
+    def _decode_step(self, ready: dict) -> list:
+        """One decode chunk over ``ready`` {slot: req id}; its tokens are
+        read back later (``_flush``)."""
         self._dispatch_no += 1
         self._lens, self._last, toks = _decode_chunk_paged_fn(
             self.model, self.cfg, self.chunk, self.page_size, self._k,
-            self._v, self._ks, self._vs, table, self._lens, self._last,
-            active, self._angles, (self.seed, 0, self._dispatch_no),
-            self.temperature, self.top_k)
+            self._v, self._ks, self._vs, self._device_table(), self._lens,
+            self._last, self._active(ready), self._angles,
+            (self.seed, 0, self._dispatch_no), self.temperature, self.top_k)
+        finished: list = []
         takes: list = []                             # (req id, slot, n)
-        for slot, req_id in list(ready.items()):
+        for slot, req_id in ready.items():
             budget = self._budget[req_id]
             take = min(budget, self.chunk)
             takes.append((req_id, slot, take))
@@ -703,6 +1068,109 @@ class ContinuousBatcher:
         self._reads.append(("chunk", toks, takes))
         return finished
 
+    def _spec_eff_window(self, rid: int) -> int:
+        """This dispatch's effective verify window for one request: gamma,
+        or under adaptive gamma the EMA's estimate, capped at the pinned
+        reservation; a window stuck at 0 probes with 1 every 8th
+        dispatch so a self-repeating stream can reopen it."""
+        if not self.spec_adaptive:
+            return self.gamma
+        ema = self._spec_ema.get(rid, self._spec_fleet_ema)
+        w = int(round(ema * self.gamma))
+        if w <= 0 and self._dispatch_no % 8 == 0:
+            w = 1
+        return max(0, min(w, self._spec_reserve.get(rid, self.gamma)))
+
+    def _verify_step(self, ready: dict) -> list:
+        """Propose for every ready slot, then one verify dispatch; each
+        slot commits 1..gamma+1 tokens. The next proposals depend on this
+        step's tokens, so the step reads them back at once — after
+        flushing the pending prefill firsts the proposers read."""
+        self._flush()
+        self._dispatch_no += 1
+        props = np.zeros((self.n_slots, self.gamma), np.int32)
+        views = []
+        for slot, rid in ready.items():
+            # A proposal that fails fails only its own request.
+            try:
+                view = SlotView(slot, rid, self._slot_prompt[slot],
+                                self._out[rid])
+                if self._proposer.batched:
+                    views.append(view)
+                else:
+                    props[slot] = self._proposer.propose(view, self.gamma)
+            except Exception as e:  # noqa: BLE001 — isolate the request
+                self._fail_request(slot, rid, e)
+        q = None
+        if self._proposer.distributional:
+            q = np.zeros((self.n_slots, self.gamma, self.cfg.vocab),
+                         np.float32)
+        if views:
+            # A batched proposer (the draft model) failing is an engine
+            # fault, not one request's.
+            p_arr, q_arr = self._proposer.propose_batch(
+                views, self.gamma, self._dispatch_no)
+            for i, vw in enumerate(views):
+                props[vw.slot] = p_arr[i]
+                if q is not None and q_arr is not None:
+                    q[vw.slot] = q_arr[i]
+        ready = {s: r for s, r in self._slot_req.items()
+                 if s not in self._prefill_pending}
+        if not ready:                                # every slot failed
+            return []
+        eff = np.zeros((self.n_slots,), np.int32)
+        for slot, rid in ready.items():
+            eff[slot] = self._spec_eff_window(rid)
+        dev = self.device
+        self._lens, self._last, toks, accepts = _verify_chunk_paged_fn(
+            self.model, self.cfg, self.gamma, self.page_size, self._k,
+            self._v, self._ks, self._vs, self._device_table(), self._lens,
+            self._last, torch.as_tensor(props, device=dev),
+            self._active(ready), self._angles,
+            (self.seed, 2, self._dispatch_no),
+            eff=torch.as_tensor(eff, device=dev),
+            q=None if q is None else torch.as_tensor(q, device=dev),
+            temperature=self.temperature, top_k=self.top_k)
+        toks, accepts = toks.cpu().numpy(), accepts.cpu().numpy()
+        finished: list = []
+        step_used = step_eff = 0
+        for slot, rid in ready.items():
+            take = min(self._budget[rid], int(accepts[slot]) + 1)
+            self._out[rid].extend(int(tk) for tk in toks[slot, :take])
+            # The gauges count what the stream kept: proposals accepted
+            # past the budget are rewound like any rejection.
+            used = take - 1
+            eff_i = int(eff[slot])
+            step_used += used
+            step_eff += eff_i
+            if self.spec_adaptive:
+                if eff_i > 0:            # a closed window carries no signal
+                    rate = min(used, eff_i) / eff_i
+                    ema = self._spec_ema.get(rid, self._spec_fleet_ema)
+                    self._spec_ema[rid] = ((1.0 - _SPEC_EMA_ALPHA) * ema
+                                           + _SPEC_EMA_ALPHA * rate)
+                    self._spec_fleet_ema = (
+                        (1.0 - _SPEC_FLEET_ALPHA) * self._spec_fleet_ema
+                        + _SPEC_FLEET_ALPHA * rate)
+                self._spec_eff_last[rid] = eff_i
+            self._spec_slot_steps += 1
+            self._spec_proposed += eff_i
+            self._spec_accepted += used
+            self._spec_emitted += take
+            self._spec_rewound += self.gamma - used
+            self._budget[rid] -= take
+            if self._budget[rid] <= 0:
+                finished.append(rid)
+                del self._budget[rid]
+                del self._slot_req[slot]
+                self._drop_spec(slot, rid)
+                # The commits are in _out already: the donation sees the
+                # whole stream.
+                self._free_slot_pages(slot, self._donatable_decoded(rid))
+        if step_eff:
+            self._spec_accept_buf.append(step_used / step_eff)
+        return finished
+
     def _flush(self) -> None:
         """Read every outstanding result tensor and replay them, in
         dispatch order, into ``self._out``."""
@@ -713,6 +1181,8 @@ class ContinuousBatcher:
         for (kind, _, meta), got in zip(self._reads, vals):
             if kind == "firsts":
                 for req_id, val in zip(meta, got):   # pad rows fall off
+                    if req_id is None:               # intermediate chunk
+                        continue
                     if not self._out[req_id]:
                         self._first_tok.setdefault(req_id, now)
                     self._out[req_id].append(int(val))
@@ -741,13 +1211,42 @@ class ContinuousBatcher:
         out, self._metrics = self._metrics, {}
         return out
 
-    def pool_metrics(self) -> Dict[str, float]:
-        """Page-pool gauges plus, with the prefix cache on, the reuse
-        counters and ``prefill_tokens_skipped``."""
-        out = self._alloc.metrics()
+    def pool_metrics(self) -> Dict[str, object]:
+        """Page-pool gauges; with the prefix cache on, the reuse counters
+        and ``prefill_tokens_skipped``; the chunked-prefill backlog and
+        chunk count; isolated request failures; and, speculative, the
+        accept rate (accepted / proposed), tokens committed per slot per
+        verify, overshoot rows rewound, the proposer's name, the spread of
+        the last effective windows and the per-dispatch accept rates since
+        the last call (drained here)."""
+        out: Dict[str, object] = self._alloc.metrics()
         if self._prefix is not None:
             out.update(self._prefix.metrics())
             out["prefill_tokens_skipped"] = float(self._skipped_tokens)
+        out["prefill_backlog_tokens"] = float(self._prefill_backlog())
+        out["prefill_chunks_total"] = float(self._prefill_chunks_total)
+        out["request_errors_total"] = float(self._request_errors)
+        if self.spec:
+            out["spec_accept_rate"] = (
+                self._spec_accepted / self._spec_proposed
+                if self._spec_proposed else 0.0)
+            out["spec_tokens_per_dispatch"] = (
+                self._spec_emitted / self._spec_slot_steps
+                if self._spec_slot_steps else 0.0)
+            out["spec_rewound_tokens_total"] = float(self._spec_rewound)
+            out["spec_proposer"] = self._proposer.name
+            effs = ([self._spec_eff_last[r] for r in self._slot_req.values()
+                     if r in self._spec_eff_last]
+                    if self.spec_adaptive else [])
+            if not effs:
+                effs = [self.gamma if not self.spec_adaptive
+                        else self._spec_overshoot()]
+            out["spec_gamma_agg"] = {"min": float(min(effs)),
+                                     "mean": float(sum(effs) / len(effs)),
+                                     "max": float(max(effs))}
+            if self._spec_accept_buf:
+                out["spec_accept_batch"] = tuple(self._spec_accept_buf)
+                self._spec_accept_buf = []
         return out
 
     def _reap_eos(self) -> list:
@@ -760,6 +1259,7 @@ class ContinuousBatcher:
                 del self._slot_req[slot]
                 del self._budget[req_id]
                 self._eos_scanned.pop(req_id, None)
+                self._drop_spec(slot, req_id)
                 self._free_slot_pages(slot, self._donatable_decoded(req_id))
                 reaped.append(req_id)
             else:

@@ -1,11 +1,12 @@
 """Core ops of the port: transformer primitives, weight-only int8, dense
-attention, and the paged attention entry points whose CUDA kernels live
+attention, and the paged attention entry points (K1-K3) whose CUDA kernels live
 in ``csrc/`` (built at first use by ``_build``)."""
 from .attention import dense_attention
 from .decode_attention import (
     DEFAULT_PAGE_SIZE, dense_decode_reference, dense_prefill_reference,
-    gather_paged_kv, paged_decode_attention, paged_decode_reference,
-    paged_plan, paged_prefill_attention,
+    dense_verify_reference, gather_paged_kv, paged_decode_attention,
+    paged_decode_reference, paged_plan, paged_prefill_attention,
+    paged_verify_attention, paged_verify_reference, verify_plan,
 )
 from .layers import apply_rope, rms_norm, rope_freqs, swiglu
 from .quant import (
@@ -15,8 +16,10 @@ from .quant import (
 
 __all__ = [
     "DEFAULT_PAGE_SIZE", "Int8Weight", "apply_rope", "dense_attention",
-    "dense_decode_reference", "dense_prefill_reference", "dequantize_weight",
-    "gather_paged_kv", "paged_decode_attention", "paged_decode_reference",
-    "paged_plan", "paged_prefill_attention", "qdot", "quantize_llama_params",
-    "quantize_weight", "rms_norm", "rope_freqs", "swiglu",
+    "dense_decode_reference", "dense_prefill_reference",
+    "dense_verify_reference", "dequantize_weight", "gather_paged_kv",
+    "paged_decode_attention", "paged_decode_reference", "paged_plan",
+    "paged_prefill_attention", "paged_verify_attention",
+    "paged_verify_reference", "qdot", "quantize_llama_params",
+    "quantize_weight", "rms_norm", "rope_freqs", "swiglu", "verify_plan",
 ]

@@ -88,6 +88,9 @@ def load_library() -> ctypes.CDLL:
     lib.paged_prefill_attention_launch.argtypes = (
         [vp] * 10 + [i] * 9 + [vp])
     lib.paged_prefill_attention_launch.restype = i
+    lib.paged_verify_attention_launch.argtypes = (
+        [vp] * 10 + [i] * 10 + [vp])
+    lib.paged_verify_attention_launch.restype = i
     lib.paged_attention_error_string.argtypes = [i]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     _lib = lib

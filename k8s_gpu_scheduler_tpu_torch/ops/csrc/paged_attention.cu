@@ -8,6 +8,10 @@
 //    k8s_gpu_scheduler_tpu/ops/decode_attention.py paged_prefill_attention
 //    (_prefill_kernel): the prefix-cache tail prefill, cached prefix pages
 //    (fully visible below hit_len) then the tail's own K/V (causal).
+// K3 paged_verify_kernel replaces the Pallas kernel behind
+//    k8s_gpu_scheduler_tpu/ops/decode_attention.py paged_verify_attention
+//    (_verify_kernel): the speculative verify window, t = 1 + gamma query
+//    rows per slot, row i masked to col < length + i + 1.
 //
 // What bounds them on an H100 and what the design does about it:
 //
@@ -32,6 +36,16 @@
 //    last token) through shared memory, where all 32 q rows reuse them.
 //    The tile replaces the TPU's PREFILL_MAX_Q_ROWS cap: any tb works.
 //    Tensor-core MMA, TMA and a pipelined producer warp are later work.
+// K3 has t*g query rows per (slot, kv head): 5 at the serve width (g 1,
+//    gamma 4), 40 at g 8. K1's register-resident group would need t*g
+//    rows of registers per lane, past the 255 a thread has, so K3 takes
+//    K2's tiling instead: 32 q rows staged in shared memory, each live
+//    page's K/V streamed once through a 32-row shared tile that every q
+//    row of the tile reuses, f32 online softmax per row. With few rows the
+//    work per K/V byte is that of K1 (t*g*4 flops per byte, bound by
+//    bytes), so K1's split over the live pages, ceil((len + t) / ps), keeps
+//    the SMs busy, and the splits merge through the same LSE combine.
+//    Warps whose 8 rows all lie past t*g skip the arithmetic.
 //
 // Numerics follow the JAX kernels: scores, softmax statistics and the PV
 // accumulator in f32, int8 rows dequantized (value * row scale) on load,
@@ -88,6 +102,29 @@ template <typename T>
 struct IsInt8 { static constexpr bool value = false; };
 template <>
 struct IsInt8<int8_t> { static constexpr bool value = true; };
+
+// Dims sg*8..sg*8+7 of K and V at logical row c of one slot, read through
+// its block-table row and dequantized (value * row scale) for int8 pools.
+template <typename PT, int HD>
+__device__ __forceinline__ void load_paged_kv8(
+    const PT* __restrict__ kp, const PT* __restrict__ vp,
+    const float* __restrict__ ks, const float* __restrict__ vs,
+    const int* __restrict__ trow, int c, int ps, int n_kv, int kvh, int sg,
+    float (&k8)[8], float (&v8)[8]) {
+  const int page = trow[c / ps];
+  const size_t row = (static_cast<size_t>(page) * ps + (c % ps)) * n_kv + kvh;
+  load8(kp + row * HD + sg * 8, k8);
+  load8(vp + row * HD + sg * 8, v8);
+  if (IsInt8<PT>::value) {
+    const float a = ks[row];
+    const float s = vs[row];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      k8[e] *= a;
+      v8[e] *= s;
+    }
+  }
+}
 
 // -- K1: paged decode ---------------------------------------------------------
 //
@@ -257,6 +294,87 @@ constexpr int prefill_smem_floats() {
          kQRows * (kKRows + 1);
 }
 
+// One 32-column chunk of the online softmax of the tile's 32 q rows (K2,
+// K3): thread (r, quad) scores columns quad + 4k (k < 8) of row r from Qs
+// and Ks, gives the columns vis[] rules out exactly zero weight (never
+// exp(s - m) of a masked score: a row whose bound has not reached this
+// chunk keeps m at -1e30, where that would be 1), updates the row's
+// running (m, l) through the quad's shuffles and adds P·V into acc
+// (output dims quad + 4j). Every lane of the warp must call it.
+template <int HD>
+__device__ __forceinline__ void attend_chunk(
+    const float* Qs, const float* Ks, const float* Vs, float* Ps,
+    const bool (&vis)[8], float scale, int r, int quad, float& mrow,
+    float& lrow, float (&acc)[HD / 4]) {
+  constexpr int HDP = HD + 1;
+  constexpr int KCP = kKRows + 1;
+  float s[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s[k] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < HD; ++d) {
+    const float qd = Qs[r * HDP + d];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s[k] += qd * Ks[(quad + 4 * k) * HDP + d];
+  }
+  float cmax = kNegInf;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    s[k] = vis[k] ? s[k] * scale : kNegInf;
+    cmax = fmaxf(cmax, s[k]);
+  }
+  cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
+  cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 2));
+  const float mn = fmaxf(mrow, cmax);
+  const float alpha = expf(mrow - mn);
+  float psum = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float p = vis[k] ? expf(s[k] - mn) : 0.f;
+    Ps[r * KCP + quad + 4 * k] = p;
+    psum += p;
+  }
+  psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+  psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+  lrow = lrow * alpha + psum;
+  mrow = mn;
+  __syncwarp();                           // the row's P is one quad's work
+#pragma unroll
+  for (int j = 0; j < HD / 4; ++j) acc[j] *= alpha;
+#pragma unroll 4
+  for (int c = 0; c < kKRows; ++c) {
+    const float p = Ps[r * KCP + c];
+#pragma unroll
+    for (int j = 0; j < HD / 4; ++j) acc[j] += p * Vs[c * HD + quad + 4 * j];
+  }
+}
+
+// Stages one tile's q rows in Qs (zeros past rows_total): q row gr of the
+// (entry, kv head) stack is token gr / g, group head gr % g, at q +
+// ((ent * n_tok + token) * n_heads + kvh * g + head) * HD.
+template <typename QT, int HD>
+__device__ __forceinline__ void stage_q_tile(const QT* __restrict__ q,
+                                             float* Qs, int ent, int n_tok,
+                                             int n_heads, int kvh, int g,
+                                             int r0, int rows_total) {
+  constexpr int HDP = HD + 1;
+  constexpr int SEGS = HD / 8;
+  for (int i = threadIdx.x; i < kQRows * SEGS; i += kThreads) {
+    const int rr = i / SEGS;
+    const int sg = i - rr * SEGS;
+    const int gr = r0 + rr;
+    float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (gr < rows_total) {
+      const int tok = gr / g;
+      const int j = gr - tok * g;
+      load8(q + ((static_cast<size_t>(ent) * n_tok + tok) * n_heads +
+                 kvh * g + j) * HD + sg * 8, v8);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) Qs[rr * HDP + sg * 8 + e] = v8[e];
+  }
+}
+
 template <typename QT, typename PT, int HD>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
@@ -267,15 +385,13 @@ paged_prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
                      const QT* __restrict__ tk, const QT* __restrict__ tv,
                      QT* __restrict__ out, int tb, int n_kv, int g, int ps,
                      int hb, float scale) {
-  constexpr bool kQuant = IsInt8<PT>::value;
   constexpr int HDP = HD + 1;             // padded rows: no bank conflicts
-  constexpr int KCP = kKRows + 1;
   constexpr int SEGS = HD / 8;
   extern __shared__ float smem[];
   float* Qs = smem;                       // [kQRows][HDP]
   float* Ks = Qs + kQRows * HDP;          // [kKRows][HDP]
   float* Vs = Ks + kKRows * HDP;          // [kKRows][HD]
-  float* Ps = Vs + kKRows * HD;           // [kQRows][KCP]
+  float* Ps = Vs + kKRows * HD;           // [kQRows][kKRows + 1]
 
   const int tile = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -292,20 +408,7 @@ paged_prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
   const int tok_hi = (min(r0 + kQRows, rows_total) - 1) / g;
   const int hit = min(max(hit_lens[ent], 0), hb * ps);
 
-  for (int i = t; i < kQRows * SEGS; i += kThreads) {
-    const int rr = i / SEGS;
-    const int sg = i - rr * SEGS;
-    const int gr = r0 + rr;
-    float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (gr < rows_total) {
-      const int tok = gr / g;
-      const int j = gr - tok * g;
-      load8(q + ((static_cast<size_t>(ent) * tb + tok) * n_heads +
-                 kvh * g + j) * HD + sg * 8, v8);
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e) Qs[rr * HDP + sg * 8 + e] = v8[e];
-  }
+  stage_q_tile<QT, HD>(q, Qs, ent, tb, n_heads, kvh, g, r0, rows_total);
 
   float mrow = kNegInf, lrow = 0.f;
   float acc[HD / 4];
@@ -330,20 +433,8 @@ paged_prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
       float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       if (c < c_end) {
         if (prefix) {
-          const int page = trow[c / ps];
-          const size_t row =
-              (static_cast<size_t>(page) * ps + (c % ps)) * n_kv + kvh;
-          load8(kp + row * HD + sg * 8, k8);
-          load8(vp + row * HD + sg * 8, v8);
-          if (kQuant) {
-            const float a = ks[row];
-            const float s = vs[row];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-              k8[e] *= a;
-              v8[e] *= s;
-            }
-          }
+          load_paged_kv8<PT, HD>(kp, vp, ks, vs, trow, c, ps, n_kv, kvh, sg,
+                                 k8, v8);
         } else {
           const size_t row =
               (static_cast<size_t>(ent) * tb + c) * n_kv + kvh;
@@ -358,49 +449,13 @@ paged_prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
       }
     }
     __syncthreads();
-
-    float s[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) s[k] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float qd = Qs[r * HDP + d];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) s[k] += qd * Ks[(quad + 4 * k) * HDP + d];
-    }
     bool vis[8];
-    float cmax = kNegInf;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int c = c0 + quad + 4 * k;
       vis[k] = c < c_end && (prefix || c <= my_tok);
-      s[k] = vis[k] ? s[k] * scale : kNegInf;
-      cmax = fmaxf(cmax, s[k]);
     }
-    cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 1));
-    cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, 2));
-    const float mn = fmaxf(mrow, cmax);
-    const float alpha = expf(mrow - mn);
-    float psum = 0.f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float p = vis[k] ? expf(s[k] - mn) : 0.f;
-      Ps[r * KCP + quad + 4 * k] = p;
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    lrow = lrow * alpha + psum;
-    mrow = mn;
-    __syncwarp();                         // the row's P is one quad's work
-#pragma unroll
-    for (int j = 0; j < HD / 4; ++j) acc[j] *= alpha;
-#pragma unroll 4
-    for (int c = 0; c < kKRows; ++c) {
-      const float p = Ps[r * KCP + c];
-#pragma unroll
-      for (int j = 0; j < HD / 4; ++j) acc[j] += p * Vs[c * HD + quad + 4 * j];
-    }
+    attend_chunk<HD>(Qs, Ks, Vs, Ps, vis, scale, r, quad, mrow, lrow, acc);
   }
 
   if (row_ok) {
@@ -410,6 +465,108 @@ paged_prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
     const float den = fmaxf(lrow, 1e-20f);
 #pragma unroll
     for (int jj = 0; jj < HD / 4; ++jj) store1(o + quad + 4 * jj, acc[jj] / den);
+  }
+}
+
+// -- K3: multi-query verify ---------------------------------------------------
+//
+// grid (ceil(t*g / 32), B * Hkv, n_splits), 128 threads, thread layout as
+// K2. q row r of the (slot, kv head) stack is window token r / g, group
+// head r % g, and attends cols < len + r / g + 1, len the slot's committed
+// rows (clamped to the table: an inactive slot's stale length may sit at
+// capacity). Split s covers logical pages [s*pps, (s+1)*pps) of the
+// slot's live pages ceil((len + t) / ps), as K1's splits do, and writes
+// unnormalised (acc, m, l) per row for the LSE merge; an empty split
+// writes (0, -1e30, 0), which the merge drops.
+template <typename QT, typename PT, int HD>
+__global__ void __launch_bounds__(kThreads)
+paged_verify_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
+                    const PT* __restrict__ vp, const float* __restrict__ ks,
+                    const float* __restrict__ vs,
+                    const int* __restrict__ table,
+                    const int* __restrict__ lengths,
+                    float* __restrict__ acc_out, float* __restrict__ m_out,
+                    float* __restrict__ l_out, int t, int n_kv, int g,
+                    int ps, int n_blocks, int n_splits, float scale) {
+  constexpr int HDP = HD + 1;
+  constexpr int SEGS = HD / 8;
+  extern __shared__ float smem[];
+  float* Qs = smem;                       // [kQRows][HDP]
+  float* Ks = Qs + kQRows * HDP;          // [kKRows][HDP]
+  float* Vs = Ks + kKRows * HDP;          // [kKRows][HD]
+  float* Ps = Vs + kKRows * HD;           // [kQRows][kKRows + 1]
+
+  const int tile = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int split = blockIdx.z;
+  const int b = bh / n_kv;
+  const int kvh = bh - b * n_kv;
+  const int rows_total = t * g;
+  const int r0 = tile * kQRows;
+  const int tid = threadIdx.x;
+  const int r = tid >> 2;
+  const int quad = tid & 3;
+  const int grow = r0 + r;
+  const bool row_ok = grow < rows_total;
+  const bool warp_live = r0 + (tid >> 5) * 8 < rows_total;
+  const int tok_hi = (min(r0 + kQRows, rows_total) - 1) / g;
+  const int my_tok = row_ok ? grow / g : tok_hi;
+
+  const int cap = n_blocks * ps;
+  const int len = min(max(lengths[b], 0), cap);
+  const int pages_live = min((len + t + ps - 1) / ps, n_blocks);
+  const int pps = (pages_live + n_splits - 1) / n_splits;
+  const int p0 = split * pps;
+  const int p1 = min(p0 + pps, pages_live);
+  const int c_lo = p0 * ps;
+  // The tile's furthest visible column + 1, and this row's.
+  const int c_hi = min(min(p1 * ps, len + tok_hi + 1), cap);
+  const int my_hi = min(len + my_tok + 1, c_hi);
+
+  stage_q_tile<QT, HD>(q, Qs, b, t, n_kv * g, kvh, g, r0, rows_total);
+
+  float mrow = kNegInf, lrow = 0.f;
+  float acc[HD / 4];
+#pragma unroll
+  for (int j = 0; j < HD / 4; ++j) acc[j] = 0.f;
+
+  const int* trow = table + static_cast<size_t>(b) * n_blocks;
+  for (int c0 = c_lo; c0 < c_hi; c0 += kKRows) {
+    __syncthreads();                      // last chunk's readers are done
+    for (int i = tid; i < kKRows * SEGS; i += kThreads) {
+      const int kr = i / SEGS;
+      const int sg = i - kr * SEGS;
+      const int c = c0 + kr;
+      float k8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      float v8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (c < c_hi)
+        load_paged_kv8<PT, HD>(kp, vp, ks, vs, trow, c, ps, n_kv, kvh, sg,
+                               k8, v8);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        Ks[kr * HDP + sg * 8 + e] = k8[e];
+        Vs[kr * HD + sg * 8 + e] = v8[e];
+      }
+    }
+    __syncthreads();
+    if (warp_live) {                      // warp-uniform: shuffles are safe
+      bool vis[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) vis[k] = c0 + quad + 4 * k < my_hi;
+      attend_chunk<HD>(Qs, Ks, Vs, Ps, vis, scale, r, quad, mrow, lrow, acc);
+    }
+  }
+
+  if (row_ok) {
+    const size_t o =
+        (static_cast<size_t>(bh) * n_splits + split) * rows_total + grow;
+#pragma unroll
+    for (int jj = 0; jj < HD / 4; ++jj)
+      acc_out[o * HD + quad + 4 * jj] = acc[jj];
+    if (quad == 0) {
+      m_out[o] = mrow;
+      l_out[o] = lrow;
+    }
   }
 }
 
@@ -470,6 +627,33 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
       static_cast<const int*>(hits), static_cast<const QT*>(tk),
       static_cast<const QT*>(tv), static_cast<QT*>(out), tb, Hkv, g, ps, hb,
       softmax_scale(HD));
+  return cudaGetLastError();
+}
+
+template <typename QT, typename PT, int HD>
+cudaError_t launch_verify(const void* q, const void* k, const void* v,
+                          const void* ks, const void* vs, const void* table,
+                          const void* lengths, void* acc, void* m, void* l,
+                          int B, int t, int H, int Hkv, int ps, int n_blocks,
+                          int n_splits, cudaStream_t stream) {
+  const int g = H / Hkv;
+  const dim3 grid((t * g + kQRows - 1) / kQRows, B * Hkv, n_splits);
+  const size_t smem = sizeof(float) * prefill_smem_floats<HD>();
+  static bool configured = false;         // once per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_verify_kernel<QT, PT, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  paged_verify_kernel<QT, PT, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const PT*>(k),
+      static_cast<const PT*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(table),
+      static_cast<const int*>(lengths), static_cast<float*>(acc),
+      static_cast<float*>(m), static_cast<float*>(l), t, Hkv, g, ps,
+      n_blocks, n_splits, softmax_scale(HD));
   return cudaGetLastError();
 }
 
@@ -536,6 +720,37 @@ int paged_prefill_attention_launch(const void* q, const void* k, const void* v,
                    : launch_prefill<float, float, 128>(K2_ARGS);
   }
 #undef K2_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// q [B, t, H, hd]; k/v/ks/vs as above; table [B, n_blocks] i32; lengths
+// [B] i32 (committed rows before the window) -> acc [B*Hkv, n_splits,
+// t*g, hd], m/l [B*Hkv, n_splits, t*g] f32, row = window token * g + head.
+int paged_verify_attention_launch(const void* q, const void* k, const void* v,
+                                  const void* ks, const void* vs,
+                                  const void* table, const void* lengths,
+                                  void* acc, void* m, void* l, int B, int t,
+                                  int H, int Hkv, int hd, int ps,
+                                  int n_blocks, int n_splits, int q_bf16,
+                                  int kv_int8, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define K3_ARGS q, k, v, ks, vs, table, lengths, acc, m, l, B, t, H, Hkv, ps, \
+                n_blocks, n_splits, st
+  if (hd == 64) {
+    if (q_bf16)
+      return kv_int8 ? launch_verify<__nv_bfloat16, int8_t, 64>(K3_ARGS)
+                     : launch_verify<__nv_bfloat16, __nv_bfloat16, 64>(K3_ARGS);
+    return kv_int8 ? launch_verify<float, int8_t, 64>(K3_ARGS)
+                   : launch_verify<float, float, 64>(K3_ARGS);
+  }
+  if (hd == 128) {
+    if (q_bf16)
+      return kv_int8 ? launch_verify<__nv_bfloat16, int8_t, 128>(K3_ARGS)
+                     : launch_verify<__nv_bfloat16, __nv_bfloat16, 128>(K3_ARGS);
+    return kv_int8 ? launch_verify<float, int8_t, 128>(K3_ARGS)
+                   : launch_verify<float, float, 128>(K3_ARGS);
+  }
+#undef K3_ARGS
   return cudaErrorInvalidValue;
 }
 

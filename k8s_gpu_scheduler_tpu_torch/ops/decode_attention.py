@@ -1,4 +1,4 @@
-"""Paged attention for the serving engine: two hand-written CUDA kernels
+"""Paged attention for the serving engine: three hand-written CUDA kernels
 and their plain PyTorch versions.
 
 - ``paged_decode_attention`` (K1) replaces the JAX package's Pallas
@@ -13,15 +13,21 @@ and their plain PyTorch versions.
   ``paged_prefill_attention``: the prefix-cache tail prefill — cached
   prefix pages through ``prefix_table`` (fully visible below
   ``hit_lens``) plus the tail's own K/V (causal), one online softmax.
+- ``paged_verify_attention`` (K3) replaces the Pallas
+  ``paged_verify_attention``: the speculative verify window, ``t`` query
+  rows per slot with row i bounded by ``col < lengths + i + 1``, split
+  over the live pages and merged by ``_combine_splits`` as K1 is.
 
 Each wrapper runs its kernel on CUDA tensors (``ops/csrc/
 paged_attention.cu``, built at first use by ``ops/_build.py``) and its
 plain version on CPU tensors; any other device raises, and a CUDA tensor
 never reaches the plain version. ``paged_decode_reference`` (=
-``gather_paged_kv`` + ``dense_decode_reference``) and
-``dense_prefill_reference`` are those plain versions, ported op for op
-from the JAX package's references. Each wrapper counts its kernel
-launches (``.launches``) and each plain version its calls (``.calls``).
+``gather_paged_kv`` + ``dense_decode_reference``),
+``dense_prefill_reference`` and ``paged_verify_reference`` (=
+``gather_paged_kv`` + ``dense_verify_reference``) are those plain
+versions, ported op for op from the JAX package's references. Each
+wrapper counts its kernel launches (``.launches``) and each plain version
+its calls (``.calls``).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ NEG_INF = -1e30
 # The kernels' contract (ops/csrc/paged_attention.cu).
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_GROUPS = (1, 2, 4, 8)          # g = n_heads / n_kv_heads
+VERIFY_Q_ROWS = 32                    # K3's query-row tile (kQRows)
 _SM_COUNT_H100 = 132
 
 
@@ -176,6 +183,80 @@ def dense_prefill_reference(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 dense_prefill_reference.calls = 0
+
+
+def verify_plan(n_blocks: int, page_size: int, t: int, batch: int = 1,
+                n_kv: int = 1) -> Optional[int]:
+    """K3's split count for a ``t``-row verify window, or None when the
+    window is empty or the shape is not pageable. The window rides as
+    extra query rows, never as extra grid, so the kv side is exactly K1's
+    plan (``paged_plan``)."""
+    if t < 1:
+        return None
+    return paged_plan(n_blocks, page_size, batch, n_kv)
+
+
+def dense_verify_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """Grouped-einsum multi-query verify attention: the window q [B, t, H,
+    hd] against the cache [B, S, Hkv, hd] → [B, t, H, hd]. ``lengths``
+    (scalar or [B]) counts the committed rows before the window, whose
+    own K/V already sit at rows lengths..lengths+t-1; window row i attends
+    cols < lengths + i + 1. int8-KV factors the per-row scales onto the
+    scores and the probabilities as ``dense_decode_reference`` does.
+    Masked columns are zeroed after the softmax, so a fully masked row
+    yields zeros, as the kernel's does (any visible column already drives
+    them to exactly 0)."""
+    b, t, n_heads, hd = q.shape
+    s, h_kv = k.shape[1], k.shape[2]
+    if n_heads % h_kv:
+        raise ValueError(
+            f"GQA needs n_heads ({n_heads}) divisible by kv heads ({h_kv})")
+    g = n_heads // h_kv
+    quant = k_scale is not None
+    if quant and v_scale is None:
+        raise ValueError("int8-KV mode needs both k_scale and v_scale")
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, t, h_kv, g, hd)
+    kf = k.to(q.dtype) if quant else k
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf).float() * scale
+    if quant:
+        scores = scores * k_scale[..., 0].permute(0, 2, 1)[:, :, None, None]
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
+    if lengths.ndim == 0:
+        lengths = lengths.expand(b)
+    bound = lengths[:, None] + torch.arange(t, device=q.device)[None] + 1
+    mask = torch.arange(s, device=q.device)[None, None, :] < bound[..., None]
+    mask = mask[:, None, None]                         # [B, 1, 1, t, S]
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.where(mask, torch.softmax(scores, dim=-1), 0.0).to(q.dtype)
+    if quant:
+        probs = probs * v_scale[..., 0].permute(0, 2, 1)[
+            :, :, None, None].to(q.dtype)
+        vf = v.to(q.dtype)
+    else:
+        vf = v
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, vf)
+    return out.reshape(b, t, n_heads, hd)
+
+
+def paged_verify_reference(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_table: torch.Tensor,
+                           lengths, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """K3's plain version: the table gather + the grouped dense verify."""
+    paged_verify_reference.calls += 1
+    sc = {}
+    if k_scale is not None:
+        sc = dict(k_scale=gather_paged_kv(k_scale, block_table),
+                  v_scale=gather_paged_kv(v_scale, block_table))
+    return dense_verify_reference(
+        q, gather_paged_kv(k_pages, block_table),
+        gather_paged_kv(v_pages, block_table), lengths, **sc)
+
+
+paged_verify_reference.calls = 0
 
 
 def _combine_splits(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
@@ -375,18 +456,93 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
 paged_prefill_attention.launches = 0
 
 
+def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_table: torch.Tensor,
+                           lengths, k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Multi-query verify attention over a paged KV cache: the speculative
+    window q [B, t, H, hd] (t = 1 + gamma) against the pool k/v [n_pages,
+    ps, Hkv, hd] through ``block_table`` [B, n_blocks] int32 → [B, t, H,
+    hd] in q's dtype. ``lengths`` [B] counts the committed rows before the
+    window, whose own K/V must already sit at rows lengths..lengths+t-1;
+    window row i attends cols < lengths + i + 1. Rows above a row's bound
+    (a rejected overshoot, stale pages) never contribute. At t == 1 this
+    is ``paged_decode_attention`` at ``lengths + 1``. ``k_scale``/
+    ``v_scale`` [n_pages, ps, Hkv, 1] f32 switch to an int8 pool."""
+    b, t, n_heads, hd = q.shape
+    if k_pages.shape[3] != hd or v_pages.shape != k_pages.shape:
+        raise ValueError(f"page pool shape {tuple(k_pages.shape)}/"
+                         f"{tuple(v_pages.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if block_table.ndim != 2 or block_table.shape[0] != b:
+        raise ValueError(f"block_table must be [B={b}, n_blocks], got "
+                         f"{tuple(block_table.shape)}")
+    ps, n_kv = k_pages.shape[1], k_pages.shape[2]
+    if n_heads % n_kv:
+        raise ValueError(
+            f"GQA needs n_heads ({n_heads}) divisible by kv heads ({n_kv})")
+    g = n_heads // n_kv
+    n_blocks = block_table.shape[1]
+    n_tiles = -(-t * g // VERIFY_Q_ROWS)
+    ns = verify_plan(n_blocks, ps, t, b * n_tiles, n_kv)
+    if ns is None:
+        raise ValueError(f"no legal verify blocking for n_blocks={n_blocks},"
+                         f" page_size={ps}, t={t}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("int8-KV mode needs both k_scale and v_scale")
+    if not _route(q):
+        return paged_verify_reference(q, k_pages, v_pages, block_table,
+                                      lengths, k_scale, v_scale)
+    q = q.contiguous()
+    quant = _check_kernel_args("paged_verify_attention", q, k_pages,
+                               v_pages, k_scale, v_scale, n_heads, n_kv, hd)
+    table = block_table.to(device=q.device, dtype=torch.int32).contiguous()
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
+    lens = lens.expand(b).contiguous() if lens.ndim == 0 else lens.contiguous()
+    rows = t * g
+    acc = torch.empty((b * n_kv, ns, rows, hd), dtype=torch.float32,
+                      device=q.device)
+    mx = torch.empty((b * n_kv, ns, rows, 1), dtype=torch.float32,
+                     device=q.device)
+    sm = torch.empty_like(mx)
+    from ._build import load_library
+
+    lib = load_library()
+    err = lib.paged_verify_attention_launch(
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
+        _ptr(table), _ptr(lens), _ptr(acc), _ptr(mx), _ptr(sm),
+        b, t, n_heads, n_kv, hd, ps, n_blocks, ns,
+        int(q.dtype == torch.bfloat16), int(quant),
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    _raise_on(err, "paged_verify_attention")
+    paged_verify_attention.launches += 1
+    # The kernel's rows per (slot, kv head) are window-major (row = i*g +
+    # j); merge the splits, then undo the (Hkv, t, g) fold.
+    out = _combine_splits(acc, mx, sm, b, n_kv * rows, hd, q.dtype)
+    return out.reshape(b, n_kv, t, g, hd).transpose(1, 2) \
+        .reshape(b, t, n_heads, hd)
+
+
+paged_verify_attention.launches = 0
+
+
 def reset_counters() -> None:
     """Zero every kernel launch counter and plain-version call counter."""
-    paged_decode_attention.launches = 0
-    paged_prefill_attention.launches = 0
-    paged_decode_reference.calls = 0
-    dense_prefill_reference.calls = 0
+    for fn in (paged_decode_attention, paged_prefill_attention,
+               paged_verify_attention):
+        fn.launches = 0
+    for fn in (paged_decode_reference, dense_prefill_reference,
+               paged_verify_reference):
+        fn.calls = 0
 
 
 def counters() -> dict:
     return {
         "paged_decode_attention": paged_decode_attention.launches,
         "paged_prefill_attention": paged_prefill_attention.launches,
+        "paged_verify_attention": paged_verify_attention.launches,
         "paged_decode_reference": paged_decode_reference.calls,
         "dense_prefill_reference": dense_prefill_reference.calls,
+        "paged_verify_reference": paged_verify_reference.calls,
     }

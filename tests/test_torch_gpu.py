@@ -113,6 +113,57 @@ def test_prefill_kernel_matches_plain(cuda, hd, n_heads, n_kv, ps, tb, hb,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hd,n_heads,n_kv,ps,n_blocks,t", [
+    (64, 16, 16, 64, 32, 5), (128, 32, 8, 16, 12, 5), (64, 8, 1, 8, 5, 3),
+    (128, 4, 2, 256, 2, 1), (64, 16, 2, 32, 6, 6)],
+    ids=["serve", "gqa4-hd128", "g8-ps8", "g2-t1", "g8-two-tiles"])
+@DTYPES
+@QUANT
+def test_verify_kernel_matches_plain(cuda, hd, n_heads, n_kv, ps, n_blocks,
+                                     t, dtype, quant):
+    """K3 against its plain version: ragged committed lengths (0, a full
+    table less the window, mid-page), stale rows above every bound, a
+    t*g stack of more than one 32-row tile (g8-two-tiles: 48 rows)."""
+    gen = torch.Generator().manual_seed(hd + n_heads + ps + t)
+    B = 5
+    n_pages = 1 + B * n_blocks
+    q = torch.randn((B, t, n_heads, hd), generator=gen).to(dtype).to(cuda)
+    kp, vp, sc = _pool(gen, n_pages, ps, n_kv, hd, dtype, quant, cuda)
+    table = (torch.randperm(n_pages - 1, generator=gen)[:B * n_blocks] + 1) \
+        .reshape(B, n_blocks).to(torch.int32).to(cuda)
+    S = n_blocks * ps
+    lens = torch.tensor([S - t, 0, S // 2 + 3, 1, min(ps + 1, S - t)],
+                        dtype=torch.int32, device=cuda)
+    n0 = da.paged_verify_reference.calls
+    launches = da.paged_verify_attention.launches
+    got = da.paged_verify_attention(q, kp, vp, table, lens, **sc)
+    assert da.paged_verify_attention.launches == launches + 1
+    assert da.paged_verify_reference.calls == n0
+    ref = da.paged_verify_reference(q, kp, vp, table, lens, **sc)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref, dtype)
+
+
+@pytest.mark.gpu
+def test_verify_rows_equal_decode_kernel(cuda):
+    """Window row i of K3 is K1 at lengths + i + 1 (f32)."""
+    gen = torch.Generator().manual_seed(7)
+    B, t, H, n_kv, hd, ps, nb = 4, 4, 8, 2, 64, 16, 8
+    q = torch.randn((B, t, H, hd), generator=gen).to(cuda)
+    kp, vp, _ = _pool(gen, 1 + B * nb, ps, n_kv, hd, torch.float32, False,
+                      cuda)
+    table = (torch.randperm(B * nb, generator=gen) + 1).reshape(B, nb) \
+        .to(torch.int32).to(cuda)
+    lens = torch.tensor([0, 9, 60, 124], dtype=torch.int32, device=cuda)
+    got = da.paged_verify_attention(q, kp, vp, table, lens)
+    for i in range(t):
+        one = da.paged_decode_attention(q[:, i].contiguous(), kp, vp, table,
+                                        lens + i + 1)
+        _close(got[:, i], one, torch.float32)
+
+
+@pytest.mark.gpu
 def test_kernel_contract_raises_on_card(cuda):
     """What the kernels do not take raises before any launch; nothing
     falls back to the plain version."""
@@ -131,9 +182,15 @@ def test_kernel_contract_raises_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_engine_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("kw", [
+    {}, dict(speculative=True, gamma=3),
+    dict(speculative=True, gamma=3, kv_dtype="int8",
+         prefill_chunk_tokens=32)], ids=["plain", "spec", "spec-int8-chunked"])
+def test_engine_on_card_matches_cpu(cuda, kw):
     """The engine on the card (kernels) and on the CPU (plain versions)
-    give identical greedy streams over prefix-hit traffic at f32."""
+    give identical greedy streams and gauges over prefix-hit traffic at
+    f32 — plain, speculative (K3), and speculative with an int8 pool and
+    chunked prefill (K2 continuation chunks)."""
     cfg = LlamaConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
                       n_kv_heads=1, d_ff=256, max_seq=128,
                       dtype=torch.float32, decode_attn="fused", remat=False)
@@ -142,16 +199,26 @@ def test_engine_on_card_matches_cpu(cuda):
         model = init_params(cfg, torch.Generator().manual_seed(0), dev)
         eng = ContinuousBatcher(model, cfg, n_slots=3, max_len=128, chunk=4,
                                 prefill_bucket=16, page_size=16,
-                                prefix_cache=True, device=dev)
+                                prefix_cache=True, device=dev, **kw)
         rng = np.random.default_rng(0)
         system = list(rng.integers(0, cfg.vocab, 32))
-        ids = [eng.submit(system + list(rng.integers(0, cfg.vocab, 7)), 10)
-               for _ in range(5)]
+        phrase = list(rng.integers(0, cfg.vocab, 5))
+        ids = [eng.submit(system + phrase * 3 + list(
+            rng.integers(0, cfg.vocab, 7)), 16) for _ in range(5)]
+        da.reset_counters()
         done = {}
         while eng.pending:
             done.update(eng.step())
         eng._alloc.assert_consistent()
-        got.append(([done[i] for i in ids],
-                    eng.pool_metrics()["prefill_tokens_skipped"]))
+        m = eng.pool_metrics()
+        got.append(([done[i] for i in ids], m["prefill_tokens_skipped"],
+                     m.get("spec_accept_rate"), m["prefill_chunks_total"]))
+        if dev != "cpu":
+            c = da.counters()
+            assert not (c["paged_decode_reference"]
+                        or c["dense_prefill_reference"]
+                        or c["paged_verify_reference"]), c
+            if kw.get("speculative"):
+                assert c["paged_verify_attention"] > 0, c
     assert got[0] == got[1]
     assert got[1][1] > 0
