@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (k8s_gpu_scheduler_tpu_torch).
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--train-layers N]
 
 Needs one CUDA card and the CUDA toolkit; exits non-zero without them. It
 imports nothing of JAX. Phases, each of which fails the run on error:
 
-0. build: compile the kernels from ``ops/csrc`` (nvcc) and print each
-   kernel's registers, shared memory and spills, and the card's name and
-   power limit (nvidia-smi).
+0. build: compile the kernels from ``ops/csrc`` (one nvcc per source, in
+   parallel, linked into one library) and print each kernel's registers,
+   shared memory and spills, and the card's name and power limit
+   (nvidia-smi).
 1. kernels against their plain PyTorch versions on the card: K1
    (paged_decode_attention), K2 (paged_prefill_attention) and K3
    (paged_verify_attention, window t = 5) at the serve width (B 8, H =
@@ -18,7 +19,13 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    times of the kernel, the plain version and one library call
    (scaled_dot_product_attention over the gathered K/V, a yardstick the
    port never calls), beside the least time the card could take (bytes
-   over 3.35 TB/s or operations over 989 TFLOP/s).
+   over 3.35 TB/s or operations over 989 TFLOP/s). Then the flash
+   attention kernels K5 (forward), K6 (dq) and K7 (dk, dv), causal, bf16,
+   at train-8b (B 8, T 2048, H 32, Hkv 8, hd 128: the shapes phase 6
+   gives them) and train-hd64 (B 4, T 1024, H = Hkv = 16, hd 64), K5's
+   f32 lse held to the f32 tolerance (2e-5); the yardstick is
+   scaled_dot_product_attention with is_causal (K5) and its autograd
+   backward, which yields dq, dk and dv together (K6, K7).
 2. the engine on the card against the engine on the CPU, a small f32
    config: plain, speculative (bigram, gamma 3) and chunked-prefill (2
    pages a step) engines; greedy streams, prefill_tokens_skipped and the
@@ -40,8 +47,25 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    prefill_chunk_tokens=256. K3 must have launched, the accept rate be
    above 0, and no plain version been called.
 
-``--profile`` adds profiled serving runs (plain decode and speculative):
-the card's busy share and its time by kernel.
+5. training on the card against training on the CPU: f32, TF32 off,
+   vocab 256, d_model 256, 2 layers, 4 heads, 2 kv heads, T 128, remat,
+   flash attention, 3 AdamW steps. The losses must agree to 1e-5
+   relative, the card launch K5 2·L·steps times and K6 and K7 L·steps
+   times and call no plain version, and a second card run give the same
+   losses bit for bit.
+6. the training path at full width: the llama3_8b widths (vocab 128256,
+   d_model 4096, 32 heads, 8 kv heads, d_ff 14336) with depth cut to 4
+   layers, bf16, remat, flash attention, AdamW 3e-4, B 8, T 2048, one
+   fixed batch: one warm-up step, then 5 timed steps (counters zeroed just
+   before and read just after). Prints each loss, step ms, tokens/s, MFU
+   (against 989 TFLOP/s) and peak memory. Every loss must be finite, the
+   last below the first, K5 launch 2·L (8) and K6 and K7 L (4) times per
+   step, and no plain version run.
+
+``--profile`` adds profiled serving runs (plain decode and speculative)
+and one profiled training step: the card's busy share and its time by
+kernel. ``--train-layers N`` runs phase 6 at depth N instead of 4, to
+measure how step time and peak memory grow with depth.
 
 The line before the last is a JSON object listing every kernel with its
 launches on the main path, error and times; the last line is
@@ -61,17 +85,32 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
-SOURCE = "k8s_gpu_scheduler_tpu_torch/ops/csrc/paged_attention.cu"
-REPLACES = {
-    "paged_decode_attention":
-        "k8s_gpu_scheduler_tpu/ops/decode_attention.py:497",
-    "paged_prefill_attention":
-        "k8s_gpu_scheduler_tpu/ops/decode_attention.py:999",
-    "paged_verify_attention":
-        "k8s_gpu_scheduler_tpu/ops/decode_attention.py:688",
+CSRC = "k8s_gpu_scheduler_tpu_torch/ops/csrc/"
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "paged_decode_attention": (
+        "paged_attention.cu",
+        "k8s_gpu_scheduler_tpu/ops/decode_attention.py:497"),
+    "paged_prefill_attention": (
+        "paged_attention.cu",
+        "k8s_gpu_scheduler_tpu/ops/decode_attention.py:999"),
+    "paged_verify_attention": (
+        "paged_attention.cu",
+        "k8s_gpu_scheduler_tpu/ops/decode_attention.py:688"),
+    "flash_forward": (
+        "flash_attention.cu",
+        "k8s_gpu_scheduler_tpu/ops/flash_attention.py:117"),
+    "flash_backward_dq": (
+        "flash_attention.cu",
+        "k8s_gpu_scheduler_tpu/ops/flash_attention.py:159"),
+    "flash_backward_dkv": (
+        "flash_attention.cu",
+        "k8s_gpu_scheduler_tpu/ops/flash_attention.py:209"),
 }
 PLAIN = ("paged_decode_reference", "dense_prefill_reference",
          "paged_verify_reference")
+FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
+FLASH_PLAIN = ("flash_forward_reference", "flash_backward_reference")
 
 
 def log(*parts) -> None:
@@ -305,6 +344,88 @@ def verify_case(name, B, t, H, n_kv, hd, ps, n_blocks, int8, dev, flush,
                 **_bound(nbytes, flops, dtype))
 
 
+def flash_cases(name, B, T, H, n_kv, hd, dev, flush, seed=3) -> list:
+    """K5, K6 and K7 (causal, bf16) against their plain versions, each
+    timed beside its plain version, the SDPA yardstick and its bound."""
+    from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
+        flash_backward_reference, flash_forward_reference, launch_backward_dkv,
+        launch_backward_dq, launch_forward)
+
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn((B, T, H, hd), generator=gen).to(dtype).to(dev)
+             for _ in range(2))
+    k, v = (torch.randn((B, T, n_kv, hd), generator=gen).to(dtype).to(dev)
+            for _ in range(2))
+    out, lse = launch_forward(q, k, v, True, True)
+    dq, delta = launch_backward_dq(q, k, v, out, lse, do, True)
+    dk, dv = launch_backward_dkv(q, k, v, lse, delta, do, True)
+    ref_out, ref_lse = flash_forward_reference(q, k, v, True)
+    refs = flash_backward_reference(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    # lse is f32 on both sides: it is held to the f32 tolerance.
+    errs = [max_err(a, b, t) for a, b, t in
+            [(out, ref_out, tol), (lse, ref_lse, TOL[torch.float32]),
+             (dq, refs[0], tol), (dk, refs[1], tol), (dv, refs[2], tol)]]
+    # Library yardstick: SDPA over K/V repeated to H heads beforehand
+    # (not timed), and its autograd backward (dq, dk, dv of the repeated
+    # heads, without the GQA sum).
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt, vt = (_heads(x, H).contiguous().requires_grad_() for x in (k, v))
+    dot = do.transpose(1, 2).contiguous()
+    lib = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd_ms = time_ms(lambda: lib(qt, kt, vt, is_causal=True), flush)
+    lib_out = lib(qt, kt, vt, is_causal=True)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), flush)
+    lq, lk, lv = torch.autograd.grad(lib_out, (qt, kt, vt), dot)
+    g = H // n_kv
+
+    def kv_sum(x):                # [B, H, T, hd] -> [B, T, Hkv, hd]
+        return x.float().reshape(B, n_kv, g, T, hd).sum(2).transpose(1, 2)
+
+    lib_errs = [max_err(lib_out.detach().transpose(1, 2), ref_out, tol)[0],
+                max_err(lq.transpose(1, 2), refs[0], tol)[0],
+                max(max_err(kv_sum(lk), refs[1], tol)[0],
+                    max_err(kv_sum(lv), refs[2], tol)[0])]
+    pairs = B * H * T * (T + 1) // 2          # visible (q, k) pairs
+    e = 2                                     # bf16 bytes
+    qb, kvb, lseb = B * T * H * hd * e, B * T * n_kv * hd * e, B * H * T * 4
+    cases = [
+        dict(kernel="flash_forward", max_abs_err=max(errs[0][0], errs[1][0]),
+             lse_err=errs[1][0], ok=errs[0][1] and errs[1][1],
+             ms=time_ms(lambda: launch_forward(q, k, v, True, True), flush),
+             plain_ms=time_ms(lambda: flash_forward_reference(q, k, v, True),
+                              flush),
+             library_ms=lib_fwd_ms,
+             **_bound(qb + 2 * kvb + qb + lseb, 2 * 2 * pairs * hd, dtype)),
+        dict(kernel="flash_backward_dq", max_abs_err=errs[2][0],
+             ok=errs[2][1],
+             ms=time_ms(lambda: launch_backward_dq(q, k, v, out, lse, do,
+                                                   True), flush),
+             plain_ms=time_ms(lambda: flash_backward_reference(
+                 q, k, v, out, lse, do, True), flush),
+             library_ms=lib_bwd_ms,
+             **_bound(3 * qb + 2 * kvb + lseb + qb + lseb,
+                      3 * 2 * pairs * hd, dtype)),
+        dict(kernel="flash_backward_dkv",
+             max_abs_err=max(errs[3][0], errs[4][0]),
+             ok=errs[3][1] and errs[4][1],
+             ms=time_ms(lambda: launch_backward_dkv(q, k, v, lse, delta, do,
+                                                    True), flush),
+             library_ms=lib_bwd_ms,
+             **_bound(2 * qb + 2 * kvb + 2 * lseb + 2 * kvb,
+                      4 * 2 * pairs * hd, dtype)),
+    ]
+    # The plain backward computes dq, dk and dv in one call: it is the
+    # plain version of K6 and of K7 alike.
+    cases[2]["plain_ms"] = cases[1]["plain_ms"]
+    for c, lib_err in zip(cases, lib_errs):
+        c.update(case=name, int8=False, tol=tol, library_err=lib_err)
+    return cases
+
+
 def _bound(nbytes: int, flops: int, dtype) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -329,9 +450,13 @@ def phase_kernels(dev) -> list:
                                  int8, dev, flush))
         cases.append(verify_case(f"gqa128-{tag}", 8, 5, 32, 8, 128, 64, 32,
                                  int8, dev, flush))
+    cases += flash_cases("train-8b", 8, 2048, 32, 8, 128, dev, flush)
+    cases += flash_cases("train-hd64", 4, 1024, 16, 16, 64, dev, flush)
     for c in cases:
         log(f"  {c['kernel']:24s} {c['case']:14s} max_abs_err "
-            f"{c['max_abs_err']:.3e} (tol {c['tol']}) ms {c['ms']:.4f} "
+            f"{c['max_abs_err']:.3e} (tol {c['tol']}"
+            + (f"; lse {c['lse_err']:.1e}, tol {TOL[torch.float32]}"
+               if "lse_err" in c else "") + f") ms {c['ms']:.4f} "
             f"plain {c['plain_ms']:.4f} sdpa {c['library_ms']:.4f} (err "
             f"{c['library_err']:.1e}) bound "
             f"{c['bound_ms']:.4f} ({c['bound_by']}) "
@@ -621,9 +746,11 @@ def profiled(card, label, fn) -> None:
         _, st = fn()
     rows = {}
     for e in prof.key_averages():
-        # Device-side rows only: a CPU op's device time is the sum of the
-        # kernels it launched, which have rows of their own.
-        if e.device_type == DeviceType.CPU:
+        # Kernel rows only: a CPU op's device time is the sum of the
+        # kernels it launched, which have rows of their own, and a user
+        # annotation (the optimizer's step) spans kernels counted already.
+        if e.device_type == DeviceType.CPU or getattr(
+                e, "is_user_annotation", False):
             continue
         if e.self_device_time_total > 0:
             rows[e.key] = (e.self_device_time_total / 1e3, e.count)
@@ -656,10 +783,135 @@ def phase_profile(dev, card) -> None:
              lambda: serve_run(model, cfg, phrases, 64, **SPEC_ENGINE))
 
 
+# -- phases 5 and 6: training ------------------------------------------------------
+
+TRAIN_STEPS = 5                 # timed full-width steps, after one warm-up
+
+
+def train_setup(dev, cfg, B, T, seed=0):
+    """A model from ``seed``, its AdamW(3e-4) train step, and one fixed
+    batch {tokens, targets = tokens rolled by one} on ``dev``."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        init_params, make_optimizer, make_train_step)
+
+    model = init_params(cfg, torch.Generator().manual_seed(seed), dev)
+    step = make_train_step(cfg, None, make_optimizer(model, 3e-4))
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, T)))
+    batch = {"tokens": tokens.to(dev),
+             "targets": torch.roll(tokens, -1, dims=1).to(dev)}
+    return model, step, batch
+
+
+def phase_train_vs_cpu(dev) -> dict:
+    """Three f32 AdamW steps with flash attention and remat, on the CPU
+    (plain versions) and twice on the card (kernels)."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig
+    from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
+        counters, reset_counters)
+
+    cfg = LlamaConfig(vocab=256, d_model=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_ff=512, max_seq=128,
+                      dtype=torch.float32, attn_impl="flash", remat=True)
+    steps = 3
+
+    def losses(where):
+        model, step, batch = train_setup(where, cfg, 2, 128)
+        return [float(step(model, batch)) for _ in range(steps)]
+
+    cpu = losses("cpu")
+    reset_counters()
+    card = losses(dev)
+    c = counters()
+    again = losses(dev)
+    log(f"  cpu losses {cpu}")
+    log(f"  gpu losses {card}, replay {again}, counters {c}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    want = (2 * cfg.n_layers * steps, cfg.n_layers * steps,
+            cfg.n_layers * steps)
+    if rel > 1e-5:
+        raise SystemExit(f"training on the card diverges from the CPU: "
+                         f"{card} vs {cpu} (rel {rel:.2e})")
+    if tuple(c[k] for k in FLASH) != want or any(c[k] for k in FLASH_PLAIN):
+        raise SystemExit(f"card training launched {c}, want {want} and no "
+                         f"plain version")
+    if again != card:
+        raise SystemExit(f"a second card run did not replay: {again}")
+    return dict(cpu=cpu, gpu=card, max_rel_diff=rel, launches=c)
+
+
+def phase_train_full_width(dev, card, profile_too, n_layers) -> dict:
+    """The training main path at the llama3_8b widths, depth cut to
+    ``n_layers``."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig
+    from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
+        counters, reset_counters)
+
+    B, T = 8, 2048
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=n_layers,
+                              attn_impl="flash")
+    log(f"  cut: n_layers 32 -> {cfg.n_layers} (weights, gradients and "
+        f"AdamW moments of 32 layers do not fit one 80 GB card; the default "
+        f"4 keeps the peak far below the card's memory, PERF.md gives the "
+        f"deepest that fits); widths, B {B} and T {T} as main()")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, step, batch = train_setup(dev, cfg, B, T)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  [{card}] {n_params} parameters, set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    losses = [float(step(model, batch))]                 # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    step_s, pending = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pending.append(step(model, batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    c = counters()
+    losses += [float(x) for x in pending]
+    mean_s = sum(step_s) / len(step_s)
+    tok_s = B * T / mean_s
+    st = dict(B=B, T=T, n_layers=cfg.n_layers, n_params=n_params,
+              losses=losses, step_ms=[1e3 * x for x in step_s],
+              mean_step_ms=1e3 * mean_s, tokens_per_s=tok_s,
+              mfu=tok_s * cfg.flops_per_token(T) / PEAK_FLOPS[torch.bfloat16],
+              flops_per_token=cfg.flops_per_token(T),
+              max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+              launches=c)
+    log(f"  [{card}] {json.dumps(st)}")
+    want = (2 * cfg.n_layers * TRAIN_STEPS, cfg.n_layers * TRAIN_STEPS,
+            cfg.n_layers * TRAIN_STEPS)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"full-width training: losses {losses}")
+    if tuple(c[k] for k in FLASH) != want or any(c[k] for k in FLASH_PLAIN):
+        raise SystemExit(f"full-width training launched {c}, want {want} "
+                         f"and no plain version")
+    if profile_too:
+        log("profile: where a full-width training step's device time goes")
+        profiled(card, "train step", lambda: timed_step(step, model, batch))
+    return st
+
+
+def timed_step(step, model, batch):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = step(model, batch)
+    torch.cuda.synchronize()
+    return loss, dict(wall_s=time.perf_counter() - t, loss=float(loss))
+
+
 # -- main ---------------------------------------------------------------------------
 
 def main() -> int:
-    profile_too = "--profile" in sys.argv[1:]
+    t_start = time.perf_counter()
+    args = sys.argv[1:]
+    profile_too = "--profile" in args
+    train_layers = (int(args[args.index("--train-layers") + 1])
+                    if "--train-layers" in args else 4)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -684,7 +936,7 @@ def main() -> int:
         log(f"  ptxas {r['registers']} regs, {r['smem_bytes']} B smem, "
             f"spill {r['spill_stores']}/{r['spill_loads']} B: {r['kernel']}")
     log("phase 1: kernels against their plain versions "
-        "(atol = rtol = 2e-2 in bf16)")
+        "(atol = rtol = 2e-2 in bf16, 2e-5 for K5's f32 lse)")
     cases = phase_kernels(dev)
     log("phase 2: engines on the card against the engines on the CPU "
         "(f32, TF32 off)")
@@ -694,24 +946,34 @@ def main() -> int:
     full = phase_full_width(dev, card)
     log("phase 4: full-width speculative path, bf16")
     spec = phase_speculative(dev, card)
-    # Each kernel's launches come from the run of the path that runs it:
-    # K1 and K2 from phase 3's main path, K3 from phase 4's.
-    launches = dict(full["bf16"]["launches"])
-    launches["paged_verify_attention"] = \
-        spec["spec"]["launches"]["paged_verify_attention"]
     if profile_too:
         log("profile: where a serving run's device time goes")
         phase_profile(dev, card)
+    log("phase 5: training on the card against training on the CPU "
+        "(f32, TF32 off)")
+    log(f"  {json.dumps(phase_train_vs_cpu(dev))}")
+    log(f"phase 6: full-width training path (llama3_8b widths, "
+        f"{train_layers} layers), bf16")
+    train = phase_train_full_width(dev, card, profile_too, train_layers)
+    # Each kernel's launches come from the run of the path that runs it:
+    # K1 and K2 from phase 3's main path, K3 from phase 4's, K5-K7 from
+    # phase 6's timed steps.
+    launches = dict(full["bf16"]["launches"])
+    launches["paged_verify_attention"] = \
+        spec["spec"]["launches"]["paged_verify_attention"]
+    launches.update({k: train["launches"][k] for k in FLASH})
     kernels = []
-    for name in REPLACES:
+    for name, (source, replaces) in KERNELS.items():
+        case = "train-8b" if name in FLASH else "serve-bf16"
         c = next(c for c in cases
-                 if c["kernel"] == name and c["case"] == "serve-bf16")
+                 if c["kernel"] == name and c["case"] == case)
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+            name=name, route="cuda", source=CSRC + source, replaces=replaces,
             launches=launches[name], max_abs_err=c["max_abs_err"],
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"]))
     log(json.dumps({"card": card, "kernel_cases": cases}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

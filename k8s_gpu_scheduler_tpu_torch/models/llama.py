@@ -1,23 +1,34 @@
-"""Llama-family decoder (port of the JAX package's ``models/llama.py``,
-inference half).
+"""Llama-family decoder (port of the JAX package's ``models/llama.py``:
+config, forward, and the single-device training step).
 
 ``Llama`` is an ``nn.Module`` whose ``blocks`` ``ModuleList`` replaces the
 JAX package's layer-stacked pytree and ``lax.scan``; weights keep JAX's
 ``[K, N]`` orientation (``x @ w``), so an int8 weight's per-output-channel
 scale stays ``[1, N]`` and the weight bridge (``bridge.py``) is a copy.
 Randomness comes only from the ``torch.Generator`` passed to
-``init_params``.
+``init_params``. Parameters are created frozen (serving builds no autograd
+graph); ``make_optimizer`` makes them trainable.
+
+Training: ``loss_fn`` is the JAX package's causal-LM cross entropy,
+``make_train_step`` its ``value_and_grad`` + optimizer update (in place
+here: the model and the optimizer hold the state), ``jax.checkpoint`` per
+block becomes ``torch.utils.checkpoint`` per block, and optax's
+``adamw(lr)`` becomes ``torch.optim.AdamW`` with optax's defaults
+(``make_optimizer``). ``attn_impl="flash"`` runs the flash kernels K5-K7
+(``ops/flash_attention.py``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..device import resolve_device
 from ..ops.attention import dense_attention
+from ..ops.flash_attention import flash_attention_diff
 from ..ops.layers import apply_rope, rms_norm, rope_freqs, swiglu
 from ..ops.quant import qdot
 
@@ -46,8 +57,8 @@ class LlamaConfig:
     def __post_init__(self) -> None:
         if self.n_experts > 1:
             raise NotImplementedError(
-                "mixture-of-experts configs (n_experts > 1) come with the "
-                "training slice of the port")
+                "mixture-of-experts configs (n_experts > 1) are not ported "
+                "yet: MoE, BERT and ResNet training is its own ROADMAP item")
 
     @property
     def head_dim(self) -> int:
@@ -72,6 +83,22 @@ class LlamaConfig:
         return LlamaConfig(
             vocab=256, d_model=64, n_layers=2, n_heads=8, n_kv_heads=8,
             d_ff=128, max_seq=128, attn_impl=attn_impl, remat=False)
+
+    def flops_per_token(self, seq_len: int = 0) -> float:
+        """Train-step FLOPs/token (the MFU numerator): 6 x the matmul
+        parameters, plus the causal attention products when ``seq_len`` is
+        given — QK^T and PV are each 2·T·d FLOPs/token/layer forward, 3x
+        that with backward, halved because the flash kernels skip the
+        fully masked half: 6·L·d·T per token. No remat counted."""
+        p_block = (
+            self.d_model * self.n_heads * self.head_dim  # wq
+            + 2 * self.d_model * self.n_kv_heads * self.head_dim  # wk, wv
+            + self.n_heads * self.head_dim * self.d_model  # wo
+            + 3 * self.d_model * self.d_ff  # gate/up/down
+        )
+        p_matmul = self.n_layers * p_block + 2 * self.vocab * self.d_model
+        attn = 6.0 * self.n_layers * self.d_model * seq_len
+        return 6.0 * p_matmul + attn
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -99,7 +126,7 @@ class Block(nn.Module):
 
 class Llama(nn.Module):
     """The decoder's weights (``embed [V, D]``, ``blocks``, ``final_norm``,
-    ``lm_head [D, V]``); ``forward(tokens)`` is the dense causal forward."""
+    ``lm_head [D, V]``); ``forward(tokens)`` is the causal forward."""
 
     def __init__(self, cfg: LlamaConfig, device="cuda") -> None:
         super().__init__()
@@ -162,23 +189,87 @@ def forward(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _attention(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+    """Causal attention by ``cfg.attn_impl``: "flash" runs the flash
+    kernels (K5 forward, K6/K7 backward), "dense" the dense reference."""
+    if cfg.attn_impl == "flash":
+        return flash_attention_diff(q, k, v, True)
+    if cfg.attn_impl == "dense":
+        return dense_attention(q, k, v, causal=True)
+    raise NotImplementedError(
+        f"attn_impl={cfg.attn_impl!r}: sequence-parallel attention comes "
+        f"with the multi-device item of the ROADMAP")
+
+
 def forward_with_aux(model: Llama, tokens: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(logits [B, T, vocab] f32, balance aux — 0.0, dense configs only).
-    Dense causal attention; the flash and sequence-parallel attention
-    implementations come with the training and multi-device slices."""
+    """(logits [B, T, vocab] f32, balance aux — 0.0, dense-MLP configs).
+    With ``cfg.remat`` and autograd recording, each block is checkpointed:
+    its activations are recomputed in the backward, as ``jax.checkpoint``
+    does in the JAX package."""
     cfg = model.cfg
-    if cfg.attn_impl != "dense":
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r}: the port's forward is dense; "
-            f"flash attention (K5-K7) comes with the training slice")
     B, T = tokens.shape
     angles = rope_freqs(cfg.head_dim, T, cfg.rope_theta, device=model.device)
     x = model.embed[tokens].to(cfg.dtype)
-    for blk in model.blocks:
+
+    def block(x, blk):
         x = attn_sublayer(cfg, x, blk, angles,
-                          lambda q, k, v: dense_attention(q, k, v, True))
-        x = mlp_sublayer(cfg, x, blk)
+                          lambda q, k, v: _attention(cfg, q, k, v))
+        return mlp_sublayer(cfg, x, blk)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for blk in model.blocks:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(block, x, blk,
+                                                  use_reentrant=False)
+        else:
+            x = block(x, blk)
     x = rms_norm(x, model.final_norm)
     logits = qdot(x, model.lm_head).float()
     return logits, torch.zeros((), dtype=torch.float32, device=model.device)
+
+
+def loss_fn(model: Llama, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Causal-LM cross entropy; batch = {tokens [B, T], targets [B, T]}:
+    the mean of logsumexp(logits) - logits[target], the JAX package's
+    form (one reduction and a gather, no [B, T, vocab] log-softmax)."""
+    logits, _ = forward_with_aux(model, batch["tokens"])
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, batch["targets"][..., None].long())[..., 0]
+    return (lse - tgt).mean()
+
+
+def make_optimizer(model: Llama, lr: float = 3e-4) -> torch.optim.AdamW:
+    """``optax.adamw(lr)`` as ``torch.optim.AdamW`` over every parameter,
+    with optax's defaults: betas (0.9, 0.999), eps 1e-8 and weight decay
+    1e-4 on every leaf, norms and embedding included (torch's default
+    decay is 1e-2). The update is the same: bias-corrected moments and
+    decay applied to the old weights. Makes the parameters trainable."""
+    model.requires_grad_(True)
+    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=1e-4)
+
+
+def make_train_step(cfg: LlamaConfig, mesh: Optional[object],
+                    optimizer: torch.optim.Optimizer):
+    """The single-device train step: ``step(model, batch) -> loss`` runs
+    the forward and backward of ``loss_fn`` and one optimizer update in
+    place (the JAX step returned new params and optimizer state; here the
+    model and ``optimizer`` hold them). The loss comes back as a detached
+    f32 scalar on the model's device, unsynchronised."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_train_step(mesh=...): sharded training comes with the "
+            "multi-device item of the ROADMAP; pass mesh=None")
+
+    def step(model: Llama, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if model.cfg != cfg:
+            raise ValueError("the model's config differs from the step's")
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(model, batch)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step

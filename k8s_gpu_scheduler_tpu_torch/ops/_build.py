@@ -3,11 +3,12 @@ shared library with a plain C interface, loaded with ``ctypes``).
 
 The build runs at first use — never at import — into ``build/kernels/``
 at the repository root (listed in ``.gitignore``), from the repository's
-sources only. The library's file name carries a hash of the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded. ``nvcc -Xptxas -v`` reports each kernel's registers, shared
-memory and spills; the report is kept beside the library
-(``ptxas_report()``).
+sources only: one ``nvcc -c`` per source, all started together, then one
+link into a single library. The library's file name carries a hash of
+every source and header and the flags, so an edited file is rebuilt and a
+stale library is never loaded. ``nvcc -Xptxas -v`` reports each kernel's
+registers, shared memory and spills; the report is kept beside the
+library (``ptxas_report()``).
 """
 from __future__ import annotations
 
@@ -22,10 +23,12 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = _CSRC / "paged_attention.cu"
+SOURCES = (_CSRC / "paged_attention.cu", _CSRC / "flash_attention.cu")
+HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                     "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 _report: str = ""
@@ -45,14 +48,16 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"paged_attention-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in SOURCES + HEADERS:
+        h.update(f.name.encode() + f.read_bytes())
+    return BUILD_DIR / f"kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless this source's library already exists.
-    Writes to a temporary name and renames, so a concurrent build never
+    """Compile the kernels unless these sources' library already exists.
+    Objects and the library are written in a fresh temporary directory
+    and the library is renamed into place, so a concurrent build never
     sees a half-written library."""
     global _report
     so = library_path()
@@ -61,17 +66,30 @@ def build() -> Path:
         _report = log.read_text() if log.exists() else ""
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    _report = proc.stdout + proc.stderr
-    log.write_text(_report)
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (src.stem + ".o")) for src in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        outs = [p.communicate() for p in procs]
+        report = "".join(o + e for o, e in outs)
+        for cmd, p, (o, e) in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{o}\n{e}")
+        lib = str(Path(tmp) / "lib.so")
+        link = [nvcc, *ARCH, "-shared", "-o", lib, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        _report = report
+        log.write_text(report)
+        os.replace(lib, so)
     return so
 
 
@@ -91,6 +109,12 @@ def load_library() -> ctypes.CDLL:
     lib.paged_verify_attention_launch.argtypes = (
         [vp] * 10 + [i] * 10 + [vp])
     lib.paged_verify_attention_launch.restype = i
+    lib.flash_forward_launch.argtypes = [vp] * 5 + [i] * 7 + [vp]
+    lib.flash_forward_launch.restype = i
+    lib.flash_backward_dq_launch.argtypes = [vp] * 8 + [i] * 7 + [vp]
+    lib.flash_backward_dq_launch.restype = i
+    lib.flash_backward_dkv_launch.argtypes = [vp] * 8 + [i] * 7 + [vp]
+    lib.flash_backward_dkv_launch.restype = i
     lib.paged_attention_error_string.argtypes = [i]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
     _lib = lib

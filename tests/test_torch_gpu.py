@@ -11,15 +11,23 @@ Tolerances: 2e-5 at f32 (the kernel and the plain version sum in other
 orders), 2e-2 at bf16 (the plain version rounds its probabilities to
 bf16 before the PV product; the kernel keeps them in f32). A row with
 length 0 is compared against zeros: the plain version's softmax over a
-fully masked row is uniform garbage by contract."""
+fully masked row is uniform garbage by contract. The flash kernels'
+gradients are held to 1e-4 at f32: each sums up to T*g products, in
+another order than the plain version's einsums."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig, init_params
+from k8s_gpu_scheduler_tpu_torch.models.llama import (
+    LlamaConfig, init_params, make_optimizer, make_train_step)
 from k8s_gpu_scheduler_tpu_torch.models.serving import (
     ContinuousBatcher, _kv_quant)
 from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
+    counters, flash_backward, flash_backward_reference, flash_forward,
+    flash_forward_reference, reset_counters)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -222,3 +230,116 @@ def test_engine_on_card_matches_cpu(cuda, kw):
                 assert c["paged_verify_attention"] > 0, c
     assert got[0] == got[1]
     assert got[1][1] > 0
+
+
+FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _flash_inputs(gen, B, T, H, n_kv, hd, dtype, dev):
+    return [torch.randn(shape, generator=gen).to(dtype).to(dev)
+            for shape in ((B, T, H, hd), (B, T, n_kv, hd), (B, T, n_kv, hd),
+                          (B, T, H, hd))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,n_heads,n_kv,T", [
+    (64, 8, 8, 200), (128, 8, 4, 256), (64, 16, 4, 130), (128, 16, 2, 320)],
+    ids=["g1-hd64-T200", "g2-hd128-T256", "g4-hd64-T130", "g8-hd128-T320"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@DTYPES
+def test_flash_kernels_match_plain(cuda, hd, n_heads, n_kv, T, causal,
+                                   dtype):
+    """K5 (out, lse), K6 (dq) and K7 (dk, dv) against the plain versions
+    over several 64-row tiles and a ragged last tile; each kernel launches
+    once per call, no plain version runs, and a second call reproduces
+    every output bit for bit."""
+    gen = torch.Generator().manual_seed(hd + n_heads + T)
+    q, k, v, do = _flash_inputs(gen, 2, T, n_heads, n_kv, hd, dtype, cuda)
+    reset_counters()
+    out, lse = flash_forward(q, k, v, causal)
+    dq, dk, dv = flash_backward(q, k, v, out, lse, do, causal)
+    c = counters()
+    assert (c["flash_forward"], c["flash_backward_dq"],
+            c["flash_backward_dkv"]) == (1, 1, 1), c
+    assert not (c["flash_forward_reference"]
+                or c["flash_backward_reference"]), c
+    ref_out, ref_lse = flash_forward_reference(q, k, v, causal)
+    refs = flash_backward_reference(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    _close(out, ref_out, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+    tol = FLASH_GRAD_TOL[dtype]
+    for got, ref, like in zip((dq, dk, dv), refs, (q, k, v)):
+        assert got.dtype == dtype and got.shape == like.shape
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+    again = flash_forward(q, k, v, causal) + flash_backward(
+        q, k, v, out, lse, do, causal)
+    for a, b in zip(again, (out, lse, dq, dk, dv)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_forward_only_skips_lse(cuda):
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, _ = _flash_inputs(gen, 1, 96, 4, 2, 64, torch.float32, cuda)
+    out, lse = flash_forward(q, k, v, True, with_lse=False)
+    assert lse is None
+    torch.testing.assert_close(out, flash_forward(q, k, v, True)[0],
+                               atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_flash_contract_raises_on_card(cuda):
+    """A head dim or dtype the kernels do not take raises before any
+    launch; nothing falls back to the plain version."""
+    gen = torch.Generator().manual_seed(0)
+    reset_counters()
+    for hd, dtype in [(32, torch.float32), (96, torch.bfloat16),
+                      (64, torch.float16)]:
+        q, k, v, _ = _flash_inputs(gen, 1, 64, 2, 2, hd, dtype, cuda)
+        with pytest.raises(ValueError):
+            flash_forward(q, k, v)
+    q, k, v, do = _flash_inputs(gen, 1, 64, 2, 2, 64, torch.float32, cuda)
+    out, lse = flash_forward(q, k, v)
+    reset_counters()
+    for bad in (lse[:, :32], lse.double(), lse.T.contiguous()):
+        with pytest.raises(ValueError):
+            flash_backward(q, k, v, out, bad, do)
+    with pytest.raises(ValueError):
+        flash_backward(q, k, v, out, lse, do[:, :32])
+    assert not any(counters().values()), counters()
+
+
+def _train_losses(cfg, dev, steps=3, B=2, T=128, seed=0):
+    model = init_params(cfg, torch.Generator().manual_seed(seed), dev)
+    step = make_train_step(cfg, None, make_optimizer(model, 3e-4))
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, T)))
+    batch = {"tokens": tokens.to(dev),
+             "targets": torch.roll(tokens, -1, dims=1).to(dev)}
+    return [float(step(model, batch)) for _ in range(steps)]
+
+
+@pytest.mark.gpu
+def test_train_steps_on_card_match_cpu(cuda):
+    """Three f32 AdamW steps with flash attention and remat (hd 64, GQA,
+    two 64-row tiles): the card's losses equal the CPU's to 1e-5 relative,
+    the kernels launch 2L / L / L times per step, no plain version runs,
+    and a second run on the card gives the same losses bit for bit."""
+    cfg = LlamaConfig(vocab=256, d_model=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_ff=512, max_seq=128,
+                      dtype=torch.float32, attn_impl="flash", remat=True)
+    cpu = _train_losses(cfg, "cpu")
+    reset_counters()
+    card = _train_losses(cfg, cuda)
+    c = counters()
+    assert (c["flash_forward"], c["flash_backward_dq"],
+            c["flash_backward_dkv"]) == (2 * 2 * 3, 2 * 3, 2 * 3), c
+    assert not (c["flash_forward_reference"]
+                or c["flash_backward_reference"]), c
+    assert card == pytest.approx(cpu, rel=1e-5)
+    assert card[-1] < card[0]
+    assert _train_losses(cfg, cuda) == card
+    dense = _train_losses(dataclasses.replace(cfg, attn_impl="dense"), cuda)
+    assert dense == pytest.approx(card, rel=1e-4)

@@ -41,7 +41,8 @@ def test_every_module_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "k8s_gpu_scheduler_tpu_torch.models.proposers" in MODULES
-    assert len(MODULES) >= 13
+    assert "k8s_gpu_scheduler_tpu_torch.ops.flash_attention" in MODULES
+    assert len(MODULES) >= 14
 
 
 @pytest.mark.parametrize("path", SOURCES,

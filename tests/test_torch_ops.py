@@ -152,5 +152,5 @@ def test_quantize_llama_params_matches_jax():
 
 
 def test_moe_config_raises():
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="MoE, BERT and ResNet"):
         LlamaConfig(n_experts=4)
