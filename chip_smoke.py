@@ -25,12 +25,23 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    gives them) and train-hd64 (B 4, T 1024, H = Hkv = 16, hd 64), K5's
    f32 lse held to the f32 tolerance (2e-5); the yardstick is
    scaled_dot_product_attention with is_causal (K5) and its autograd
-   backward, which yields dq, dk and dv together (K6, K7).
+   backward, which yields dq, dk and dv together (K6, K7). And K4
+   (flash_decode_attention) over a contiguous cache of S 2048 with the
+   cursor at row 1024 and each slot's bitmap a 576-row window ending
+   there (a 512-token prompt plus 64 decode rows: what a slot holds in
+   the serve traffic), at the serve width and the GQA shape, bf16 and
+   int8, plus a no-bitmap case with ragged [B] lengths; its bound counts
+   the set rows only, and the bound of reading every row under the
+   cursor is printed beside it.
 2. the engine on the card against the engine on the CPU, a small f32
    config: plain, speculative (bigram, gamma 3) and chunked-prefill (2
    pages a step) engines; greedy streams, prefill_tokens_skipped and the
    accept counts must be identical, and the card must have run K2 and K3
-   and no plain version.
+   and no plain version. Then the contiguous path the same way: the
+   shared-cursor engine (through an FCFS stop and an epoch roll),
+   generate and generate_speculative; streams identical, the card's K4
+   and K3 launches equal to the CPU's plain-version calls (and to layers
+   x ticks), no plain version on the card.
 3. the main path at full width: the serve config (d_model 1024, 8 layers,
    16 heads, vocab 32000) in bf16 with 8 slots, page 64, chunk 64 and
    prefill bucket 512, 32 requests of 512-token prompts sharing a
@@ -61,11 +72,23 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    (against 989 TFLOP/s) and peak memory. Every loss must be finite, the
    last below the first, K5 launch 2·L (8) and K6 and K7 L (4) times per
    step, and no plain version run.
+7. the contiguous path at full width: the serve config in bf16,
+   kv_layout="contiguous", 8 slots, prefill bucket 512, chunk 64, the
+   serve loop's traffic: 32 requests of 512 tokens, max_new 64 (K4 must
+   launch layers x ticks times and no plain version run);
+   then 80 requests whose max_new is drawn from {64, 256}, so that slots
+   drain apart, the cursor climbs towards S and both an FCFS stop and an
+   epoch roll happen; a pass with int8 weights and an int8 KV cache;
+   make_server_step at B 1, prompt 512, max_new 64; and
+   generate_speculative at B 1 on phase 4's repeated-phrase prompt, gamma
+   4 (K3 through the paged view of the cache), with its tokens per verify
+   and how far its greedy stream agrees with generate's (bf16: near-ties
+   may part them; phase 2 holds the identity at f32).
 
-``--profile`` adds profiled serving runs (plain decode and speculative)
-and one profiled training step: the card's busy share and its time by
-kernel. ``--train-layers N`` runs phase 6 at depth N instead of 4, to
-measure how step time and peak memory grow with depth.
+``--profile`` adds profiled serving runs (plain decode, speculative and
+the contiguous engine) and one profiled training step: the card's busy
+share and its time by kernel. ``--train-layers N`` runs phase 6 at depth
+N instead of 4, to measure how step time and peak memory grow with depth.
 
 The line before the last is a JSON object listing every kernel with its
 launches on the main path, error and times; the last line is
@@ -97,6 +120,9 @@ KERNELS = {
     "paged_verify_attention": (
         "paged_attention.cu",
         "k8s_gpu_scheduler_tpu/ops/decode_attention.py:688"),
+    "flash_decode_attention": (
+        "flash_decode.cu",
+        "k8s_gpu_scheduler_tpu/ops/decode_attention.py:360"),
     "flash_forward": (
         "flash_attention.cu",
         "k8s_gpu_scheduler_tpu/ops/flash_attention.py:117"),
@@ -108,7 +134,7 @@ KERNELS = {
         "k8s_gpu_scheduler_tpu/ops/flash_attention.py:209"),
 }
 PLAIN = ("paged_decode_reference", "dense_prefill_reference",
-         "paged_verify_reference")
+         "paged_verify_reference", "flash_decode_reference")
 FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 FLASH_PLAIN = ("flash_forward_reference", "flash_backward_reference")
 
@@ -344,6 +370,66 @@ def verify_case(name, B, t, H, n_kv, hd, ps, n_blocks, int8, dev, flush,
                 **_bound(nbytes, flops, dtype))
 
 
+def flash_decode_case(name, B, H, n_kv, hd, S, int8, bitmap, dev, flush,
+                      cursor=1024, window=576, seed=4):
+    """K4 over a contiguous cache. ``bitmap``: the engine's call, a scalar
+    cursor and each slot's last ``window`` rows under it set; else the
+    ``cached_attention`` call, ragged [B] lengths and no bitmap."""
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, H, hd), generator=gen).to(dtype).to(dev)
+    k, v, sc = _pool(gen, B, S, n_kv, hd, dtype, int8, dev)
+    cols = torch.arange(S, device=dev)[None, :]
+    if bitmap:
+        lengths = cursor
+        mask = ((cols >= cursor - window) & (cols < cursor)).expand(B, S) \
+            .contiguous()
+        kw = dict(bitmap=mask, **sc)
+        under = B * cursor
+    else:
+        lens = torch.randint(1, S + 1, (B,), generator=gen)
+        lens[0], lens[-1] = S, 1
+        lengths = lens.to(torch.int32).to(dev)
+        mask = cols < lengths[:, None].long()
+        kw = dict(sc)
+        under = int(lens.sum())
+    out = da.flash_decode_attention(q, k, v, lengths, **kw)
+    ref = da.flash_decode_reference(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    err, ok = max_err(out, ref, TOL[dtype])
+    ms = time_ms(lambda: da.flash_decode_attention(q, k, v, lengths, **kw),
+                 flush)
+    plain_ms = time_ms(lambda: da.flash_decode_reference(
+        q, k, v, lengths, **kw), flush)
+    # Library yardstick: SDPA over the K/V dequantized and repeated to H
+    # heads beforehand, a boolean [B, 1, 1, S] mask.
+    K = _heads(_deq(k, sc.get("k_scale"), dtype), H)
+    V = _heads(_deq(v, sc.get("v_scale"), dtype), H)
+    m4 = mask[:, None, None, :]
+    q4 = q[:, :, None, :]
+    lib = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: lib(q4, K, V, attn_mask=m4), flush)
+    lib_err, _ = max_err(lib(q4, K, V, attn_mask=m4)[:, :, 0], ref,
+                         TOL[dtype])
+    live = int(mask.sum())                    # attendable rows, all slots
+    eb = 1 if int8 else 2
+
+    def kv_bytes(rows):
+        return rows * n_kv * hd * eb * 2 + (rows * n_kv * 4 * 2 if int8
+                                            else 0)
+
+    # q and the output, the lengths, the bitmap's bytes under the cursor.
+    fixed = B * H * hd * 2 * 2 + B * 4 + (under if bitmap else 0)
+    return dict(case=name, kernel="flash_decode_attention", int8=int8,
+                max_abs_err=err, tol=TOL[dtype], ok=ok, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
+                bound_under_cursor_ms=(fixed + kv_bytes(under))
+                / HBM_BYTES_PER_S * 1e3,
+                **_bound(fixed + kv_bytes(live), 4 * live * H * hd, dtype))
+
+
 def flash_cases(name, B, T, H, n_kv, hd, dev, flush, seed=3) -> list:
     """K5, K6 and K7 (causal, bf16) against their plain versions, each
     timed beside its plain version, the SDPA yardstick and its bound."""
@@ -450,6 +536,12 @@ def phase_kernels(dev) -> list:
                                  int8, dev, flush))
         cases.append(verify_case(f"gqa128-{tag}", 8, 5, 32, 8, 128, 64, 32,
                                  int8, dev, flush))
+        cases.append(flash_decode_case(f"serve-{tag}", 8, 16, 16, 64, 2048,
+                                       int8, True, dev, flush))
+        cases.append(flash_decode_case(f"gqa128-{tag}", 8, 32, 8, 128, 2048,
+                                       int8, True, dev, flush))
+    cases.append(flash_decode_case("serve-bf16-lengths", 8, 16, 16, 64, 2048,
+                                   False, False, dev, flush))
     cases += flash_cases("train-8b", 8, 2048, 32, 8, 128, dev, flush)
     cases += flash_cases("train-hd64", 4, 1024, 16, 16, 64, dev, flush)
     for c in cases:
@@ -460,7 +552,10 @@ def phase_kernels(dev) -> list:
             f"plain {c['plain_ms']:.4f} sdpa {c['library_ms']:.4f} (err "
             f"{c['library_err']:.1e}) bound "
             f"{c['bound_ms']:.4f} ({c['bound_by']}) "
-            f"{'ok' if c['ok'] else 'MISMATCH'}")
+            + (f"[every row under the cursor "
+               f"{c['bound_under_cursor_ms']:.4f}] "
+               if "bound_under_cursor_ms" in c else "")
+            + f"{'ok' if c['ok'] else 'MISMATCH'}")
     bad = [c["kernel"] + ":" + c["case"] for c in cases if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
@@ -469,10 +564,15 @@ def phase_kernels(dev) -> list:
 
 # -- phases 2 and 3: the engine ---------------------------------------------------
 
+def per_request(max_new, n) -> list:
+    return list(max_new) if np.ndim(max_new) else [max_new] * n
+
+
 def drive(eng, prompts, max_new):
-    """Submit ``prompts`` and step the engine dry; returns the streams in
-    submission order."""
-    ids = [eng.submit(p, max_new=max_new) for p in prompts]
+    """Submit ``prompts`` (``max_new`` one budget or one per request) and
+    step the engine dry; returns the streams in submission order."""
+    ids = [eng.submit(p, max_new=int(m))
+           for p, m in zip(prompts, per_request(max_new, len(prompts)))]
     done = {}
     while eng.pending:
         done.update(eng.step())
@@ -548,12 +648,89 @@ def phase_engine_vs_cpu(dev) -> dict:
     return out
 
 
+def phase_contiguous_vs_cpu(dev) -> dict:
+    """The contiguous path, on the CPU and on the card, f32: the
+    shared-cursor engine (exact and int8 KV; through an FCFS stop and an
+    epoch roll), ``generate`` and ``generate_speculative``. Streams must be
+    identical; every plain-version call of the CPU run must be one kernel
+    launch on the card (K4: layers x ticks; K3: layers x verifies), and
+    the card must call no plain version."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+    from k8s_gpu_scheduler_tpu_torch.models.serving import (
+        ContinuousBatcher, generate, generate_speculative)
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    cfg = LlamaConfig(vocab=256, d_model=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_ff=512, max_seq=256,
+                      dtype=torch.float32, decode_attn="fused", remat=False)
+    requests = [(5, 9), (7, 33), (12, 5), (9, 9), (40, 6), (3, 1), (6, 13),
+                (33, 5), (8, 8)]
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(0, cfg.vocab, n)) for n, _ in requests]
+    budgets = [m for _, m in requests]
+    batch = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 9)))
+    phrase = torch.from_numpy(np.tile(rng.integers(0, cfg.vocab, 6), 5)[None])
+    launched = {"flash_decode_reference": "flash_decode_attention",
+                "paged_verify_reference": "paged_verify_attention"}
+
+    def engine(model, where, **kw):
+        eng = ContinuousBatcher(model, cfg, n_slots=3, max_len=64, chunk=4,
+                                prefill_bucket=16, kv_layout="contiguous",
+                                device=where, **kw)
+        streams = drive(eng, prompts, budgets)
+        if not (eng.fcfs_stops and eng.epoch_rolls):
+            raise SystemExit(f"the small contiguous traffic missed an FCFS "
+                             f"stop or an epoch roll: {eng.fcfs_stops}, "
+                             f"{eng.epoch_rolls}")
+        return streams
+
+    runs = {
+        "engine": lambda m, w: engine(m, w),
+        "engine-int8kv": lambda m, w: engine(m, w, kv_dtype="int8"),
+        "generate": lambda m, w: generate(
+            m, batch, cfg, max_new=12, max_len=64).tolist(),
+        "generate_speculative": lambda m, w: generate_speculative(
+            m, phrase, cfg, max_new=24, gamma=3, max_len=64).tolist(),
+    }
+    out = {}
+    for name, fn in runs.items():
+        got = []
+        for where in ("cpu", dev):
+            model = init_params(cfg, torch.Generator().manual_seed(0), where)
+            da.reset_counters()
+            streams = fn(model, where)
+            got.append((streams, {k: v for k, v in da.counters().items()
+                                  if v}))
+        (cpu, cpu_c), (gpu, gpu_c) = got
+        log(f"  {name}: cpu calls {cpu_c}, gpu launches {gpu_c}")
+        if gpu != cpu:
+            raise SystemExit(f"{name} on the card diverges from the CPU:\n"
+                             f"  gpu {gpu}\n  cpu {cpu}")
+        want = {launched[k]: v for k, v in cpu_c.items()}
+        if gpu_c != want or not want:
+            raise SystemExit(f"{name} on the card launched {gpu_c}, want "
+                             f"{want} and no plain version")
+        out[name] = dict(tokens=sum(map(len, gpu)), launches=gpu_c)
+    want = cfg.n_layers * (12 - 1)
+    if out["generate"]["launches"] != {"flash_decode_attention": want}:
+        raise SystemExit(f"generate launched {out['generate']['launches']}, "
+                         f"want K4 x {want} (layers x decoded tokens)")
+    model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    kw = dict(max_new=24, max_len=64)
+    if generate_speculative(model, phrase, cfg, gamma=3, **kw).tolist() \
+            != generate(model, phrase, cfg, **kw).tolist():
+        raise SystemExit("generate_speculative diverges from generate (f32)")
+    return out
+
+
 class _DecodeTimer:
     """Times the engine's decode-chunk and verify dispatches on the host
     clock, synchronised at both ends, by wrapping the module functions the
     engine calls for the duration of a ``with`` block."""
 
-    NAMES = ("_decode_chunk_paged_fn", "_verify_chunk_paged_fn")
+    NAMES = ("_decode_chunk_paged_fn", "_verify_chunk_paged_fn",
+             "_decode_chunk_fn")
 
     def __enter__(self):
         from k8s_gpu_scheduler_tpu_torch.models import serving
@@ -585,14 +762,16 @@ def serve_run(model, cfg, prompts, max_new, **kw):
     Decode tokens are every emitted token but each request's first (the
     prefill's); ``decode_tokens_per_s`` divides them by the time spent in
     decode-chunk or verify dispatches. ``kw`` overrides the engine's
-    settings (8 slots, chunk = max_new, prefill bucket 512, page 64,
-    prefix cache on)."""
+    settings (8 slots, chunk = the largest max_new, prefill bucket 512,
+    and for the paged layout page 64 with the prefix cache on)."""
     from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
     from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
 
+    paged = kw.get("kv_layout", "paged") == "paged"
     eng = ContinuousBatcher(model, cfg, device=model.device, **{
-        **dict(n_slots=8, max_len=cfg.max_seq, chunk=max_new,
-               prefill_bucket=512, page_size=64, prefix_cache=True), **kw})
+        **dict(n_slots=8, max_len=cfg.max_seq, chunk=int(np.max(max_new)),
+               prefill_bucket=512),
+        **(dict(page_size=64, prefix_cache=True) if paged else {}), **kw})
     torch.cuda.synchronize()
     da.reset_counters()
     t0 = time.perf_counter()
@@ -603,22 +782,24 @@ def serve_run(model, cfg, prompts, max_new, **kw):
     counts = da.counters()
     metrics = eng.pop_request_metrics()
     ttft = sorted(m["ttft_s"] for m in metrics.values())
-    pool = eng.pool_metrics()
-    eng._alloc.assert_consistent()
     n_tok = sum(map(len, streams))
-    spec = {k: pool[k] for k in ("spec_accept_rate",
-                                 "spec_tokens_per_dispatch",
-                                 "spec_rewound_tokens_total") if k in pool}
-    return streams, dict(
+    st = dict(
         requests=len(prompts), tokens=n_tok, wall_s=wall,
         tokens_per_s=n_tok / wall, decode_s=dec.seconds,
         decode_tokens_per_s=(n_tok - len(prompts)) / dec.seconds,
-        ttft_p50_ms=1e3 * ttft[len(ttft) // 2],
-        prefill_tokens_skipped=pool["prefill_tokens_skipped"],
-        prefill_chunks_total=pool["prefill_chunks_total"], **spec,
-        rungs={f"{tb}x{hb}": n for (tb, hb), n in
-               sorted(eng.prefill_rungs.items())},
-        launches=counts)
+        ttft_p50_ms=1e3 * ttft[len(ttft) // 2], launches=counts)
+    if paged:
+        pool = eng.pool_metrics()
+        eng._alloc.assert_consistent()
+        st.update({k: pool[k] for k in (
+            "prefill_tokens_skipped", "prefill_chunks_total",
+            "spec_accept_rate", "spec_tokens_per_dispatch",
+            "spec_rewound_tokens_total") if k in pool})
+        st["rungs"] = {f"{tb}x{hb}": n for (tb, hb), n in
+                       sorted(eng.prefill_rungs.items())}
+    else:
+        st.update(epoch_rolls=eng.epoch_rolls, fcfs_stops=eng.fcfs_stops)
+    return streams, st
 
 
 def phase_full_width(dev, card) -> dict:
@@ -665,8 +846,8 @@ def phase_full_width(dev, card) -> dict:
 
 
 def malformed(streams, max_new, vocab) -> bool:
-    return any(len(s) != max_new or min(s) < 0 or max(s) >= vocab
-               for s in streams)
+    return any(len(s) != m or min(s) < 0 or max(s) >= vocab
+               for s, m in zip(streams, per_request(max_new, len(streams))))
 
 
 SPEC_ENGINE = dict(speculative=True, gamma=4, proposer="bigram",
@@ -731,6 +912,114 @@ def phase_speculative(dev, card) -> dict:
             or malformed(ch_streams, 16, cfg.vocab):
         raise SystemExit(f"chunked-prefill run failed: {ch}")
     return dict(spec=st, off=off, chunked=ch)
+
+
+CONTIGUOUS_ENGINE = dict(kv_layout="contiguous", chunk=64)
+
+
+def phase_contiguous_full_width(dev, card, profile_too) -> dict:
+    """The contiguous path at full width (phase 7): the serve loop's
+    traffic through the shared-cursor engine (K4), a mixed-length run that
+    reaches an FCFS stop and an epoch roll, an int8 pass, then the
+    single-sequence server steps (K4 at B = 1; K3 from
+    ``generate_speculative``)."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+    from k8s_gpu_scheduler_tpu_torch.models.serving import (
+        make_server_step, make_speculative_server_step)
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+    from k8s_gpu_scheduler_tpu_torch.ops.quant import quantize_llama_params
+
+    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    rng = np.random.default_rng(3)
+    max_new = 64
+
+    def random_prompts(n, length=512):
+        return [list(rng.integers(0, cfg.vocab, length)) for _ in range(n)]
+
+    def check(label, streams, st, budgets, ticks):
+        c = st["launches"]
+        log(f"  [{card}] {label}: {json.dumps(st)}")
+        only = {k: v for k, v in c.items() if v}
+        if only != {"flash_decode_attention": cfg.n_layers * ticks}:
+            raise SystemExit(f"{label}: launched {only}, want K4 x "
+                             f"{cfg.n_layers} layers x {ticks} ticks and "
+                             f"nothing else")
+        if malformed(streams, budgets, cfg.vocab):
+            raise SystemExit(f"{label}: malformed streams")
+
+    serve_run(model, cfg, random_prompts(8), max_new, **CONTIGUOUS_ENGINE)
+    prompts = random_prompts(32)
+    # Eight requests admit at the epoch start, decode one 64-tick chunk
+    # and drain together: 4 waves of 64 ticks.
+    streams, st = serve_run(model, cfg, prompts, max_new,
+                            **CONTIGUOUS_ENGINE)
+    check("bf16, 32 x (512 + 64)", streams, st, max_new, 4 * 64)
+    if profile_too:
+        log("profile: where a contiguous serving run's device time goes")
+        profiled(card, "contiguous decode", lambda: serve_run(
+            model, cfg, prompts[:16], max_new, **CONTIGUOUS_ENGINE))
+    # Budgets drawn from {64, 256}: slots drain apart, the cursor climbs
+    # past S - 256 with requests still queued (an FCFS stop), the slots
+    # drain and the epoch rolls. 64 requests finish inside one epoch; 80
+    # do not.
+    budgets = [int(b) for b in rng.choice([64, 256], 80)]
+    mixed, mst = serve_run(model, cfg, random_prompts(80), budgets,
+                           **CONTIGUOUS_ENGINE)
+    ticks = mst["launches"]["flash_decode_attention"] // cfg.n_layers
+    check("bf16, 80 x (512 + {64, 256})", mixed, mst, budgets, ticks)
+    if ticks % 64 or not (mst["fcfs_stops"] and mst["epoch_rolls"]):
+        raise SystemExit(f"the mixed run missed an FCFS stop or an epoch "
+                         f"roll, or a chunk was cut: {mst}")
+    log(f"  [{card}] mixed run: {mst['fcfs_stops']} FCFS stops, "
+        f"{mst['epoch_rolls']} epoch rolls, {ticks} ticks")
+    qmodel = quantize_llama_params(model)
+    qs, qst = serve_run(qmodel, cfg, prompts[:16], max_new, kv_dtype="int8",
+                        **CONTIGUOUS_ENGINE)
+    check("int8 weights + int8 KV, 16 x (512 + 64)", qs, qst, max_new,
+          2 * 64)
+    del qmodel
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        da.reset_counters()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out.tolist(), time.perf_counter() - t, {
+            k: v for k, v in da.counters().items() if v}
+
+    one = torch.as_tensor(np.asarray(random_prompts(1)), device=dev)
+    step = make_server_step(cfg, None, max_new)
+    step(model, one)                                         # warm-up
+    toks, secs, c = timed(step, model, one)
+    log(f"  [{card}] make_server_step B 1, 512 + 64: {secs * 1e3:.1f} ms, "
+        f"{max_new / secs:.1f} tokens/s, launches {c}")
+    if c != {"flash_decode_attention": cfg.n_layers * (max_new - 1)} \
+            or malformed(toks, max_new, cfg.vocab):
+        raise SystemExit(f"make_server_step: launches {c}")
+    phrase = torch.as_tensor(np.asarray(repeated_phrases(
+        np.random.default_rng(2), cfg.vocab, 1)), device=dev)
+    spec_step = make_speculative_server_step(cfg, max_new, gamma=4)
+    spec_step(model, phrase)                                 # warm-up
+    spec, spec_s, sc = timed(spec_step, model, phrase)
+    plain, plain_s, _ = timed(step, model, phrase)
+    verifies = sc.get("paged_verify_attention", 0) // cfg.n_layers
+    agree = next((i for i, (a, b) in enumerate(zip(spec[0], plain[0]))
+                  if a != b), max_new)
+    gs = dict(k3_launches=sc.get("paged_verify_attention", 0),
+              verifies=verifies,
+              tokens_per_verify=(max_new - 1) / max(verifies, 1),
+              spec_ms=spec_s * 1e3, generate_ms=plain_s * 1e3,
+              greedy_identical=spec == plain, agreeing_prefix=agree)
+    log(f"  [{card}] generate_speculative B 1, 128 + 64, gamma 4: "
+        f"{json.dumps(gs)}")
+    if set(sc) != {"paged_verify_attention"} or not verifies \
+            or sc["paged_verify_attention"] % cfg.n_layers \
+            or malformed(spec, max_new, cfg.vocab):
+        raise SystemExit(f"generate_speculative: launches {sc}")
+    return dict(bf16=st, mixed=mst, int8=qst, generate_speculative=gs)
 
 
 def profiled(card, label, fn) -> None:
@@ -942,6 +1231,8 @@ def main() -> int:
         "(f32, TF32 off)")
     e2 = phase_engine_vs_cpu(dev)
     log(f"  identical greedy streams: {json.dumps(e2)}")
+    log(f"  contiguous path, identical greedy streams: "
+        f"{json.dumps(phase_contiguous_vs_cpu(dev))}")
     log("phase 3: full-width serve config, bf16")
     full = phase_full_width(dev, card)
     log("phase 4: full-width speculative path, bf16")
@@ -955,12 +1246,16 @@ def main() -> int:
     log(f"phase 6: full-width training path (llama3_8b widths, "
         f"{train_layers} layers), bf16")
     train = phase_train_full_width(dev, card, profile_too, train_layers)
+    log("phase 7: full-width contiguous path, bf16")
+    contig = phase_contiguous_full_width(dev, card, profile_too)
     # Each kernel's launches come from the run of the path that runs it:
-    # K1 and K2 from phase 3's main path, K3 from phase 4's, K5-K7 from
-    # phase 6's timed steps.
+    # K1 and K2 from phase 3's main path, K3 from phase 4's, K4 from phase
+    # 7's serve-loop run, K5-K7 from phase 6's timed steps.
     launches = dict(full["bf16"]["launches"])
     launches["paged_verify_attention"] = \
         spec["spec"]["launches"]["paged_verify_attention"]
+    launches["flash_decode_attention"] = \
+        contig["bf16"]["launches"]["flash_decode_attention"]
     launches.update({k: train["launches"][k] for k in FLASH})
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,7 +1,10 @@
-"""Paged, prefix-cached continuous batching for the Llama decoder (port of
-the JAX package's ``models/serving.py``, single-device paged path).
+"""Serving for the Llama decoder (port of the JAX package's
+``models/serving.py``, single device): the single-sequence functions
+(``generate``, ``generate_speculative`` and their server steps) and
+continuous batching over two cache layouts.
 
-A request goes through four steps:
+**Paged, prefix-cached** (``kv_layout="paged"``, the default). A request
+goes through four steps:
 
 1. admission (``ContinuousBatcher._admit_paged``): free slot, free pages
    from ``PageAllocator``, and the longest cached page-aligned prefix from
@@ -22,20 +25,39 @@ A request goes through four steps:
 4. reaping (``_free_slot_pages``/``_retire_pages``): pages are freed and
    the conversation's full pages donated into the radix tree.
 
-The pool ``[L, n_pages, ps, Hkv, hd]`` is updated in place by each
-dispatch (JAX donated and replaced it; in place keeps one copy). Token
-reads are deferred exactly as in the JAX engine (``_reads``/``_flush``):
-a step enqueues its result tensors and ``step()`` reads them once, so the
+**Contiguous, shared cursor** (``kv_layout="contiguous"``). The caches are
+``[L, B, S, Hkv, hd]`` and every slot writes its decode row at ONE scalar
+cursor; slots at different request offsets are reconciled by a per-slot
+``rope_pos`` and a validity bitmap ``[B, S]`` that masks attention to the
+rows each slot wrote. Admission (``_step_contiguous``) writes the prompt
+backward from the cursor into the freed slot's rows
+(``_prefill_multi_fn``), strictly first come first served; decode chunks
+(``_decode_chunk_fn``) run one K4 launch (``ops.flash_decode_attention``,
+``cursor + 1`` and the bitmap) per layer per tick; when every slot has
+drained, the cursor and the bitmap reset (an epoch roll).
+
+**Single sequence.** ``generate`` prefills a ``[B, T]`` prompt batch and
+decodes greedily through ``forward_with_cache`` (K4 per layer per token
+with ``cfg.decode_attn="fused"``); ``generate_speculative`` (B = 1)
+proposes by bigram lookup and verifies each 1 + gamma window in one
+forward, K3 over the contiguous cache viewed as pages
+(``ops.contiguous_as_paged``).
+
+The pool and the caches are updated in place by each dispatch (JAX
+donated and replaced them; in place keeps one copy). Token reads are
+deferred exactly as in the JAX engine (``_reads``/``_flush``): a step
+enqueues its result tensors and ``step()`` reads them once, so the
 decoded-suffix donation sees the same flushed tokens and the prefix-cache
 counters match the JAX engine's on the same trace. Random draws come from
-``torch.Generator``s seeded from (engine seed, stream, dispatch, tick or
-slot); there is no global RNG.
+``torch.Generator``s seeded from (seed, stream, dispatch or position, tick
+or slot); there is no global RNG.
 """
 from __future__ import annotations
 
 import math
 import time
 from collections import OrderedDict
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -43,7 +65,8 @@ import torch
 
 from ..device import resolve_device
 from ..ops.decode_attention import (
-    DEFAULT_PAGE_SIZE, paged_decode_attention, paged_plan,
+    DEFAULT_PAGE_SIZE, contiguous_as_paged, decode_plan,
+    flash_decode_attention, paged_decode_attention, paged_plan,
     paged_prefill_attention, paged_verify_attention,
 )
 from ..ops.layers import apply_rope, rms_norm, rope_freqs
@@ -85,12 +108,34 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
 
 
 def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, pos: int, impl: str = "dense",
+                     verify: bool = False) -> torch.Tensor:
     """q [B, t, H, hd] at absolute positions pos..pos+t-1 against the cache
-    [B, S, Hkv, hd], masked to entries <= each query's position. The
-    grouped dense path (GQA through a [B, Hkv, g, ...] head axis)."""
+    [B, S, Hkv, hd], masked to entries <= each query's position.
+
+    ``impl="fused"`` routes the decode shape (t == 1) through K4
+    (``flash_decode_attention`` at ``pos + 1``) and, with ``verify=True``,
+    the speculative 1 + gamma window (t > 1) through K3
+    (``paged_verify_attention``), the contiguous cache viewed as a page
+    pool of ``decode_plan(S)``'s block size with an ``arange`` table. An S
+    that no such block divides raises on that route. Every other t > 1
+    call is a prefill and takes the grouped dense path (GQA through a
+    [B, Hkv, g, ...] head axis), as does ``impl="dense"``."""
     b, t, n_heads, d = q.shape
     s, h_kv = k_cache.shape[1], k_cache.shape[2]
+    if impl == "fused" and t == 1:
+        return flash_decode_attention(q[:, 0], k_cache, v_cache,
+                                      int(pos) + 1)[:, None]
+    if impl == "fused" and verify and t > 1:
+        plan = decode_plan(s)
+        if plan is None:
+            raise ValueError(
+                f"decode_attn='fused': the verify window needs a cache "
+                f"capacity divisible by a power of two from 8 to 256, got "
+                f"S={s}")
+        kp, table = contiguous_as_paged(k_cache, plan[0])
+        vp, _ = contiguous_as_paged(v_cache, plan[0])
+        return paged_verify_attention(q, kp, vp, table, int(pos))
     g = n_heads // h_kv
     qg = q.reshape(b, t, h_kv, g, d)
     scale = 1.0 / (d ** 0.5)
@@ -114,10 +159,13 @@ def _qkv(cfg: LlamaConfig, h: torch.Tensor, blk: Block, angles: torch.Tensor,
 
 
 def forward_with_cache(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
-                       cache: Dict[str, object]):
+                       cache: Dict[str, object], verify: bool = False):
     """tokens [B, t] starting at absolute position ``cache["len"]`` →
     (logits [B, t, vocab] f32, cache). The cache's K/V are written in
-    place; the returned dict carries the advanced length."""
+    place; the returned dict carries the advanced length. Attention
+    follows ``cfg.decode_attn`` (``cached_attention``); ``verify=True``
+    marks a speculative 1 + gamma window, which is how the fused route
+    tells it from a prefill."""
     B, t = tokens.shape
     pos = int(cache["len"])
     angles = rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
@@ -129,12 +177,48 @@ def forward_with_cache(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
         q, k, v = _qkv(cfg, h, blk, angles, (B, t))
         k_all[layer, :, pos:pos + t] = k
         v_all[layer, :, pos:pos + t] = v
-        attn = cached_attention(q, k_all[layer], v_all[layer], pos)
+        attn = cached_attention(q, k_all[layer], v_all[layer], pos,
+                                impl=cfg.decode_attn, verify=verify)
         x = x + qdot(attn.reshape(B, t, cfg.n_heads * cfg.head_dim), blk.wo)
         x = mlp_sublayer(cfg, x, blk)
     x = rms_norm(x, model.final_norm)
     logits = qdot(x, model.lm_head).float()
     return logits, {"k": k_all, "v": v_all, "len": pos + t}
+
+
+@torch.no_grad()
+def generate(model: Llama, prompt, cfg: LlamaConfig, max_new: int,
+             mesh=None, max_len: Optional[int] = None) -> torch.Tensor:
+    """Greedy decode on the model's device: prefill the prompt [B, Tp],
+    then one single-token forward per new token. Returns [B, max_new]
+    token ids in the prompt's dtype."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh is not ported yet: it comes with the multi-device slice")
+    prompt = torch.as_tensor(prompt, device=model.device)
+    B, t_prompt = prompt.shape
+    S = min(max_len or cfg.max_seq, cfg.max_seq)
+    if t_prompt + max_new > S:
+        raise ValueError(
+            f"prompt ({t_prompt}) + max_new ({max_new}) exceeds cache/rope "
+            f"capacity ({S})")
+    cache = init_cache(cfg, B, S, device=model.device)
+    logits, cache = forward_with_cache(model, prompt, cfg, cache)
+    toks = [torch.argmax(logits[:, -1], dim=-1)]
+    for _ in range(max_new - 1):
+        logits, cache = forward_with_cache(model, toks[-1][:, None], cfg,
+                                           cache)
+        toks.append(torch.argmax(logits[:, -1], dim=-1))
+    return torch.stack(toks, dim=1)[:, :max_new].to(prompt.dtype)
+
+
+def make_server_step(cfg: LlamaConfig, mesh, max_new: int,
+                     max_len: Optional[int] = None):
+    """Request handler: (model, prompt [B, Tp]) → [B, max_new]."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh is not ported yet: it comes with the multi-device slice")
+    return partial(generate, cfg=cfg, max_new=max_new, max_len=max_len)
 
 
 def _kv_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -168,6 +252,115 @@ def _sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
     return torch.argmax(logits + gumbel, dim=-1)
+
+
+def _bigram_lookup(seq: np.ndarray, n: int, gamma: int) -> np.ndarray:
+    """Prompt-lookup proposal over the decided tokens ``seq[:n]``: the
+    latest j <= n - 2 with seq[j-1:j+1] == seq[n-2:n] guesses
+    seq[j+1 : j+1+gamma]; with no match the guess is seq[1 : 1+gamma]
+    (garbage the verify rejects). Rows at and past n are scratch."""
+    a, b = seq[n - 2], seq[n - 1]
+    hits = np.flatnonzero((seq[:n - 2] == a) & (seq[1:n - 1] == b))
+    j = int(hits[-1]) + 1 if hits.size else 0
+    return seq[j + 1:j + 1 + gamma]
+
+
+@torch.no_grad()
+def generate_speculative(model: Llama, prompt, cfg: LlamaConfig, max_new: int,
+                         gamma: int = 4, max_len: Optional[int] = None,
+                         temperature: float = 0.0, top_k: int = 0,
+                         seed: int = 0) -> torch.Tensor:
+    """Decode one request (B = 1) with prompt-lookup speculation: each
+    iteration proposes ``gamma`` tokens by bigram match against the
+    sequence so far and verifies them in one (1 + gamma)-token forward
+    (``verify=True``: K3 with ``cfg.decode_attn="fused"``).
+
+    ``temperature == 0`` accepts the longest prefix that agrees with the
+    verify pass's own argmax, plus the model's token at the first
+    disagreement: the output equals ``generate``'s up to float near-ties.
+    ``temperature > 0`` runs speculative-sampling rejection in its
+    deterministic-proposer (delta-q) form against the temperature/top-k
+    target law: proposal i accepts with probability p_i[prop_i], the first
+    rejection resamples from p with the proposed token zeroed, a full
+    accept draws the bonus token from p_gamma. Draws come from a generator
+    keyed by (seed, decided-token count), so a seed replays its stream.
+
+    The accept length decides the next proposal, so every iteration reads
+    back once. The rewind sets ``cache["len"]``: stale rows above it lie
+    inside the next verify's write window and are rewritten before any
+    query can attend them. Returns [1, max_new] in the prompt's dtype."""
+    dev = model.device
+    prompt = torch.as_tensor(prompt, device=dev)
+    B, t_prompt = prompt.shape
+    if B != 1:
+        raise ValueError(f"speculative decode is single-request (B=1), got {B}")
+    S = min(max_len or cfg.max_seq, cfg.max_seq)
+    if t_prompt + max_new + gamma > S:
+        # Overshoot room: a verify may write gamma rows past the last
+        # accepted position before the rewind.
+        raise ValueError(
+            f"prompt ({t_prompt}) + max_new ({max_new}) + gamma ({gamma}) "
+            f"exceeds cache/rope capacity ({S})")
+    if cfg.decode_attn == "fused" and decode_plan(S) is None:
+        raise ValueError(
+            f"decode_attn='fused': the verify window needs a cache capacity "
+            f"divisible by a power of two from 8 to 256, got S={S}")
+    sampled = temperature > 0.0
+    seq = np.zeros(t_prompt + max_new + gamma + 1, np.int64)
+    seq[:t_prompt] = prompt[0].cpu().numpy()
+    cache = init_cache(cfg, 1, S, device=dev)
+    logits, cache = forward_with_cache(model, prompt, cfg, cache)
+    gen = _generator(dev, seed, 3, t_prompt) if sampled else None
+    seq[t_prompt] = int(_sample_tokens(logits[0, -1], gen, temperature,
+                                       top_k))
+    # Invariant: seq[:n] are decided tokens; the cache holds K/V for
+    # seq[:n-1] (the newest token is fed to the next forward).
+    n = t_prompt + 1
+    while n - t_prompt < max_new:
+        prop = torch.as_tensor(_bigram_lookup(seq, n, gamma), device=dev)
+        window = torch.cat([torch.as_tensor(seq[n - 1:n], device=dev), prop])
+        logits, cache = forward_with_cache(model, window[None], cfg, cache,
+                                           verify=True)
+        if sampled:
+            p = torch.softmax(_shaped_logits(logits[0], temperature, top_k),
+                              dim=-1)                       # [1+gamma, V]
+            gen = _generator(dev, seed, 3, n)
+            u = torch.rand((gamma,), generator=gen, device=dev)
+            p_prop = p[:gamma].gather(-1, prop[:, None])[:, 0]
+            accept = torch.cumprod((u < p_prop).long(), dim=0).sum()
+            p_at = p[accept]
+            rej = prop[torch.clamp(accept, max=gamma - 1)]
+            resid = p_at * (1.0 - torch.nn.functional.one_hot(
+                rej, p.shape[-1]).to(p_at.dtype))
+            dist = torch.where(accept >= gamma, p_at, resid)
+            corr = _sample_tokens(torch.log(dist + 1e-20), gen, 1.0, 0)
+            toks = torch.where(torch.arange(1 + gamma, device=dev) == accept,
+                               corr, torch.cat([prop, prop[-1:]]))
+        else:
+            toks = torch.argmax(logits[0], dim=-1)
+            accept = torch.cumprod((prop == toks[:-1]).long(), dim=0).sum()
+        got = torch.cat([toks, accept[None]]).cpu().numpy()  # the read-back
+        accept = int(got[-1])
+        # The whole window is written and n advances by accept + 1 only:
+        # rows past it are scratch, overwritten before they are read as
+        # decided tokens.
+        seq[n:n + 1 + gamma] = got[:-1]
+        cache["len"] = n + accept            # rewind to the accepted prefix
+        n += accept + 1
+    out = seq[None, t_prompt:t_prompt + max_new]
+    return torch.as_tensor(out, device=dev).to(prompt.dtype)
+
+
+def make_speculative_server_step(cfg: LlamaConfig, max_new: int,
+                                 gamma: int = 4,
+                                 max_len: Optional[int] = None,
+                                 temperature: float = 0.0, top_k: int = 0,
+                                 seed: int = 0):
+    """Request handler: (model, prompt [1, Tp]) → [1, max_new], the
+    ``make_server_step`` analogue of the speculative path."""
+    return partial(generate_speculative, cfg=cfg, max_new=max_new,
+                   gamma=gamma, max_len=max_len, temperature=temperature,
+                   top_k=top_k, seed=seed)
 
 
 def _decode_chunk_paged_fn(model: Llama, cfg: LlamaConfig, chunk: int,
@@ -453,10 +646,137 @@ def _prefill_multi_paged_fn(model: Llama, cfg: LlamaConfig, page_size: int,
     return lens, last, firsts
 
 
+def _decode_chunk_fn(model: Llama, cfg: LlamaConfig, chunk: int, k, v, k_s,
+                     v_s, bitmap: torch.Tensor, cursor: int,
+                     rope_pos: torch.Tensor, last: torch.Tensor,
+                     active: torch.Tensor, angles_full: torch.Tensor,
+                     seed: Tuple[int, ...], temperature: float = 0.0,
+                     top_k: int = 0):
+    """Advance every active slot ``chunk`` tokens against the contiguous
+    caches k/v [L, B, S, Hkv, hd] (written in place, as is ``bitmap``
+    [B, S]). Every slot's row of a tick is written at the one shared
+    ``cursor`` — an inactive slot's too, garbage that is never marked
+    valid — and the row's bit is set for active slots before attention,
+    so the new token attends itself. Attention is K4 at ``cursor + 1``
+    with the bitmap: the cursor bounds every set bit, the bitmap picks
+    each slot's own rows. ``rope_pos`` [B] is the slot's request-relative
+    position. ``k_s``/``v_s`` [L, B, S, Hkv, 1] switch to int8 caches
+    whose rows are quantised at the write. Returns (rope_pos, last,
+    emitted [B, chunk] with -1 for inactive slots); the caller advances
+    its cursor by ``chunk``."""
+    quant = k_s is not None
+    B = last.shape[0]
+    S = k.shape[2]
+    if cursor < 0 or cursor + chunk > S:
+        raise ValueError(f"decode chunk rows {cursor}..{cursor + chunk - 1} "
+                         f"leave the cache (S={S})")
+    dev = last.device
+    hidden = cfg.n_heads * cfg.head_dim
+    toks = []
+    for tick in range(chunk):
+        row = cursor + tick
+        bitmap[:, row] |= active
+        x = model.embed[last[:, None]].to(cfg.dtype)            # [B, 1, D]
+        # A finished slot's stale rope_pos may sit at S: clamp the lookup.
+        angles = angles_full[torch.clamp(rope_pos, max=S - 1)][:, None]
+        for layer, blk in enumerate(model.blocks):
+            h = rms_norm(x, blk.attn_norm)
+            q, kk, vv = _qkv(cfg, h, blk, angles, (B, 1))
+            scales = {}
+            if quant:
+                kq, ksn = _kv_quant(kk[:, 0])
+                vq, vsn = _kv_quant(vv[:, 0])
+                k[layer][:, row] = kq
+                v[layer][:, row] = vq
+                k_s[layer][:, row] = ksn
+                v_s[layer][:, row] = vsn
+                scales = dict(k_scale=k_s[layer], v_scale=v_s[layer])
+            else:
+                k[layer][:, row] = kk[:, 0]
+                v[layer][:, row] = vv[:, 0]
+            attn = flash_decode_attention(q[:, 0], k[layer], v[layer],
+                                          row + 1, bitmap=bitmap, **scales)
+            x = x + qdot(attn.reshape(B, 1, hidden), blk.wo)
+            x = mlp_sublayer(cfg, x, blk)
+        x = rms_norm(x, model.final_norm)
+        logits = qdot(x[:, 0], model.lm_head).float()
+        gen = (_generator(dev, *seed, tick) if temperature > 0 else None)
+        nxt = _sample_tokens(logits, gen, temperature, top_k).to(last.dtype)
+        toks.append(torch.where(active, nxt, -1))
+        last = torch.where(active, nxt, last)
+        rope_pos = rope_pos + active.to(rope_pos.dtype)
+    return rope_pos, last, torch.stack(toks, dim=1)
+
+
+def _prefill_multi_fn(model: Llama, cfg: LlamaConfig, k, v, k_s, v_s,
+                      bitmap: torch.Tensor, rope_pos: torch.Tensor,
+                      last: torch.Tensor, slots, cursors, tokens: np.ndarray,
+                      real_lens, seed: Tuple[int, ...],
+                      temperature: float = 0.0, top_k: int = 0):
+    """Prefill M freed slots of the contiguous caches from right-padded
+    prompts [M, tb] in one dispatch: every prompt's K/V is computed in a
+    batched mini cache (rope from 0, ``forward_with_cache``), then each
+    entry's tb rows are written into its slot's window ending at its
+    cursor (rows cursor - real_len .. cursor - real_len + tb - 1). Only
+    the real_len prompt rows are marked valid; the padded tail lands ahead
+    of the cursor and is overwritten by the slot's own decode steps before
+    it could be attended. Entries apply in order, so a slot that repeats
+    within the dispatch (freed by a max_new == 1 entry and reused) ends
+    with its last entry's state. The caches, ``bitmap``, ``rope_pos`` and
+    ``last`` are written in place.
+
+    Per entry the host guarantees cursor >= real_len and cursor - real_len
+    + tb <= S; a breach raises. int8 caches quantise the prompt's K/V
+    once on the way in: prefill math is untouched.
+
+    Returns firsts [M]: each entry's first token from the logits at its
+    last prompt position (sampled by a generator keyed by slot)."""
+    quant = k_s is not None
+    dev = last.device
+    S = k.shape[2]
+    M, tb = tokens.shape
+    for slot, cursor, real_len in zip(slots, cursors, real_lens):
+        if not (1 <= real_len <= cursor and cursor - real_len + tb <= S):
+            raise ValueError(
+                f"prefill window of slot {slot} (cursor {cursor}, prompt "
+                f"{real_len}, bucket {tb}) leaves the cache (S={S})")
+    shape = (cfg.n_layers, M, tb, cfg.n_kv_heads, cfg.head_dim)
+    mini = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev), "len": 0}
+    logits, mini = forward_with_cache(
+        model, torch.as_tensor(tokens, dtype=torch.int64, device=dev), cfg,
+        mini)
+    mk, mv = mini["k"], mini["v"]
+    if quant:
+        (mk, mks), (mv, mvs) = _kv_quant(mk), _kv_quant(mv)
+    sel = logits[torch.arange(M, device=dev),
+                 torch.as_tensor(real_lens, dtype=torch.int64,
+                                 device=dev) - 1]               # [M, vocab]
+    if temperature > 0:
+        firsts = torch.stack([
+            _sample_tokens(sel[i], _generator(dev, *seed, int(slots[i])),
+                           temperature, top_k) for i in range(M)])
+    else:
+        firsts = _sample_tokens(sel, None, temperature, top_k)
+    firsts = firsts.to(last.dtype)
+    col = torch.arange(S, device=dev)
+    for i, (slot, cursor, real_len) in enumerate(
+            zip(slots, cursors, real_lens)):
+        slot, cursor, start = int(slot), int(cursor), int(cursor - real_len)
+        k[:, slot, start:start + tb] = mk[:, i]
+        v[:, slot, start:start + tb] = mv[:, i]
+        if quant:
+            k_s[:, slot, start:start + tb] = mks[:, i]
+            v_s[:, slot, start:start + tb] = mvs[:, i]
+        bitmap[slot] = (col >= start) & (col < cursor)
+        rope_pos[slot] = int(real_len)
+        last[slot] = firsts[i]
+    return firsts
+
+
 # Options of the JAX engine that later slices of the port bring, with the
 # value that means "off".
 _LATER_SLICES = {
-    "kv_layout": ("paged", "the contiguous-engine slice"),
     "kv_tiering": (False, "the lifecycle and tiering slice"),
     "mesh": (None, "the multi-device slice"),
     "role": ("mixed", "the fleet slice"),
@@ -467,23 +787,38 @@ _LATER_SLICES = {
 
 
 class ContinuousBatcher:
-    """Host-side orchestrator over the paged pool: admit requests into
-    free slots between decode chunks (mounting cached prefixes), prefill
-    them in one batched dispatch per (tb, hb) rung, decode every active
-    slot ``chunk`` tokens per step, and free each finished slot's pages at
-    once (donating its full pages into the prefix tree).
+    """Host-side orchestrator of continuous batching: admit requests into
+    free slots between decode chunks, prefill them in one batched dispatch
+    per bucket rung, decode every active slot ``chunk`` tokens per step,
+    and hand a finished request's slot to the next one at once.
 
-    ``speculative=True`` replaces each decode chunk with one verify
-    dispatch (``_verify_chunk_paged_fn``, kernel K3) over a 1 + ``gamma``
-    window of proposals from ``proposer`` (``models/proposers.py``);
-    ``spec_adaptive`` sizes each request's effective window from its
-    accept-rate EMA. ``prefill_chunk_tokens`` (a page multiple) caps the
-    prompt tokens prefilled per step: admission only binds the slot and
-    ``_advance_prefill`` spends the budget page by page, round robin.
+    ``kv_layout="paged"`` (default) keeps K/V in a page pool behind
+    per-slot block tables: admission needs free pages and mounts cached
+    prefixes (``prefix_cache=True``, prefill rungs (tb, hb), kernels K2
+    and K1), and a finished slot's pages are freed at once, its full
+    pages donated into the prefix tree. ``speculative=True`` replaces each
+    decode chunk with one verify dispatch (``_verify_chunk_paged_fn``,
+    kernel K3) over a 1 + ``gamma`` window of proposals from ``proposer``
+    (``models/proposers.py``); ``spec_adaptive`` sizes each request's
+    effective window from its accept-rate EMA. ``prefill_chunk_tokens`` (a
+    page multiple) caps the prompt tokens prefilled per step: admission
+    only binds the slot and ``_advance_prefill`` spends the budget page by
+    page, round robin.
+
+    ``kv_layout="contiguous"`` keeps K/V in ``[L, B, S, Hkv, hd]`` caches
+    with one shared write cursor, a per-slot validity bitmap and per-slot
+    rope positions (kernel K4): a prompt is written backward from the
+    cursor, admission is strictly first come first served (a head whose
+    window or decode rows do not fit under S blocks the queue), and once
+    every slot has drained the cursor and the bitmap reset (an epoch
+    roll; ``epoch_rolls`` and ``fcfs_stops`` count both). The options that
+    need pages (``speculative``, ``prefix_cache``, ``prefill_chunk_tokens``,
+    ``prefill_attn``) raise ``ValueError`` on this layout, and
+    ``pool_metrics()`` is empty.
 
     ``model`` must live on ``device`` (default ``"cuda"``; the CPU only
     when asked). ``cfg.decode_attn`` must be ``"fused"``: the port serves
-    through the paged kernels. The JAX engine's other options raise
+    through the attention kernels. The JAX engine's other options raise
     ``NotImplementedError`` naming the slice that brings them."""
 
     def __init__(self, model: Llama, cfg: LlamaConfig, n_slots: int = 8,
@@ -496,20 +831,47 @@ class ContinuousBatcher:
                  seed: int = 0, device="cuda", speculative: bool = False,
                  gamma: int = 4, proposer=None, spec_adaptive: bool = False,
                  prefill_chunk_tokens: Optional[int] = None,
+                 prefill_attn: Optional[str] = None,
                  kv_tiering: bool = False, mesh=None, role: str = "mixed",
                  fault_injector=None, tracer=None, flight_capacity: int = 0):
-        given = dict(kv_layout=kv_layout, kv_tiering=kv_tiering, mesh=mesh,
-                     role=role, fault_injector=fault_injector, tracer=tracer,
+        given = dict(kv_tiering=kv_tiering, mesh=mesh, role=role,
+                     fault_injector=fault_injector, tracer=tracer,
                      flight_capacity=flight_capacity)
         for name, (off, slice_name) in _LATER_SLICES.items():
             if given[name] != off:
                 raise NotImplementedError(
                     f"{name}={given[name]!r} is not ported yet: it comes "
                     f"with {slice_name}")
+        if kv_layout not in ("contiguous", "paged"):
+            raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
+                             f"got {kv_layout!r}")
         if cfg.decode_attn != "fused":
             raise NotImplementedError(
                 f"decode_attn={cfg.decode_attn!r}: the port serves through "
-                f"the paged attention kernels; use decode_attn='fused'")
+                f"the attention kernels; use decode_attn='fused'")
+        if prefill_attn not in (None, "auto", "kernel", "gather"):
+            raise ValueError(f"prefill_attn must be None/'auto'/'kernel'/"
+                             f"'gather', got {prefill_attn!r}")
+        paged = kv_layout == "paged"
+        if not paged:
+            for name, on, why in (
+                    ("speculative=True", speculative,
+                     "rewind is a lens clamp inside the slot's own pages"),
+                    ("prefix_cache=True", prefix_cache,
+                     "the contiguous cursor cache has no shareable pages"),
+                    ("prefill_chunk_tokens", prefill_chunk_tokens is not None,
+                     "chunks land page-granular through the block tables"),
+                    ("prefill_attn", prefill_attn in ("kernel", "gather"),
+                     "the prefix-attention prefill streams pool pages by "
+                     "block table")):
+                if on:
+                    raise ValueError(
+                        f"{name} requires kv_layout='paged' ({why})")
+        if prefill_attn == "gather":
+            raise NotImplementedError(
+                "prefill_attn='gather': the port prefills cached prefixes "
+                "through the prefix-attention kernel only")
+        self.layout = kv_layout
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine device "
@@ -533,14 +895,6 @@ class ContinuousBatcher:
         self.kv_dtype = kv_dtype
         self.seed = int(seed)
         self.S = min(max_len or cfg.max_seq, cfg.max_seq)
-        if self.S % page_size:
-            raise ValueError(f"cache capacity {self.S} not divisible by "
-                             f"page_size {page_size}")
-        self.page_size = page_size
-        self.n_blocks = self.S // page_size
-        if paged_plan(self.n_blocks, page_size) is None:
-            raise ValueError(f"page_size {page_size} is not a power of two "
-                             f"in [8, 256]")
         self.spec = bool(speculative)
         self.gamma = int(gamma)
         self.spec_adaptive = bool(spec_adaptive) and self.spec
@@ -564,52 +918,26 @@ class ContinuousBatcher:
             self._spec_eff_last: Dict[int, int] = {}
             self._spec_reserve: Dict[int, int] = {}
             self._spec_fleet_ema = 1.0
-        if prefill_chunk_tokens is not None:
-            prefill_chunk_tokens = int(prefill_chunk_tokens)
-            if (prefill_chunk_tokens < page_size
-                    or prefill_chunk_tokens % page_size):
-                raise ValueError(
-                    f"prefill_chunk_tokens ({prefill_chunk_tokens}) must be "
-                    f"a positive multiple of page_size ({page_size})")
-        self._prefill_chunk = prefill_chunk_tokens
-        # slot -> prompt tokens already resident; insertion order is the
-        # budget's FCFS order.
-        self._prefill_pending: "OrderedDict[int, int]" = OrderedDict()
-        self._prefill_chunks_total = 0
-        n_pages = n_pages or (1 + n_slots * self.n_blocks)
-        self._alloc = PageAllocator(n_pages)
-        pool = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads,
-                cfg.head_dim)
         dev = self.device
-        if kv_dtype == "int8":
-            self._k = torch.zeros(pool, dtype=torch.int8, device=dev)
-            self._v = torch.zeros(pool, dtype=torch.int8, device=dev)
-            self._ks = torch.zeros(pool[:-1] + (1,), dtype=torch.float32,
-                                   device=dev)
-            self._vs = torch.zeros(pool[:-1] + (1,), dtype=torch.float32,
-                                   device=dev)
-        else:
-            self._k = torch.zeros(pool, dtype=cfg.dtype, device=dev)
-            self._v = torch.zeros(pool, dtype=cfg.dtype, device=dev)
-            self._ks = self._vs = None
         self._angles = rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                   device=dev)
-        # Host mirror of the block table; the device copy is re-uploaded
-        # only on steps whose admissions or frees changed it.
-        self._table_np = np.zeros((n_slots, self.n_blocks), np.int32)
-        self._table = torch.as_tensor(self._table_np, device=dev)
-        self._table_dirty = False
-        self._lens = torch.zeros(n_slots, dtype=torch.int32, device=dev)
         self._last = torch.zeros(n_slots, dtype=torch.int32, device=dev)
-        self._slot_pages: Dict[int, list] = {}   # slot -> owned page ids
-        self._slot_shared: Dict[int, list] = {}  # slot -> mounted hit pages
-        self._slot_prompt: Dict[int, list] = {}
-        self._last_denied: Optional[int] = None
-        self._prefix = (PrefixCache(self._alloc, page_size)
-                        if prefix_cache else None)
-        self._skipped_tokens = 0
-        # Prefill dispatches per (tb, hb) rung; hb > 0 rungs run K2.
-        self.prefill_rungs: Dict[Tuple[int, int], int] = {}
+        if paged:
+            self._init_paged(page_size, n_pages, prefix_cache,
+                             prefill_chunk_tokens)
+        else:
+            # One shared write cursor; per-slot validity bitmap and rope
+            # position reconcile slots at different request offsets.
+            self._k, self._v, self._ks, self._vs = self._kv_buffers(
+                (cfg.n_layers, n_slots, self.S, cfg.n_kv_heads, cfg.head_dim))
+            self._bitmap = torch.zeros((n_slots, self.S), dtype=torch.bool,
+                                       device=dev)
+            self._cursor = 0
+            self._rope_pos = torch.zeros(n_slots, dtype=torch.int32,
+                                         device=dev)
+            self.epoch_rolls = 0     # cursor + bitmap resets
+            self.fcfs_stops = 0      # steps whose admission stopped at a
+            #                          head with no room left this epoch
         self._dispatch_no = 0
         self._eos_scanned: Dict[int, int] = {}
         self._slot_req: Dict[int, int] = {}      # slot -> req id
@@ -624,6 +952,68 @@ class ContinuousBatcher:
         self.errors: Dict[int, str] = {}         # req id -> failure text
         self._request_errors = 0
 
+    def _kv_buffers(self, shape: Tuple[int, ...]):
+        """Zeroed (k, v, k_scale, v_scale) of ``shape`` [..., hd]: int8
+        with f32 [..., 1] scale planes under ``kv_dtype="int8"``, else the
+        config's dtype and no scales."""
+        dev = self.device
+        if self.kv_dtype == "int8":
+            return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                device=dev),
+                    torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                device=dev))
+        return (torch.zeros(shape, dtype=self.cfg.dtype, device=dev),
+                torch.zeros(shape, dtype=self.cfg.dtype, device=dev),
+                None, None)
+
+    def _init_paged(self, page_size: int, n_pages: Optional[int],
+                    prefix_cache: bool,
+                    prefill_chunk_tokens: Optional[int]) -> None:
+        """The paged layout's state: pool, allocator, block table, lens,
+        prefix tree and the chunked-prefill queue."""
+        cfg, n_slots, dev = self.cfg, self.n_slots, self.device
+        if self.S % page_size:
+            raise ValueError(f"cache capacity {self.S} not divisible by "
+                             f"page_size {page_size}")
+        self.page_size = page_size
+        self.n_blocks = self.S // page_size
+        if paged_plan(self.n_blocks, page_size) is None:
+            raise ValueError(f"page_size {page_size} is not a power of two "
+                             f"in [8, 256]")
+        if prefill_chunk_tokens is not None:
+            prefill_chunk_tokens = int(prefill_chunk_tokens)
+            if (prefill_chunk_tokens < page_size
+                    or prefill_chunk_tokens % page_size):
+                raise ValueError(
+                    f"prefill_chunk_tokens ({prefill_chunk_tokens}) must be "
+                    f"a positive multiple of page_size ({page_size})")
+        self._prefill_chunk = prefill_chunk_tokens
+        # slot -> prompt tokens already resident; insertion order is the
+        # budget's FCFS order.
+        self._prefill_pending: "OrderedDict[int, int]" = OrderedDict()
+        self._prefill_chunks_total = 0
+        n_pages = n_pages or (1 + n_slots * self.n_blocks)
+        self._alloc = PageAllocator(n_pages)
+        self._k, self._v, self._ks, self._vs = self._kv_buffers(
+            (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim))
+        # Host mirror of the block table; the device copy is re-uploaded
+        # only on steps whose admissions or frees changed it.
+        self._table_np = np.zeros((n_slots, self.n_blocks), np.int32)
+        self._table = torch.as_tensor(self._table_np, device=dev)
+        self._table_dirty = False
+        self._lens = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+        self._slot_pages: Dict[int, list] = {}   # slot -> owned page ids
+        self._slot_shared: Dict[int, list] = {}  # slot -> mounted hit pages
+        self._slot_prompt: Dict[int, list] = {}
+        self._last_denied: Optional[int] = None
+        self._prefix = (PrefixCache(self._alloc, page_size)
+                        if prefix_cache else None)
+        self._skipped_tokens = 0
+        # Prefill dispatches per (tb, hb) rung; hb > 0 rungs run K2.
+        self.prefill_rungs: Dict[Tuple[int, int], int] = {}
+
     # -- API ---------------------------------------------------------------
     def submit(self, prompt, max_new: int) -> int:
         """Queue one request; returns its id. ``prompt``: 1-D token ids."""
@@ -636,11 +1026,14 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new ({max_new}) exceeds "
                 f"cache capacity {self.S}")
-        need = self._pages_needed(len(prompt), max_new)
-        if need > self._alloc.n_pages - 1:
-            raise ValueError(
-                f"request needs {need} pages worst-case but the pool has "
-                f"only {self._alloc.n_pages - 1} usable pages")
+        if self.layout == "paged":
+            # The worst-case reservation must fit the pool, or the request
+            # could never admit and strict FCFS would spin forever.
+            need = self._pages_needed(len(prompt), max_new)
+            if need > self._alloc.n_pages - 1:
+                raise ValueError(
+                    f"request needs {need} pages worst-case but the pool "
+                    f"has only {self._alloc.n_pages - 1} usable pages")
         req_id = self._next_id
         self._next_id += 1
         self._budget[req_id] = max_new
@@ -687,7 +1080,9 @@ class ContinuousBatcher:
         return max(1, min(self.gamma, est))
 
     def _rows_needed(self, budget: int, rid: Optional[int] = None) -> int:
-        """Worst-case decode rows: remaining steps rounded up to chunks;
+        """Worst-case decode rows (cursor rows on the contiguous layout,
+        where the shared cursor advances a chunk per dispatch): remaining
+        steps rounded up to chunks;
         speculative mode commits one row per token but each verify writes
         up to its window past the committed rows, so the overshoot is
         reserved too (that is what makes rewind a lens clamp inside the
@@ -1029,6 +1424,8 @@ class ContinuousBatcher:
         chunk (or, speculative, one verify) over the fully prefilled
         slots — mid-prefill slots ride it inactive. Only the verify reads
         back. Returns the finished req ids."""
+        if self.layout == "contiguous":
+            return self._step_contiguous()
         finished = self._admit_paged()
         finished.extend(self._advance_prefill())
         ready = {s: r for s, r in self._slot_req.items()
@@ -1036,6 +1433,87 @@ class ContinuousBatcher:
         if ready:
             step = self._verify_step if self.spec else self._decode_step
             finished.extend(step(ready))
+        return finished
+
+    def _step_contiguous(self) -> list:
+        """The contiguous layout's step: roll the epoch when every slot
+        has drained, admit queued requests backward from the shared
+        cursor (strict FCFS), prefill them in one dispatch per bucket
+        rung, then decode one chunk at the cursor. Nothing is read back.
+        Returns the finished req ids."""
+        if not self._slot_req and self._cursor:
+            # Epoch roll: every slot drained — reclaim the cursor space.
+            self._cursor = 0
+            self._bitmap.zero_()
+            self.epoch_rolls += 1
+        finished: list = []
+        free = [s for s in range(self.n_slots) if s not in self._slot_req]
+        adm: list = []                   # (req id, slot, cursor, prompt, tb)
+        # len(adm) < n_slots: a max_new == 1 admission hands its slot
+        # straight back, so a burst of them could otherwise admit without
+        # bound within one step.
+        while free and self._queue and len(adm) < self.n_slots:
+            req_id, prompt = self._queue[0]
+            P = len(prompt)
+            tb = self._ladder(P)
+            # The prompt writes backward from the cursor; bump the cursor
+            # forward (free: it only skips rows) if the window would start
+            # below 0. Both bounds are _prefill_multi_fn's contract.
+            cursor = max(self._cursor, P)
+            if (cursor - P + tb > self.S
+                    or cursor + self._rows_needed(self._budget[req_id])
+                    > self.S):
+                # No room this epoch: stop admitting (strict FCFS). Later,
+                # smaller requests let past the blocked head would keep
+                # consuming cursor rows, the slots would never all drain,
+                # the epoch never roll and the head starve. With admission
+                # frozen the occupied slots finish, the epoch rolls, and
+                # the head admits at cursor == P.
+                self.fcfs_stops += 1
+                break
+            self._queue.pop(0)
+            self._cursor = cursor
+            slot = free.pop()
+            adm.append((req_id, slot, cursor, prompt, tb))
+            self._budget[req_id] -= 1                # first token = prefill
+            if self._budget[req_id] <= 0:            # max_new == 1
+                finished.append(req_id)
+                del self._budget[req_id]
+                free.append(slot)                    # slot never occupied
+            else:
+                self._slot_req[slot] = req_id
+        for run in self._group_admissions(adm):
+            tb = run[0][4]
+            self._dispatch_no += 1
+            firsts = _prefill_multi_fn(
+                self.model, self.cfg, self._k, self._v, self._ks, self._vs,
+                self._bitmap, self._rope_pos, self._last,
+                slots=[e[1] for e in run], cursors=[e[2] for e in run],
+                tokens=np.asarray([e[3] + [0] * (tb - len(e[3]))
+                                   for e in run], np.int32),
+                real_lens=[len(e[3]) for e in run],
+                seed=(self.seed, 1, self._dispatch_no),
+                temperature=self.temperature, top_k=self.top_k)
+            self._reads.append(("firsts", firsts, [e[0] for e in run]))
+        if not self._slot_req:
+            return finished
+        self._dispatch_no += 1
+        self._rope_pos, self._last, toks = _decode_chunk_fn(
+            self.model, self.cfg, self.chunk, self._k, self._v, self._ks,
+            self._vs, self._bitmap, self._cursor, self._rope_pos, self._last,
+            self._active(self._slot_req), self._angles,
+            (self.seed, 0, self._dispatch_no), self.temperature, self.top_k)
+        self._cursor += self.chunk
+        takes: list = []                             # (req id, slot, n)
+        for slot, req_id in list(self._slot_req.items()):
+            take = min(self._budget[req_id], self.chunk)
+            takes.append((req_id, slot, take))
+            self._budget[req_id] -= take
+            if self._budget[req_id] <= 0:
+                finished.append(req_id)
+                del self._budget[req_id]
+                del self._slot_req[slot]             # slot free now
+        self._reads.append(("chunk", toks, takes))
         return finished
 
     def _active(self, ready: dict) -> torch.Tensor:
@@ -1218,7 +1696,10 @@ class ContinuousBatcher:
         accept rate (accepted / proposed), tokens committed per slot per
         verify, overshoot rows rewound, the proposer's name, the spread of
         the last effective windows and the per-dispatch accept rates since
-        the last call (drained here)."""
+        the last call (drained here). The contiguous layout has no pool:
+        {}."""
+        if self.layout != "paged":
+            return {}
         out: Dict[str, object] = self._alloc.metrics()
         if self._prefix is not None:
             out.update(self._prefix.metrics())
@@ -1260,7 +1741,9 @@ class ContinuousBatcher:
                 del self._budget[req_id]
                 self._eos_scanned.pop(req_id, None)
                 self._drop_spec(slot, req_id)
-                self._free_slot_pages(slot, self._donatable_decoded(req_id))
+                if self.layout == "paged":
+                    self._free_slot_pages(slot,
+                                          self._donatable_decoded(req_id))
                 reaped.append(req_id)
             else:
                 self._eos_scanned[req_id] = len(out)

@@ -23,7 +23,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "paged_attention.cu", _CSRC / "flash_attention.cu")
+SOURCES = (_CSRC / "paged_attention.cu", _CSRC / "flash_decode.cu",
+           _CSRC / "flash_attention.cu")
 HEADERS = (_CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -109,6 +110,9 @@ def load_library() -> ctypes.CDLL:
     lib.paged_verify_attention_launch.argtypes = (
         [vp] * 10 + [i] * 10 + [vp])
     lib.paged_verify_attention_launch.restype = i
+    lib.flash_decode_attention_launch.argtypes = (
+        [vp] * 10 + [i] * 8 + [vp])
+    lib.flash_decode_attention_launch.restype = i
     lib.flash_forward_launch.argtypes = [vp] * 5 + [i] * 7 + [vp]
     lib.flash_forward_launch.restype = i
     lib.flash_backward_dq_launch.argtypes = [vp] * 8 + [i] * 7 + [vp]

@@ -1,6 +1,7 @@
 // Device helpers shared by the port's kernels (paged_attention.cu,
-// flash_attention.cu): vector loads of 8 consecutive elements as f32 and
-// stores back to the tensor's dtype (bf16 rounds to nearest even).
+// flash_decode.cu, flash_attention.cu): vector loads of 8 consecutive
+// elements as f32 and stores back to the tensor's dtype (bf16 rounds to
+// nearest even).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,6 +11,12 @@
 namespace port_kernels {
 
 constexpr float kNegInf = -1e30f;
+
+// An int8 K/V element type: rows are dequantized (value * row scale).
+template <typename T>
+struct IsInt8 { static constexpr bool value = false; };
+template <>
+struct IsInt8<int8_t> { static constexpr bool value = true; };
 
 __device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);

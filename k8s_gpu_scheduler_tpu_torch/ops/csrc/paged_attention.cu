@@ -53,9 +53,10 @@
 // and the output is cast to q's dtype (round to nearest even for bf16).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        -Xcompiler -fPIC -c, linked with flash_attention.cu into one
-//        library (ops/_build.py). Plain C interface for ctypes; each
-//        launch function returns cudaGetLastError().
+//        -Xcompiler -fPIC -c, linked with flash_decode.cu and
+//        flash_attention.cu into one library (ops/_build.py). Plain C
+//        interface for ctypes; each launch function returns
+//        cudaGetLastError().
 
 #include <math.h>
 
@@ -66,11 +67,6 @@ namespace {
 using namespace port_kernels;
 
 constexpr int kThreads = 128;
-
-template <typename T>
-struct IsInt8 { static constexpr bool value = false; };
-template <>
-struct IsInt8<int8_t> { static constexpr bool value = true; };
 
 // Dims sg*8..sg*8+7 of K and V at logical row c of one slot, read through
 // its block-table row and dequantized (value * row scale) for int8 pools.

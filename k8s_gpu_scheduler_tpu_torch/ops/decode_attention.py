@@ -1,5 +1,5 @@
-"""Paged attention for the serving engine: three hand-written CUDA kernels
-and their plain PyTorch versions.
+"""Decode-time attention for the serving engines: four hand-written CUDA
+kernels and their plain PyTorch versions.
 
 - ``paged_decode_attention`` (K1) replaces the JAX package's Pallas
   ``paged_decode_attention`` (``k8s_gpu_scheduler_tpu/ops/
@@ -16,24 +16,34 @@ and their plain PyTorch versions.
 - ``paged_verify_attention`` (K3) replaces the Pallas
   ``paged_verify_attention``: the speculative verify window, ``t`` query
   rows per slot with row i bounded by ``col < lengths + i + 1``, split
-  over the live pages and merged by ``_combine_splits`` as K1 is.
+  over the live pages and merged by ``_combine_splits`` as K1 is. A
+  contiguous cache reaches it through ``contiguous_as_paged`` (a view and
+  an ``arange`` table).
+- ``flash_decode_attention`` (K4) replaces the Pallas
+  ``flash_decode_attention``: one query row per slot against a
+  contiguous cache ``[B, S, Hkv, hd]``, masked to ``col < lengths`` and
+  an optional validity ``bitmap [B, S]`` (the shared-cursor engine's slot
+  windows), any S, split over the live rows and merged by
+  ``_combine_splits``.
 
 Each wrapper runs its kernel on CUDA tensors (``ops/csrc/
-paged_attention.cu``, built at first use by ``ops/_build.py``) and its
-plain version on CPU tensors; any other device raises, and a CUDA tensor
-never reaches the plain version. ``paged_decode_reference`` (=
-``gather_paged_kv`` + ``dense_decode_reference``),
-``dense_prefill_reference`` and ``paged_verify_reference`` (=
-``gather_paged_kv`` + ``dense_verify_reference``) are those plain
-versions, ported op for op from the JAX package's references. Each
-wrapper counts its kernel launches (``.launches``) and each plain version
-its calls (``.calls``).
+paged_attention.cu`` and ``ops/csrc/flash_decode.cu``, built at first use
+by ``ops/_build.py``) and its plain version on CPU tensors; any other
+device raises, and a CUDA tensor never reaches the plain version.
+``paged_decode_reference`` (= ``gather_paged_kv`` +
+``dense_decode_reference``), ``dense_prefill_reference``,
+``paged_verify_reference`` (= ``gather_paged_kv`` +
+``dense_verify_reference``) and ``flash_decode_reference`` (=
+``dense_decode_reference`` with fully masked rows zeroed, as the kernel
+yields them) are those plain versions, ported op for op from the JAX
+package's references. Each wrapper counts its kernel launches
+(``.launches``) and each plain version its calls (``.calls``).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,6 +74,66 @@ def paged_plan(n_blocks: int, page_size: int, batch: int = 1,
     return max(1, min(n_blocks, want))
 
 
+def decode_plan(s: int, block_k: Optional[int] = None,
+                n_splits: Optional[int] = None) -> Optional[Tuple[int, int]]:
+    """The JAX package's blocking of a contiguous cache of S rows, kept
+    letter for letter: legal (block_k, n_splits), or None when no
+    power-of-two block from 256 down to 8 divides S. K4 takes any S and
+    does not read it; ``block_k`` is the page size under which the
+    verify route views a contiguous cache as a page pool
+    (``contiguous_as_paged``)."""
+    if block_k is None:
+        for cand in (256, 128, 64, 32, 16, 8):
+            if s % cand == 0:
+                block_k = cand
+                break
+        else:
+            return None
+    elif s % block_k:
+        return None
+    n_blocks = s // block_k
+    if n_splits is None:
+        n_splits = 1
+        if n_blocks >= 8:
+            for cand in (8, 4, 2):
+                if n_blocks % cand == 0:
+                    n_splits = cand
+                    break
+    elif n_blocks % n_splits:
+        return None
+    return block_k, n_splits
+
+
+# Rows one K4 block covers per loop step at hd 64 (16 row groups x 4 in
+# flight): a split narrower than this leaves lanes idle.
+_FLASH_DECODE_SPLIT_ROWS = 64
+
+
+def flash_decode_plan(live_rows: int, batch: int = 1, n_kv: int = 1) -> int:
+    """K4's split count on the card for at most ``live_rows`` attendable
+    rows per slot: enough (slot x kv head x split) blocks for about two
+    per SM, as ``paged_plan`` fills them, never a split narrower than one
+    block's loop step. The kernel divides each slot's own live rows
+    (``< lengths[b]``), not S, among the splits."""
+    want = -(-2 * _SM_COUNT_H100 // max(1, batch * n_kv))
+    most = -(-max(1, live_rows) // _FLASH_DECODE_SPLIT_ROWS)
+    return max(1, min(most, want))
+
+
+def contiguous_as_paged(cache: torch.Tensor, block_k: int):
+    """View a contiguous cache [B, S, ...] as a page pool and a block
+    table without moving data: block j of batch row b is page
+    b*(S/block_k) + j, so the pool is a reshape (a view) and the table an
+    ``arange``. Lets K3 serve the contiguous path (the 1 + gamma window of
+    ``generate_speculative``)."""
+    b, s = cache.shape[:2]
+    nb = s // block_k
+    pool = cache.reshape(b * nb, block_k, *cache.shape[2:])
+    table = torch.arange(b * nb, dtype=torch.int32,
+                         device=cache.device).reshape(b, nb)
+    return pool, table
+
+
 # -- plain versions -------------------------------------------------------------
 
 def gather_paged_kv(pages: torch.Tensor,
@@ -75,14 +145,31 @@ def gather_paged_kv(pages: torch.Tensor,
     return g.reshape(b, n_blocks * ps, *pages.shape[2:])
 
 
+def _mask_from(lengths, bitmap, s: int, device) -> Optional[torch.Tensor]:
+    """[B or 1, S] bool: rows < ``lengths`` (scalar or [B]) AND set in
+    ``bitmap`` [B, S]; None when neither is given."""
+    mask = None
+    if lengths is not None:
+        cols = torch.arange(s, device=device)[None, :]
+        if isinstance(lengths, int):     # no host-to-device copy
+            mask = cols < lengths
+        else:
+            mask = cols < torch.as_tensor(
+                lengths, dtype=torch.int32, device=device).reshape(-1, 1)
+    if bitmap is not None:
+        mask = bitmap if mask is None else mask & bitmap
+    return mask
+
+
 def dense_decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           lengths=None, k_scale=None,
-                           v_scale=None) -> torch.Tensor:
+                           lengths=None, k_scale=None, v_scale=None,
+                           bitmap=None) -> torch.Tensor:
     """Grouped-einsum decode attention: q [B, H, hd] against the cache
     [B, S, Hkv, hd] → [B, H, hd]. int8-KV (``k_scale``/``v_scale``
     [B, S, Hkv, 1]) factors the per-row scales onto the scores and the
-    probabilities. A fully masked row softmaxes uniform (garbage by
-    contract)."""
+    probabilities. ``lengths`` keeps rows < length, ``bitmap`` [B, S] bool
+    keeps set rows; both given = AND. A fully masked row softmaxes
+    uniform (garbage by contract)."""
     b, n_heads, hd = q.shape
     s, h_kv = k.shape[1], k.shape[2]
     if n_heads % h_kv:
@@ -96,11 +183,8 @@ def dense_decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bhgd,bkhd->bhgk", qg, kf).float() * scale
     if quant:
         scores = scores * k_scale[..., 0].permute(0, 2, 1)[:, :, None]
-    if lengths is not None:
-        lengths = torch.as_tensor(lengths, dtype=torch.int32,
-                                  device=q.device).reshape(-1)
-        cols = torch.arange(s, device=q.device)[None, :]
-        mask = cols < lengths[:, None]                       # [B, S]
+    mask = _mask_from(lengths, bitmap, s, q.device)
+    if mask is not None:
         scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     if quant:
@@ -111,6 +195,22 @@ def dense_decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vf = v
     out = torch.einsum("bhgk,bkhd->bhgd", probs, vf)
     return out.reshape(b, n_heads, hd)
+
+
+def flash_decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths, k_scale=None, v_scale=None,
+                           bitmap=None) -> torch.Tensor:
+    """K4's plain version: the grouped dense decode over the contiguous
+    cache, with a fully masked row (length 0, or no set bit below the
+    length) yielding zeros as the kernel's split merge does."""
+    flash_decode_reference.calls += 1
+    out = dense_decode_reference(q, k, v, lengths=lengths, k_scale=k_scale,
+                                 v_scale=v_scale, bitmap=bitmap)
+    live = _mask_from(lengths, bitmap, k.shape[1], q.device).any(dim=-1)
+    return torch.where(live[:, None, None], out, torch.zeros_like(out))
+
+
+flash_decode_reference.calls = 0
 
 
 def paged_decode_reference(q: torch.Tensor, k_pages: torch.Tensor,
@@ -317,6 +417,16 @@ def _check_kernel_args(name: str, q: torch.Tensor, k_pages: torch.Tensor,
     return quant
 
 
+def _lengths_vector(lengths, b: int, device) -> torch.Tensor:
+    """``lengths`` (an int, or a 0-dim or [B] tensor or array) as a
+    contiguous int32 [B] vector on ``device``. An int becomes a fill on the
+    device: a host-to-device copy of a scalar would wait for the stream."""
+    if isinstance(lengths, int):
+        return torch.full((b,), lengths, dtype=torch.int32, device=device)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+    return (lens.expand(b) if lens.ndim == 0 else lens).contiguous()
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
@@ -361,8 +471,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     quant = _check_kernel_args("paged_decode_attention", q, k_pages,
                                v_pages, k_scale, v_scale, n_heads, n_kv, hd)
     table = block_table.to(device=q.device, dtype=torch.int32).contiguous()
-    lens = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
-    lens = lens.expand(b).contiguous() if lens.ndim == 0 else lens.contiguous()
+    lens = _lengths_vector(lengths, b, q.device)
     g = n_heads // n_kv
     acc = torch.empty((b * n_kv, ns, g, hd), dtype=torch.float32,
                       device=q.device)
@@ -436,8 +545,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
         q.contiguous()
     hb = prefix_table.shape[1]
     table = prefix_table.to(device=q.device, dtype=torch.int32).contiguous()
-    hits = torch.as_tensor(hit_lens, dtype=torch.int32, device=q.device)
-    hits = hits.expand(m).contiguous() if hits.ndim == 0 else hits.contiguous()
+    hits = _lengths_vector(hit_lens, m, q.device)
     out = torch.empty_like(q)
     from ._build import load_library
 
@@ -498,8 +606,7 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     quant = _check_kernel_args("paged_verify_attention", q, k_pages,
                                v_pages, k_scale, v_scale, n_heads, n_kv, hd)
     table = block_table.to(device=q.device, dtype=torch.int32).contiguous()
-    lens = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
-    lens = lens.expand(b).contiguous() if lens.ndim == 0 else lens.contiguous()
+    lens = _lengths_vector(lengths, b, q.device)
     rows = t * g
     acc = torch.empty((b * n_kv, ns, rows, hd), dtype=torch.float32,
                       device=q.device)
@@ -527,22 +634,101 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
 paged_verify_attention.launches = 0
 
 
+def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths, k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           bitmap: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Decode attention over a contiguous KV cache: q [B, H, hd] (one
+    decode step) against k/v [B, S, Hkv, hd], any S → [B, H, hd] in q's
+    dtype. ``lengths`` (an int, or a [B] or 0-dim int tensor, required):
+    rows < length are attendable and rows past it are never read.
+    ``k_scale``/``v_scale`` [B, S, Hkv, 1] f32 switch to an int8 cache.
+    ``bitmap`` [B, S] bool refines the length mask to exactly the valid
+    rows (the shared-cursor engine's slot windows); unset rows get exactly
+    zero weight and their K/V are not read. A fully masked row yields
+    zeros."""
+    if q.ndim != 3 or k.ndim != 4:
+        raise ValueError(f"q must be [B, H, hd] and k/v [B, S, Hkv, hd], got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    b, n_heads, hd = q.shape
+    if k.shape[0] != b or k.shape[3] != hd or v.shape != k.shape:
+        raise ValueError(f"cache shape {tuple(k.shape)}/{tuple(v.shape)} "
+                         f"does not match q {tuple(q.shape)}")
+    s, n_kv = k.shape[1], k.shape[2]
+    if s < 1:
+        raise ValueError("the cache has no rows")
+    if n_heads % n_kv:
+        raise ValueError(
+            f"GQA needs n_heads ({n_heads}) divisible by kv heads ({n_kv})")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("int8-KV mode needs both k_scale and v_scale")
+    for sc in (k_scale, v_scale):
+        if sc is not None and tuple(sc.shape) != (b, s, n_kv, 1):
+            raise ValueError(f"scales must be [B={b}, S={s}, Hkv={n_kv}, 1], "
+                             f"got {tuple(sc.shape)}")
+    if bitmap is not None and (tuple(bitmap.shape) != (b, s)
+                               or bitmap.dtype != torch.bool):
+        raise ValueError(f"bitmap must be bool [B={b}, S={s}], got "
+                         f"{bitmap.dtype} {tuple(bitmap.shape)}")
+    if isinstance(lengths, torch.Tensor):
+        if lengths.dtype not in (torch.int32, torch.int64) \
+                or tuple(lengths.shape) not in ((), (b,)):
+            raise ValueError(f"lengths must be an int or an int tensor of "
+                             f"shape () or [B={b}], got {lengths.dtype} "
+                             f"{tuple(lengths.shape)}")
+        live_rows = s                    # not read back: plan for the most
+    else:
+        lengths = int(lengths)
+        live_rows = min(max(lengths, 0), s)
+    if not _route(q):
+        return flash_decode_reference(q, k, v, lengths, k_scale, v_scale,
+                                      bitmap)
+    quant = _check_kernel_args("flash_decode_attention", q, k, v, k_scale,
+                               v_scale, n_heads, n_kv, hd)
+    if bitmap is not None and (bitmap.device != q.device
+                               or not bitmap.is_contiguous()):
+        raise ValueError(f"flash_decode_attention: the bitmap must be "
+                         f"contiguous on {q.device}")
+    lens = _lengths_vector(lengths, b, q.device)
+    g = n_heads // n_kv
+    ns = flash_decode_plan(live_rows, b, n_kv)
+    acc = torch.empty((b * n_kv, ns, g, hd), dtype=torch.float32,
+                      device=q.device)
+    mx = torch.empty((b * n_kv, ns, g, 1), dtype=torch.float32,
+                     device=q.device)
+    sm = torch.empty_like(mx)
+    from ._build import load_library
+
+    lib = load_library()
+    err = lib.flash_decode_attention_launch(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale),
+        _ptr(bitmap), _ptr(lens), _ptr(acc), _ptr(mx), _ptr(sm),
+        b, n_heads, n_kv, hd, s, ns,
+        int(q.dtype == torch.bfloat16), int(quant),
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    _raise_on(err, "flash_decode_attention")
+    flash_decode_attention.launches += 1
+    return _combine_splits(acc, mx, sm, b, n_heads, hd, q.dtype)
+
+
+flash_decode_attention.launches = 0
+
+_KERNELS = (paged_decode_attention, paged_prefill_attention,
+            paged_verify_attention, flash_decode_attention)
+_PLAIN = (paged_decode_reference, dense_prefill_reference,
+          paged_verify_reference, flash_decode_reference)
+
+
 def reset_counters() -> None:
     """Zero every kernel launch counter and plain-version call counter."""
-    for fn in (paged_decode_attention, paged_prefill_attention,
-               paged_verify_attention):
+    for fn in _KERNELS:
         fn.launches = 0
-    for fn in (paged_decode_reference, dense_prefill_reference,
-               paged_verify_reference):
+    for fn in _PLAIN:
         fn.calls = 0
 
 
 def counters() -> dict:
-    return {
-        "paged_decode_attention": paged_decode_attention.launches,
-        "paged_prefill_attention": paged_prefill_attention.launches,
-        "paged_verify_attention": paged_verify_attention.launches,
-        "paged_decode_reference": paged_decode_reference.calls,
-        "dense_prefill_reference": dense_prefill_reference.calls,
-        "paged_verify_reference": paged_verify_reference.calls,
-    }
+    """{wrapper name: kernel launches, plain version name: calls}."""
+    return {**{fn.__name__: fn.launches for fn in _KERNELS},
+            **{fn.__name__: fn.calls for fn in _PLAIN}}

@@ -23,7 +23,7 @@ import torch
 from k8s_gpu_scheduler_tpu_torch.models.llama import (
     LlamaConfig, init_params, make_optimizer, make_train_step)
 from k8s_gpu_scheduler_tpu_torch.models.serving import (
-    ContinuousBatcher, _kv_quant)
+    ContinuousBatcher, _kv_quant, generate, generate_speculative)
 from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
 from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
     counters, flash_backward, flash_backward_reference, flash_forward,
@@ -190,6 +190,103 @@ def test_kernel_contract_raises_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hd,n_heads,n_kv,S", [
+    (64, 16, 16, 2048), (128, 32, 8, 1000), (64, 8, 1, 77), (128, 4, 2, 300),
+    (64, 4, 4, 5)], ids=["serve", "gqa4-hd128-S1000", "g8-S77", "g2-S300",
+                         "g1-S5"])
+@pytest.mark.parametrize("bitmap", [False, True], ids=["lengths", "bitmap"])
+@DTYPES
+@QUANT
+def test_flash_decode_kernel_matches_plain(cuda, hd, n_heads, n_kv, S, bitmap,
+                                           dtype, quant):
+    """K4 against its plain version: ragged lengths (0, 1, S, mid), an S
+    no power of two divides, and a bitmap with holes, a long all-zero
+    stretch and one slot with no set bit (zeros on both sides)."""
+    gen = torch.Generator().manual_seed(hd + n_heads + S)
+    B = 5
+    q = torch.randn((B, n_heads, hd), generator=gen).to(dtype).to(cuda)
+    k, v, sc = _pool(gen, B, S, n_kv, hd, dtype, quant, cuda)
+    lens = torch.tensor([S, 1, 0, S // 2 + 3, min(70, S)], dtype=torch.int32,
+                        device=cuda)
+    bm = None
+    if bitmap:
+        bm = torch.rand((B, S), generator=gen) < 0.6
+        bm[0, : S // 2] = False              # whole warp steps unset
+        bm[0, S - 1] = True
+        bm[3, :] = False                     # an empty slot
+        bm[4, 0] = True
+        bm = bm.to(cuda)
+    n0 = da.flash_decode_reference.calls
+    launches = da.flash_decode_attention.launches
+    got = da.flash_decode_attention(q, k, v, lens, bitmap=bm, **sc)
+    assert da.flash_decode_attention.launches == launches + 1
+    assert da.flash_decode_reference.calls == n0
+    ref = da.flash_decode_reference(q, k, v, lens, bitmap=bm, **sc)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref, dtype)
+    assert not got[2].any()
+    if bitmap:
+        assert not got[3].any()
+    assert torch.equal(got, da.flash_decode_attention(q, k, v, lens,
+                                                      bitmap=bm, **sc))
+
+
+@pytest.mark.gpu
+def test_flash_decode_scalar_length_and_paged_view(cuda):
+    """A scalar length (the engine's cursor) equals a [B] vector of it, and
+    K4 over the contiguous cache equals K1 over the same cache viewed as a
+    page pool (f32)."""
+    gen = torch.Generator().manual_seed(11)
+    B, H, n_kv, hd, S = 3, 8, 2, 64, 512
+    q = torch.randn((B, H, hd), generator=gen).to(cuda)
+    k, v, _ = _pool(gen, B, S, n_kv, hd, torch.float32, False, cuda)
+    got = da.flash_decode_attention(q, k, v, 301)
+    vec = da.flash_decode_attention(
+        q, k, v, torch.full((B,), 301, dtype=torch.int32, device=cuda))
+    _close(got, vec, torch.float32)
+    kp, table = da.contiguous_as_paged(k, 64)
+    vp, _ = da.contiguous_as_paged(v, 64)
+    assert kp.data_ptr() == k.data_ptr()             # a view, not a copy
+    paged = da.paged_decode_attention(
+        q, kp, vp, table, torch.full((B,), 301, dtype=torch.int32,
+                                     device=cuda))
+    _close(got, paged, torch.float32)
+
+
+@pytest.mark.gpu
+def test_flash_decode_contract_raises_on_card(cuda):
+    """What K4 does not take raises before any launch; nothing falls back
+    to the plain version."""
+    gen = torch.Generator().manual_seed(0)
+    calls = da.flash_decode_reference.calls
+    launches = da.flash_decode_attention.launches
+    for H, n_kv, hd, dtype in [(4, 4, 32, torch.float32),
+                               (6, 2, 64, torch.float32),
+                               (4, 4, 64, torch.float16)]:
+        q = torch.randn((2, H, hd), generator=gen).to(dtype).to(cuda)
+        kv = torch.randn((2, 16, n_kv, hd), generator=gen).to(dtype).to(cuda)
+        with pytest.raises(ValueError):
+            da.flash_decode_attention(q, kv, kv, 9)
+    q = torch.randn((2, 4, 64), generator=gen).to(cuda)
+    kv = torch.randn((2, 16, 4, 64), generator=gen).to(cuda)
+    bm = torch.ones((2, 16), dtype=torch.bool, device=cuda)
+    for kw in (dict(bitmap=bm.cpu()), dict(bitmap=bm.T.contiguous().T),
+               dict(bitmap=bm.to(torch.uint8)), dict(bitmap=bm[:, :8]),
+               dict(k_scale=torch.ones((2, 16, 4, 1), device=cuda)),
+               dict(k_scale=torch.ones((2, 16, 4, 1), device=cuda),
+                    v_scale=torch.ones((2, 16, 4, 1), device=cuda))):
+        with pytest.raises(ValueError):
+            da.flash_decode_attention(q, kv, kv, 9, **kw)
+    with pytest.raises(ValueError):
+        da.flash_decode_attention(q, kv[:, ::2], kv[:, ::2], 5)
+    with pytest.raises(ValueError):
+        da.flash_decode_attention(q, kv, kv, torch.tensor([3.0, 4.0]))
+    assert da.flash_decode_reference.calls == calls
+    assert da.flash_decode_attention.launches == launches
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kw", [
     {}, dict(speculative=True, gamma=3),
     dict(speculative=True, gamma=3, kv_dtype="int8",
@@ -230,6 +327,86 @@ def test_engine_on_card_matches_cpu(cuda, kw):
                 assert c["paged_verify_attention"] > 0, c
     assert got[0] == got[1]
     assert got[1][1] > 0
+
+
+SMALL = dict(vocab=256, d_model=128, n_layers=2, n_heads=2, n_kv_heads=1,
+             d_ff=256, max_seq=128, dtype=torch.float32, decode_attn="fused",
+             remat=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, dict(kv_dtype="int8")],
+                         ids=["f32", "int8kv"])
+def test_contiguous_engine_on_card_matches_cpu(cuda, kw):
+    """The shared-cursor engine on the card (K4) and on the CPU (plain
+    version) give identical greedy streams at f32, through an FCFS stop
+    and epoch rolls; the card launches K4 once per layer per tick and
+    calls no plain version."""
+    cfg = LlamaConfig(**SMALL)
+    got = []
+    for dev in ("cpu", cuda):
+        model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        eng = ContinuousBatcher(model, cfg, n_slots=3, max_len=64, chunk=4,
+                                prefill_bucket=16, kv_layout="contiguous",
+                                device=dev, **kw)
+        rng = np.random.default_rng(0)
+        ids = [eng.submit(list(rng.integers(0, cfg.vocab, n)), m)
+               for n, m in [(5, 9), (7, 33), (12, 5), (9, 9), (40, 6),
+                            (3, 1), (6, 13), (33, 5), (8, 8)]]
+        da.reset_counters()
+        done = {}
+        while eng.pending:
+            done.update(eng.step())
+        got.append([done[i] for i in ids])
+        assert eng.fcfs_stops > 0 and eng.epoch_rolls > 0
+        if dev != "cpu":
+            c = da.counters()
+            assert c["flash_decode_attention"] > 0
+            assert c["flash_decode_attention"] % (cfg.n_layers
+                                                  * eng.chunk) == 0
+            assert not (c["flash_decode_reference"]
+                        or c["paged_decode_attention"]), c
+    assert got[0] == got[1]
+
+
+@pytest.mark.gpu
+def test_generate_and_speculative_on_card_match_cpu(cuda):
+    """``generate`` (K4) and ``generate_speculative`` (K3 through the
+    paged view, K4 for nothing: every forward is a window) on the card
+    equal the CPU at f32, and each other."""
+    cfg = LlamaConfig(**SMALL)
+    rng = np.random.default_rng(1)
+    batch = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 9)))
+    phrase = torch.from_numpy(np.tile(rng.integers(0, cfg.vocab, 5), 4)[None])
+    out = {}
+    for dev in ("cpu", cuda):
+        model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        da.reset_counters()
+        g = generate(model, batch, cfg, max_new=12, max_len=64)
+        c = da.counters()
+        want = {"cpu": "flash_decode_reference",
+                "cuda": "flash_decode_attention"}[torch.device(dev).type]
+        assert {k: v for k, v in c.items() if v} == {
+            want: cfg.n_layers * 11}
+        da.reset_counters()
+        s = generate_speculative(model, phrase, cfg, max_new=20, gamma=3,
+                                 max_len=64)
+        c = da.counters()
+        want = {"cpu": "paged_verify_reference",
+                "cuda": "paged_verify_attention"}[torch.device(dev).type]
+        assert set(k for k, v in c.items() if v) == {want}
+        assert 0 < c[want] < cfg.n_layers * 19       # some window accepted
+        assert torch.equal(s.cpu(), generate(model, phrase, cfg, max_new=20,
+                                             max_len=64).cpu())
+        assert g.device.type == torch.device(dev).type
+        sampled = [generate_speculative(model, phrase, cfg, max_new=12,
+                                        gamma=3, max_len=64, temperature=0.8,
+                                        top_k=10, seed=4).cpu()
+                   for _ in range(2)]
+        assert torch.equal(sampled[0], sampled[1])
+        out[torch.device(dev).type] = (g.cpu(), s.cpu())
+    assert torch.equal(out["cpu"][0], out["cuda"][0])
+    assert torch.equal(out["cpu"][1], out["cuda"][1])
 
 
 FLASH_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}

@@ -146,7 +146,7 @@ def test_run_matches_step():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_layout="contiguous"), dict(kv_tiering=True), dict(mesh=object()),
+    dict(kv_tiering=True), dict(mesh=object()),
     dict(role="prefill"), dict(fault_injector=object()),
     dict(tracer=object()), dict(flight_capacity=256)],
     ids=lambda kw: next(iter(kw)))
