@@ -8,8 +8,9 @@ imports nothing of JAX. Phases, each of which fails the run on error:
 
 0. build: compile the kernels from ``ops/csrc`` (one nvcc per source, in
    parallel, linked into one library) and print each kernel's registers,
-   shared memory and spills, and the card's name and power limit
-   (nvidia-smi).
+   shared memory and spills, the count of tensor-core (HMMA) instructions
+   in each kernel's SASS where cuobjdump exists, and the card's name and
+   power limit (nvidia-smi).
 1. kernels against their plain PyTorch versions on the card: K1
    (paged_decode_attention), K2 (paged_prefill_attention) and K3
    (paged_verify_attention, window t = 5) at the serve width (B 8, H =
@@ -25,14 +26,16 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    gives them) and train-hd64 (B 4, T 1024, H = Hkv = 16, hd 64), K5's
    f32 lse held to the f32 tolerance (2e-5); the yardstick is
    scaled_dot_product_attention with is_causal (K5) and its autograd
-   backward, which yields dq, dk and dv together (K6, K7). And K4
+   backward, which yields dq, dk and dv together (K6, K7); bf16 runs K6
+   and K7 on the tensor cores (``flash_backward_mma.cu``). And K4
    (flash_decode_attention) over a contiguous cache of S 2048 with the
    cursor at row 1024 and each slot's bitmap a 576-row window ending
    there (a 512-token prompt plus 64 decode rows: what a slot holds in
    the serve traffic), at the serve width and the GQA shape, bf16 and
    int8, plus a no-bitmap case with ragged [B] lengths; its bound counts
    the set rows only, and the bound of reading every row under the
-   cursor is printed beside it.
+   cursor is printed beside it. Each case also prints its achieved rate
+   (its operations over its time) and its share of the bound.
 2. the engine on the card against the engine on the CPU, a small f32
    config: plain, speculative (bigram, gamma 3) and chunked-prefill (2
    pages a step) engines; greedy streams, prefill_tokens_skipped and the
@@ -127,10 +130,10 @@ KERNELS = {
         "flash_attention.cu",
         "k8s_gpu_scheduler_tpu/ops/flash_attention.py:117"),
     "flash_backward_dq": (
-        "flash_attention.cu",
+        "flash_backward_mma.cu",
         "k8s_gpu_scheduler_tpu/ops/flash_attention.py:159"),
     "flash_backward_dkv": (
-        "flash_attention.cu",
+        "flash_backward_mma.cu",
         "k8s_gpu_scheduler_tpu/ops/flash_attention.py:209"),
 }
 PLAIN = ("paged_decode_reference", "dense_prefill_reference",
@@ -555,6 +558,8 @@ def phase_kernels(dev) -> list:
             + (f"[every row under the cursor "
                f"{c['bound_under_cursor_ms']:.4f}] "
                if "bound_under_cursor_ms" in c else "")
+            + f"{c['flops'] / c['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{c['bound_ms'] / c['ms']:.1%} of bound "
             + f"{'ok' if c['ok'] else 'MISMATCH'}")
     bad = [c["kernel"] + ":" + c["case"] for c in cases if not c["ok"]]
     if bad:
@@ -1195,6 +1200,30 @@ def timed_step(step, model, batch):
 
 # -- main ---------------------------------------------------------------------------
 
+def sass_counts(lib, opcode: str) -> dict:
+    """{kernel: count of ``opcode`` instructions in its SASS} for the
+    kernels of ``lib`` that have any, from ``cuobjdump -sass``; empty where
+    the toolkit has no cuobjdump."""
+    import shutil
+    from pathlib import Path
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    if shutil.which("c++filt"):                    # readable kernel names
+        sass = subprocess.run(["c++filt"], input=sass, capture_output=True,
+                              text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+        elif name and f" {opcode}" in line:
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     args = sys.argv[1:]
@@ -1224,6 +1253,8 @@ def main() -> int:
     for r in _build.ptxas_report():
         log(f"  ptxas {r['registers']} regs, {r['smem_bytes']} B smem, "
             f"spill {r['spill_stores']}/{r['spill_loads']} B: {r['kernel']}")
+    for name, n in sass_counts(_build.library_path(), "HMMA").items():
+        log(f"  sass {n} HMMA: {name}")
     log("phase 1: kernels against their plain versions "
         "(atol = rtol = 2e-2 in bf16, 2e-5 for K5's f32 lse)")
     cases = phase_kernels(dev)

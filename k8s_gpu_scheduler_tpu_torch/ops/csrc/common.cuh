@@ -1,7 +1,8 @@
-// Device helpers shared by the port's kernels (paged_attention.cu,
-// flash_decode.cu, flash_attention.cu): vector loads of 8 consecutive
-// elements as f32 and stores back to the tensor's dtype (bf16 rounds to
-// nearest even).
+// Helpers shared by the port's kernels (paged_attention.cu,
+// flash_decode.cu, flash_attention.cu, flash_backward_mma.cu): vector loads
+// of 8 consecutive elements as f32, stores back to the tensor's dtype (bf16
+// rounds to nearest even), and the host's raise of a kernel's dynamic
+// shared memory limit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,6 +62,18 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
   u.x = *reinterpret_cast<const uint32_t*>(&lo);
   u.y = *reinterpret_cast<const uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Raises the kernel's dynamic shared memory limit once per instantiation
+// (needed above 48 KB).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess) configured = true;
+  return err;
 }
 
 }  // namespace port_kernels

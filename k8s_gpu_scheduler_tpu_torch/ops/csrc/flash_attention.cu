@@ -1,5 +1,6 @@
-// Flash attention for training, for Hopper (sm_90a): the forward and both
-// backward kernels.
+// Flash attention for training, for Hopper (sm_90a): the forward (K5) and,
+// for f32 inputs, both backward kernels (K6, K7). bf16 backward launches go
+// to the tensor-core kernels of flash_backward_mma.cu.
 //
 // K5 flash_fwd_kernel replaces the Pallas kernel behind
 //    k8s_gpu_scheduler_tpu/ops/flash_attention.py _flash_forward
@@ -19,8 +20,8 @@
 //
 // At the training shapes (T 2048, hd 128) each kernel does 2-4 products of
 // T*T/2*hd multiply-adds per head against T*hd elements read per head:
-// hundreds of flops per byte, so they are bound by operations. These first
-// versions run the products in f32 on the CUDA cores (the JAX kernels'
+// hundreds of flops per byte, so they are bound by operations. The kernels
+// here run the products in f32 on the CUDA cores (the JAX kernels'
 // numerics), from shared memory, with register tiles: a block of 128
 // threads is 16 row groups x 8 lanes; a thread holds a 4 x 4 (K5, K6) or
 // 2 x 8 (K7) tile of the score matrix and reads its operands as float4,
@@ -29,8 +30,14 @@
 // memory so the 8 lanes of a quarter warp hit distinct banks. Tiles wholly
 // above the diagonal are never visited: K5 and K6 stop their k loop at the
 // q tile's last row, K7 starts its q loop at the k tile's first row, and
-// K5 launches its heaviest (last) q tiles first. Tensor-core MMA (bf16
-// mma.sync, then wgmma with TMA) is later work.
+// K5 launches its heaviest (last) q tiles first.
+//
+// The f32 backward stays on the CUDA cores on purpose: tensor cores would
+// take f32 operands as TF32 (10 mantissa bits) or bf16, and f32 training
+// on the card is held to the CPU's losses at 1e-5 relative and replayed
+// bit for bit. bf16 operands lose nothing on the bf16 tensor cores, so
+// the bf16 backward runs there (flash_backward_mma.cu); K5's bf16 forward
+// is still the CUDA-core kernel here.
 //
 // Numerics: scores, softmax statistics and every accumulator in f32;
 // masked entries (above the diagonal, past T) get exactly zero
@@ -41,13 +48,31 @@
 // (round to nearest even for bf16). T needs no block multiple: rows past T
 // load as zeros and are never stored.
 //
-// Build: ops/_build.py compiles this file beside paged_attention.cu into
+// Build: ops/_build.py compiles this file beside the other sources into
 //        one library (plain C interface for ctypes); each launch function
 //        returns cudaGetLastError().
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+
+namespace port_kernels {
+
+// K6 and K7 for bf16 inputs, on the tensor cores (flash_backward_mma.cu).
+cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
+                              const void* out, const void* dout,
+                              const void* lse, void* dq, void* delta, int B,
+                              int n, int H, int Hkv, int hd, int causal,
+                              float scale, cudaStream_t stream);
+cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dk, void* dv, int B,
+                               int n, int H, int Hkv, int hd, int causal,
+                               float scale, cudaStream_t stream);
+
+}  // namespace port_kernels
 
 namespace {
 
@@ -495,17 +520,6 @@ inline float softmax_scale(int hd) {
   return static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
 }
 
-// Raises the kernel's dynamic shared memory limit once per instantiation.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
-  if (configured) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err == cudaSuccess) configured = true;
-  return err;
-}
-
 template <typename T, int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
                        void* lse, int B, int n, int H, int Hkv, int causal,
@@ -523,24 +537,31 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// bf16 goes to the tensor-core kernel (flash_backward_mma.cu), f32 to the
+// CUDA-core kernel above.
 template <typename T, int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* out, const void* dout, const void* lse,
                       void* dq, void* delta, int B, int n, int H, int Hkv,
                       int causal, cudaStream_t stream) {
-  const dim3 grid((n + kDqQ - 1) / kDqQ, H, B);
-  const size_t smem = sizeof(float) * dq_smem_floats<HD>();
-  static bool configured = false;
-  const cudaError_t err =
-      allow_smem(flash_bwd_dq_kernel<T, HD>, smem, configured);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(out),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dq), static_cast<float*>(delta), n, H, Hkv, causal,
-      softmax_scale(HD));
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return flash_bwd_dq_bf16(q, k, v, out, dout, lse, dq, delta, B, n, H, Hkv,
+                             HD, causal, softmax_scale(HD), stream);
+  } else {
+    const dim3 grid((n + kDqQ - 1) / kDqQ, H, B);
+    const size_t smem = sizeof(float) * dq_smem_floats<HD>();
+    static bool configured = false;
+    const cudaError_t err =
+        allow_smem(flash_bwd_dq_kernel<T, HD>, smem, configured);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(out),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<T*>(dq), static_cast<float*>(delta), n, H, Hkv, causal,
+        softmax_scale(HD));
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int HD>
@@ -548,19 +569,24 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int n, int H, int Hkv,
                        int causal, cudaStream_t stream) {
-  const dim3 grid((n + kDkvK - 1) / kDkvK, Hkv, B);
-  const size_t smem = sizeof(float) * dkv_smem_floats<HD>();
-  static bool configured = false;
-  const cudaError_t err =
-      allow_smem(flash_bwd_dkv_kernel<T, HD>, smem, configured);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), n, H, Hkv, causal,
-      softmax_scale(HD));
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return flash_bwd_dkv_bf16(q, k, v, dout, lse, delta, dk, dv, B, n, H, Hkv,
+                              HD, causal, softmax_scale(HD), stream);
+  } else {
+    const dim3 grid((n + kDkvK - 1) / kDkvK, Hkv, B);
+    const size_t smem = sizeof(float) * dkv_smem_floats<HD>();
+    static bool configured = false;
+    const cudaError_t err =
+        allow_smem(flash_bwd_dkv_kernel<T, HD>, smem, configured);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), n, H, Hkv, causal,
+        softmax_scale(HD));
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace

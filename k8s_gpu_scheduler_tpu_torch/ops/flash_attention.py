@@ -21,7 +21,9 @@ function is the same. ``lse`` is ``[B*H, T]`` f32 (the TPU kernel's
 128-lane broadcast was a layout matter).
 
 ``flash_forward`` and ``flash_backward`` run the kernels on CUDA tensors
-(``ops/csrc/flash_attention.cu``, built at first use by ``ops/_build.py``)
+(``ops/csrc/flash_attention.cu``; K6 and K7 in bf16 on the tensor cores,
+``ops/csrc/flash_backward_mma.cu``, which rounds P and dS to bf16 once
+before the second products; all built at first use by ``ops/_build.py``)
 and the plain versions on CPU tensors; any other device raises, and a CUDA
 tensor never reaches a plain version. ``flash_forward_reference`` and
 ``flash_backward_reference`` are those plain versions: the equations above
@@ -41,7 +43,7 @@ import torch
 
 NEG_INF = -1e30
 
-# The kernels' contract (ops/csrc/flash_attention.cu).
+# The kernels' contract (ops/csrc/flash_attention.cu, flash_backward_mma.cu).
 KERNEL_HEAD_DIMS = (64, 128)
 
 _LAUNCHES = {"flash_forward": 0, "flash_backward_dq": 0,

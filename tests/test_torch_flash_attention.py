@@ -10,7 +10,10 @@ from a seed. Tolerances, each an absolute bound on the largest difference:
 and 2e-5 for the gradients, tighter than the JAX tests' 3e-4 because it
 holds (the largest difference seen is 3.1e-6, at gradients up to 6.3).
 The CUDA kernels are held to these plain versions on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``). The bf16 backward
+kernels round P and dS to bf16 once before their second products;
+``test_bf16_rounding_of_p_and_ds_fits_card_tolerance`` shows here that
+this rounding alone stays inside the card's bf16 tolerance, 2e-2."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +25,8 @@ from k8s_gpu_scheduler_tpu.ops import flash_attention_diff as jflash_diff
 from k8s_gpu_scheduler_tpu.ops.flash_attention import _bh, _flash_forward
 from k8s_gpu_scheduler_tpu_torch.ops.attention import _repeat_kv
 from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
-    counters, flash_attention, flash_attention_diff, flash_forward,
+    _grouped, _probabilities, counters, flash_attention, flash_attention_diff,
+    flash_backward_reference, flash_forward, flash_forward_reference,
     reset_counters,
 )
 
@@ -160,3 +164,47 @@ def test_other_devices_raise():
     q = torch.zeros((1, 8, 2, 64), device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         flash_attention(q, q, q)
+
+
+def _backward_rounded(q, k, v, out, lse, dout, causal):
+    """``flash_backward_reference``'s arithmetic with P and dS rounded to
+    bf16 before the second products (dq = dS K, dk = dS^T Q, dv = P^T dO),
+    as the tensor-core kernels round them, and nothing else changed."""
+    b, t, n_heads, d = q.shape
+    n_kv = k.shape[2]
+    scale = 1.0 / d ** 0.5
+    p = _probabilities(q, k, causal, lse)
+    do = _grouped(dout, n_kv)
+    delta = (do * _grouped(out, n_kv)).sum(-1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, _grouped(q, n_kv)) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    return dq.reshape(b, t, n_heads, d), dk, dv
+
+
+@pytest.mark.parametrize("T,H,Hkv,d,causal", [
+    (77, 4, 2, 64, True),
+    (130, 8, 2, 128, False),
+    (256, 8, 1, 128, True),
+    (200, 4, 4, 64, False),
+], ids=["g2-hd64-T77-causal", "g4-hd128-T130-full", "g8-hd128-T256-causal",
+        "g1-hd64-T200-full"])
+def test_bf16_rounding_of_p_and_ds_fits_card_tolerance(T, H, Hkv, d, causal):
+    """The one change to the numerics in the tensor-core backward — P and
+    dS rounded once to bf16 — keeps dq, dk and dv inside atol = rtol =
+    2e-2 of the f32 plain version, the card's bf16 tolerance
+    (``FLASH_GRAD_TOL``), on bf16-valued inputs; and the rounding is
+    visible (the two differ)."""
+    rng = np.random.default_rng(T + H + d)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(2, T, h, d)).astype(
+        np.float32)).to(torch.bfloat16).float() for h in (H, Hkv, Hkv, H))
+    out, lse = flash_forward_reference(q, k, v, causal)
+    want = flash_backward_reference(q, k, v, out, lse, do, causal)
+    got = _backward_rounded(q, k, v, out, lse, do, causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=2e-2, rtol=2e-2)
+    assert any(not torch.equal(a, b) for a, b in zip(got, want))
