@@ -9,14 +9,19 @@ imports nothing of JAX. Phases, each of which fails the run on error:
 0. build: compile the kernels from ``ops/csrc`` (one nvcc per source, in
    parallel, linked into one library) and print each kernel's registers,
    shared memory and spills, the count of tensor-core (HMMA) instructions
-   in each kernel's SASS where cuobjdump exists, and the card's name and
-   power limit (nvidia-smi).
+   in each kernel's SASS where cuobjdump exists (each bf16 mma.sync kernel
+   must have some: K2 ``paged_prefill_mma.cu``, K5
+   ``flash_forward_mma.cu``, K6 and K7 ``flash_backward_mma.cu``), and the
+   card's name and power limit (nvidia-smi).
 1. kernels against their plain PyTorch versions on the card: K1
    (paged_decode_attention), K2 (paged_prefill_attention) and K3
    (paged_verify_attention, window t = 5) at the serve width (B 8, H =
    Hkv = 16, hd 64, page 64, 32 blocks, lengths up to 2048; K2 with tb
    512, hb 8) and at a GQA shape (H 32, Hkv 8, hd 128), each in bf16 and
-   with an int8 KV pool. Max error against a stated tolerance; CUDA-event
+   with an int8 KV pool; K2 also at phase 4's chunked-prefill shape (tb
+   64 over 512 resident rows, hb 8, 8 padded entries), and each of that
+   run's 15 continuation shapes timed alone, summed to the 240 launches'
+   total. bf16 runs K2 on the tensor cores (``paged_prefill_mma.cu``). Max error against a stated tolerance; CUDA-event
    times of the kernel, the plain version and one library call
    (scaled_dot_product_attention over the gathered K/V, a yardstick the
    port never calls), beside the least time the card could take (bytes
@@ -26,8 +31,9 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    gives them) and train-hd64 (B 4, T 1024, H = Hkv = 16, hd 64), K5's
    f32 lse held to the f32 tolerance (2e-5); the yardstick is
    scaled_dot_product_attention with is_causal (K5) and its autograd
-   backward, which yields dq, dk and dv together (K6, K7); bf16 runs K6
-   and K7 on the tensor cores (``flash_backward_mma.cu``). And K4
+   backward, which yields dq, dk and dv together (K6, K7); bf16 runs K5
+   (``flash_forward_mma.cu``), K6 and K7 (``flash_backward_mma.cu``) on
+   the tensor cores. And K4
    (flash_decode_attention) over a contiguous cache of S 2048 with the
    cursor at row 1024 and each slot's bitmap a 576-row window ending
    there (a 512-token prompt plus 64 decode rows: what a slot holds in
@@ -118,7 +124,7 @@ KERNELS = {
         "paged_attention.cu",
         "k8s_gpu_scheduler_tpu/ops/decode_attention.py:497"),
     "paged_prefill_attention": (
-        "paged_attention.cu",
+        "paged_prefill_mma.cu",
         "k8s_gpu_scheduler_tpu/ops/decode_attention.py:999"),
     "paged_verify_attention": (
         "paged_attention.cu",
@@ -127,7 +133,7 @@ KERNELS = {
         "flash_decode.cu",
         "k8s_gpu_scheduler_tpu/ops/decode_attention.py:360"),
     "flash_forward": (
-        "flash_attention.cu",
+        "flash_forward_mma.cu",
         "k8s_gpu_scheduler_tpu/ops/flash_attention.py:117"),
     "flash_backward_dq": (
         "flash_backward_mma.cu",
@@ -140,6 +146,9 @@ PLAIN = ("paged_decode_reference", "dense_prefill_reference",
          "paged_verify_reference", "flash_decode_reference")
 FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 FLASH_PLAIN = ("flash_forward_reference", "flash_backward_reference")
+# The bf16 kernels on mma.sync: phase 0 finds HMMA instructions in each.
+TENSOR_CORE_KERNELS = ("paged_prefill_mma_kernel", "flash_fwd_mma_kernel",
+                       "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
 
 
 def log(*parts) -> None:
@@ -272,7 +281,10 @@ def decode_case(name, B, H, n_kv, hd, ps, n_blocks, int8, dev, flush,
 
 
 def prefill_case(name, M, tb, hb, H, n_kv, hd, ps, int8, dev, flush,
-                 seed=1):
+                 seed=1, hits=None):
+    """K2 against its plain version. ``hits``: the entries' cached rows;
+    by default ragged page-aligned hits (the main path's 6 pages, full,
+    half, none)."""
     from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
 
     dtype = torch.bfloat16
@@ -284,9 +296,8 @@ def prefill_case(name, M, tb, hb, H, n_kv, hd, ps, int8, dev, flush,
     kp, vp, sc = _pool(gen, n_pages, ps, n_kv, hd, dtype, int8, dev)
     table = (torch.randperm(n_pages - 1, generator=gen)[:M * hb] + 1) \
         .reshape(M, hb).to(torch.int32).to(dev)
-    # Ragged page-aligned hits: the main path's 6 pages, full, half, none.
     choices = [6 * ps, hb * ps, (hb // 2) * ps, 0]
-    hits = torch.tensor([choices[i % 4] for i in range(M)],
+    hits = torch.tensor(hits or [choices[i % 4] for i in range(M)],
                         dtype=torch.int32, device=dev)
     args = (q, kp, vp, table, hits, tk, tv)
     out = da.paged_prefill_attention(*args, **sc)
@@ -433,6 +444,39 @@ def flash_decode_case(name, B, H, n_kv, hd, S, int8, bitmap, dev, flush,
                 **_bound(fixed + kv_bytes(live), 4 * live * H * hd, dtype))
 
 
+def chunked_prefill_sweep(dev, flush, n_layers=8, prompt=1024, budget=256,
+                          ps=64, n_slots=8, H=16, hd=64) -> dict:
+    """K2 at each continuation shape that phase 4's chunked run gives it
+    (``ContinuousBatcher._advance_prefill``: a 256-token budget grants one
+    64-token page to each of the four oldest pending slots a step, so a
+    prompt's chunk j > 0 is a K2 launch of tb 64 over hit j·64 rows, hb the
+    power-of-two bucket of j pages, the 4 entries padded to the 8 slots by
+    repeating the last), timed alone; the 240 launches' total is their sum
+    times the two groups of four prompts times the layers."""
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator().manual_seed(5)
+    dtype = torch.bfloat16
+    tb, n_chunks = ps, prompt // ps
+    n_blocks = 2048 // ps
+    q = torch.randn((n_slots, tb, H, hd), generator=gen).to(dtype).to(dev)
+    tk, tv = (torch.randn((n_slots, tb, H, hd), generator=gen).to(dtype)
+              .to(dev) for _ in range(2))
+    kp, vp, _ = _pool(gen, 1 + n_slots * n_blocks, ps, H, hd, dtype, False,
+                      dev)
+    per = {}
+    for j in range(1, n_chunks):
+        hb = min(1 << (j - 1).bit_length(), n_blocks)
+        table = torch.arange(1, 1 + n_slots * hb, dtype=torch.int32,
+                             device=dev).reshape(n_slots, hb)
+        hits = torch.full((n_slots,), j * ps, dtype=torch.int32, device=dev)
+        per[j * ps] = time_ms(lambda: da.paged_prefill_attention(
+            q, kp, vp, table, hits, tk, tv), flush)
+    groups = n_slots // (budget // ps)
+    return dict(launch_ms=per, launches=(n_chunks - 1) * groups * n_layers,
+                total_ms=sum(per.values()) * groups * n_layers)
+
+
 def flash_cases(name, B, T, H, n_kv, hd, dev, flush, seed=3) -> list:
     """K5, K6 and K7 (causal, bf16) against their plain versions, each
     timed beside its plain version, the SDPA yardstick and its bound."""
@@ -535,6 +579,10 @@ def phase_kernels(dev) -> list:
                                   int8, dev, flush))
         cases.append(prefill_case(f"gqa128-{tag}", 8, 512, 8, 32, 8, 128, 64,
                                   int8, dev, flush))
+        # Phase 4's chunked run, its middle continuation chunk: tb 64 over
+        # 512 resident rows (hb 8) in every padded row.
+        cases.append(prefill_case(f"chunked-{tag}", 8, 64, 8, 16, 16, 64, 64,
+                                  int8, dev, flush, hits=[512] * 8))
         cases.append(verify_case(f"serve-{tag}", 8, 5, 16, 16, 64, 64, 32,
                                  int8, dev, flush))
         cases.append(verify_case(f"gqa128-{tag}", 8, 5, 32, 8, 128, 64, 32,
@@ -564,6 +612,11 @@ def phase_kernels(dev) -> list:
     bad = [c["kernel"] + ":" + c["case"] for c in cases if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    sweep = chunked_prefill_sweep(dev, flush)
+    log(f"  paged_prefill_attention, phase 4's chunked run: "
+        f"{sweep['launches']} launches, {sweep['total_ms']:.4f} ms in all "
+        f"(kernel alone); ms a launch by hit rows: "
+        f"{json.dumps(sweep['launch_ms'])}")
     return cases
 
 
@@ -610,7 +663,8 @@ def phase_engine_vs_cpu(dev) -> dict:
         for where in ("cpu", dev):
             model = init_params(cfg, torch.Generator().manual_seed(0), where)
             eng = ContinuousBatcher(model, cfg, n_slots=4, max_len=128,
-                                    chunk=4, prefill_bucket=16, page_size=16,
+                                    chunk=4, prefill_bucket=16,
+                                    kv_layout="paged", page_size=16,
                                     prefix_cache=True, device=where, **kw)
             rng = np.random.default_rng(0)
             da.reset_counters()
@@ -768,7 +822,8 @@ def serve_run(model, cfg, prompts, max_new, **kw):
     prefill's); ``decode_tokens_per_s`` divides them by the time spent in
     decode-chunk or verify dispatches. ``kw`` overrides the engine's
     settings (8 slots, chunk = the largest max_new, prefill bucket 512,
-    and for the paged layout page 64 with the prefix cache on)."""
+    the paged layout, page 64 with the prefix cache on; the page settings
+    only where ``kw`` keeps the paged layout)."""
     from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
     from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
 
@@ -776,7 +831,8 @@ def serve_run(model, cfg, prompts, max_new, **kw):
     eng = ContinuousBatcher(model, cfg, device=model.device, **{
         **dict(n_slots=8, max_len=cfg.max_seq, chunk=int(np.max(max_new)),
                prefill_bucket=512),
-        **(dict(page_size=64, prefix_cache=True) if paged else {}), **kw})
+        **(dict(kv_layout="paged", page_size=64, prefix_cache=True)
+           if paged else {}), **kw})
     torch.cuda.synchronize()
     da.reset_counters()
     t0 = time.perf_counter()
@@ -1253,8 +1309,13 @@ def main() -> int:
     for r in _build.ptxas_report():
         log(f"  ptxas {r['registers']} regs, {r['smem_bytes']} B smem, "
             f"spill {r['spill_stores']}/{r['spill_loads']} B: {r['kernel']}")
-    for name, n in sass_counts(_build.library_path(), "HMMA").items():
+    hmma = sass_counts(_build.library_path(), "HMMA")
+    for name, n in hmma.items():
         log(f"  sass {n} HMMA: {name}")
+    if hmma:                         # cuobjdump exists: every mma kernel
+        for kernel in TENSOR_CORE_KERNELS:    # must use the tensor cores
+            if not any(kernel in name for name in hmma):
+                raise SystemExit(f"no HMMA instruction in {kernel}")
     log("phase 1: kernels against their plain versions "
         "(atol = rtol = 2e-2 in bf16, 2e-5 for K5's f32 lse)")
     cases = phase_kernels(dev)

@@ -45,8 +45,9 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "dense"
-    # Serving decode attention: "fused" is the paged kernel path (K1/K2),
-    # the only one the port's engine serves.
+    # Serving decode attention: "fused" is the kernel path (K1/K2 on the
+    # paged layout, K4 on the contiguous one), the only one the port's
+    # engine serves.
     decode_attn: str = "dense"
     remat: bool = True
     n_experts: int = 0
@@ -72,7 +73,10 @@ class LlamaConfig:
 
     @staticmethod
     def serve() -> "LlamaConfig":
-        """The ``main --serve`` configuration of the JAX package."""
+        """The ``main --serve`` configuration of the JAX package, which
+        serves it through the paged engine: pass ``kv_layout="paged"`` (and
+        ``prefix_cache=True``) to ``ContinuousBatcher`` explicitly, since its
+        default layout is ``"contiguous"`` as in the JAX engine."""
         return LlamaConfig(
             vocab=32000, d_model=1024, n_layers=8, n_heads=16, n_kv_heads=16,
             d_ff=4096, max_seq=2048, remat=False)

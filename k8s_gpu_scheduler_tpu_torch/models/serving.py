@@ -3,8 +3,9 @@
 (``generate``, ``generate_speculative`` and their server steps) and
 continuous batching over two cache layouts.
 
-**Paged, prefix-cached** (``kv_layout="paged"``, the default). A request
-goes through four steps:
+**Paged, prefix-cached** (``kv_layout="paged"``, the production serving
+path; the default is the JAX engine's, ``"contiguous"``). A request goes
+through four steps:
 
 1. admission (``ContinuousBatcher._admit_paged``): free slot, free pages
    from ``PageAllocator``, and the longest cached page-aligned prefix from
@@ -23,7 +24,8 @@ goes through four steps:
    (``ops.paged_verify_attention``) per layer, read back at once because
    the next proposals depend on it;
 4. reaping (``_free_slot_pages``/``_retire_pages``): pages are freed and
-   the conversation's full pages donated into the radix tree.
+   the conversation's full pages (and, with ``donate_decoded``, the
+   verified decoded suffix) donated into the radix tree.
 
 **Contiguous, shared cursor** (``kv_layout="contiguous"``). The caches are
 ``[L, B, S, Hkv, hd]`` and every slot writes its decode row at ONE scalar
@@ -56,7 +58,7 @@ from __future__ import annotations
 
 import math
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from functools import partial
 from typing import Dict, Optional, Tuple
 
@@ -775,13 +777,21 @@ def _prefill_multi_fn(model: Llama, cfg: LlamaConfig, k, v, k_s, v_s,
 
 
 # Options of the JAX engine that later slices of the port bring, with the
-# value that means "off".
+# value that means "off" (for weight_sharding and tp_combine: JAX's
+# defaults, which change nothing without a mesh). flight_capacity keeps 0
+# where JAX defaults to 256: 256 turns on a flight recorder the port does
+# not have yet.
 _LATER_SLICES = {
     "kv_tiering": (False, "the lifecycle and tiering slice"),
+    "dram_pages": (None, "the lifecycle and tiering slice"),
+    "kv_tier_disk": (None, "the lifecycle and tiering slice"),
     "mesh": (None, "the multi-device slice"),
+    "weight_sharding": (True, "the multi-device slice"),
+    "tp_combine": ("all_gather", "the multi-device slice"),
     "role": ("mixed", "the fleet slice"),
     "fault_injector": (None, "the lifecycle slice"),
     "tracer": (None, "the observability slice"),
+    "clock": (None, "the observability slice"),
     "flight_capacity": (0, "the observability slice"),
 }
 
@@ -792,22 +802,24 @@ class ContinuousBatcher:
     per bucket rung, decode every active slot ``chunk`` tokens per step,
     and hand a finished request's slot to the next one at once.
 
-    ``kv_layout="paged"`` (default) keeps K/V in a page pool behind
-    per-slot block tables: admission needs free pages and mounts cached
-    prefixes (``prefix_cache=True``, prefill rungs (tb, hb), kernels K2
-    and K1), and a finished slot's pages are freed at once, its full
-    pages donated into the prefix tree. ``speculative=True`` replaces each
+    ``kv_layout="paged"`` keeps K/V in a page pool behind per-slot block
+    tables: admission needs free pages and mounts cached prefixes
+    (``prefix_cache=True``, prefill rungs (tb, hb), kernels K2 and K1),
+    and a finished slot's pages are freed at once, its full pages donated
+    into the prefix tree. ``speculative=True`` replaces each
     decode chunk with one verify dispatch (``_verify_chunk_paged_fn``,
     kernel K3) over a 1 + ``gamma`` window of proposals from ``proposer``
     (``models/proposers.py``); ``spec_adaptive`` sizes each request's
     effective window from its accept-rate EMA. ``prefill_chunk_tokens`` (a
     page multiple) caps the prompt tokens prefilled per step: admission
     only binds the slot and ``_advance_prefill`` spends the budget page by
-    page, round robin.
+    page, round robin. ``donate_decoded`` (default True) also donates a
+    finished request's verified decoded suffix into the prefix tree, so a
+    follow-up turn mounts its whole transcript.
 
-    ``kv_layout="contiguous"`` keeps K/V in ``[L, B, S, Hkv, hd]`` caches
-    with one shared write cursor, a per-slot validity bitmap and per-slot
-    rope positions (kernel K4): a prompt is written backward from the
+    ``kv_layout="contiguous"`` (default, as in the JAX engine) keeps K/V
+    in ``[L, B, S, Hkv, hd]`` caches with one shared write cursor, a
+    per-slot validity bitmap and per-slot rope positions (kernel K4): a prompt is written backward from the
     cursor, admission is strictly first come first served (a head whose
     window or decode rows do not fit under S blocks the queue), and once
     every slot has drained the cursor and the bitmap reset (an epoch
@@ -825,18 +837,26 @@ class ContinuousBatcher:
                  max_len: Optional[int] = None, chunk: int = 8,
                  prefill_bucket: int = 128, eos_id: Optional[int] = None,
                  temperature: float = 0.0, top_k: int = 0,
-                 kv_dtype: Optional[str] = None, kv_layout: str = "paged",
+                 kv_dtype: Optional[str] = None,
+                 kv_layout: str = "contiguous",
                  page_size: int = DEFAULT_PAGE_SIZE,
                  n_pages: Optional[int] = None, prefix_cache: bool = False,
                  seed: int = 0, device="cuda", speculative: bool = False,
                  gamma: int = 4, proposer=None, spec_adaptive: bool = False,
                  prefill_chunk_tokens: Optional[int] = None,
                  prefill_attn: Optional[str] = None,
-                 kv_tiering: bool = False, mesh=None, role: str = "mixed",
-                 fault_injector=None, tracer=None, flight_capacity: int = 0):
-        given = dict(kv_tiering=kv_tiering, mesh=mesh, role=role,
-                     fault_injector=fault_injector, tracer=tracer,
-                     flight_capacity=flight_capacity)
+                 donate_decoded: bool = True,
+                 kv_tiering: bool = False, dram_pages: Optional[int] = None,
+                 kv_tier_disk: Optional[str] = None, mesh=None,
+                 weight_sharding: bool = True,
+                 tp_combine: str = "all_gather", role: str = "mixed",
+                 fault_injector=None, tracer=None, clock=None,
+                 flight_capacity: int = 0):
+        given = dict(kv_tiering=kv_tiering, dram_pages=dram_pages,
+                     kv_tier_disk=kv_tier_disk, mesh=mesh,
+                     weight_sharding=weight_sharding, tp_combine=tp_combine,
+                     role=role, fault_injector=fault_injector, tracer=tracer,
+                     clock=clock, flight_capacity=flight_capacity)
         for name, (off, slice_name) in _LATER_SLICES.items():
             if given[name] != off:
                 raise NotImplementedError(
@@ -894,6 +914,7 @@ class ContinuousBatcher:
         self.top_k = int(top_k)
         self.kv_dtype = kv_dtype
         self.seed = int(seed)
+        self._donate_decoded = bool(donate_decoded)
         self.S = min(max_len or cfg.max_seq, cfg.max_seq)
         self.spec = bool(speculative)
         self.gamma = int(gamma)
@@ -951,6 +972,9 @@ class ContinuousBatcher:
         self._metrics: Dict[int, Dict[str, float]] = {}
         self.errors: Dict[int, str] = {}         # req id -> failure text
         self._request_errors = 0
+        # Liveness: host time of the last step's start
+        # (``last_step_age_seconds``).
+        self._last_step_t = time.monotonic()
 
     def _kv_buffers(self, shape: Tuple[int, ...]):
         """Zeroed (k, v, k_scale, v_scale) of ``shape`` [..., hd]: int8
@@ -1011,6 +1035,17 @@ class ContinuousBatcher:
         self._prefix = (PrefixCache(self._alloc, page_size)
                         if prefix_cache else None)
         self._skipped_tokens = 0
+        # Per-admission prefix hit lengths (tokens, a miss is 0), drained by
+        # pool_metrics() as ``prefix_hit_token_batch``; oldest dropped.
+        self._hit_tok_buf: deque = deque(maxlen=4096)
+        # Device bytes of the pool and of the weights, fixed at build:
+        # numel x element size, never a read of the live tensors.
+        self._kv_pool_dev_bytes = sum(
+            t.numel() * t.element_size()
+            for t in (self._k, self._v, self._ks, self._vs) if t is not None)
+        self._weight_dev_bytes = sum(
+            t.numel() * t.element_size()
+            for t in (*self.model.parameters(), *self.model.buffers()))
         # Prefill dispatches per (tb, hb) rung; hb > 0 rungs run K2.
         self.prefill_rungs: Dict[Tuple[int, int], int] = {}
 
@@ -1148,8 +1183,8 @@ class ContinuousBatcher:
     def _donatable_decoded(self, rid: int) -> list:
         """The flushed emitted tokens whose KV rows are resident: every
         flushed token but the last (its row is written by the next tick),
-        capped at an eos."""
-        if self._prefix is None:
+        capped at an eos; none with ``donate_decoded=False``."""
+        if not self._donate_decoded or self._prefix is None:
             return []
         raw = self._out.get(rid)
         if not raw or len(raw) < 2:
@@ -1239,6 +1274,8 @@ class ContinuousBatcher:
             self._table_dirty = True
             hit_tok = len(hits) * ps
             self._skipped_tokens += hit_tok
+            if self._prefix is not None:
+                self._hit_tok_buf.append(hit_tok)
             # The uncached tail's bucket, rounded up to whole pages (the
             # prefill scatter writes whole pages).
             tb = -(-self._ladder(P - hit_tok) // ps) * ps
@@ -1424,6 +1461,7 @@ class ContinuousBatcher:
         chunk (or, speculative, one verify) over the fully prefilled
         slots — mid-prefill slots ride it inactive. Only the verify reads
         back. Returns the finished req ids."""
+        self._last_step_t = time.monotonic()
         if self.layout == "contiguous":
             return self._step_contiguous()
         finished = self._admit_paged()
@@ -1696,8 +1734,11 @@ class ContinuousBatcher:
         accept rate (accepted / proposed), tokens committed per slot per
         verify, overshoot rows rewound, the proposer's name, the spread of
         the last effective windows and the per-dispatch accept rates since
-        the last call (drained here). The contiguous layout has no pool:
-        {}."""
+        the last call (drained here); the pool's and the weights' device
+        bytes (constants of the build), the age of the last step's start
+        while work is pending (else 0.0), and the per-admission prefix hit
+        lengths since the last call (``prefix_hit_token_batch``, drained
+        here). The contiguous layout has no pool: {}."""
         if self.layout != "paged":
             return {}
         out: Dict[str, object] = self._alloc.metrics()
@@ -1707,6 +1748,11 @@ class ContinuousBatcher:
         out["prefill_backlog_tokens"] = float(self._prefill_backlog())
         out["prefill_chunks_total"] = float(self._prefill_chunks_total)
         out["request_errors_total"] = float(self._request_errors)
+        out["kv_pool_device_bytes"] = float(self._kv_pool_dev_bytes)
+        out["weight_device_bytes"] = float(self._weight_dev_bytes)
+        out["last_step_age_seconds"] = (
+            max(0.0, time.monotonic() - self._last_step_t)
+            if self.pending else 0.0)
         if self.spec:
             out["spec_accept_rate"] = (
                 self._spec_accepted / self._spec_proposed
@@ -1728,6 +1774,9 @@ class ContinuousBatcher:
             if self._spec_accept_buf:
                 out["spec_accept_batch"] = tuple(self._spec_accept_buf)
                 self._spec_accept_buf = []
+        if self._hit_tok_buf:
+            out["prefix_hit_token_batch"] = tuple(self._hit_tok_buf)
+            self._hit_tok_buf.clear()
         return out
 
     def _reap_eos(self) -> list:

@@ -23,8 +23,9 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "paged_attention.cu", _CSRC / "flash_decode.cu",
-           _CSRC / "flash_attention.cu", _CSRC / "flash_backward_mma.cu")
+SOURCES = (_CSRC / "paged_attention.cu", _CSRC / "paged_prefill_mma.cu",
+           _CSRC / "flash_decode.cu", _CSRC / "flash_attention.cu",
+           _CSRC / "flash_forward_mma.cu", _CSRC / "flash_backward_mma.cu")
 HEADERS = (_CSRC / "common.cuh", _CSRC / "mma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")

@@ -1,6 +1,6 @@
-// Flash attention for training, for Hopper (sm_90a): the forward (K5) and,
-// for f32 inputs, both backward kernels (K6, K7). bf16 backward launches go
-// to the tensor-core kernels of flash_backward_mma.cu.
+// Flash attention for training, for Hopper (sm_90a), for f32 inputs: the
+// forward (K5) and both backward kernels (K6, K7). bf16 launches go to the
+// tensor-core kernels of flash_forward_mma.cu and flash_backward_mma.cu.
 //
 // K5 flash_fwd_kernel replaces the Pallas kernel behind
 //    k8s_gpu_scheduler_tpu/ops/flash_attention.py _flash_forward
@@ -32,20 +32,18 @@
 // q tile's last row, K7 starts its q loop at the k tile's first row, and
 // K5 launches its heaviest (last) q tiles first.
 //
-// The f32 backward stays on the CUDA cores on purpose: tensor cores would
-// take f32 operands as TF32 (10 mantissa bits) or bf16, and f32 training
-// on the card is held to the CPU's losses at 1e-5 relative and replayed
-// bit for bit. bf16 operands lose nothing on the bf16 tensor cores, so
-// the bf16 backward runs there (flash_backward_mma.cu); K5's bf16 forward
-// is still the CUDA-core kernel here.
+// f32 stays on the CUDA cores on purpose: tensor cores would take f32
+// operands as TF32 (10 mantissa bits) or bf16, and f32 training on the
+// card is held to the CPU's losses at 1e-5 relative and replayed bit for
+// bit. bf16 operands lose nothing on the bf16 tensor cores, so bf16 runs
+// there (flash_forward_mma.cu, flash_backward_mma.cu).
 //
 // Numerics: scores, softmax statistics and every accumulator in f32;
 // masked entries (above the diagonal, past T) get exactly zero
 // probability, never exp(s - lse) of a masked score; each output element is
 // summed by one thread in a fixed order, with no atomics, so every kernel
 // is deterministic (a remat recompute of K5 reproduces its forward bit for
-// bit) and K7's GQA sum is too. The output is cast to the input dtype
-// (round to nearest even for bf16). T needs no block multiple: rows past T
+// bit) and K7's GQA sum is too. T needs no block multiple: rows past T
 // load as zeros and are never stored.
 //
 // Build: ops/_build.py compiles this file beside the other sources into
@@ -54,12 +52,15 @@
 
 #include <math.h>
 
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace port_kernels {
 
+// K5 for bf16 inputs, on the tensor cores (flash_forward_mma.cu).
+cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
+                           void* out, void* lse, int B, int n, int H, int Hkv,
+                           int hd, int causal, float scale,
+                           cudaStream_t stream);
 // K6 and K7 for bf16 inputs, on the tensor cores (flash_backward_mma.cu).
 cudaError_t flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                               const void* out, const void* dout,
@@ -107,8 +108,8 @@ __host__ __device__ constexpr int dkv_smem_floats() {
 
 // Rows row0 .. row0+ROWS-1 of one head, row r at src + r * stride, into
 // the f32 tile dst [ROWS][ld(HD)]; rows at or past n_rows become zeros.
-template <typename T, int HD, int ROWS>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
+template <int HD, int ROWS>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
                                            size_t stride, int row0,
                                            int n_rows, float* dst) {
   constexpr int SEGS = HD / 8;
@@ -215,8 +216,8 @@ __device__ __forceinline__ bool visible(int row, int col, int n, int causal) {
 
 // Writes the thread's dims of one output row: v[4 jj + e] * mul at dims
 // 4 tx + 32 jj + e.
-template <typename T, int HD>
-__device__ __forceinline__ void store_row(T* dst, const float (&v)[HD / 8],
+template <int HD>
+__device__ __forceinline__ void store_row(float* dst, const float (&v)[HD / 8],
                                           int tx, float mul) {
 #pragma unroll
   for (int jj = 0; jj < HD / 32; ++jj)
@@ -230,10 +231,10 @@ __device__ __forceinline__ void store_row(T* dst, const float (&v)[HD / 8],
 // Thread (ty, tx) owns q rows ty + 16 i (i < 4), score columns tx + 8 j
 // (j < 4) of each 32-row k tile, and output dims 4 tx + 32 jj + e. Each
 // lane keeps its share of the row sum l; the 8 shares add up at the end.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int n, int n_heads, int n_kv,
                  int causal, float scale) {
   constexpr int R = kFwdQ / kRowGroups;
@@ -252,10 +253,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x / kLanes;
   const size_t q_stride = static_cast<size_t>(n_heads) * HD;
   const size_t kv_stride = static_cast<size_t>(n_kv) * HD;
-  const T* kb = k + (static_cast<size_t>(b) * n * n_kv + kvh) * HD;
-  const T* vb = v + (static_cast<size_t>(b) * n * n_kv + kvh) * HD;
+  const float* kb = k + (static_cast<size_t>(b) * n * n_kv + kvh) * HD;
+  const float* vb = v + (static_cast<size_t>(b) * n * n_kv + kvh) * HD;
 
-  stage_rows<T, HD, kFwdQ>(q + (static_cast<size_t>(b) * n * n_heads + h) * HD,
+  stage_rows<HD, kFwdQ>(q + (static_cast<size_t>(b) * n * n_heads + h) * HD,
                            q_stride, q0, n, Qs);
 
   float m[R], l[R], acc[R][HD / 8];
@@ -270,8 +271,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = causal ? min(n, q0 + kFwdQ) : n;
   for (int k0 = 0; k0 < k_end; k0 += kFwdK) {
     __syncthreads();                      // last tile's readers are done
-    stage_rows<T, HD, kFwdK>(kb, kv_stride, k0, n, Ks);
-    stage_rows<T, HD, kFwdK>(vb, kv_stride, k0, n, Vs);
+    stage_rows<HD, kFwdK>(kb, kv_stride, k0, n, Ks);
+    stage_rows<HD, kFwdK>(vb, kv_stride, k0, n, Vs);
     __syncthreads();
     float s[R][C];
     tile_dot<R, C, HD>(Qs, Ks, ty, tx, s);
@@ -310,7 +311,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + kRowGroups * i;
     const float den = fmaxf(row_sum(l[i]), 1e-20f);
     if (row < n) {
-      T* o = out + ((static_cast<size_t>(b) * n + row) * n_heads + h) * HD;
+      float* o = out + ((static_cast<size_t>(b) * n + row) * n_heads + h) * HD;
 #pragma unroll
       for (int jj = 0; jj < HD / 32; ++jj)
         store4(o + 4 * tx + 32 * jj, acc[i][4 * jj] / den,
@@ -328,13 +329,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // grid (ceil(T / 64), H, B), 128 threads, the thread layout of K5. The
 // block first computes D_i = do_i . o_i for its 64 rows (o staged where
 // the K/V tiles go later) and writes it to delta [B*H, T] for K7.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ out,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    T* __restrict__ dq, float* __restrict__ delta, int n,
-                    int n_heads, int n_kv, int causal, float scale) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ out,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ dq,
+                    float* __restrict__ delta, int n, int n_heads, int n_kv,
+                    int causal, float scale) {
   constexpr int R = kDqQ / kRowGroups;
   constexpr int C = kDqK / kLanes;
   static_assert(2 * kDqK >= kDqQ, "o is staged over the K/V tiles");
@@ -354,13 +357,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_stride = static_cast<size_t>(n_heads) * HD;
   const size_t kv_stride = static_cast<size_t>(n_kv) * HD;
   const size_t q_off = (static_cast<size_t>(b) * n * n_heads + h) * HD;
-  const T* kb = k + (static_cast<size_t>(b) * n * n_kv + kvh) * HD;
-  const T* vb = v + (static_cast<size_t>(b) * n * n_kv + kvh) * HD;
+  const float* kb = k + (static_cast<size_t>(b) * n * n_kv + kvh) * HD;
+  const float* vb = v + (static_cast<size_t>(b) * n * n_kv + kvh) * HD;
   const size_t bh = static_cast<size_t>(b) * n_heads + h;
 
-  stage_rows<T, HD, kDqQ>(q + q_off, q_stride, q0, n, Qs);
-  stage_rows<T, HD, kDqQ>(dout + q_off, q_stride, q0, n, dOs);
-  stage_rows<T, HD, kDqQ>(out + q_off, q_stride, q0, n, Ks);   // o
+  stage_rows<HD, kDqQ>(q + q_off, q_stride, q0, n, Qs);
+  stage_rows<HD, kDqQ>(dout + q_off, q_stride, q0, n, dOs);
+  stage_rows<HD, kDqQ>(out + q_off, q_stride, q0, n, Ks);   // o
   __syncthreads();
 
   float D[R], L[R], acc[R][HD / 8];
@@ -387,8 +390,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = causal ? min(n, q0 + kDqQ) : n;
   for (int k0 = 0; k0 < k_end; k0 += kDqK) {
     __syncthreads();                      // o / the last tile is consumed
-    stage_rows<T, HD, kDqK>(kb, kv_stride, k0, n, Ks);
-    stage_rows<T, HD, kDqK>(vb, kv_stride, k0, n, Vs);
+    stage_rows<HD, kDqK>(kb, kv_stride, k0, n, Ks);
+    stage_rows<HD, kDqK>(vb, kv_stride, k0, n, Vs);
     __syncthreads();
     float s[R][C], dp[R][C];
     tile_dot<R, C, HD>(Qs, Ks, ty, tx, s);
@@ -413,7 +416,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < R; ++i) {
     const int row = q0 + ty + kRowGroups * i;
     if (row < n)
-      store_row<T, HD>(dq + ((static_cast<size_t>(b) * n + row) * n_heads + h) *
+      store_row<HD>(dq + ((static_cast<size_t>(b) * n + row) * n_heads + h) *
                                 HD,
                        acc[i], tx, scale);
   }
@@ -426,13 +429,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // output dims 4 tx + 32 jj + e. The loops run over the g query heads of
 // the kv head and, for each, the q tiles from the k tile's first row on
 // (causal) or all of them; P^T and dS^T go through shared memory.
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int n, int n_heads, int n_kv,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int n, int n_heads, int n_kv,
                      int causal, float scale) {
   constexpr int R = kDkvK / kRowGroups;
   constexpr int C = kDkvQ / kLanes;
@@ -456,8 +460,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t kv_stride = static_cast<size_t>(n_kv) * HD;
   const size_t kv_off = (static_cast<size_t>(b) * n * n_kv + kvh) * HD;
 
-  stage_rows<T, HD, kDkvK>(k + kv_off, kv_stride, k0, n, Ks);
-  stage_rows<T, HD, kDkvK>(v + kv_off, kv_stride, k0, n, Vs);
+  stage_rows<HD, kDkvK>(k + kv_off, kv_stride, k0, n, Ks);
+  stage_rows<HD, kDkvK>(v + kv_off, kv_stride, k0, n, Vs);
 
   float dk_acc[R][HD / 8], dv_acc[R][HD / 8];
 #pragma unroll
@@ -472,8 +476,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t bh = static_cast<size_t>(b) * n_heads + h;
     for (int q0 = q_start; q0 < n; q0 += kDkvQ) {
       __syncthreads();                    // the last q tile is consumed
-      stage_rows<T, HD, kDkvQ>(q + q_off, q_stride, q0, n, Qs);
-      stage_rows<T, HD, kDkvQ>(dout + q_off, q_stride, q0, n, dOs);
+      stage_rows<HD, kDkvQ>(q + q_off, q_stride, q0, n, Qs);
+      stage_rows<HD, kDkvQ>(dout + q_off, q_stride, q0, n, dOs);
       for (int r = threadIdx.x; r < kDkvQ; r += kThreads) {
         const bool ok = q0 + r < n;
         Ls[r] = ok ? lse[bh * n + q0 + r] : 0.f;
@@ -508,8 +512,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int krow = k0 + ty + kRowGroups * i;
     if (krow < n) {
       const size_t o = ((static_cast<size_t>(b) * n + krow) * n_kv + kvh) * HD;
-      store_row<T, HD>(dk + o, dk_acc[i], tx, scale);
-      store_row<T, HD>(dv + o, dv_acc[i], tx, 1.f);
+      store_row<HD>(dk + o, dk_acc[i], tx, scale);
+      store_row<HD>(dv + o, dv_acc[i], tx, 1.f);
     }
   }
 }
@@ -520,89 +524,74 @@ inline float softmax_scale(int hd) {
   return static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
                        void* lse, int B, int n, int H, int Hkv, int causal,
                        cudaStream_t stream) {
   const dim3 grid((n + kFwdQ - 1) / kFwdQ, H, B);
   const size_t smem = sizeof(float) * fwd_smem_floats<HD>();
   static bool configured = false;
-  const cudaError_t err =
-      allow_smem(flash_fwd_kernel<T, HD>, smem, configured);
+  const cudaError_t err = allow_smem(flash_fwd_kernel<HD>, smem, configured);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
+  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), n, H, Hkv, causal, softmax_scale(HD));
   return cudaGetLastError();
 }
 
-// bf16 goes to the tensor-core kernel (flash_backward_mma.cu), f32 to the
-// CUDA-core kernel above.
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* out, const void* dout, const void* lse,
                       void* dq, void* delta, int B, int n, int H, int Hkv,
                       int causal, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return flash_bwd_dq_bf16(q, k, v, out, dout, lse, dq, delta, B, n, H, Hkv,
-                             HD, causal, softmax_scale(HD), stream);
-  } else {
-    const dim3 grid((n + kDqQ - 1) / kDqQ, H, B);
-    const size_t smem = sizeof(float) * dq_smem_floats<HD>();
-    static bool configured = false;
-    const cudaError_t err =
-        allow_smem(flash_bwd_dq_kernel<T, HD>, smem, configured);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(out),
-        static_cast<const T*>(dout), static_cast<const float*>(lse),
-        static_cast<T*>(dq), static_cast<float*>(delta), n, H, Hkv, causal,
-        softmax_scale(HD));
-    return cudaGetLastError();
-  }
+  const dim3 grid((n + kDqQ - 1) / kDqQ, H, B);
+  const size_t smem = sizeof(float) * dq_smem_floats<HD>();
+  static bool configured = false;
+  const cudaError_t err =
+      allow_smem(flash_bwd_dq_kernel<HD>, smem, configured);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(out),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(dq), static_cast<float*>(delta), n, H, Hkv, causal,
+      softmax_scale(HD));
+  return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int n, int H, int Hkv,
                        int causal, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return flash_bwd_dkv_bf16(q, k, v, dout, lse, delta, dk, dv, B, n, H, Hkv,
-                              HD, causal, softmax_scale(HD), stream);
-  } else {
-    const dim3 grid((n + kDkvK - 1) / kDkvK, Hkv, B);
-    const size_t smem = sizeof(float) * dkv_smem_floats<HD>();
-    static bool configured = false;
-    const cudaError_t err =
-        allow_smem(flash_bwd_dkv_kernel<T, HD>, smem, configured);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), n, H, Hkv, causal,
-        softmax_scale(HD));
-    return cudaGetLastError();
-  }
+  const dim3 grid((n + kDkvK - 1) / kDkvK, Hkv, B);
+  const size_t smem = sizeof(float) * dkv_smem_floats<HD>();
+  static bool configured = false;
+  const cudaError_t err =
+      allow_smem(flash_bwd_dkv_kernel<HD>, smem, configured);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), n, H, Hkv, causal,
+      softmax_scale(HD));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Picks the instantiation for (hd, dtype); other head dims are refused.
-#define FLASH_DISPATCH(LAUNCH, ...)                                       \
+// The f32 instantiation for hd; other head dims are refused.
+#define F32_DISPATCH(LAUNCH, ...)                                         \
   do {                                                                    \
-    if (hd == 64)                                                         \
-      return bf16 ? LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__)                \
-                  : LAUNCH<float, 64>(__VA_ARGS__);                       \
-    if (hd == 128)                                                        \
-      return bf16 ? LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__)               \
-                  : LAUNCH<float, 128>(__VA_ARGS__);                      \
+    if (hd == 64) return LAUNCH<64>(__VA_ARGS__);                         \
+    if (hd == 128) return LAUNCH<128>(__VA_ARGS__);                       \
     return cudaErrorInvalidValue;                                         \
   } while (0)
 
+// bf16 goes to the tensor-core kernels (flash_forward_mma.cu,
+// flash_backward_mma.cu), f32 to the CUDA-core kernels above.
 extern "C" {
 
 // q [B, T, H, hd]; k/v [B, T, Hkv, hd], q's dtype -> out [B, T, H, hd],
@@ -610,8 +599,11 @@ extern "C" {
 int flash_forward_launch(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int T, int H, int Hkv,
                          int hd, int causal, int bf16, void* stream) {
-  FLASH_DISPATCH(launch_fwd, q, k, v, out, lse, B, T, H, Hkv, causal,
-                 static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return port_kernels::flash_fwd_bf16(q, k, v, out, lse, B, T, H, Hkv, hd,
+                                        causal, softmax_scale(hd), st);
+  F32_DISPATCH(launch_fwd, q, k, v, out, lse, B, T, H, Hkv, causal, st);
 }
 
 // q/out/dout [B, T, H, hd]; k/v [B, T, Hkv, hd]; lse [B*H, T] f32 ->
@@ -621,8 +613,13 @@ int flash_backward_dq_launch(const void* q, const void* k, const void* v,
                              const void* lse, void* dq, void* delta, int B,
                              int T, int H, int Hkv, int hd, int causal,
                              int bf16, void* stream) {
-  FLASH_DISPATCH(launch_dq, q, k, v, out, dout, lse, dq, delta, B, T, H, Hkv,
-                 causal, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return port_kernels::flash_bwd_dq_bf16(q, k, v, out, dout, lse, dq, delta,
+                                           B, T, H, Hkv, hd, causal,
+                                           softmax_scale(hd), st);
+  F32_DISPATCH(launch_dq, q, k, v, out, dout, lse, dq, delta, B, T, H, Hkv,
+               causal, st);
 }
 
 // q/dout [B, T, H, hd]; k/v [B, T, Hkv, hd]; lse, delta [B*H, T] f32 ->
@@ -632,8 +629,13 @@ int flash_backward_dkv_launch(const void* q, const void* k, const void* v,
                               const void* delta, void* dk, void* dv, int B,
                               int T, int H, int Hkv, int hd, int causal,
                               int bf16, void* stream) {
-  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, B, T, H, Hkv,
-                 causal, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return port_kernels::flash_bwd_dkv_bf16(q, k, v, dout, lse, delta, dk, dv,
+                                            B, T, H, Hkv, hd, causal,
+                                            softmax_scale(hd), st);
+  F32_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, B, T, H, Hkv,
+               causal, st);
 }
 
 }  // extern "C"

@@ -65,8 +65,6 @@
 namespace port_kernels {
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 // Each warp owns 16 rows of its block's tile (the M of one mma).
 constexpr int kDqWarps = 4;              // K6: 64 q rows a block
 constexpr int kDqThreads = 32 * kDqWarps;
@@ -82,9 +80,6 @@ __host__ __device__ constexpr int dkv_q() {
   return HD == 128 ? 64 : 32;
 }
 
-// Padded row of a staged tile, in elements (16 bytes over the row).
-__host__ __device__ constexpr int ld(int hd) { return hd + 8; }
-
 template <int HD>
 constexpr size_t dq_smem_bytes() {
   return sizeof(bf16) * (2 * kDqQ + 4 * kDqK) * ld(HD) +
@@ -94,27 +89,6 @@ template <int HD>
 constexpr size_t dkv_smem_bytes() {
   return sizeof(bf16) * (2 * kDkvK + 4 * dkv_q<HD>()) * ld(HD) +
          sizeof(float) * 4 * dkv_q<HD>();
-}
-
-// Rows row0 .. row0+ROWS-1 of one head (row r at src + r * stride) into
-// dst [ROWS][ld(HD)] by cp.async from a block of THREADS threads; rows at
-// or past n_rows become zeros.
-template <int ROWS, int HD, int THREADS>
-__device__ __forceinline__ void stage_async(const bf16* __restrict__ src,
-                                            size_t stride, int row0,
-                                            int n_rows, bf16* dst) {
-  constexpr int SEGS = HD / 8;             // 16-byte segments of a row
-  static_assert(ROWS * SEGS % THREADS == 0, "whole copies per thread");
-#pragma unroll
-  for (int j = 0; j < ROWS * SEGS / THREADS; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    const int r = i / SEGS;
-    const int sg = i - r * SEGS;
-    const bool ok = row0 + r < n_rows;
-    cp_async16(dst + r * ld(HD) + sg * 8,
-               src + static_cast<size_t>(ok ? row0 + r : 0) * stride + sg * 8,
-               ok);
-  }
 }
 
 // Entries row0 .. row0+ROWS-1 of an f32 row into dst, zeros past n_rows.
@@ -128,85 +102,8 @@ __device__ __forceinline__ void stage_floats(const float* __restrict__ src,
   }
 }
 
-// acc = A B^T for the warp's 16 rows of A against N rows of B, both staged
-// [rows][ld(HD)] (A at the warp's first row): acc[j] is the 16 x 8 tile of
-// B's rows 8j .. 8j+7.
-template <int HD, int N>
-__device__ __forceinline__ void warp_abt(const bf16* A, const bf16* B,
-                                         int lane, float (&acc)[N / 8][4]) {
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < HD; kk += 16) {
-    uint32_t a[4];
-    ldmatrix_x4(a, A + (lane & 15) * ld(HD) + kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j) {
-      uint32_t b[4];
-      ldmatrix_x4(b, B + (16 * j + (lane & 7) + (lane >> 4) * 8) * ld(HD) +
-                         kk + ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[2 * j], a, b[0], b[1]);
-      mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc += P V: P the warp's 16 x K tile as A fragments in registers, V
-// staged [K rows][ld(HD)]; acc[j] is the 16 x 8 tile of dims 8j .. 8j+7.
-template <int HD, int K>
-__device__ __forceinline__ void warp_pv(const uint32_t (&p)[K / 16][4],
-                                        const bf16* V, int lane,
-                                        float (&acc)[HD / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, V + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                   ld(HD) +
-                               16 * j + (lane >> 4) * 8);
-      mma_bf16(acc[2 * j], p[kk], b[0], b[1]);
-      mma_bf16(acc[2 * j + 1], p[kk], b[2], b[3]);
-    }
-}
-
-// The accumulators of a 16 x N tile, each rounded once to bf16, as the A
-// fragments of the 16 x N operand of a second product.
-template <int N>
-__device__ __forceinline__ void to_a_frags(const float (&c)[N / 8][4],
-                                           uint32_t (&a)[N / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
 __device__ __forceinline__ bool visible(int row, int col, int n, int causal) {
   return col < n && row < n && (!causal || col <= row);
-}
-
-// Writes a 16 x HD accumulator's rows (the thread's rows[0], rows[1]; row
-// r at dst + r * stride) times mul, skipping rows at or past n.
-template <int HD>
-__device__ __forceinline__ void store_tile(bf16* dst, size_t stride,
-                                           const int (&rows)[2], int n,
-                                           int lane,
-                                           const float (&acc)[HD / 8][4],
-                                           float mul) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= n) continue;
-    bf16* o = dst + static_cast<size_t>(rows[i]) * stride + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
-          acc[j][2 * i] * mul, acc[j][2 * i + 1] * mul);
-  }
 }
 
 // -- K6: dq -----------------------------------------------------------------

@@ -4,7 +4,8 @@
 //    k8s_gpu_scheduler_tpu/ops/decode_attention.py paged_decode_attention
 //    (_paged_kernel -> _decode_kernel): one query row per slot against a
 //    shared page pool through a block table, masked to col < length.
-// K2 paged_prefill_kernel replaces the Pallas kernel behind
+// K2 paged_prefill_kernel (f32 q; bf16 q: paged_prefill_mma.cu) replaces
+//    the Pallas kernel behind
 //    k8s_gpu_scheduler_tpu/ops/decode_attention.py paged_prefill_attention
 //    (_prefill_kernel): the prefix-cache tail prefill, cached prefix pages
 //    (fully visible below hit_len) then the tail's own K/V (causal).
@@ -29,13 +30,13 @@
 //    outside the kernel combines, as the JAX package did.
 // K2 does tb*g query rows against hit_len + tb keys per (entry, kv head):
 //    at the serving shapes that is tens of flops per byte, so it is bound
-//    by operations. This first version runs them on the CUDA cores in f32
-//    (the JAX kernel's numerics) from shared memory: one block per (entry,
-//    kv head, 32-row q tile) stages the q tile once, then streams 32-row
-//    K/V chunks (prefix through the table, then the tail up to the tile's
-//    last token) through shared memory, where all 32 q rows reuse them.
-//    The tile replaces the TPU's PREFILL_MAX_Q_ROWS cap: any tb works.
-//    Tensor-core MMA, TMA and a pipelined producer warp are later work.
+//    by operations. bf16 q runs on the tensor cores (paged_prefill_mma.cu).
+//    f32 q runs here, on the CUDA cores in f32 (the JAX kernel's numerics;
+//    the tensor cores would round f32 operands): one block per (entry, kv
+//    head, 32-row q tile) stages the q tile once, then streams 32-row K/V
+//    chunks (prefix through the table, then the tail up to the tile's last
+//    token) through shared memory, where all 32 q rows reuse them. The
+//    tile replaces the TPU's PREFILL_MAX_Q_ROWS cap: any tb works.
 // K3 has t*g query rows per (slot, kv head): 5 at the serve width (g 1,
 //    gamma 4), 40 at g 8. K1's register-resident group would need t*g
 //    rows of registers per lane, past the 255 a thread has, so K3 takes
@@ -61,6 +62,19 @@
 #include <math.h>
 
 #include "common.cuh"
+
+namespace port_kernels {
+
+// K2 for bf16 q, on the tensor cores (paged_prefill_mma.cu).
+cudaError_t paged_prefill_bf16(const void* q, const void* k, const void* v,
+                               const void* ks, const void* vs,
+                               const void* table, const void* hits,
+                               const void* tk, const void* tv, void* out,
+                               int M, int tb, int H, int Hkv, int hd, int ps,
+                               int hb, int kv_int8, float scale,
+                               cudaStream_t stream);
+
+}  // namespace port_kernels
 
 namespace {
 
@@ -340,15 +354,16 @@ __device__ __forceinline__ void stage_q_tile(const QT* __restrict__ q,
   }
 }
 
-template <typename QT, typename PT, int HD>
+template <typename PT, int HD>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
+paged_prefill_kernel(const float* __restrict__ q, const PT* __restrict__ kp,
                      const PT* __restrict__ vp, const float* __restrict__ ks,
                      const float* __restrict__ vs,
                      const int* __restrict__ table,
                      const int* __restrict__ hit_lens,
-                     const QT* __restrict__ tk, const QT* __restrict__ tv,
-                     QT* __restrict__ out, int tb, int n_kv, int g, int ps,
+                     const float* __restrict__ tk,
+                     const float* __restrict__ tv, float* __restrict__ out,
+                     int tb, int n_kv, int g, int ps,
                      int hb, float scale) {
   constexpr int HDP = HD + 1;             // padded rows: no bank conflicts
   constexpr int SEGS = HD / 8;
@@ -373,7 +388,7 @@ paged_prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
   const int tok_hi = (min(r0 + kQRows, rows_total) - 1) / g;
   const int hit = min(max(hit_lens[ent], 0), hb * ps);
 
-  stage_q_tile<QT, HD>(q, Qs, ent, tb, n_heads, kvh, g, r0, rows_total);
+  stage_q_tile<float, HD>(q, Qs, ent, tb, n_heads, kvh, g, r0, rows_total);
 
   float mrow = kNegInf, lrow = 0.f;
   float acc[HD / 4];
@@ -425,7 +440,7 @@ paged_prefill_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
 
   if (row_ok) {
     const int j = grow - my_tok * g;
-    QT* o = out + ((static_cast<size_t>(ent) * tb + my_tok) * n_heads +
+    float* o = out + ((static_cast<size_t>(ent) * tb + my_tok) * n_heads +
                    kvh * g + j) * HD;
     const float den = fmaxf(lrow, 1e-20f);
 #pragma unroll
@@ -568,7 +583,8 @@ cudaError_t launch_decode(int g, const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename QT, typename PT, int HD>
+// f32 q only: bf16 q goes to the tensor-core kernel (paged_prefill_mma.cu).
+template <typename PT, int HD>
 cudaError_t launch_prefill(const void* q, const void* k, const void* v,
                            const void* ks, const void* vs, const void* table,
                            const void* hits, const void* tk, const void* tv,
@@ -580,18 +596,18 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
   static bool configured = false;         // once per instantiation
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_prefill_kernel<QT, PT, HD>,
+        paged_prefill_kernel<PT, HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  paged_prefill_kernel<QT, PT, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const PT*>(k),
+  paged_prefill_kernel<PT, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const PT*>(k),
       static_cast<const PT*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
-      static_cast<const int*>(hits), static_cast<const QT*>(tk),
-      static_cast<const QT*>(tv), static_cast<QT*>(out), tb, Hkv, g, ps, hb,
-      softmax_scale(HD));
+      static_cast<const int*>(hits), static_cast<const float*>(tk),
+      static_cast<const float*>(tv), static_cast<float*>(out), tb, Hkv, g, ps,
+      hb, softmax_scale(HD));
   return cudaGetLastError();
 }
 
@@ -659,7 +675,9 @@ int paged_decode_attention_launch(const void* q, const void* k, const void* v,
 }
 
 // q [M, tb, H, hd]; k/v/ks/vs as above; table [M, hb] i32; hits [M] i32;
-// tail k/v [M, tb, Hkv, hd] in q's dtype -> out [M, tb, H, hd].
+// tail k/v [M, tb, Hkv, hd] in q's dtype -> out [M, tb, H, hd]. bf16 q
+// goes to the tensor-core kernel (paged_prefill_mma.cu), f32 q to the
+// CUDA-core one.
 int paged_prefill_attention_launch(const void* q, const void* k, const void* v,
                                    const void* ks, const void* vs,
                                    const void* table, const void* hits,
@@ -668,22 +686,19 @@ int paged_prefill_attention_launch(const void* q, const void* k, const void* v,
                                    int ps, int hb, int q_bf16, int kv_int8,
                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_bf16)
+    return port_kernels::paged_prefill_bf16(q, k, v, ks, vs, table, hits, tk,
+                                            tv, out, M, tb, H, Hkv, hd, ps,
+                                            hb, kv_int8, softmax_scale(hd),
+                                            st);
 #define K2_ARGS q, k, v, ks, vs, table, hits, tk, tv, out, M, tb, H, Hkv, ps, \
                 hb, st
-  if (hd == 64) {
-    if (q_bf16)
-      return kv_int8 ? launch_prefill<__nv_bfloat16, int8_t, 64>(K2_ARGS)
-                     : launch_prefill<__nv_bfloat16, __nv_bfloat16, 64>(K2_ARGS);
-    return kv_int8 ? launch_prefill<float, int8_t, 64>(K2_ARGS)
-                   : launch_prefill<float, float, 64>(K2_ARGS);
-  }
-  if (hd == 128) {
-    if (q_bf16)
-      return kv_int8 ? launch_prefill<__nv_bfloat16, int8_t, 128>(K2_ARGS)
-                     : launch_prefill<__nv_bfloat16, __nv_bfloat16, 128>(K2_ARGS);
-    return kv_int8 ? launch_prefill<float, int8_t, 128>(K2_ARGS)
-                   : launch_prefill<float, float, 128>(K2_ARGS);
-  }
+  if (hd == 64)
+    return kv_int8 ? launch_prefill<int8_t, 64>(K2_ARGS)
+                   : launch_prefill<float, 64>(K2_ARGS);
+  if (hd == 128)
+    return kv_int8 ? launch_prefill<int8_t, 128>(K2_ARGS)
+                   : launch_prefill<float, 128>(K2_ARGS);
 #undef K2_ARGS
   return cudaErrorInvalidValue;
 }

@@ -18,8 +18,8 @@ from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
 from test_torch_serving import configs
 
 PAGE = 8
-ENGINE = dict(n_slots=3, max_len=128, chunk=4, prefill_bucket=8,
-              page_size=PAGE)
+ENGINE = dict(kv_layout="paged", n_slots=3, max_len=128, chunk=4,
+              prefill_bucket=8, page_size=PAGE)
 
 
 @pytest.fixture(scope="module")
@@ -61,8 +61,7 @@ def port(model, cfg, chunked, **kw):
 def test_chunked_matches_jax_engine(setup, kw):
     jcfg, cfg, params, model = setup
     prompts = workload()
-    jeng = JEngine(params, jcfg, kv_layout="paged", prefill_chunk_tokens=PAGE,
-                   **ENGINE, **kw)
+    jeng = JEngine(params, jcfg, prefill_chunk_tokens=PAGE, **ENGINE, **kw)
     ref = drive(jeng, prompts)
     jm = jeng.pool_metrics()
     da.reset_counters()

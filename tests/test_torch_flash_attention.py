@@ -13,7 +13,10 @@ The CUDA kernels are held to these plain versions on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``). The bf16 backward
 kernels round P and dS to bf16 once before their second products;
 ``test_bf16_rounding_of_p_and_ds_fits_card_tolerance`` shows here that
-this rounding alone stays inside the card's bf16 tolerance, 2e-2."""
+this rounding alone stays inside the card's bf16 tolerance, 2e-2; the bf16
+forward rounds P once before P V, and
+``test_bf16_rounding_of_p_fits_card_tolerance_and_keeps_lse`` shows the
+same for its output, and that its lse (from the f32 P) does not move."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,9 +28,9 @@ from k8s_gpu_scheduler_tpu.ops import flash_attention_diff as jflash_diff
 from k8s_gpu_scheduler_tpu.ops.flash_attention import _bh, _flash_forward
 from k8s_gpu_scheduler_tpu_torch.ops.attention import _repeat_kv
 from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
-    _grouped, _probabilities, counters, flash_attention, flash_attention_diff,
-    flash_backward_reference, flash_forward, flash_forward_reference,
-    reset_counters,
+    NEG_INF, _grouped, _probabilities, counters, flash_attention,
+    flash_attention_diff, flash_backward_reference, flash_forward,
+    flash_forward_reference, reset_counters,
 )
 
 FWD_TOL = 2e-5
@@ -208,3 +211,47 @@ def test_bf16_rounding_of_p_and_ds_fits_card_tolerance(T, H, Hkv, d, causal):
         assert a.shape == b.shape
         torch.testing.assert_close(a, b, atol=2e-2, rtol=2e-2)
     assert any(not torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _forward_rounded(q, k, v, causal):
+    """``flash_forward_reference``'s arithmetic with the unnormalised
+    probabilities p = exp(s - m) rounded to bf16 before P V, as the
+    tensor-core forward rounds them, and nothing else changed: the row sum
+    l, and with it the lse, comes from the f32 p."""
+    b, t, n_heads, d = q.shape
+    s, mask = _probabilities(q, k, causal)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-20)
+    pv = torch.einsum("bhgqk,bkhd->bqhgd", p.to(torch.bfloat16).float(),
+                      v.float())
+    out = pv / l.permute(0, 3, 1, 2, 4)
+    lse = (m + torch.log(l)).reshape(b * n_heads, t)
+    return out.reshape(b, t, n_heads, d), lse
+
+
+@pytest.mark.parametrize("T,H,Hkv,d,causal", [
+    (77, 4, 2, 64, True),
+    (130, 8, 2, 128, False),
+    (256, 8, 1, 128, True),
+    (200, 4, 4, 64, False),
+], ids=["g2-hd64-T77-causal", "g4-hd128-T130-full", "g8-hd128-T256-causal",
+        "g1-hd64-T200-full"])
+def test_bf16_rounding_of_p_fits_card_tolerance_and_keeps_lse(T, H, Hkv, d,
+                                                              causal):
+    """The one change to the numerics in the tensor-core forward — P
+    rounded once to bf16 before P V — keeps the output inside atol = rtol =
+    2e-2 of the f32 plain version, the card's bf16 tolerance, on
+    bf16-valued inputs; the rounding is visible (the outputs differ), and
+    the lse, held to the f32 tolerance on the card, is the plain version's
+    bit for bit."""
+    rng = np.random.default_rng(T + H + d + 1)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, T, h, d)).astype(
+        np.float32)).to(torch.bfloat16).float() for h in (H, Hkv, Hkv))
+    want, want_lse = flash_forward_reference(q, k, v, causal)
+    got, lse = _forward_rounded(q, k, v, causal)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    assert not torch.equal(got, want)
+    assert torch.equal(lse, want_lse)

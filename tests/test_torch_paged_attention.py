@@ -6,7 +6,14 @@ those are held against the JAX ``paged_decode_attention`` and
 package's own tests run them on the CPU) and against the JAX dense
 references. Tolerance: 2e-5 at f32, 2e-2 at bf16 — the JAX suite's own
 (tests/test_prefill_attention.py). The CUDA kernels themselves are held to
-these plain versions on the card (``-m gpu`` and chip_smoke.py)."""
+these plain versions on the card (``-m gpu`` and chip_smoke.py). K2's bf16
+kernel computes its scores in f32 and rounds the unnormalised
+probabilities to bf16 once before P V, where the plain version rounds its
+scores and its normalised probabilities;
+``test_bf16_prefill_rounding_fits_card_tolerance`` shows here that this
+stays inside the card's bf16 tolerance, 2e-2."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -190,6 +197,60 @@ def test_prefill_null_padded_table_rows_ignored():
     clean = da.paged_prefill_attention(q, kp, vp, table, hits, tk, tv)
     dirty = da.paged_prefill_attention(q, kp, vp, junk, hits, tk, tv)
     assert torch.equal(clean, dirty)
+
+
+def _prefill_rounded(q, k_pages, v_pages, table, hits, tail_k, tail_v,
+                     k_scale=None, v_scale=None):
+    """K2's tensor-core arithmetic: int8 prefix rows dequantized to q's
+    dtype (as the kernel stages them), f32 scores of the operands, the
+    unnormalised p = exp(s - m) rounded once to bf16 before P V, and the
+    row sum from the f32 p."""
+    m, tb, n_heads, hd = q.shape
+    ps, n_kv = k_pages.shape[1], k_pages.shape[2]
+    hp = table.shape[1] * ps
+    idx = table.long()
+
+    def prefix(pool, scale):
+        rows = pool[idx].reshape(m, hp, n_kv, hd)
+        if scale is not None:
+            rows = (rows.float() * scale[idx].reshape(m, hp, n_kv, 1)
+                    ).to(q.dtype)
+        return rows.float()
+
+    kf = torch.cat([prefix(k_pages, k_scale), tail_k.float()], dim=1)
+    vf = torch.cat([prefix(v_pages, v_scale), tail_v.float()], dim=1)
+    kcol = torch.arange(hp + tb)[None, None, :]
+    qrow = torch.arange(tb)[None, :, None]
+    valid = torch.where(kcol < hp, kcol < hits[:, None, None],
+                        (kcol - hp) <= qrow)[:, None, None]
+    g = n_heads // n_kv
+    s = torch.einsum("bqhgd,bkhd->bhgqk",
+                     q.float().reshape(m, tb, n_kv, g, hd), kf) / math.sqrt(hd)
+    s = torch.where(valid, s, -math.inf)
+    p = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    pv = torch.einsum("bhgqk,bkhd->bqhgd", p.to(torch.bfloat16).float(), vf)
+    out = pv / p.sum(-1, keepdim=True).permute(0, 3, 1, 2, 4)
+    return out.reshape(m, tb, n_heads, hd)
+
+
+@HEADS
+@QUANT
+def test_bf16_prefill_rounding_fits_card_tolerance(n_heads, n_kv, quant):
+    """K2's bf16 numerics (f32 scores, P rounded once to bf16) stay inside
+    atol = rtol = 2e-2 of the plain version on the same bf16 inputs, the
+    card's tolerance, and of the plain version in f32; the rounding is
+    visible (it differs from the all-f32 result)."""
+    _, _, targs, tsc, tol = prefill_case(3, n_heads, n_kv, "bf16", quant,
+                                         hd=64)
+    got = _prefill_rounded(*targs, **tsc)
+    want = da.dense_prefill_reference(*targs, **tsc)
+    torch.testing.assert_close(got, want.float(), atol=tol, rtol=tol)
+    q, kp, vp, table, hits, tk, tv = targs
+    f32 = da.dense_prefill_reference(
+        q.float(), kp if quant else kp.float(), vp if quant else vp.float(),
+        table, hits, tk.float(), tv.float(), **tsc)
+    torch.testing.assert_close(got, f32, atol=tol, rtol=tol)
+    assert not torch.equal(got, f32)
 
 
 # -- wrapper contract -----------------------------------------------------------

@@ -86,9 +86,8 @@ def test_greedy_streams_match_jax_engine(cfg_kw, eng_kw, int8_weights):
     ref = traffic(JEngine(params, jcfg, **ENGINE, **eng_kw))
     model = params_from_numpy(jax.tree.map(np.asarray, params), cfg, "cpu")
     da.reset_counters()
-    got = traffic(ContinuousBatcher(
-        model, cfg, device="cpu",
-        **{k: v for k, v in ENGINE.items() if k != "kv_layout"}, **eng_kw))
+    got = traffic(ContinuousBatcher(model, cfg, device="cpu", **ENGINE,
+                                    **eng_kw))
     assert got == ref
     assert got[1] > 0                      # the hb > 0 rung really ran
     counts = da.counters()
@@ -102,8 +101,7 @@ def _port_engine(seed=0, **kw):
     _, cfg = configs()
     model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     return ContinuousBatcher(model, cfg, device="cpu", seed=seed,
-                             **{k: v for k, v in ENGINE.items()
-                                if k != "kv_layout"}, **kw)
+                             **{**ENGINE, **kw})
 
 
 def test_sampled_streams_replay_with_the_seed():

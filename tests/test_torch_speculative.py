@@ -28,7 +28,8 @@ from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
 from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
 from test_torch_serving import configs
 
-ENGINE = dict(n_slots=2, max_len=64, chunk=4, prefill_bucket=8, page_size=8)
+ENGINE = dict(kv_layout="paged", n_slots=2, max_len=64, chunk=4,
+              prefill_bucket=8, page_size=8)
 GAUGES = ("spec_accept_rate", "spec_tokens_per_dispatch",
           "spec_rewound_tokens_total", "spec_proposer", "spec_gamma_agg")
 
@@ -76,8 +77,8 @@ VARIANTS = [
 def test_greedy_spec_matches_jax_engine(cfg_kw, eng_kw):
     jcfg, cfg, params, model = bridged(cfg_kw)
     prompts = workload()
-    jeng = JEngine(params, jcfg, kv_layout="paged", speculative=True,
-                   gamma=3, **ENGINE, **eng_kw)
+    jeng = JEngine(params, jcfg, speculative=True, gamma=3, **ENGINE,
+                   **eng_kw)
     ref = run(jeng, prompts)
     jm = jeng.pool_metrics()
     da.reset_counters()
@@ -163,8 +164,9 @@ def test_sampled_tokens_follow_the_target_law():
     _, cfg, _, model = bridged(dict(vocab=16), seed=3)
     rng = np.random.default_rng(5)
     prompt = [int(t) for t in rng.integers(0, 16, 3)] * 3
-    eng = ContinuousBatcher(model, cfg, device="cpu", n_slots=16,
-                            max_len=32, chunk=4, prefill_bucket=16,
+    eng = ContinuousBatcher(model, cfg, device="cpu", kv_layout="paged",
+                            n_slots=16, max_len=32, chunk=4,
+                            prefill_bucket=16,
                             page_size=8, speculative=True, gamma=2,
                             temperature=1.0, seed=11)
     draws = np.asarray(run(eng, [prompt] * 400, 2))
@@ -219,8 +221,9 @@ def test_eos_and_page_exhaustion_keep_the_pool_consistent():
     partitioned after every step and is whole at the end."""
     _, cfg, _, model = bridged()
     rng = np.random.default_rng(3)
-    eng = ContinuousBatcher(model, cfg, device="cpu", n_slots=3, max_len=64,
-                            chunk=4, prefill_bucket=8, page_size=8,
+    eng = ContinuousBatcher(model, cfg, device="cpu", kv_layout="paged",
+                            n_slots=3, max_len=64, chunk=4, prefill_bucket=8,
+                            page_size=8,
                             n_pages=7, speculative=True, gamma=3, eos_id=7)
     for plen, mn in ((5, 9), (11, 5), (3, 13), (7, 3)):
         eng.submit(rng.integers(0, cfg.vocab, plen), max_new=mn)
@@ -259,8 +262,9 @@ def test_shared_prefix_pages_survive_overshoot():
 
 def test_overshoot_is_reserved_in_admission_math():
     _, cfg, _, model = bridged()
-    eng = ContinuousBatcher(model, cfg, device="cpu", max_len=32,
-                            page_size=8, n_slots=2, speculative=True,
+    eng = ContinuousBatcher(model, cfg, device="cpu", kv_layout="paged",
+                            max_len=32, page_size=8, n_slots=2,
+                            speculative=True,
                             gamma=4)
     eng.submit(list(range(8)), max_new=21)          # 8 + 20 + 4 == 32
     with pytest.raises(ValueError, match="exceeds"):
