@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (k8s_gpu_scheduler_tpu_torch).
 
-    python3 chip_smoke.py [--profile] [--train-layers N]
+    python3 chip_smoke.py [--profile [--parent DIR]] [--train-layers N]
 
 Needs one CUDA card and the CUDA toolkit; exits non-zero without them. It
 imports nothing of JAX. Phases, each of which fails the run on error:
@@ -10,9 +10,10 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    parallel, linked into one library) and print each kernel's registers,
    shared memory and spills, the count of tensor-core (HMMA) instructions
    in each kernel's SASS where cuobjdump exists (each bf16 mma.sync kernel
-   must have some: K2 ``paged_prefill_mma.cu``, K5
-   ``flash_forward_mma.cu``, K6 and K7 ``flash_backward_mma.cu``), and the
-   card's name and power limit (nvidia-smi).
+   must have some: K2 ``paged_prefill_mma.cu``, K3
+   ``paged_verify_mma.cu``, K5 ``flash_forward_mma.cu``, K6 and K7
+   ``flash_backward_mma.cu``), and the card's name and power limit
+   (nvidia-smi).
 1. kernels against their plain PyTorch versions on the card: K1
    (paged_decode_attention), K2 (paged_prefill_attention) and K3
    (paged_verify_attention, window t = 5) at the serve width (B 8, H =
@@ -21,7 +22,10 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    with an int8 KV pool; K2 also at phase 4's chunked-prefill shape (tb
    64 over 512 resident rows, hb 8, 8 padded entries), and each of that
    run's 15 continuation shapes timed alone, summed to the 240 launches'
-   total. bf16 runs K2 on the tensor cores (``paged_prefill_mma.cu``). Max error against a stated tolerance; CUDA-event
+   total. bf16 runs K2 and K3 on the tensor cores
+   (``paged_prefill_mma.cu``, ``paged_verify_mma.cu``); K1 and K3 merge
+   their splits across a thread-block cluster and write their output
+   themselves. Max error against a stated tolerance; CUDA-event
    times of the kernel, the plain version and one library call
    (scaled_dot_product_attention over the gathered K/V, a yardstick the
    port never calls), beside the least time the card could take (bytes
@@ -55,7 +59,8 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    16 heads, vocab 32000) in bf16 with 8 slots, page 64, chunk 64 and
    prefill bucket 512, 32 requests of 512-token prompts sharing a
    384-token system prompt. Counters are zeroed just before and read just
-   after: K1 and K2 must have launched and no plain version been called.
+   after: K1 and K2 must have launched, no plain version been called, and
+   the PyTorch split merge (``_combine_splits``, K4's) never run.
    A second greedy run must reproduce the streams. Then a shorter pass
    with int8 weights and an int8 KV pool.
 4. the speculative path at full width: the same config with
@@ -65,7 +70,7 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    off; an int8-KV sampled run at temperature 0.005, twice (the replay
    must match); and 8 random 1024-token prompts with
    prefill_chunk_tokens=256. K3 must have launched, the accept rate be
-   above 0, and no plain version been called.
+   above 0, and no plain version nor the PyTorch split merge been called.
 
 5. training on the card against training on the CPU: f32, TF32 off,
    vocab 256, d_model 256, 2 layers, 4 heads, 2 kv heads, T 128, remat,
@@ -96,8 +101,12 @@ imports nothing of JAX. Phases, each of which fails the run on error:
 
 ``--profile`` adds profiled serving runs (plain decode, speculative and
 the contiguous engine) and one profiled training step: the card's busy
-share and its time by kernel. ``--train-layers N`` runs phase 6 at depth
-N instead of 4, to measure how step time and peak memory grow with depth.
+share and its time by kernel; and the CUDA kernels one paged decode
+dispatch launches per layer per tick and one verify dispatch per layer per
+verify (``--parent DIR``: the same count for the package in DIR, a copy of
+another tree, in a process of its own). ``--train-layers N`` runs phase 6
+at depth N instead of 4, to measure how step time and peak memory grow
+with depth.
 
 The line before the last is a JSON object listing every kernel with its
 launches on the main path, error and times; the last line is
@@ -127,7 +136,7 @@ KERNELS = {
         "paged_prefill_mma.cu",
         "k8s_gpu_scheduler_tpu/ops/decode_attention.py:999"),
     "paged_verify_attention": (
-        "paged_attention.cu",
+        "paged_verify_mma.cu",
         "k8s_gpu_scheduler_tpu/ops/decode_attention.py:688"),
     "flash_decode_attention": (
         "flash_decode.cu",
@@ -147,8 +156,9 @@ PLAIN = ("paged_decode_reference", "dense_prefill_reference",
 FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 FLASH_PLAIN = ("flash_forward_reference", "flash_backward_reference")
 # The bf16 kernels on mma.sync: phase 0 finds HMMA instructions in each.
-TENSOR_CORE_KERNELS = ("paged_prefill_mma_kernel", "flash_fwd_mma_kernel",
-                       "flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
+TENSOR_CORE_KERNELS = ("paged_prefill_mma_kernel", "paged_verify_mma_kernel",
+                       "flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                       "flash_bwd_dkv_mma_kernel")
 
 
 def log(*parts) -> None:
@@ -783,6 +793,28 @@ def phase_contiguous_vs_cpu(dev) -> dict:
     return out
 
 
+class _CountMerges:
+    """Counts calls of the PyTorch split merge (``_combine_splits``, which
+    only K4's wrapper still reaches) for the duration of a ``with``
+    block."""
+
+    def __enter__(self):
+        from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+        self.calls, self._da = 0, da
+        self._orig = da._combine_splits
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self._orig(*args, **kw)
+
+        da._combine_splits = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._da._combine_splits = self._orig
+
+
 class _DecodeTimer:
     """Times the engine's decode-chunk and verify dispatches on the host
     clock, synchronised at both ends, by wrapping the module functions the
@@ -836,7 +868,7 @@ def serve_run(model, cfg, prompts, max_new, **kw):
     torch.cuda.synchronize()
     da.reset_counters()
     t0 = time.perf_counter()
-    with _DecodeTimer() as dec:
+    with _DecodeTimer() as dec, _CountMerges() as merges:
         streams = drive(eng, prompts, max_new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -848,7 +880,8 @@ def serve_run(model, cfg, prompts, max_new, **kw):
         requests=len(prompts), tokens=n_tok, wall_s=wall,
         tokens_per_s=n_tok / wall, decode_s=dec.seconds,
         decode_tokens_per_s=(n_tok - len(prompts)) / dec.seconds,
-        ttft_p50_ms=1e3 * ttft[len(ttft) // 2], launches=counts)
+        ttft_p50_ms=1e3 * ttft[len(ttft) // 2], launches=counts,
+        split_merges=merges.calls)
     if paged:
         pool = eng.pool_metrics()
         eng._alloc.assert_consistent()
@@ -883,8 +916,9 @@ def phase_full_width(dev, card) -> dict:
             and c["paged_prefill_attention"] > 0
             and st["prefill_tokens_skipped"] > 0):
         raise SystemExit(f"main path missed a kernel or the cache: {st}")
-    if any(c[k] for k in PLAIN):
-        raise SystemExit(f"main path called a plain version: {c}")
+    if any(c[k] for k in PLAIN) or st["split_merges"]:
+        raise SystemExit(f"main path called a plain version or the PyTorch "
+                         f"split merge: {c}, {st['split_merges']} merges")
     if malformed(streams, max_new, cfg.vocab):
         raise SystemExit("malformed streams on the main path")
     again, st2 = serve_run(model, cfg, prompts, max_new)
@@ -940,8 +974,10 @@ def phase_speculative(dev, card) -> dict:
     c = st["launches"]
     if not c["paged_verify_attention"]:
         raise SystemExit(f"the speculative path never launched K3: {c}")
-    if any(c[k] for k in PLAIN):
-        raise SystemExit(f"the speculative path called a plain version: {c}")
+    if any(c[k] for k in PLAIN) or st["split_merges"]:
+        raise SystemExit(f"the speculative path called a plain version or "
+                         f"the PyTorch split merge: {c}, "
+                         f"{st['split_merges']} merges")
     if not st["spec_accept_rate"] > 0:
         raise SystemExit(f"the speculative path accepted nothing: {st}")
     if malformed(streams, max_new, cfg.vocab):
@@ -1133,6 +1169,94 @@ def phase_profile(dev, card) -> None:
              lambda: serve_run(model, cfg, phrases, 64, **SPEC_ENGINE))
 
 
+class _Capture:
+    """Keeps the arguments of the first call of the serving module's
+    function ``name`` while a ``with`` block runs."""
+
+    def __init__(self, name):
+        self.name, self.call = name, None
+
+    def __enter__(self):
+        from k8s_gpu_scheduler_tpu_torch.models import serving
+
+        self._mod, self._orig = serving, getattr(serving, self.name)
+
+        def keep(*args, **kw):
+            if self.call is None:
+                self.call = (args, kw)
+            return self._orig(*args, **kw)
+
+        setattr(serving, self.name, keep)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self._mod, self.name, self._orig)
+
+
+def dispatch_launches(dev) -> dict:
+    """The CUDA kernels that one paged decode dispatch launches per layer
+    per tick and one verify dispatch per layer per verify (memsets and
+    copies apart), at the serve config: the first dispatch of a short
+    run (8 requests, chunk 16), replayed alone under torch.profiler (its
+    K/V writes land where they did). A layer-tick is one K1 launch, a
+    layer-verify one K3 launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from k8s_gpu_scheduler_tpu_torch.models import serving
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    rng = np.random.default_rng(4)
+    out = {}
+    for label, name, attn, kw, prompts in (
+            ("decode tick", "_decode_chunk_paged_fn", "paged_decode_attention",
+             {}, shared_prefix_traffic(rng, cfg.vocab, 8, 384, 128)),
+            ("verify", "_verify_chunk_paged_fn", "paged_verify_attention",
+             SPEC_ENGINE, repeated_phrases(rng, cfg.vocab, 8))):
+        with _Capture(name) as cap:
+            serve_run(model, cfg, prompts, 16, **kw)
+        fn = getattr(serving, name)
+        args, kwargs = cap.call
+        fn(*args, **kwargs)                              # warm-up
+        torch.cuda.synchronize()
+        da.reset_counters()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        steps = da.counters()[attn]
+        kernels = sum(
+            e.count for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("Memcpy", "Memset")))
+        out[label] = dict(layer_steps=steps, kernels=kernels,
+                          kernels_per_layer_step=kernels / max(steps, 1))
+    return out
+
+
+def phase_dispatch_launches(dev, parent) -> None:
+    """``--profile``: kernels per layer per decode tick and per verify, for
+    this tree and, with ``--parent DIR``, for the package in DIR."""
+    log(f"  this tree: {json.dumps(dispatch_launches(dev))}")
+    if parent is None:
+        return
+    import os
+
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--launch-counts",
+         "--package-root", os.path.abspath(parent)], capture_output=True,
+        text=True, timeout=900)
+    if proc.returncode != 0:
+        raise SystemExit(f"the parent tree's count failed:\n"
+                         f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"  parent tree ({parent}): {proc.stdout.strip().splitlines()[-1]}")
+
+
 # -- phases 5 and 6: training ------------------------------------------------------
 
 TRAIN_STEPS = 5                 # timed full-width steps, after one warm-up
@@ -1283,15 +1407,23 @@ def sass_counts(lib, opcode: str) -> dict:
 def main() -> int:
     t_start = time.perf_counter()
     args = sys.argv[1:]
+
+    def value(flag, default=None):
+        return args[args.index(flag) + 1] if flag in args else default
+
     profile_too = "--profile" in args
-    train_layers = (int(args[args.index("--train-layers") + 1])
-                    if "--train-layers" in args else 4)
+    train_layers = int(value("--train-layers", 4))
+    if "--package-root" in args:        # another tree's package (--parent)
+        sys.path.insert(0, value("--package-root"))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from k8s_gpu_scheduler_tpu_torch.ops import _build
 
     dev = torch.device("cuda", 0)
+    if "--launch-counts" in args:
+        print(json.dumps(dispatch_launches(dev)), flush=True)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 matmuls
     torch.backends.cudnn.allow_tf32 = False
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1332,6 +1464,9 @@ def main() -> int:
     if profile_too:
         log("profile: where a serving run's device time goes")
         phase_profile(dev, card)
+        log("profile: CUDA kernels a paged dispatch launches per layer per "
+            "decode tick and per verify")
+        phase_dispatch_launches(dev, value("--parent"))
     log("phase 5: training on the card against training on the CPU "
         "(f32, TF32 off)")
     log(f"  {json.dumps(phase_train_vs_cpu(dev))}")

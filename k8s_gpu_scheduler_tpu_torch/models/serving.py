@@ -393,6 +393,7 @@ def _decode_chunk_paged_fn(model: Llama, cfg: LlamaConfig, chunk: int,
         pg = table[row_ids, torch.clamp(lens // page_size, max=n_blocks - 1)]
         pg_w = torch.where(active, pg, NULL_PAGE)
         off_w = torch.where(active, lens % page_size, 0)
+        attend = lens + 1                 # every layer's attention bound
         for layer, blk in enumerate(model.blocks):
             h = rms_norm(x, blk.attn_norm)
             q, kk, vv = _qkv(cfg, h, blk, angles, (B, 1))
@@ -409,7 +410,7 @@ def _decode_chunk_paged_fn(model: Llama, cfg: LlamaConfig, chunk: int,
                 k[layer][pg_w, off_w] = kk[:, 0]
                 v[layer][pg_w, off_w] = vv[:, 0]
             attn = paged_decode_attention(q[:, 0], k[layer], v[layer], table,
-                                          lens + 1, **scales)
+                                          attend, **scales)
             x = x + qdot(attn.reshape(B, 1, hidden), blk.wo)
             x = mlp_sublayer(cfg, x, blk)
         x = rms_norm(x, model.final_norm)

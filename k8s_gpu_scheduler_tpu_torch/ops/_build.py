@@ -24,9 +24,11 @@ from typing import Dict, List, Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "paged_attention.cu", _CSRC / "paged_prefill_mma.cu",
-           _CSRC / "flash_decode.cu", _CSRC / "flash_attention.cu",
-           _CSRC / "flash_forward_mma.cu", _CSRC / "flash_backward_mma.cu")
-HEADERS = (_CSRC / "common.cuh", _CSRC / "mma.cuh")
+           _CSRC / "paged_verify_mma.cu", _CSRC / "flash_decode.cu",
+           _CSRC / "flash_attention.cu", _CSRC / "flash_forward_mma.cu",
+           _CSRC / "flash_backward_mma.cu")
+HEADERS = (_CSRC / "common.cuh", _CSRC / "mma.cuh",
+           _CSRC / "paged_stage.cuh", _CSRC / "cluster_merge.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -103,13 +105,13 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.paged_decode_attention_launch.argtypes = (
-        [vp] * 10 + [i] * 9 + [vp])
+        [vp] * 8 + [i] * 9 + [vp])
     lib.paged_decode_attention_launch.restype = i
     lib.paged_prefill_attention_launch.argtypes = (
         [vp] * 10 + [i] * 9 + [vp])
     lib.paged_prefill_attention_launch.restype = i
     lib.paged_verify_attention_launch.argtypes = (
-        [vp] * 10 + [i] * 10 + [vp])
+        [vp] * 8 + [i] * 10 + [vp])
     lib.paged_verify_attention_launch.restype = i
     lib.flash_decode_attention_launch.argtypes = (
         [vp] * 10 + [i] * 8 + [vp])

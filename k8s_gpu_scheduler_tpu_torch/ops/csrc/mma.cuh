@@ -3,8 +3,8 @@
 // fill, ldmatrix (plain and transposed) and mma.sync m16n8k16 with bf16
 // operands and f32 accumulators; and the warp-tile helpers built on them
 // (staging, the two products, the register online softmax, the stores).
-// Used by flash_backward_mma.cu (K6, K7), flash_forward_mma.cu (K5) and
-// paged_prefill_mma.cu (K2).
+// Used by flash_backward_mma.cu (K6, K7), flash_forward_mma.cu (K5),
+// paged_prefill_mma.cu (K2) and paged_verify_mma.cu (K3).
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -136,6 +136,38 @@ __device__ __forceinline__ void warp_abt_rows(const bf16* A, const bf16* B,
       }
     }
   }
+}
+
+// The warp's 16 x HD tile of A (staged [16][ld(HD)]) as HD / 16 A
+// fragments, loaded once into registers for products against many B tiles.
+template <int HD>
+__device__ __forceinline__ void load_a_frags(const bf16* A, int lane,
+                                             uint32_t (&a)[HD / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldmatrix_x4(a[kk], A + (lane & 15) * ld(HD) + 16 * kk + (lane >> 4) * 8);
+}
+
+// acc = A B^T for the warp's 16 rows of A held as fragments (load_a_frags)
+// against N rows of B staged [N][ld(HD)], as warp_abt_rows lays acc out.
+template <int HD, int N>
+__device__ __forceinline__ void warp_abt_held(const uint32_t (&a)[HD / 16][4],
+                                              const bf16* B, int lane,
+                                              float (&acc)[N / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      uint32_t b[4];
+      ldmatrix_x4(b, B + (16 * j + (lane & 7) + (lane >> 4) * 8) * ld(HD) +
+                         16 * kk + ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * j], a[kk], b[0], b[1]);
+      mma_bf16(acc[2 * j + 1], a[kk], b[2], b[3]);
+    }
 }
 
 // acc = A B^T for the warp's 16 rows (one tile of warp_abt_rows).

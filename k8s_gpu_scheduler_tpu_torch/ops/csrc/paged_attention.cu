@@ -9,7 +9,8 @@
 //    k8s_gpu_scheduler_tpu/ops/decode_attention.py paged_prefill_attention
 //    (_prefill_kernel): the prefix-cache tail prefill, cached prefix pages
 //    (fully visible below hit_len) then the tail's own K/V (causal).
-// K3 paged_verify_kernel replaces the Pallas kernel behind
+// K3 paged_verify_kernel (f32 q; bf16 q: paged_verify_mma.cu) replaces the
+//    Pallas kernel behind
 //    k8s_gpu_scheduler_tpu/ops/decode_attention.py paged_verify_attention
 //    (_verify_kernel): the speculative verify window, t = 1 + gamma query
 //    rows per slot, row i masked to col < length + i + 1.
@@ -24,10 +25,15 @@
 //    the group's rows with 16-byte loads (8 elements per lane, hd/8 lanes
 //    per row, several rows in flight per warp). Pages past ceil(len/ps)
 //    are never touched, so traffic is O(length), and int8 pages are
-//    dequantized in registers, so they move half the bytes of bf16. The
-//    split count fills the 132 SMs when slots x kv heads alone would not;
-//    each split writes unnormalised (acc, m, l) that a log-sum-exp merge
-//    outside the kernel combines, as the JAX package did.
+//    dequantized in registers, so they move half the bytes of bf16. At
+//    most 2g <= 16 FLOPs a K/V byte, it has no use for the tensor cores:
+//    it stays on the CUDA cores. The split count fills the 132 SMs when
+//    slots x kv heads alone would not. The splits of one (slot, kv head)
+//    are one thread-block cluster: each block merges its row groups in
+//    shared memory, then rank 0 merges the splits by log-sum-exp through
+//    distributed shared memory (cluster_merge.cuh) and writes [B, H, hd]
+//    in q's dtype. The JAX package merged them in XLA; here no partial
+//    buffer, second pass or atomic is needed.
 // K2 does tb*g query rows against hit_len + tb keys per (entry, kv head):
 //    at the serving shapes that is tens of flops per byte, so it is bound
 //    by operations. bf16 q runs on the tensor cores (paged_prefill_mma.cu).
@@ -38,15 +44,14 @@
 //    token) through shared memory, where all 32 q rows reuse them. The
 //    tile replaces the TPU's PREFILL_MAX_Q_ROWS cap: any tb works.
 // K3 has t*g query rows per (slot, kv head): 5 at the serve width (g 1,
-//    gamma 4), 40 at g 8. K1's register-resident group would need t*g
-//    rows of registers per lane, past the 255 a thread has, so K3 takes
-//    K2's tiling instead: 32 q rows staged in shared memory, each live
-//    page's K/V streamed once through a 32-row shared tile that every q
-//    row of the tile reuses, f32 online softmax per row. With few rows the
-//    work per K/V byte is that of K1 (t*g*4 flops per byte, bound by
-//    bytes), so K1's split over the live pages, ceil((len + t) / ps), keeps
-//    the SMs busy, and the splits merge through the same LSE combine.
-//    Warps whose 8 rows all lie past t*g skip the arithmetic.
+//    gamma 4), 40 at g 8. bf16 q runs on the tensor cores
+//    (paged_verify_mma.cu, which says why). f32 q runs here, on the CUDA
+//    cores in f32 (the JAX kernel's numerics): K2's tiling, 32 q rows
+//    staged in shared memory, each live page's K/V streamed once through a
+//    32-row shared tile that every q row of the tile reuses, f32 online
+//    softmax per row. K1's split over the live pages, ceil((len + t) /
+//    ps), keeps the SMs busy, and the splits merge across the cluster as
+//    K1's do. Warps whose 8 rows all lie past t*g skip the arithmetic.
 //
 // Numerics follow the JAX kernels: scores, softmax statistics and the PV
 // accumulator in f32, int8 rows dequantized (value * row scale) on load,
@@ -54,13 +59,13 @@
 // and the output is cast to q's dtype (round to nearest even for bf16).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-//        -Xcompiler -fPIC -c, linked with flash_decode.cu and
-//        flash_attention.cu into one library (ops/_build.py). Plain C
-//        interface for ctypes; each launch function returns
-//        cudaGetLastError().
+//        -Xcompiler -fPIC -c, linked with the other sources into one
+//        library (ops/_build.py). Plain C interface for ctypes; each launch
+//        function returns cudaGetLastError().
 
 #include <math.h>
 
+#include "cluster_merge.cuh"
 #include "common.cuh"
 
 namespace port_kernels {
@@ -73,6 +78,14 @@ cudaError_t paged_prefill_bf16(const void* q, const void* k, const void* v,
                                int M, int tb, int H, int Hkv, int hd, int ps,
                                int hb, int kv_int8, float scale,
                                cudaStream_t stream);
+
+// K3 for bf16 q, on the tensor cores (paged_verify_mma.cu).
+cudaError_t paged_verify_bf16(const void* q, const void* k, const void* v,
+                              const void* ks, const void* vs,
+                              const void* table, const void* lengths,
+                              void* out, int B, int t, int H, int Hkv, int hd,
+                              int ps, int n_blocks, int n_splits, int kv_int8,
+                              float scale, cudaStream_t stream);
 
 }  // namespace port_kernels
 
@@ -107,13 +120,14 @@ __device__ __forceinline__ void load_paged_kv8(
 
 // -- K1: paged decode ---------------------------------------------------------
 //
-// grid (B * Hkv, n_splits), 128 threads. A key row is read by hd/8 lanes
-// (8 dims each); a warp covers 32/(hd/8) rows per step and the block
-// NG = 4 * that many row groups. Each row group keeps its own running
-// (m, l, acc) for the g heads; the groups merge through shared memory at
-// the end. Split s covers logical pages [s*pps, (s+1)*pps) of the slot's
-// live pages, pps = ceil(live pages / n_splits): the splits share the
-// live length, not the table width, so a short slot in a long table still
+// grid (n_splits, B * Hkv), cluster (n_splits, 1, 1), 128 threads. A key
+// row is read by hd/8 lanes (8 dims each); a warp covers 32/(hd/8) rows
+// per step and the block NG = 4 * that many row groups. Each row group
+// keeps its own running (m, l, acc) for the g heads; the groups merge
+// through shared memory at the end, then the splits across the cluster.
+// Split s covers logical pages [s*pps, (s+1)*pps) of the slot's live
+// pages, pps = ceil(live pages / n_splits): the splits share the live
+// length, not the table width, so a short slot in a long table still
 // spreads over every split.
 template <typename QT, typename KT, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
@@ -121,10 +135,8 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
                     const KT* __restrict__ vp, const float* __restrict__ ks,
                     const float* __restrict__ vs,
                     const int* __restrict__ table,
-                    const int* __restrict__ lengths,
-                    float* __restrict__ acc_out, float* __restrict__ m_out,
-                    float* __restrict__ l_out, int n_kv, int ps,
-                    int n_blocks, int n_splits, float scale) {
+                    const int* __restrict__ lengths, QT* __restrict__ out,
+                    int n_kv, int ps, int n_blocks, float scale) {
   constexpr bool kQuant = IsInt8<KT>::value;
   constexpr int LPR = HD / 8;             // lanes per key row
   constexpr int RPW = 32 / LPR;           // key rows per warp step
@@ -134,9 +146,12 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
   __shared__ float sm_m[NG][G];
   __shared__ float sm_l[NG][G];
   __shared__ float sm_acc[NG][G][HD];
+  __shared__ __align__(16) float mg_acc[G][HD];   // the block's merged rows
+  __shared__ float mg_m[G], mg_l[G];
 
-  const int bh = blockIdx.x;
-  const int split = blockIdx.y;
+  const int split = blockIdx.x;
+  const int n_splits = gridDim.x;
+  const int bh = blockIdx.y;
   const int b = bh / n_kv;
   const int kvh = bh - b * n_kv;
   const int warp = threadIdx.x >> 5;
@@ -249,13 +264,17 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
       a += w * sm_acc[r][h][d];
       lsum += w * sm_l[r][h];
     }
-    const size_t o = (static_cast<size_t>(bh) * n_splits + split) * G + h;
-    acc_out[o * HD + d] = a;
+    mg_acc[h][d] = a;
     if (d == 0) {
-      m_out[o] = mx;
-      l_out[o] = lsum;
+      mg_m[h] = mx;
+      mg_l[h] = lsum;
     }
   }
+  cluster_merge_rows<HD, false, QT>(
+      G, mg_m, mg_l, [&](int h) { return &mg_acc[h][0]; },
+      [&](int h) {
+        return out + (static_cast<size_t>(b) * n_heads + kvh * G + h) * HD;
+      });
 }
 
 // -- K2: prefix-attention prefill ---------------------------------------------
@@ -331,8 +350,8 @@ __device__ __forceinline__ void attend_chunk(
 // Stages one tile's q rows in Qs (zeros past rows_total): q row gr of the
 // (entry, kv head) stack is token gr / g, group head gr % g, at q +
 // ((ent * n_tok + token) * n_heads + kvh * g + head) * HD.
-template <typename QT, int HD>
-__device__ __forceinline__ void stage_q_tile(const QT* __restrict__ q,
+template <int HD>
+__device__ __forceinline__ void stage_q_tile(const float* __restrict__ q,
                                              float* Qs, int ent, int n_tok,
                                              int n_heads, int kvh, int g,
                                              int r0, int rows_total) {
@@ -388,7 +407,7 @@ paged_prefill_kernel(const float* __restrict__ q, const PT* __restrict__ kp,
   const int tok_hi = (min(r0 + kQRows, rows_total) - 1) / g;
   const int hit = min(max(hit_lens[ent], 0), hb * ps);
 
-  stage_q_tile<float, HD>(q, Qs, ent, tb, n_heads, kvh, g, r0, rows_total);
+  stage_q_tile<HD>(q, Qs, ent, tb, n_heads, kvh, g, r0, rows_total);
 
   float mrow = kNegInf, lrow = 0.f;
   float acc[HD / 4];
@@ -450,24 +469,23 @@ paged_prefill_kernel(const float* __restrict__ q, const PT* __restrict__ kp,
 
 // -- K3: multi-query verify ---------------------------------------------------
 //
-// grid (ceil(t*g / 32), B * Hkv, n_splits), 128 threads, thread layout as
-// K2. q row r of the (slot, kv head) stack is window token r / g, group
-// head r % g, and attends cols < len + r / g + 1, len the slot's committed
-// rows (clamped to the table: an inactive slot's stale length may sit at
-// capacity). Split s covers logical pages [s*pps, (s+1)*pps) of the
-// slot's live pages ceil((len + t) / ps), as K1's splits do, and writes
-// unnormalised (acc, m, l) per row for the LSE merge; an empty split
-// writes (0, -1e30, 0), which the merge drops.
-template <typename QT, typename PT, int HD>
+// grid (n_splits, B * Hkv, ceil(t*g / 32)), cluster (n_splits, 1, 1), 128
+// threads, thread layout as K2. q row r of the (slot, kv head) stack is
+// window token r / g, group head r % g, and attends cols < len + r / g +
+// 1, len the slot's committed rows (clamped to the table: an inactive
+// slot's stale length may sit at capacity). Split s covers logical pages
+// [s*pps, (s+1)*pps) of the slot's live pages ceil((len + t) / ps), as
+// K1's splits do, and its unnormalised (acc, m, l) rows merge across the
+// cluster; an empty split's (0, -1e30, 0) drops out.
+template <typename PT, int HD>
 __global__ void __launch_bounds__(kThreads)
-paged_verify_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
+paged_verify_kernel(const float* __restrict__ q, const PT* __restrict__ kp,
                     const PT* __restrict__ vp, const float* __restrict__ ks,
                     const float* __restrict__ vs,
                     const int* __restrict__ table,
-                    const int* __restrict__ lengths,
-                    float* __restrict__ acc_out, float* __restrict__ m_out,
-                    float* __restrict__ l_out, int t, int n_kv, int g,
-                    int ps, int n_blocks, int n_splits, float scale) {
+                    const int* __restrict__ lengths, float* __restrict__ out,
+                    int t, int n_kv, int g, int ps, int n_blocks,
+                    float scale) {
   constexpr int HDP = HD + 1;
   constexpr int SEGS = HD / 8;
   extern __shared__ float smem[];
@@ -476,9 +494,10 @@ paged_verify_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
   float* Vs = Ks + kKRows * HDP;          // [kKRows][HD]
   float* Ps = Vs + kKRows * HD;           // [kQRows][kKRows + 1]
 
-  const int tile = blockIdx.x;
+  const int split = blockIdx.x;
+  const int n_splits = gridDim.x;
   const int bh = blockIdx.y;
-  const int split = blockIdx.z;
+  const int tile = blockIdx.z;
   const int b = bh / n_kv;
   const int kvh = bh - b * n_kv;
   const int rows_total = t * g;
@@ -503,7 +522,7 @@ paged_verify_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
   const int c_hi = min(min(p1 * ps, len + tok_hi + 1), cap);
   const int my_hi = min(len + my_tok + 1, c_hi);
 
-  stage_q_tile<QT, HD>(q, Qs, b, t, n_kv * g, kvh, g, r0, rows_total);
+  stage_q_tile<HD>(q, Qs, b, t, n_kv * g, kvh, g, r0, rows_total);
 
   float mrow = kNegInf, lrow = 0.f;
   float acc[HD / 4];
@@ -537,17 +556,27 @@ paged_verify_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
     }
   }
 
-  if (row_ok) {
-    const size_t o =
-        (static_cast<size_t>(bh) * n_splits + split) * rows_total + grow;
+  // The tile's rows, unnormalised, into the free K/V tiles; then the
+  // splits merge across the cluster.
+  __syncthreads();
+  constexpr int ALD = HD + 4;
+  float* Racc = Ks;                       // [kQRows][ALD]
+  float* Rm = Ps;                         // [kQRows]
+  float* Rl = Ps + kQRows;                // [kQRows]
 #pragma unroll
-    for (int jj = 0; jj < HD / 4; ++jj)
-      acc_out[o * HD + quad + 4 * jj] = acc[jj];
-    if (quad == 0) {
-      m_out[o] = mrow;
-      l_out[o] = lrow;
-    }
+  for (int jj = 0; jj < HD / 4; ++jj) Racc[r * ALD + quad + 4 * jj] = acc[jj];
+  if (quad == 0) {
+    Rm[r] = mrow;
+    Rl[r] = lrow;
   }
+  cluster_merge_rows<HD, false, float>(
+      min(kQRows, rows_total - r0), Rm, Rl,
+      [&](int rr) { return Racc + rr * ALD; },
+      [&](int rr) {
+        const int tok = (r0 + rr) / g;
+        return out + ((static_cast<size_t>(b) * t + tok) * (n_kv * g) +
+                      kvh * g + (r0 + rr - tok * g)) * HD;
+      });
 }
 
 // -- host-side dispatch -------------------------------------------------------
@@ -559,28 +588,33 @@ inline float softmax_scale(int hd) {
 template <typename QT, typename KT, int HD>
 cudaError_t launch_decode(int g, const void* q, const void* k, const void* v,
                           const void* ks, const void* vs, const void* table,
-                          const void* lengths, void* acc, void* m, void* l,
-                          int B, int Hkv, int ps, int n_blocks, int n_splits,
+                          const void* lengths, void* out, int B, int Hkv,
+                          int ps, int n_blocks, int n_splits,
                           cudaStream_t stream) {
-  const dim3 grid(B * Hkv, n_splits);
-  const float scale = softmax_scale(HD);
+  if (n_splits < 1 || n_splits > kMaxSplits) return cudaErrorInvalidValue;
+  const dim3 grid(n_splits, B * Hkv);
 #define K1_LAUNCH(GV)                                                       \
-  paged_decode_kernel<QT, KT, HD, GV><<<grid, kThreads, 0, stream>>>(      \
-      static_cast<const QT*>(q), static_cast<const KT*>(k),                 \
-      static_cast<const KT*>(v), static_cast<const float*>(ks),             \
-      static_cast<const float*>(vs), static_cast<const int*>(table),        \
-      static_cast<const int*>(lengths), static_cast<float*>(acc),           \
-      static_cast<float*>(m), static_cast<float*>(l), Hkv, ps, n_blocks,    \
-      n_splits, scale)
+  {                                                                         \
+    static bool fits = false;                                               \
+    const cudaError_t err = check_cluster_fits(                             \
+        paged_decode_kernel<QT, KT, HD, GV>, kThreads, 0, fits);            \
+    if (err != cudaSuccess) return err;                                     \
+    return launch_cluster(                                                  \
+        paged_decode_kernel<QT, KT, HD, GV>, grid, kThreads, 0, stream,     \
+        static_cast<const QT*>(q), static_cast<const KT*>(k),               \
+        static_cast<const KT*>(v), static_cast<const float*>(ks),           \
+        static_cast<const float*>(vs), static_cast<const int*>(table),      \
+        static_cast<const int*>(lengths), static_cast<QT*>(out), Hkv, ps,   \
+        n_blocks, softmax_scale(HD));                                       \
+  }
   switch (g) {
-    case 1: K1_LAUNCH(1); break;
-    case 2: K1_LAUNCH(2); break;
-    case 4: K1_LAUNCH(4); break;
-    case 8: K1_LAUNCH(8); break;
+    case 1: K1_LAUNCH(1)
+    case 2: K1_LAUNCH(2)
+    case 4: K1_LAUNCH(4)
+    case 8: K1_LAUNCH(8)
     default: return cudaErrorInvalidValue;
   }
 #undef K1_LAUNCH
-  return cudaGetLastError();
 }
 
 // f32 q only: bf16 q goes to the tensor-core kernel (paged_prefill_mma.cu).
@@ -611,31 +645,30 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename QT, typename PT, int HD>
+// f32 q only: bf16 q goes to the tensor-core kernel (paged_verify_mma.cu).
+template <typename PT, int HD>
 cudaError_t launch_verify(const void* q, const void* k, const void* v,
                           const void* ks, const void* vs, const void* table,
-                          const void* lengths, void* acc, void* m, void* l,
-                          int B, int t, int H, int Hkv, int ps, int n_blocks,
-                          int n_splits, cudaStream_t stream) {
+                          const void* lengths, void* out, int B, int t, int H,
+                          int Hkv, int ps, int n_blocks, int n_splits,
+                          cudaStream_t stream) {
   const int g = H / Hkv;
-  const dim3 grid((t * g + kQRows - 1) / kQRows, B * Hkv, n_splits);
+  if (n_splits < 1 || n_splits > kMaxSplits) return cudaErrorInvalidValue;
+  const dim3 grid(n_splits, B * Hkv, (t * g + kQRows - 1) / kQRows);
   const size_t smem = sizeof(float) * prefill_smem_floats<HD>();
-  static bool configured = false;         // once per instantiation
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_verify_kernel<QT, PT, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  paged_verify_kernel<QT, PT, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const PT*>(k),
+  static bool configured = false, fits = false;  // once per instantiation
+  cudaError_t err = allow_smem(paged_verify_kernel<PT, HD>, smem, configured);
+  if (err == cudaSuccess)
+    err = check_cluster_fits(paged_verify_kernel<PT, HD>, kThreads, smem,
+                             fits);
+  if (err != cudaSuccess) return err;
+  return launch_cluster(
+      paged_verify_kernel<PT, HD>, grid, kThreads, smem, stream,
+      static_cast<const float*>(q), static_cast<const PT*>(k),
       static_cast<const PT*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<float*>(acc),
-      static_cast<float*>(m), static_cast<float*>(l), t, Hkv, g, ps,
-      n_blocks, n_splits, softmax_scale(HD));
-  return cudaGetLastError();
+      static_cast<const int*>(lengths), static_cast<float*>(out), t, Hkv, g,
+      ps, n_blocks, softmax_scale(HD));
 }
 
 }  // namespace
@@ -644,17 +677,17 @@ extern "C" {
 
 // q [B, H, hd]; k/v [n_pages, ps, Hkv, hd]; ks/vs [n_pages, ps, Hkv, 1]
 // f32 (int8 pools only, else null); table [B, n_blocks] i32; lengths [B]
-// i32 -> acc [B*Hkv, n_splits, g, hd], m/l [B*Hkv, n_splits, g] f32.
+// i32 -> out [B, H, hd] in q's dtype; n_splits in 1 .. kMaxSplits, each a
+// block of one cluster.
 int paged_decode_attention_launch(const void* q, const void* k, const void* v,
                                   const void* ks, const void* vs,
                                   const void* table, const void* lengths,
-                                  void* acc, void* m, void* l, int B, int H,
-                                  int Hkv, int hd, int ps, int n_blocks,
-                                  int n_splits, int q_bf16, int kv_int8,
-                                  void* stream) {
+                                  void* out, int B, int H, int Hkv, int hd,
+                                  int ps, int n_blocks, int n_splits,
+                                  int q_bf16, int kv_int8, void* stream) {
   const int g = H / Hkv;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K1_ARGS g, q, k, v, ks, vs, table, lengths, acc, m, l, B, Hkv, ps, \
+#define K1_ARGS g, q, k, v, ks, vs, table, lengths, out, B, Hkv, ps, \
                 n_blocks, n_splits, st
   if (hd == 64) {
     if (q_bf16)
@@ -704,32 +737,29 @@ int paged_prefill_attention_launch(const void* q, const void* k, const void* v,
 }
 
 // q [B, t, H, hd]; k/v/ks/vs as above; table [B, n_blocks] i32; lengths
-// [B] i32 (committed rows before the window) -> acc [B*Hkv, n_splits,
-// t*g, hd], m/l [B*Hkv, n_splits, t*g] f32, row = window token * g + head.
+// [B] i32 (committed rows before the window) -> out [B, t, H, hd] in q's
+// dtype; n_splits as K1's. bf16 q goes to the tensor-core kernel
+// (paged_verify_mma.cu), f32 q to the CUDA-core one.
 int paged_verify_attention_launch(const void* q, const void* k, const void* v,
                                   const void* ks, const void* vs,
                                   const void* table, const void* lengths,
-                                  void* acc, void* m, void* l, int B, int t,
-                                  int H, int Hkv, int hd, int ps,
-                                  int n_blocks, int n_splits, int q_bf16,
-                                  int kv_int8, void* stream) {
+                                  void* out, int B, int t, int H, int Hkv,
+                                  int hd, int ps, int n_blocks, int n_splits,
+                                  int q_bf16, int kv_int8, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K3_ARGS q, k, v, ks, vs, table, lengths, acc, m, l, B, t, H, Hkv, ps, \
+  if (q_bf16)
+    return port_kernels::paged_verify_bf16(q, k, v, ks, vs, table, lengths,
+                                           out, B, t, H, Hkv, hd, ps,
+                                           n_blocks, n_splits, kv_int8,
+                                           softmax_scale(hd), st);
+#define K3_ARGS q, k, v, ks, vs, table, lengths, out, B, t, H, Hkv, ps, \
                 n_blocks, n_splits, st
-  if (hd == 64) {
-    if (q_bf16)
-      return kv_int8 ? launch_verify<__nv_bfloat16, int8_t, 64>(K3_ARGS)
-                     : launch_verify<__nv_bfloat16, __nv_bfloat16, 64>(K3_ARGS);
-    return kv_int8 ? launch_verify<float, int8_t, 64>(K3_ARGS)
-                   : launch_verify<float, float, 64>(K3_ARGS);
-  }
-  if (hd == 128) {
-    if (q_bf16)
-      return kv_int8 ? launch_verify<__nv_bfloat16, int8_t, 128>(K3_ARGS)
-                     : launch_verify<__nv_bfloat16, __nv_bfloat16, 128>(K3_ARGS);
-    return kv_int8 ? launch_verify<float, int8_t, 128>(K3_ARGS)
-                   : launch_verify<float, float, 128>(K3_ARGS);
-  }
+  if (hd == 64)
+    return kv_int8 ? launch_verify<int8_t, 64>(K3_ARGS)
+                   : launch_verify<float, 64>(K3_ARGS);
+  if (hd == 128)
+    return kv_int8 ? launch_verify<int8_t, 128>(K3_ARGS)
+                   : launch_verify<float, 128>(K3_ARGS);
 #undef K3_ARGS
   return cudaErrorInvalidValue;
 }

@@ -30,7 +30,7 @@
 //   each value times its row scale in f32, rounded to bf16 and stored to
 //   the next stage after them (the operands dense_prefill_reference builds
 //   when it dequantizes to q's dtype), so their loads overlap the products
-//   too.
+//   too. Both staging paths live in paged_stage.cuh, shared with K3.
 // - S = Q K^T and O += P V on mma.sync, the online softmax in registers
 //   (online_softmax: rows lane/4 and lane/4 + 8, quad shuffles, f32 p into
 //   the row sum, P rounded once to bf16 as the A fragments of P V).
@@ -50,6 +50,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "paged_stage.cuh"
 
 namespace port_kernels {
 namespace {
@@ -57,105 +58,13 @@ namespace {
 constexpr int kPfWarps = 4;               // 64 stacked q rows a block
 constexpr int kPfThreads = 32 * kPfWarps;
 constexpr int kPfQ = 16 * kPfWarps;
-constexpr int kPfK = 64;                  // K/V rows per chunk
+constexpr int kPfK = kChunkRows;          // K/V rows per chunk
+static_assert(kPfThreads == kChunkThreads, "the block stages the chunks");
 
 template <int HD>
 constexpr size_t prefill_smem_bytes() {
   return sizeof(bf16) * (kPfQ + 4 * kPfK) * ld(HD);
 }
-
-// bf16 rows c0 .. c0+kPfK-1 of one chunk, K and V, into Kd / Vd
-// [kPfK][ld(HD)] by cp.async; rows at or past c_end become zeros. Pool rows
-// come through the entry's table row (row c: page trow[c / ps], row c % ps,
-// kv head kvh); with trow null, row c is at kp / vp + c * n_kv * HD (the
-// tail, kp / vp at the entry's kv head).
-template <int HD>
-__device__ __forceinline__ void stage_bf16_chunk(
-    const bf16* __restrict__ kp, const bf16* __restrict__ vp,
-    const int* __restrict__ trow, int ps, int n_kv, int kvh, int c0,
-    int c_end, bf16* Kd, bf16* Vd) {
-  constexpr int SEGS = HD / 8;            // 16-byte segments of a row
-  static_assert(kPfK * SEGS % kPfThreads == 0, "whole copies per thread");
-#pragma unroll
-  for (int j = 0; j < kPfK * SEGS / kPfThreads; ++j) {
-    const int i = threadIdx.x + j * kPfThreads;
-    const int r = i / SEGS;
-    const int sg = i - r * SEGS;
-    const int c = c0 + r;
-    const bool ok = c < c_end;
-    size_t row = 0;
-    if (ok)
-      row = trow != nullptr
-                ? (static_cast<size_t>(trow[c / ps]) * ps + c % ps) * n_kv +
-                      kvh
-                : static_cast<size_t>(c) * n_kv;
-    cp_async16(Kd + r * ld(HD) + sg * 8, kp + row * HD + sg * 8, ok);
-    cp_async16(Vd + r * ld(HD) + sg * 8, vp + row * HD + sg * 8, ok);
-  }
-}
-
-// One chunk of int8 pool rows in registers, between their load (issued
-// before the current chunk's products) and their dequantized store to
-// shared memory (after them): 16 values and the row's scale per segment.
-template <int HD>
-struct Int8Chunk {
-  static constexpr int SEGS = HD / 16;
-  static constexpr int N = kPfK * SEGS / kPfThreads;
-  static_assert(kPfK * SEGS % kPfThreads == 0, "whole segments per thread");
-  uint4 k[N], v[N];
-  float ks[N], vs[N];
-
-  // Rows c0 .. c0+kPfK-1 through the entry's table row; zeros (and scale
-  // 0) at or past c_end.
-  __device__ __forceinline__ void load(const int8_t* __restrict__ kp,
-                                       const int8_t* __restrict__ vp,
-                                       const float* __restrict__ k_scale,
-                                       const float* __restrict__ v_scale,
-                                       const int* __restrict__ trow, int ps,
-                                       int n_kv, int kvh, int c0, int c_end) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int i = threadIdx.x + j * kPfThreads;
-      const int r = i / SEGS;
-      const int c = c0 + r;
-      k[j] = v[j] = make_uint4(0, 0, 0, 0);
-      ks[j] = vs[j] = 0.f;
-      if (c < c_end) {
-        const size_t row =
-            (static_cast<size_t>(trow[c / ps]) * ps + c % ps) * n_kv + kvh;
-        const int at = (i - r * SEGS) * 16;
-        k[j] = *reinterpret_cast<const uint4*>(kp + row * HD + at);
-        v[j] = *reinterpret_cast<const uint4*>(vp + row * HD + at);
-        ks[j] = k_scale[row];
-        vs[j] = v_scale[row];
-      }
-    }
-  }
-
-  // Each value times its row scale in f32, rounded to bf16, into Kd / Vd.
-  __device__ __forceinline__ void store(bf16* Kd, bf16* Vd) const {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int i = threadIdx.x + j * kPfThreads;
-      const int r = i / SEGS;
-      const int at = r * ld(HD) + (i - r * SEGS) * 16;
-      dequant16(Kd + at, k[j], ks[j]);
-      dequant16(Vd + at, v[j], vs[j]);
-    }
-  }
-
-  __device__ __forceinline__ static void dequant16(bf16* dst, uint4 raw,
-                                                   float scale) {
-    const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
-    uint32_t w[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      w[e] = pack_bf16(static_cast<float>(x[2 * e]) * scale,
-                       static_cast<float>(x[2 * e + 1]) * scale);
-    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-    *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
-  }
-};
 
 // grid (ceil(tb*g / kPfQ), Hkv, M), kPfThreads threads. Warp w owns
 // stacked rows r0 + 16w .. r0 + 16w + 15 of the block's tile.

@@ -6,9 +6,9 @@ kernels and their plain PyTorch versions.
   decode_attention.py``): one query row per slot against a shared page
   pool ``[n_pages, ps, Hkv, hd]`` through a ``[B, n_blocks]`` block table,
   masked to ``col < lengths``, pages past the length skipped, int8 K/V
-  dequantized with per-row f32 scales, split-K partials merged by the
-  log-sum-exp combine (``_combine_splits``, a PyTorch op as it was XLA
-  code in the JAX package).
+  dequantized with per-row f32 scales. The JAX package merged its split-K
+  partials in XLA (``_combine_splits`` here, the plain merge); the kernel
+  merges them itself, across the thread-block cluster its splits form.
 - ``paged_prefill_attention`` (K2) replaces the Pallas
   ``paged_prefill_attention``: the prefix-cache tail prefill — cached
   prefix pages through ``prefix_table`` (fully visible below
@@ -16,9 +16,9 @@ kernels and their plain PyTorch versions.
 - ``paged_verify_attention`` (K3) replaces the Pallas
   ``paged_verify_attention``: the speculative verify window, ``t`` query
   rows per slot with row i bounded by ``col < lengths + i + 1``, split
-  over the live pages and merged by ``_combine_splits`` as K1 is. A
-  contiguous cache reaches it through ``contiguous_as_paged`` (a view and
-  an ``arange`` table).
+  over the live pages and merged in the kernel as K1 is; bf16 q runs on
+  the tensor cores. A contiguous cache reaches it through
+  ``contiguous_as_paged`` (a view and an ``arange`` table).
 - ``flash_decode_attention`` (K4) replaces the Pallas
   ``flash_decode_attention``: one query row per slot against a
   contiguous cache ``[B, S, Hkv, hd]``, masked to ``col < lengths`` and
@@ -27,8 +27,9 @@ kernels and their plain PyTorch versions.
   ``_combine_splits``.
 
 Each wrapper runs its kernel on CUDA tensors (``ops/csrc/
-paged_attention.cu`` and ``ops/csrc/flash_decode.cu``, built at first use
-by ``ops/_build.py``) and its plain version on CPU tensors; any other
+paged_attention.cu``, ``paged_prefill_mma.cu``, ``paged_verify_mma.cu`` and
+``flash_decode.cu``, built at first use by ``ops/_build.py``) and its plain
+version on CPU tensors; any other
 device raises, and a CUDA tensor never reaches the plain version.
 ``paged_decode_reference`` (= ``gather_paged_kv`` +
 ``dense_decode_reference``), ``dense_prefill_reference``,
@@ -53,7 +54,12 @@ NEG_INF = -1e30
 # The kernels' contract (ops/csrc/paged_attention.cu).
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_GROUPS = (1, 2, 4, 8)          # g = n_heads / n_kv_heads
-VERIFY_Q_ROWS = 32                    # K3's query-row tile (kQRows)
+# K3's stacked query rows a block: 64 on the tensor cores (bf16, kVfQ),
+# 32 on the CUDA cores (f32, kQRows).
+VERIFY_Q_ROWS = {torch.bfloat16: 64, torch.float32: 32}
+# The most splits of one (slot, kv head) for K1 and K3: the splits are the
+# blocks of one thread-block cluster, at most the portable 8 (kMaxSplits).
+MAX_SPLITS = 8
 _SM_COUNT_H100 = 132
 
 
@@ -64,14 +70,15 @@ def paged_plan(n_blocks: int, page_size: int, batch: int = 1,
     pageable (page sizes are powers of two from 8 to 256; at least one
     block). The JAX package's rule fits the TPU's sequential grid; on the
     card the splits are there to fill the SMs: enough (slot x kv head x
-    split) blocks for about two per SM, never more splits than pages. The
-    kernel divides each slot's live pages, not the table, among them."""
+    split) blocks for about two per SM, never more splits than pages nor
+    than ``MAX_SPLITS`` (one cluster). The kernel divides each slot's live
+    pages, not the table, among them."""
     if page_size < 8 or page_size > 256 or page_size & (page_size - 1):
         return None
     if n_blocks < 1:
         return None
     want = -(-2 * _SM_COUNT_H100 // max(1, batch * n_kv))
-    return max(1, min(n_blocks, want))
+    return max(1, min(n_blocks, want, MAX_SPLITS))
 
 
 def decode_plan(s: int, block_k: Optional[int] = None,
@@ -362,9 +369,10 @@ paged_verify_reference.calls = 0
 def _combine_splits(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                     b: int, n_heads: int, hd: int,
                     dtype: torch.dtype) -> torch.Tensor:
-    """Split-K combine: LSE merge of K1's unnormalised partials acc
-    [B*Hkv, ns, g, hd], m/l [B*Hkv, ns, g, 1]. An empty split (acc 0,
-    m -1e30, l 0) drops out; a fully masked row yields zeros."""
+    """Split-K combine: LSE merge of K4's unnormalised partials acc
+    [B*Hkv, ns, g, hd], m/l [B*Hkv, ns, g, 1] (K1 and K3 merge in the
+    kernel). An empty split (acc 0, m -1e30, l 0) drops out; a fully
+    masked row yields zeros."""
     m_tot = m.amax(dim=1, keepdim=True)
     w = torch.exp(m - m_tot)
     l_tot = (l * w).sum(dim=1)                       # [BH, g, 1]
@@ -472,24 +480,19 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages, k_scale, v_scale, n_heads, n_kv, hd)
     table = block_table.to(device=q.device, dtype=torch.int32).contiguous()
     lens = _lengths_vector(lengths, b, q.device)
-    g = n_heads // n_kv
-    acc = torch.empty((b * n_kv, ns, g, hd), dtype=torch.float32,
-                      device=q.device)
-    mx = torch.empty((b * n_kv, ns, g, 1), dtype=torch.float32,
-                     device=q.device)
-    sm = torch.empty_like(mx)
+    out = torch.empty_like(q)
     from ._build import load_library
 
     lib = load_library()
     err = lib.paged_decode_attention_launch(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
-        _ptr(table), _ptr(lens), _ptr(acc), _ptr(mx), _ptr(sm),
+        _ptr(table), _ptr(lens), _ptr(out),
         b, n_heads, n_kv, hd, ps, n_blocks, ns,
         int(q.dtype == torch.bfloat16), int(quant),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _raise_on(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
-    return _combine_splits(acc, mx, sm, b, n_heads, hd, q.dtype)
+    return out
 
 
 paged_decode_attention.launches = 0
@@ -592,8 +595,8 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
             f"GQA needs n_heads ({n_heads}) divisible by kv heads ({n_kv})")
     g = n_heads // n_kv
     n_blocks = block_table.shape[1]
-    n_tiles = -(-t * g // VERIFY_Q_ROWS)
-    ns = verify_plan(n_blocks, ps, t, b * n_tiles, n_kv)
+    n_groups = -(-t * g // VERIFY_Q_ROWS.get(q.dtype, 32))
+    ns = verify_plan(n_blocks, ps, t, b * n_groups, n_kv)
     if ns is None:
         raise ValueError(f"no legal verify blocking for n_blocks={n_blocks},"
                          f" page_size={ps}, t={t}")
@@ -607,28 +610,19 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages, k_scale, v_scale, n_heads, n_kv, hd)
     table = block_table.to(device=q.device, dtype=torch.int32).contiguous()
     lens = _lengths_vector(lengths, b, q.device)
-    rows = t * g
-    acc = torch.empty((b * n_kv, ns, rows, hd), dtype=torch.float32,
-                      device=q.device)
-    mx = torch.empty((b * n_kv, ns, rows, 1), dtype=torch.float32,
-                     device=q.device)
-    sm = torch.empty_like(mx)
+    out = torch.empty_like(q)
     from ._build import load_library
 
     lib = load_library()
     err = lib.paged_verify_attention_launch(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
-        _ptr(table), _ptr(lens), _ptr(acc), _ptr(mx), _ptr(sm),
+        _ptr(table), _ptr(lens), _ptr(out),
         b, t, n_heads, n_kv, hd, ps, n_blocks, ns,
         int(q.dtype == torch.bfloat16), int(quant),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _raise_on(err, "paged_verify_attention")
     paged_verify_attention.launches += 1
-    # The kernel's rows per (slot, kv head) are window-major (row = i*g +
-    # j); merge the splits, then undo the (Hkv, t, g) fold.
-    out = _combine_splits(acc, mx, sm, b, n_kv * rows, hd, q.dtype)
-    return out.reshape(b, n_kv, t, g, hd).transpose(1, 2) \
-        .reshape(b, t, n_heads, hd)
+    return out
 
 
 paged_verify_attention.launches = 0

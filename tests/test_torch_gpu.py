@@ -10,8 +10,9 @@ repository's conftest (which imports JAX):
 Tolerances: 2e-5 at f32 (the kernel and the plain version sum in other
 orders), 2e-2 at bf16 (the plain versions round at other places: the
 prefill reference rounds its normalised probabilities to bf16 before the
-PV product, the tensor-core kernels K2 and K5 their unnormalised ones;
-``tests/test_torch_paged_attention.py`` and
+PV product, the tensor-core kernels K2, K3 and K5 their unnormalised ones;
+``tests/test_torch_paged_attention.py``,
+``tests/test_torch_verify_attention.py`` and
 ``tests/test_torch_flash_attention.py`` show on the CPU that this
 rounding stays inside 2e-2). A row with
 length 0 is compared against zeros: the plain version's softmax over a
@@ -66,24 +67,46 @@ def _close(got, ref, dtype):
                                rtol=TOL[dtype])
 
 
+def _lengths(B, pattern, dev):
+    """[B] int32 committed lengths: ``pattern`` repeated to B slots."""
+    return torch.tensor([pattern[i % len(pattern)] for i in range(B)],
+                        dtype=torch.int32, device=dev)
+
+
+# (hd, n_heads, n_kv, ps, n_blocks, B) -> the split count (one cluster of
+# that many blocks a slot and kv head) that paged_plan gives: 1, 3, 5 and 8
+# among them, B = 1 too.
+DECODE_SHAPES = {
+    "serve": ((64, 16, 16, 64, 32, 5), 4),
+    "gqa4-hd128": ((128, 32, 8, 16, 12, 5), 7),
+    "g8-ps8": ((64, 8, 1, 8, 5, 5), 5),
+    "g2-ps256": ((128, 4, 2, 256, 2, 5), 2),
+    "serve-b8-ns3": ((64, 16, 16, 64, 32, 8), 3),
+    "ns5": ((64, 24, 12, 16, 12, 5), 5),
+    "b1-ns8": ((64, 16, 16, 64, 32, 1), 8),
+    "ns1": ((128, 8, 2, 64, 1, 5), 1),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd,n_heads,n_kv,ps,n_blocks", [
-    (64, 16, 16, 64, 32), (128, 32, 8, 16, 12), (64, 8, 1, 8, 5),
-    (128, 4, 2, 256, 2)], ids=["serve", "gqa4-hd128", "g8-ps8", "g2-ps256"])
+@pytest.mark.parametrize("shape,ns", list(DECODE_SHAPES.values()),
+                         ids=list(DECODE_SHAPES))
 @DTYPES
 @QUANT
-def test_decode_kernel_matches_plain(cuda, hd, n_heads, n_kv, ps, n_blocks,
-                                     dtype, quant):
+def test_decode_kernel_matches_plain(cuda, shape, ns, dtype, quant):
+    """K1 against its plain version at split counts 1 to 8 (each one
+    cluster), B = 1, lengths 0, 1 and the full table: the kernel merges its
+    splits itself and writes [B, H, hd] in q's dtype."""
+    hd, n_heads, n_kv, ps, n_blocks, B = shape
+    assert da.paged_plan(n_blocks, ps, B, n_kv) == ns
     gen = torch.Generator().manual_seed(hd + n_heads + ps)
-    B = 5
     n_pages = 1 + B * n_blocks
     q = torch.randn((B, n_heads, hd), generator=gen).to(dtype).to(cuda)
     kp, vp, sc = _pool(gen, n_pages, ps, n_kv, hd, dtype, quant, cuda)
     table = (torch.randperm(n_pages - 1, generator=gen)[:B * n_blocks] + 1) \
         .reshape(B, n_blocks).to(torch.int32).to(cuda)
     S = n_blocks * ps
-    lens = torch.tensor([S, 1, 0, S // 2 + 3, min(ps + 1, S)],
-                        dtype=torch.int32, device=cuda)
+    lens = _lengths(B, [S, 1, 0, S // 2 + 3, min(ps + 1, S)], cuda)
     n0 = da.paged_decode_reference.calls
     launches = da.paged_decode_attention.launches
     got = da.paged_decode_attention(q, kp, vp, table, lens, **sc)
@@ -136,28 +159,45 @@ def test_prefill_kernel_matches_plain(cuda, hd, n_heads, n_kv, ps, tb, hb,
     _close(got, ref, dtype)
 
 
+# (hd, n_heads, n_kv, ps, n_blocks, t, B) -> the split count paged_plan
+# gives at bf16 (64-row groups; f32 tiles 32 rows, so a stack over 32 rows
+# may plan fewer splits there).
+VERIFY_SHAPES = {
+    "serve": ((64, 16, 16, 64, 32, 5, 5), 4),
+    "gqa4-hd128": ((128, 32, 8, 16, 12, 5, 5), 7),
+    "g8-ps8": ((64, 8, 1, 8, 5, 3, 5), 5),
+    "g2-t1": ((128, 4, 2, 256, 2, 1, 5), 2),
+    "g8-two-tiles": ((64, 16, 2, 32, 6, 6, 5), 6),
+    "serve-b8-ns3": ((64, 16, 16, 64, 32, 5, 8), 3),
+    "ns5": ((64, 24, 12, 16, 12, 5, 5), 5),
+    "b1-ns8": ((64, 16, 16, 64, 32, 5, 1), 8),
+    "ns1": ((128, 8, 2, 64, 1, 5, 5), 1),
+    "g8-t10-two-groups": ((128, 16, 2, 16, 12, 10, 3), 8),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd,n_heads,n_kv,ps,n_blocks,t", [
-    (64, 16, 16, 64, 32, 5), (128, 32, 8, 16, 12, 5), (64, 8, 1, 8, 5, 3),
-    (128, 4, 2, 256, 2, 1), (64, 16, 2, 32, 6, 6)],
-    ids=["serve", "gqa4-hd128", "g8-ps8", "g2-t1", "g8-two-tiles"])
+@pytest.mark.parametrize("shape,ns", list(VERIFY_SHAPES.values()),
+                         ids=list(VERIFY_SHAPES))
 @DTYPES
 @QUANT
-def test_verify_kernel_matches_plain(cuda, hd, n_heads, n_kv, ps, n_blocks,
-                                     t, dtype, quant):
-    """K3 against its plain version: ragged committed lengths (0, a full
-    table less the window, mid-page), stale rows above every bound, a
-    t*g stack of more than one 32-row tile (g8-two-tiles: 48 rows)."""
+def test_verify_kernel_matches_plain(cuda, shape, ns, dtype, quant):
+    """K3 against its plain version: ragged committed lengths (0, 1, a
+    full table less the window, mid-page), stale rows above every bound,
+    split counts 1 to 8 (each one cluster), B = 1, stacks of one to four
+    16-row tiles (t*g 1 to 48) and of two 64-row groups (t*g = 80); bf16
+    runs on the tensor cores, f32 on the CUDA cores."""
+    hd, n_heads, n_kv, ps, n_blocks, t, B = shape
+    g = n_heads // n_kv
+    assert da.verify_plan(n_blocks, ps, t, B * -(-t * g // 64), n_kv) == ns
     gen = torch.Generator().manual_seed(hd + n_heads + ps + t)
-    B = 5
     n_pages = 1 + B * n_blocks
     q = torch.randn((B, t, n_heads, hd), generator=gen).to(dtype).to(cuda)
     kp, vp, sc = _pool(gen, n_pages, ps, n_kv, hd, dtype, quant, cuda)
     table = (torch.randperm(n_pages - 1, generator=gen)[:B * n_blocks] + 1) \
         .reshape(B, n_blocks).to(torch.int32).to(cuda)
     S = n_blocks * ps
-    lens = torch.tensor([S - t, 0, S // 2 + 3, 1, min(ps + 1, S - t)],
-                        dtype=torch.int32, device=cuda)
+    lens = _lengths(B, [S - t, 0, S // 2 + 3, 1, min(ps + 1, S - t)], cuda)
     n0 = da.paged_verify_reference.calls
     launches = da.paged_verify_attention.launches
     got = da.paged_verify_attention(q, kp, vp, table, lens, **sc)
@@ -170,13 +210,14 @@ def test_verify_kernel_matches_plain(cuda, hd, n_heads, n_kv, ps, n_blocks,
 
 
 @pytest.mark.gpu
-def test_verify_rows_equal_decode_kernel(cuda):
-    """Window row i of K3 is K1 at lengths + i + 1 (f32)."""
+@DTYPES
+def test_verify_rows_equal_decode_kernel(cuda, dtype):
+    """Window row i of K3 is K1 at lengths + i + 1 (f32; bf16, where K3
+    runs on the tensor cores, at the bf16 tolerance)."""
     gen = torch.Generator().manual_seed(7)
     B, t, H, n_kv, hd, ps, nb = 4, 4, 8, 2, 64, 16, 8
-    q = torch.randn((B, t, H, hd), generator=gen).to(cuda)
-    kp, vp, _ = _pool(gen, 1 + B * nb, ps, n_kv, hd, torch.float32, False,
-                      cuda)
+    q = torch.randn((B, t, H, hd), generator=gen).to(dtype).to(cuda)
+    kp, vp, _ = _pool(gen, 1 + B * nb, ps, n_kv, hd, dtype, False, cuda)
     table = (torch.randperm(B * nb, generator=gen) + 1).reshape(B, nb) \
         .to(torch.int32).to(cuda)
     lens = torch.tensor([0, 9, 60, 124], dtype=torch.int32, device=cuda)
@@ -184,7 +225,34 @@ def test_verify_rows_equal_decode_kernel(cuda):
     for i in range(t):
         one = da.paged_decode_attention(q[:, i].contiguous(), kp, vp, table,
                                         lens + i + 1)
-        _close(got[:, i], one, torch.float32)
+        _close(got[:, i], one, dtype)
+
+
+@pytest.mark.gpu
+@DTYPES
+@QUANT
+def test_decode_and_verify_kernels_are_deterministic(cuda, dtype, quant,
+                                                     monkeypatch):
+    """K1 and K3 merge their splits across the cluster in a fixed order
+    and with no atomics: two launches on the same inputs give the same
+    bits. Neither reaches the PyTorch split merge (K4's)."""
+    def no_merge(*a, **k):
+        raise AssertionError("K1/K3 called _combine_splits")
+
+    monkeypatch.setattr(da, "_combine_splits", no_merge)
+    gen = torch.Generator().manual_seed(3)
+    B, t, H, n_kv, hd, ps, nb = 3, 5, 32, 8, 128, 16, 24
+    q = torch.randn((B, t, H, hd), generator=gen).to(dtype).to(cuda)
+    kp, vp, sc = _pool(gen, 1 + B * nb, ps, n_kv, hd, dtype, quant, cuda)
+    table = (torch.randperm(B * nb, generator=gen) + 1).reshape(B, nb) \
+        .to(torch.int32).to(cuda)
+    lens = torch.tensor([370, 0, 201], dtype=torch.int32, device=cuda)
+    assert da.paged_plan(nb, ps, B, n_kv) > 1          # splits to merge
+    for fn, qq in ((da.paged_decode_attention, q[:, 0].contiguous()),
+                   (da.paged_verify_attention, q)):
+        a = fn(qq, kp, vp, table, lens, **sc)
+        b = fn(qq, kp, vp, table, lens, **sc)
+        assert torch.equal(a, b), fn.__name__
 
 
 @pytest.mark.gpu

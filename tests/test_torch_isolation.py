@@ -59,3 +59,22 @@ def test_scan_has_teeth():
     assert not JAX_PKG.search("from k8s_gpu_scheduler_tpu_torch import ops")
     assert JAX.search("import jax.numpy as jnp")
     assert not JAX.search("import jaxtyping")
+
+
+# The kernels build with nvcc into a plain C library (route (b) of the
+# build): a PyTorch header would make each compile take minutes.
+KERNEL_SOURCES = sorted((PORT / "ops" / "csrc").glob("*.cu*"))
+TORCH_HEADER = re.compile(r'^\s*#\s*include\s*[<"](torch|ATen|c10)/', re.M)
+
+
+@pytest.mark.parametrize("path", KERNEL_SOURCES,
+                         ids=lambda p: p.name)
+def test_kernel_sources_include_no_pytorch_header(path):
+    assert not TORCH_HEADER.search(path.read_text())
+
+
+def test_kernel_header_scan_has_teeth():
+    assert len(KERNEL_SOURCES) >= 11
+    assert TORCH_HEADER.search("#include <torch/extension.h>")
+    assert TORCH_HEADER.search('#include "ATen/cuda/CUDAContext.h"')
+    assert not TORCH_HEADER.search("#include <cuda_bf16.h>")

@@ -286,7 +286,10 @@ def test_counters_reset():
 
 
 @pytest.mark.parametrize("b,n_kv,n_blocks,want", [
-    (8, 16, 32, 3), (8, 8, 32, 5), (1, 1, 4, 4), (64, 16, 32, 1)])
+    (8, 16, 32, 3), (8, 8, 32, 5), (1, 1, 4, 4), (64, 16, 32, 1),
+    (1, 16, 32, 8), (1, 8, 32, 8)])
 def test_decode_splits_fill_the_card(b, n_kv, n_blocks, want):
+    """About two blocks per SM, never more splits than pages nor than one
+    thread-block cluster holds (B = 1 would want 17 and 33)."""
     assert da.paged_plan(n_blocks, 64, b, n_kv) == want
     assert da.paged_plan(n_blocks, 48, b, n_kv) is None

@@ -6,7 +6,13 @@ the JAX ``paged_verify_attention`` in Pallas interpret mode (as the JAX
 package's own tests run it on the CPU) over f32/bf16, kv groups 1/2/4,
 exact and int8 pools and windows t = 1/3/5. Tolerance: 2e-5 at f32, 2e-2
 at bf16, the port's K1/K2 parity tolerances. The CUDA kernel itself is
-held to this plain version on the card (``-m gpu`` and chip_smoke.py)."""
+held to this plain version on the card (``-m gpu`` and chip_smoke.py).
+K3's bf16 kernel runs on the tensor cores and rounds at other places than
+the plain version (f32 scores, int8 scales applied to the scores and to
+p, P rounded once to bf16); ``test_bf16_verify_rounding_fits_card_
+tolerance`` shows here that this stays inside the card's 2e-2."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -149,3 +155,63 @@ def test_verify_plan():
     assert da.verify_plan(4, 16, 0) is None
     assert da.verify_plan(4, 12, 3) is None
     assert da.verify_plan(32, 64, 5, 8, 16) == da.paged_plan(32, 64, 8, 16)
+    # B = 1 (generate_speculative): capped at one cluster's 8 blocks.
+    assert da.verify_plan(32, 64, 5, 1, 16) == 8
+    assert da.verify_plan(32, 64, 5, 1, 8) == 8
+
+
+def _verify_rounded(q, k_pages, v_pages, table, lengths, k_scale=None,
+                    v_scale=None):
+    """K3's tensor-core arithmetic (``paged_verify_mma.cu``) on the CPU:
+    the raw pool rows as operands (an int8 value is exact in bf16), f32
+    scores times the row's f32 k_scale after the product, the unnormalised
+    p = exp(s - m) in f32 summed into l, then p times v_scale rounded once
+    to bf16 against the raw V rows."""
+    b, t, n_heads, hd = q.shape
+    g = n_heads // k_pages.shape[2]
+    k = da.gather_paged_kv(k_pages, table).float()
+    v = da.gather_paged_kv(v_pages, table).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk",
+                     q.float().reshape(b, t, -1, g, hd), k) / math.sqrt(hd)
+
+    def per_col(scale):                                  # [B, Hkv, 1, 1, S]
+        return da.gather_paged_kv(scale, table)[..., 0].permute(
+            0, 2, 1)[:, :, None, None]
+
+    if k_scale is not None:
+        s = s * per_col(k_scale)
+    bound = lengths.long()[:, None] + torch.arange(t)[None] + 1
+    mask = (torch.arange(k.shape[1])[None, None] < bound[..., None]
+            )[:, None, None]
+    s = torch.where(mask, s, -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    if v_scale is not None:
+        p = p * per_col(v_scale)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p.to(torch.bfloat16).float(),
+                       v) / l
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, n_heads, hd)
+
+
+@pytest.mark.parametrize("n_kv", [8, 2, 1], ids=["g1", "g4", "g8"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_bf16_verify_rounding_fits_card_tolerance(n_kv, quant):
+    """K3's bf16 numerics (f32 scores, int8 scales on the scores and on p,
+    P rounded once to bf16, l from the unscaled p) stay inside atol = rtol
+    = 2e-2, the card's tolerance, of the plain version on the same bf16
+    inputs and of the JAX kernel (interpret mode); the rounding is visible
+    (it differs from the all-f32 result)."""
+    jargs, jsc, targs, tsc, tol = verify_case(11, 8, n_kv, "bf16", quant, 5,
+                                              hd=64)
+    got = _verify_rounded(*targs, **tsc)
+    torch.testing.assert_close(
+        got, da.paged_verify_reference(*targs, **tsc).float(), atol=tol,
+        rtol=tol)
+    close(got, jda.paged_verify_attention(*jargs, interpret=True, **jsc),
+          tol)
+    q, kp, vp, table, lens = targs
+    f32 = da.paged_verify_reference(
+        q.float(), kp if quant else kp.float(), vp if quant else vp.float(),
+        table, lens, **tsc)
+    torch.testing.assert_close(got, f32, atol=tol, rtol=tol)
+    assert not torch.equal(got, f32)
