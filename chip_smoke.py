@@ -2,6 +2,7 @@
 """On-card smoke test of the PyTorch/CUDA port (k8s_gpu_scheduler_tpu_torch).
 
     python3 chip_smoke.py [--profile [--parent DIR]] [--train-layers N]
+    python3 chip_smoke.py --kernels-only [--package-root DIR]
 
 Needs one CUDA card and the CUDA toolkit; exits non-zero without them. It
 imports nothing of JAX. Phases, each of which fails the run on error:
@@ -10,10 +11,10 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    parallel, linked into one library) and print each kernel's registers,
    shared memory and spills, the count of tensor-core (HMMA) instructions
    in each kernel's SASS where cuobjdump exists (each bf16 mma.sync kernel
-   must have some: K2 ``paged_prefill_mma.cu``, K3
-   ``paged_verify_mma.cu``, K5 ``flash_forward_mma.cu``, K6 and K7
-   ``flash_backward_mma.cu``), and the card's name and power limit
-   (nvidia-smi).
+   must have some: K2 ``paged_prefill_mma.cu``, K1, K3 and K4
+   ``decode_mma.cu`` with paged and with contiguous rows, K5
+   ``flash_forward_mma.cu``, K6 and K7 ``flash_backward_mma.cu``), and the
+   card's name and power limit (nvidia-smi).
 1. kernels against their plain PyTorch versions on the card: K1
    (paged_decode_attention), K2 (paged_prefill_attention) and K3
    (paged_verify_attention, window t = 5) at the serve width (B 8, H =
@@ -22,11 +23,12 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    with an int8 KV pool; K2 also at phase 4's chunked-prefill shape (tb
    64 over 512 resident rows, hb 8, 8 padded entries), and each of that
    run's 15 continuation shapes timed alone, summed to the 240 launches'
-   total. bf16 runs K2 and K3 on the tensor cores
-   (``paged_prefill_mma.cu``, ``paged_verify_mma.cu``); K1 and K3 merge
+   total. bf16 runs K1-K4 on the tensor cores (``paged_prefill_mma.cu``;
+   ``decode_mma.cu``, one body for K1, K3 and K4); K1, K3 and K4 merge
    their splits across a thread-block cluster and write their output
-   themselves. Max error against a stated tolerance; CUDA-event
-   times of the kernel, the plain version and one library call
+   themselves. K1's case also times K3 at t = 1 over lengths - 1 (K1's
+   mask) on the same inputs. Max error against a stated tolerance;
+   CUDA-event times of the kernel, the plain version and one library call
    (scaled_dot_product_attention over the gathered K/V, a yardstick the
    port never calls), beside the least time the card could take (bytes
    over 3.35 TB/s or operations over 989 TFLOP/s). Then the flash
@@ -44,8 +46,10 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    the serve traffic), at the serve width and the GQA shape, bf16 and
    int8, plus a no-bitmap case with ragged [B] lengths; its bound counts
    the set rows only, and the bound of reading every row under the
-   cursor is printed beside it. Each case also prints its achieved rate
-   (its operations over its time) and its share of the bound.
+   cursor is printed beside it; one call of each must launch one CUDA
+   kernel (torch.profiler) and allocate only its output. Each case also
+   prints its achieved rate (its operations over its time) and its share
+   of the bound.
 2. the engine on the card against the engine on the CPU, a small f32
    config: plain, speculative (bigram, gamma 3) and chunked-prefill (2
    pages a step) engines; greedy streams, prefill_tokens_skipped and the
@@ -59,8 +63,7 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    16 heads, vocab 32000) in bf16 with 8 slots, page 64, chunk 64 and
    prefill bucket 512, 32 requests of 512-token prompts sharing a
    384-token system prompt. Counters are zeroed just before and read just
-   after: K1 and K2 must have launched, no plain version been called, and
-   the PyTorch split merge (``_combine_splits``, K4's) never run.
+   after: K1 and K2 must have launched and no plain version been called.
    A second greedy run must reproduce the streams. Then a shorter pass
    with int8 weights and an int8 KV pool.
 4. the speculative path at full width: the same config with
@@ -70,7 +73,7 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    off; an int8-KV sampled run at temperature 0.005, twice (the replay
    must match); and 8 random 1024-token prompts with
    prefill_chunk_tokens=256. K3 must have launched, the accept rate be
-   above 0, and no plain version nor the PyTorch split merge been called.
+   above 0, and no plain version been called.
 
 5. training on the card against training on the CPU: f32, TF32 off,
    vocab 256, d_model 256, 2 layers, 4 heads, 2 kv heads, T 128, remat,
@@ -102,11 +105,14 @@ imports nothing of JAX. Phases, each of which fails the run on error:
 ``--profile`` adds profiled serving runs (plain decode, speculative and
 the contiguous engine) and one profiled training step: the card's busy
 share and its time by kernel; and the CUDA kernels one paged decode
-dispatch launches per layer per tick and one verify dispatch per layer per
-verify (``--parent DIR``: the same count for the package in DIR, a copy of
-another tree, in a process of its own). ``--train-layers N`` runs phase 6
-at depth N instead of 4, to measure how step time and peak memory grow
-with depth.
+dispatch launches per layer per tick, one verify dispatch per layer per
+verify and one contiguous decode dispatch per layer per tick (``--parent
+DIR``: the same count for the package in DIR, a copy of another tree, in a
+process of its own). ``--train-layers N`` runs phase 6 at depth N instead
+of 4, to measure how step time and peak memory grow with depth.
+``--kernels-only`` runs phases 0 and 1 alone and prints their cases, not
+the contract's last lines (``--package-root DIR``: the package in DIR, to
+time another tree's kernels).
 
 The line before the last is a JSON object listing every kernel with its
 launches on the main path, error and times; the last line is
@@ -130,16 +136,16 @@ CSRC = "k8s_gpu_scheduler_tpu_torch/ops/csrc/"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "paged_decode_attention": (
-        "paged_attention.cu",
+        "decode_mma.cu",
         "k8s_gpu_scheduler_tpu/ops/decode_attention.py:497"),
     "paged_prefill_attention": (
         "paged_prefill_mma.cu",
         "k8s_gpu_scheduler_tpu/ops/decode_attention.py:999"),
     "paged_verify_attention": (
-        "paged_verify_mma.cu",
+        "decode_mma.cu",
         "k8s_gpu_scheduler_tpu/ops/decode_attention.py:688"),
     "flash_decode_attention": (
-        "flash_decode.cu",
+        "decode_mma.cu",
         "k8s_gpu_scheduler_tpu/ops/decode_attention.py:360"),
     "flash_forward": (
         "flash_forward_mma.cu",
@@ -155,10 +161,14 @@ PLAIN = ("paged_decode_reference", "dense_prefill_reference",
          "paged_verify_reference", "flash_decode_reference")
 FLASH = ("flash_forward", "flash_backward_dq", "flash_backward_dkv")
 FLASH_PLAIN = ("flash_forward_reference", "flash_backward_reference")
-# The bf16 kernels on mma.sync: phase 0 finds HMMA instructions in each.
-TENSOR_CORE_KERNELS = ("paged_prefill_mma_kernel", "paged_verify_mma_kernel",
-                       "flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                       "flash_bwd_dkv_mma_kernel")
+# The bf16 kernels on mma.sync, each named by the words its SASS name
+# holds: phase 0 finds HMMA instructions in each. The shared body of K1,
+# K3 (paged rows) and K4 (contiguous rows) is checked in both sources.
+TENSOR_CORE_KERNELS = (("paged_prefill_mma_kernel",),
+                       ("decode_mma_kernel", "PagedRows"),
+                       ("decode_mma_kernel", "ContiguousRows"),
+                       ("flash_fwd_mma_kernel",), ("flash_bwd_dq_mma_kernel",),
+                       ("flash_bwd_dkv_mma_kernel",))
 
 
 def log(*parts) -> None:
@@ -278,6 +288,12 @@ def decode_case(name, B, H, n_kv, hd, ps, n_blocks, int8, dev, flush,
     lib_ms = time_ms(lambda: lib(q4, K, V, attn_mask=mask), flush)
     lib_err, _ = max_err(lib(q4, K, V, attn_mask=mask)[:, :, 0], ref,
                          TOL[dtype])
+    # Yardstick: K3 at t = 1 over lengths - 1 masks col < length, K1's
+    # mask (every length here is at least 1), on the same inputs.
+    yard = (q[:, None], kp, vp, table, lens - 1)
+    k3_err, k3_ok = max_err(da.paged_verify_attention(*yard, **sc)[:, 0],
+                            ref, TOL[dtype])
+    k3_ms = time_ms(lambda: da.paged_verify_attention(*yard, **sc), flush)
     live = int(lens.sum())
     eb = 1 if int8 else 2
     nbytes = (B * H * hd * 2 * 2 + B * n_blocks * 4 + B * 4
@@ -285,8 +301,9 @@ def decode_case(name, B, H, n_kv, hd, ps, n_blocks, int8, dev, flush,
                                              else 0))
     flops = 4 * live * H * hd
     return dict(case=name, kernel="paged_decode_attention", int8=int8,
-                max_abs_err=err, tol=TOL[dtype], ok=ok, ms=ms,
+                max_abs_err=err, tol=TOL[dtype], ok=ok and k3_ok, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
+                k3_t1_ms=k3_ms, k3_t1_err=k3_err,
                 **_bound(nbytes, flops, dtype))
 
 
@@ -423,6 +440,13 @@ def flash_decode_case(name, B, H, n_kv, hd, S, int8, bitmap, dev, flush,
     ref = da.flash_decode_reference(q, k, v, lengths, **kw)
     torch.cuda.synchronize()
     err, ok = max_err(out, ref, TOL[dtype])
+    # The wrapper's cost beside the kernel: one call must launch one CUDA
+    # kernel and allocate only its output.
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    da.flash_decode_attention(q, k, v, lengths, **kw)
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"] - allocs
+    kernels = device_kernels(
+        lambda: da.flash_decode_attention(q, k, v, lengths, **kw))
     ms = time_ms(lambda: da.flash_decode_attention(q, k, v, lengths, **kw),
                  flush)
     plain_ms = time_ms(lambda: da.flash_decode_reference(
@@ -448,6 +472,7 @@ def flash_decode_case(name, B, H, n_kv, hd, S, int8, bitmap, dev, flush,
     fixed = B * H * hd * 2 * 2 + B * 4 + (under if bitmap else 0)
     return dict(case=name, kernel="flash_decode_attention", int8=int8,
                 max_abs_err=err, tol=TOL[dtype], ok=ok, ms=ms,
+                kernels_per_call=kernels, allocations_per_call=allocs,
                 plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
                 bound_under_cursor_ms=(fixed + kv_bytes(under))
                 / HBM_BYTES_PER_S * 1e3,
@@ -569,6 +594,36 @@ def flash_cases(name, B, T, H, n_kv, hd, dev, flush, seed=3) -> list:
     return cases
 
 
+def _device_kernels(prof) -> int:
+    """CUDA kernels in a torch.profiler trace, memsets and copies apart."""
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+def device_kernels(fn, calls: int = 10, attempts: int = 3) -> float:
+    """The CUDA kernels one call of ``fn`` launches (after a warm-up): the
+    most that ``attempts`` traces of ``calls`` calls each record, over
+    ``calls``. A trace may drop some of a short kernel's device records
+    (seen on the card), never add any, so the most is the count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    most = 0
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        most = max(most, _device_kernels(prof))
+    return most / calls
+
+
 def _bound(nbytes: int, flops: int, dtype) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -576,7 +631,9 @@ def _bound(nbytes: int, flops: int, dtype) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels(dev) -> list:
+def phase_kernels(dev, this_tree=True) -> list:
+    """Phase 1. ``this_tree``: also hold K4's wrapper to one kernel and
+    one allocation a call (False when timing another tree's kernels)."""
     flush = _L2Flush(dev)
     cases = []
     for int8 in (False, True):
@@ -613,6 +670,11 @@ def phase_kernels(dev) -> list:
             f"plain {c['plain_ms']:.4f} sdpa {c['library_ms']:.4f} (err "
             f"{c['library_err']:.1e}) bound "
             f"{c['bound_ms']:.4f} ({c['bound_by']}) "
+            + (f"[K3 at t = 1 {c['k3_t1_ms']:.4f} ms, err "
+               f"{c['k3_t1_err']:.1e}] " if "k3_t1_ms" in c else "")
+            + (f"[one call: {c['kernels_per_call']:g} kernel(s), "
+               f"{c['allocations_per_call']} allocation(s)] "
+               if "kernels_per_call" in c else "")
             + (f"[every row under the cursor "
                f"{c['bound_under_cursor_ms']:.4f}] "
                if "bound_under_cursor_ms" in c else "")
@@ -622,6 +684,11 @@ def phase_kernels(dev) -> list:
     bad = [c["kernel"] + ":" + c["case"] for c in cases if not c["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    heavy = [c["case"] for c in cases if "kernels_per_call" in c and (
+        c["kernels_per_call"], c["allocations_per_call"]) != (1, 1)]
+    if heavy and this_tree:
+        raise SystemExit(f"K4's wrapper launched more than one kernel or "
+                         f"allocated more than its output: {heavy}")
     sweep = chunked_prefill_sweep(dev, flush)
     log(f"  paged_prefill_attention, phase 4's chunked run: "
         f"{sweep['launches']} launches, {sweep['total_ms']:.4f} ms in all "
@@ -793,28 +860,6 @@ def phase_contiguous_vs_cpu(dev) -> dict:
     return out
 
 
-class _CountMerges:
-    """Counts calls of the PyTorch split merge (``_combine_splits``, which
-    only K4's wrapper still reaches) for the duration of a ``with``
-    block."""
-
-    def __enter__(self):
-        from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
-
-        self.calls, self._da = 0, da
-        self._orig = da._combine_splits
-
-        def counted(*args, **kw):
-            self.calls += 1
-            return self._orig(*args, **kw)
-
-        da._combine_splits = counted
-        return self
-
-    def __exit__(self, *exc):
-        self._da._combine_splits = self._orig
-
-
 class _DecodeTimer:
     """Times the engine's decode-chunk and verify dispatches on the host
     clock, synchronised at both ends, by wrapping the module functions the
@@ -868,7 +913,7 @@ def serve_run(model, cfg, prompts, max_new, **kw):
     torch.cuda.synchronize()
     da.reset_counters()
     t0 = time.perf_counter()
-    with _DecodeTimer() as dec, _CountMerges() as merges:
+    with _DecodeTimer() as dec:
         streams = drive(eng, prompts, max_new)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -880,8 +925,7 @@ def serve_run(model, cfg, prompts, max_new, **kw):
         requests=len(prompts), tokens=n_tok, wall_s=wall,
         tokens_per_s=n_tok / wall, decode_s=dec.seconds,
         decode_tokens_per_s=(n_tok - len(prompts)) / dec.seconds,
-        ttft_p50_ms=1e3 * ttft[len(ttft) // 2], launches=counts,
-        split_merges=merges.calls)
+        ttft_p50_ms=1e3 * ttft[len(ttft) // 2], launches=counts)
     if paged:
         pool = eng.pool_metrics()
         eng._alloc.assert_consistent()
@@ -916,9 +960,8 @@ def phase_full_width(dev, card) -> dict:
             and c["paged_prefill_attention"] > 0
             and st["prefill_tokens_skipped"] > 0):
         raise SystemExit(f"main path missed a kernel or the cache: {st}")
-    if any(c[k] for k in PLAIN) or st["split_merges"]:
-        raise SystemExit(f"main path called a plain version or the PyTorch "
-                         f"split merge: {c}, {st['split_merges']} merges")
+    if any(c[k] for k in PLAIN):
+        raise SystemExit(f"main path called a plain version: {c}")
     if malformed(streams, max_new, cfg.vocab):
         raise SystemExit("malformed streams on the main path")
     again, st2 = serve_run(model, cfg, prompts, max_new)
@@ -974,10 +1017,9 @@ def phase_speculative(dev, card) -> dict:
     c = st["launches"]
     if not c["paged_verify_attention"]:
         raise SystemExit(f"the speculative path never launched K3: {c}")
-    if any(c[k] for k in PLAIN) or st["split_merges"]:
-        raise SystemExit(f"the speculative path called a plain version or "
-                         f"the PyTorch split merge: {c}, "
-                         f"{st['split_merges']} merges")
+    if any(c[k] for k in PLAIN):
+        raise SystemExit(f"the speculative path called a plain version: "
+                         f"{c}")
     if not st["spec_accept_rate"] > 0:
         raise SystemExit(f"the speculative path accepted nothing: {st}")
     if malformed(streams, max_new, cfg.vocab):
@@ -1195,12 +1237,12 @@ class _Capture:
 
 def dispatch_launches(dev) -> dict:
     """The CUDA kernels that one paged decode dispatch launches per layer
-    per tick and one verify dispatch per layer per verify (memsets and
-    copies apart), at the serve config: the first dispatch of a short
-    run (8 requests, chunk 16), replayed alone under torch.profiler (its
-    K/V writes land where they did). A layer-tick is one K1 launch, a
-    layer-verify one K3 launch."""
-    from torch.autograd import DeviceType
+    per tick, one verify dispatch per layer per verify and one contiguous
+    decode dispatch per layer per tick (memsets and copies apart), at the
+    serve config: the first dispatch of a short run (8 requests, chunk
+    16), replayed alone under torch.profiler (its K/V writes land where
+    they did). A layer-tick is one K1 or K4 launch, a layer-verify one K3
+    launch."""
     from torch.profiler import ProfilerActivity, profile
 
     from k8s_gpu_scheduler_tpu_torch.models import serving
@@ -1216,7 +1258,10 @@ def dispatch_launches(dev) -> dict:
             ("decode tick", "_decode_chunk_paged_fn", "paged_decode_attention",
              {}, shared_prefix_traffic(rng, cfg.vocab, 8, 384, 128)),
             ("verify", "_verify_chunk_paged_fn", "paged_verify_attention",
-             SPEC_ENGINE, repeated_phrases(rng, cfg.vocab, 8))):
+             SPEC_ENGINE, repeated_phrases(rng, cfg.vocab, 8)),
+            ("contiguous decode tick", "_decode_chunk_fn",
+             "flash_decode_attention", dict(kv_layout="contiguous"),
+             [list(rng.integers(0, cfg.vocab, 512)) for _ in range(8)])):
         with _Capture(name) as cap:
             serve_run(model, cfg, prompts, 16, **kw)
         fn = getattr(serving, name)
@@ -1229,11 +1274,7 @@ def dispatch_launches(dev) -> dict:
             fn(*args, **kwargs)
             torch.cuda.synchronize()
         steps = da.counters()[attn]
-        kernels = sum(
-            e.count for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU
-            and not getattr(e, "is_user_annotation", False)
-            and not e.key.startswith(("Memcpy", "Memset")))
+        kernels = _device_kernels(prof)
         out[label] = dict(layer_steps=steps, kernels=kernels,
                           kernels_per_layer_step=kernels / max(steps, 1))
     return out
@@ -1444,13 +1485,17 @@ def main() -> int:
     hmma = sass_counts(_build.library_path(), "HMMA")
     for name, n in hmma.items():
         log(f"  sass {n} HMMA: {name}")
-    if hmma:                         # cuobjdump exists: every mma kernel
-        for kernel in TENSOR_CORE_KERNELS:    # must use the tensor cores
-            if not any(kernel in name for name in hmma):
-                raise SystemExit(f"no HMMA instruction in {kernel}")
+    this_tree = "--package-root" not in args
+    if hmma and this_tree:           # cuobjdump exists: every mma kernel
+        for words in TENSOR_CORE_KERNELS:     # must use the tensor cores
+            if not any(all(w in name for w in words) for name in hmma):
+                raise SystemExit(f"no HMMA instruction in {words}")
     log("phase 1: kernels against their plain versions "
         "(atol = rtol = 2e-2 in bf16, 2e-5 for K5's f32 lse)")
-    cases = phase_kernels(dev)
+    cases = phase_kernels(dev, this_tree)
+    if "--kernels-only" in args:
+        log(json.dumps({"card": card, "kernel_cases": cases}))
+        return 0
     log("phase 2: engines on the card against the engines on the CPU "
         "(f32, TF32 off)")
     e2 = phase_engine_vs_cpu(dev)

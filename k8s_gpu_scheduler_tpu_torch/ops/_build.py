@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "paged_attention.cu", _CSRC / "paged_prefill_mma.cu",
-           _CSRC / "paged_verify_mma.cu", _CSRC / "flash_decode.cu",
+           _CSRC / "decode_mma.cu", _CSRC / "flash_decode.cu",
            _CSRC / "flash_attention.cu", _CSRC / "flash_forward_mma.cu",
            _CSRC / "flash_backward_mma.cu")
 HEADERS = (_CSRC / "common.cuh", _CSRC / "mma.cuh",
@@ -114,7 +114,7 @@ def load_library() -> ctypes.CDLL:
         [vp] * 8 + [i] * 10 + [vp])
     lib.paged_verify_attention_launch.restype = i
     lib.flash_decode_attention_launch.argtypes = (
-        [vp] * 10 + [i] * 8 + [vp])
+        [vp] * 7 + [i, vp] + [i] * 8 + [vp])
     lib.flash_decode_attention_launch.restype = i
     lib.flash_forward_launch.argtypes = [vp] * 5 + [i] * 7 + [vp]
     lib.flash_forward_launch.restype = i

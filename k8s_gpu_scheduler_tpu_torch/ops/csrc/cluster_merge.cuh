@@ -1,7 +1,6 @@
-// The split-K merge of the paged decode and verify kernels (K1 in
-// paged_attention.cu, K3 in paged_attention.cu for f32 q and
-// paged_verify_mma.cu for bf16 q) across a thread-block cluster, and the
-// launch of such a cluster.
+// The split-K merge of the decode and verify kernels (K1, K3 and K4: in
+// decode_mma.cu for bf16 q; in paged_attention.cu and flash_decode.cu for
+// f32 q) across a thread-block cluster, and the launch of such a cluster.
 //
 // The TPU kernels carried their split partials through a sequential grid
 // and merged them in XLA. Here the n_splits blocks of one (slot, kv head)

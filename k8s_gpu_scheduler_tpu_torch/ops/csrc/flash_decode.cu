@@ -1,6 +1,6 @@
 // Flash-decode attention over a contiguous KV cache, for Hopper (sm_90a).
 //
-// K4 flash_decode_kernel replaces the Pallas kernel behind
+// K4 replaces the Pallas kernel behind
 //    k8s_gpu_scheduler_tpu/ops/decode_attention.py flash_decode_attention
 //    (_decode_kernel): one query row per slot against a contiguous cache
 //    [B, S, Hkv, hd], masked to col < length and, optionally, to the set
@@ -8,42 +8,53 @@
 //    windows: every slot writes at one cursor, so most rows under the
 //    cursor belong to other requests of the epoch).
 //
-// What bounds it on an H100 and what the design does about it: as K1
-// (paged_attention.cu), K4 is bound by bytes. Every attendable K/V row is
-// read once and used for the g query heads of its group, about g*4 flops
-// per byte in bf16, far below the ~295 flops/byte where the tensor cores
-// would be the limit. So one block per (slot, kv head, split) keeps the
-// group's g query heads in registers and streams the rows with 16-byte
+// bf16 q runs on the tensor-core body K4 shares with K1 and K3
+// (decode_mma.cu, which says why), reading the cache through its
+// contiguous row source. f32 q runs here, flash_decode_kernel, on the CUDA
+// cores in f32: the JAX kernel's numerics, which the tensor cores would
+// round. It is bound by bytes: every attendable K/V row is read once and
+// used for the g query heads of its group. One block per (slot, kv head,
+// split) keeps the g heads in registers and streams the rows with 16-byte
 // loads (8 elements per lane, hd/8 lanes per row, several rows in flight
-// per warp); int8 rows are dequantized in registers and move half the
-// bytes. Row r of slot b, kv head h sits at ((b*S + r)*Hkv + h)*hd: no
-// table, and no blocking of S (the TPU kernel needed a power-of-two block
-// that divides S; here any S works and the loop ends at the length). A
-// row whose bitmap byte is 0 is never loaded, and a warp whose rows of a
-// step are all unset skips the step, so traffic follows the set rows, not
-// the cursor. The split count fills the 132 SMs when slots x kv heads
-// alone would not; the splits divide the slot's live rows (< length, not
-// S) and each writes unnormalised (acc, m, l) that the log-sum-exp merge
-// outside the kernel combines, as the JAX package did.
+// per warp); int8 rows are dequantized in registers. Row r of slot b, kv
+// head h sits at ((b*S + r)*Hkv + h)*hd: no table, and no blocking of S
+// (the TPU kernel needed a power-of-two block that divides S; here any S
+// works and the loop ends at the length). A row whose bitmap byte is 0 is
+// never loaded, and a warp whose rows of a step are all unset skips the
+// step. The split count fills the 132 SMs when slots x kv heads alone
+// would not; split s covers rows [s*rps, (s+1)*rps) of the slot's live
+// rows (< length, not S). The splits of one (slot, kv head) are one
+// thread-block cluster: each block merges its row groups in shared memory,
+// then rank 0 merges the splits by log-sum-exp through distributed shared
+// memory (cluster_merge.cuh) and writes [B, H, hd]. The JAX package merged
+// them in XLA; here no partial buffer, second pass or atomic is needed.
 //
 // Numerics follow the JAX kernel: scores, softmax statistics and the PV
 // accumulator in f32, int8 rows dequantized (value * row scale) on load,
 // masked columns contribute exactly zero (they never enter the running
-// max or sum, so a step with no set row leaves them untouched), a fully
-// masked row yields (acc 0, m -1e30, l 0), which the merge turns into
-// zeros, and the output is cast to q's dtype by the merge.
+// max or sum, so a step with no set row leaves them untouched), and a
+// fully masked row yields zeros.
 //
-// K1 is a sibling with the same register layout; it reads rows through a
-// block table and knows no bitmap. The two stay separate kernels so that
-// K1's code and its times do not move with K4.
-//
-// Build: ops/_build.py compiles this file beside paged_attention.cu and
-//        flash_attention.cu into one library (plain C interface for
-//        ctypes); the launch function returns cudaGetLastError().
+// Build: ops/_build.py compiles this file beside the other sources into one
+//        library (plain C interface for ctypes); the launch function
+//        returns cudaGetLastError().
 
 #include <math.h>
 
+#include "cluster_merge.cuh"
 #include "common.cuh"
+
+namespace port_kernels {
+
+// K4 for bf16 q, on the tensor cores (decode_mma.cu).
+cudaError_t flash_decode_bf16(const void* q, const void* k, const void* v,
+                              const void* ks, const void* vs,
+                              const void* bitmap, const void* lengths,
+                              int length, void* out, int B, int H, int Hkv,
+                              int hd, int S, int n_splits, int kv_int8,
+                              float scale, cudaStream_t stream);
+
+}  // namespace port_kernels
 
 namespace {
 
@@ -51,22 +62,22 @@ using namespace port_kernels;
 
 constexpr int kThreads = 128;
 
-// grid (B * Hkv, n_splits), 128 threads. A key row is read by hd/8 lanes
-// (8 dims each); a warp covers 32/(hd/8) rows per step and the block
-// NG = 4 * that many row groups. Each row group keeps its own running
-// (m, l, acc) for the g heads; the groups merge through shared memory at
-// the end. Split s covers rows [s*rps, (s+1)*rps) of the slot's live rows,
-// rps = ceil(length / n_splits).
-template <typename QT, typename KT, int HD, int G>
+// grid (n_splits, B * Hkv), cluster (n_splits, 1, 1), 128 threads. A key
+// row is read by hd/8 lanes (8 dims each); a warp covers 32/(hd/8) rows per
+// step and the block NG = 4 * that many row groups. Each row group keeps
+// its own running (m, l, acc) for the g heads; the groups merge through
+// shared memory, then the splits across the cluster. Split s covers rows
+// [s*rps, (s+1)*rps) of the slot's live rows, rps = ceil(length /
+// n_splits); null lengths give every slot `length`. f32 q (f32 or int8
+// caches).
+template <typename KT, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
+flash_decode_kernel(const float* __restrict__ q, const KT* __restrict__ kc,
                     const KT* __restrict__ vc, const float* __restrict__ ks,
                     const float* __restrict__ vs,
                     const uint8_t* __restrict__ bitmap,
-                    const int* __restrict__ lengths,
-                    float* __restrict__ acc_out, float* __restrict__ m_out,
-                    float* __restrict__ l_out, int n_kv, int S, int n_splits,
-                    float scale) {
+                    const int* __restrict__ lengths, int length,
+                    float* __restrict__ out, int n_kv, int S, float scale) {
   constexpr bool kQuant = IsInt8<KT>::value;
   constexpr int LPR = HD / 8;             // lanes per key row
   constexpr int RPW = 32 / LPR;           // key rows per warp step
@@ -76,9 +87,12 @@ flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
   __shared__ float sm_m[NG][G];
   __shared__ float sm_l[NG][G];
   __shared__ float sm_acc[NG][G][HD];
+  __shared__ __align__(16) float mg_acc[G][HD];   // the block's merged rows
+  __shared__ float mg_m[G], mg_l[G];
 
-  const int bh = blockIdx.x;
-  const int split = blockIdx.y;
+  const int split = blockIdx.x;
+  const int n_splits = gridDim.x;
+  const int bh = blockIdx.y;
   const int b = bh / n_kv;
   const int kvh = bh - b * n_kv;
   const int warp = threadIdx.x >> 5;
@@ -88,7 +102,7 @@ flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
   const int grp = warp * RPW + sub;
   const int n_heads = n_kv * G;
 
-  const int len = min(max(lengths[b], 0), S);
+  const int len = min(max(lengths != nullptr ? lengths[b] : length, 0), S);
   const int rps = (len + n_splits - 1) / n_splits;
   const int row_lo = split * rps;
   const int row_hi = min(row_lo + rps, len);   // <= row_lo: nothing to read
@@ -194,41 +208,51 @@ flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kc,
       a += w * sm_acc[r][h][d];
       lsum += w * sm_l[r][h];
     }
-    const size_t o = (static_cast<size_t>(bh) * n_splits + split) * G + h;
-    acc_out[o * HD + d] = a;
+    mg_acc[h][d] = a;
     if (d == 0) {
-      m_out[o] = mx;
-      l_out[o] = lsum;
+      mg_m[h] = mx;
+      mg_l[h] = lsum;
     }
   }
+  cluster_merge_rows<HD, false, float>(
+      G, mg_m, mg_l, [&](int h) { return &mg_acc[h][0]; },
+      [&](int h) {
+        return out + (static_cast<size_t>(b) * n_heads + kvh * G + h) * HD;
+      });
 }
 
-template <typename QT, typename KT, int HD>
+template <typename KT, int HD>
 cudaError_t launch_flash_decode(int g, const void* q, const void* k,
                                 const void* v, const void* ks, const void* vs,
                                 const void* bitmap, const void* lengths,
-                                void* acc, void* m, void* l, int B, int Hkv,
-                                int S, int n_splits, cudaStream_t stream) {
-  const dim3 grid(B * Hkv, n_splits);
+                                int length, void* out, int B, int Hkv, int S,
+                                int n_splits, cudaStream_t stream) {
+  if (n_splits < 1 || n_splits > kMaxSplits) return cudaErrorInvalidValue;
+  const dim3 grid(n_splits, B * Hkv);
   const float scale =
       static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
 #define K4_LAUNCH(GV)                                                       \
-  flash_decode_kernel<QT, KT, HD, GV><<<grid, kThreads, 0, stream>>>(      \
-      static_cast<const QT*>(q), static_cast<const KT*>(k),                 \
-      static_cast<const KT*>(v), static_cast<const float*>(ks),             \
-      static_cast<const float*>(vs), static_cast<const uint8_t*>(bitmap),   \
-      static_cast<const int*>(lengths), static_cast<float*>(acc),           \
-      static_cast<float*>(m), static_cast<float*>(l), Hkv, S, n_splits,     \
-      scale)
+  {                                                                         \
+    static bool fits = false;                                               \
+    const cudaError_t err = check_cluster_fits(                             \
+        flash_decode_kernel<KT, HD, GV>, kThreads, 0, fits);                \
+    if (err != cudaSuccess) return err;                                     \
+    return launch_cluster(                                                  \
+        flash_decode_kernel<KT, HD, GV>, grid, kThreads, 0, stream,         \
+        static_cast<const float*>(q), static_cast<const KT*>(k),            \
+        static_cast<const KT*>(v), static_cast<const float*>(ks),           \
+        static_cast<const float*>(vs), static_cast<const uint8_t*>(bitmap), \
+        static_cast<const int*>(lengths), length, static_cast<float*>(out), \
+        Hkv, S, scale);                                                     \
+  }
   switch (g) {
-    case 1: K4_LAUNCH(1); break;
-    case 2: K4_LAUNCH(2); break;
-    case 4: K4_LAUNCH(4); break;
-    case 8: K4_LAUNCH(8); break;
+    case 1: K4_LAUNCH(1)
+    case 2: K4_LAUNCH(2)
+    case 4: K4_LAUNCH(4)
+    case 8: K4_LAUNCH(8)
     default: return cudaErrorInvalidValue;
   }
 #undef K4_LAUNCH
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -237,36 +261,31 @@ extern "C" {
 
 // q [B, H, hd]; k/v [B, S, Hkv, hd]; ks/vs [B, S, Hkv, 1] f32 (int8 caches
 // only, else null); bitmap [B, S], one byte per row (0 = masked), or null;
-// lengths [B] i32 -> acc [B*Hkv, n_splits, g, hd], m/l [B*Hkv, n_splits, g]
-// f32.
+// lengths [B] i32, or null and every slot's length `length` -> out [B, H,
+// hd] in q's dtype; n_splits in 1 ..
+// kMaxSplits, each a block of one cluster. bf16 q goes to the tensor-core
+// kernel (decode_mma.cu), f32 q to the CUDA-core one.
 int flash_decode_attention_launch(const void* q, const void* k, const void* v,
                                   const void* ks, const void* vs,
                                   const void* bitmap, const void* lengths,
-                                  void* acc, void* m, void* l, int B, int H,
+                                  int length, void* out, int B, int H,
                                   int Hkv, int hd, int S, int n_splits,
                                   int q_bf16, int kv_int8, void* stream) {
-  const int g = H / Hkv;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K4_ARGS g, q, k, v, ks, vs, bitmap, lengths, acc, m, l, B, Hkv, S, \
-                n_splits, st
-  if (hd == 64) {
-    if (q_bf16)
-      return kv_int8
-                 ? launch_flash_decode<__nv_bfloat16, int8_t, 64>(K4_ARGS)
-                 : launch_flash_decode<__nv_bfloat16, __nv_bfloat16, 64>(
-                       K4_ARGS);
-    return kv_int8 ? launch_flash_decode<float, int8_t, 64>(K4_ARGS)
-                   : launch_flash_decode<float, float, 64>(K4_ARGS);
-  }
-  if (hd == 128) {
-    if (q_bf16)
-      return kv_int8
-                 ? launch_flash_decode<__nv_bfloat16, int8_t, 128>(K4_ARGS)
-                 : launch_flash_decode<__nv_bfloat16, __nv_bfloat16, 128>(
-                       K4_ARGS);
-    return kv_int8 ? launch_flash_decode<float, int8_t, 128>(K4_ARGS)
-                   : launch_flash_decode<float, float, 128>(K4_ARGS);
-  }
+  if (q_bf16)
+    return port_kernels::flash_decode_bf16(
+        q, k, v, ks, vs, bitmap, lengths, length, out, B, H, Hkv, hd, S,
+        n_splits,
+        kv_int8, static_cast<float>(1.0 / sqrt(static_cast<double>(hd))),
+        st);
+#define K4_ARGS H / Hkv, q, k, v, ks, vs, bitmap, lengths, length, out, B, \
+                Hkv, S, n_splits, st
+  if (hd == 64)
+    return kv_int8 ? launch_flash_decode<int8_t, 64>(K4_ARGS)
+                   : launch_flash_decode<float, 64>(K4_ARGS);
+  if (hd == 128)
+    return kv_int8 ? launch_flash_decode<int8_t, 128>(K4_ARGS)
+                   : launch_flash_decode<float, 128>(K4_ARGS);
 #undef K4_ARGS
   return cudaErrorInvalidValue;
 }

@@ -4,7 +4,7 @@
 // operands and f32 accumulators; and the warp-tile helpers built on them
 // (staging, the two products, the register online softmax, the stores).
 // Used by flash_backward_mma.cu (K6, K7), flash_forward_mma.cu (K5),
-// paged_prefill_mma.cu (K2) and paged_verify_mma.cu (K3).
+// paged_prefill_mma.cu (K2) and decode_mma.cu (K1, K3, K4).
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:

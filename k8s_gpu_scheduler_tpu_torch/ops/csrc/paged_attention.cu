@@ -1,6 +1,7 @@
 // Paged attention kernels for the serving engine, for Hopper (sm_90a).
 //
-// K1 paged_decode_kernel replaces the Pallas kernel behind
+// K1 paged_decode_kernel (f32 q; bf16 q: decode_mma.cu) replaces the
+//    Pallas kernel behind
 //    k8s_gpu_scheduler_tpu/ops/decode_attention.py paged_decode_attention
 //    (_paged_kernel -> _decode_kernel): one query row per slot against a
 //    shared page pool through a block table, masked to col < length.
@@ -9,7 +10,7 @@
 //    k8s_gpu_scheduler_tpu/ops/decode_attention.py paged_prefill_attention
 //    (_prefill_kernel): the prefix-cache tail prefill, cached prefix pages
 //    (fully visible below hit_len) then the tail's own K/V (causal).
-// K3 paged_verify_kernel (f32 q; bf16 q: paged_verify_mma.cu) replaces the
+// K3 paged_verify_kernel (f32 q; bf16 q: decode_mma.cu) replaces the
 //    Pallas kernel behind
 //    k8s_gpu_scheduler_tpu/ops/decode_attention.py paged_verify_attention
 //    (_verify_kernel): the speculative verify window, t = 1 + gamma query
@@ -19,21 +20,23 @@
 //
 // K1 is bound by bytes: every live K/V row is read once and used for g
 //    query heads, about g*4 flops per byte in bf16, far below the ~295
-//    flops/byte where the tensor cores would be the limit. So the design
-//    reads each row once and never more: one block per (slot, kv head,
-//    split) keeps the g query heads of the group in registers and streams
-//    the group's rows with 16-byte loads (8 elements per lane, hd/8 lanes
-//    per row, several rows in flight per warp). Pages past ceil(len/ps)
+//    flops/byte where the tensor cores would be the limit. bf16 q runs on
+//    the tensor-core body it shares with K3 and K4 (decode_mma.cu), whose
+//    cp.async ring keeps more rows in flight than register loads do. f32
+//    q runs here, on the CUDA cores in f32 (the JAX kernel's numerics; the
+//    tensor cores would round f32 operands). It reads each row once and
+//    never more: one block per (slot, kv head, split) keeps the g query
+//    heads of the group in registers and streams the group's rows with
+//    16-byte loads (8 elements per lane, hd/8 lanes per row, several rows
+//    in flight per warp). Pages past ceil(len/ps)
 //    are never touched, so traffic is O(length), and int8 pages are
-//    dequantized in registers, so they move half the bytes of bf16. At
-//    most 2g <= 16 FLOPs a K/V byte, it has no use for the tensor cores:
-//    it stays on the CUDA cores. The split count fills the 132 SMs when
+//    dequantized in registers. The split count fills the 132 SMs when
 //    slots x kv heads alone would not. The splits of one (slot, kv head)
 //    are one thread-block cluster: each block merges its row groups in
 //    shared memory, then rank 0 merges the splits by log-sum-exp through
-//    distributed shared memory (cluster_merge.cuh) and writes [B, H, hd]
-//    in q's dtype. The JAX package merged them in XLA; here no partial
-//    buffer, second pass or atomic is needed.
+//    distributed shared memory (cluster_merge.cuh) and writes [B, H, hd].
+//    The JAX package merged them in XLA; here no partial buffer, second
+//    pass or atomic is needed.
 // K2 does tb*g query rows against hit_len + tb keys per (entry, kv head):
 //    at the serving shapes that is tens of flops per byte, so it is bound
 //    by operations. bf16 q runs on the tensor cores (paged_prefill_mma.cu).
@@ -44,8 +47,8 @@
 //    token) through shared memory, where all 32 q rows reuse them. The
 //    tile replaces the TPU's PREFILL_MAX_Q_ROWS cap: any tb works.
 // K3 has t*g query rows per (slot, kv head): 5 at the serve width (g 1,
-//    gamma 4), 40 at g 8. bf16 q runs on the tensor cores
-//    (paged_verify_mma.cu, which says why). f32 q runs here, on the CUDA
+//    gamma 4), 40 at g 8. bf16 q runs on the tensor cores (decode_mma.cu,
+//    which says why). f32 q runs here, on the CUDA
 //    cores in f32 (the JAX kernel's numerics): K2's tiling, 32 q rows
 //    staged in shared memory, each live page's K/V streamed once through a
 //    32-row shared tile that every q row of the tile reuses, f32 online
@@ -79,13 +82,14 @@ cudaError_t paged_prefill_bf16(const void* q, const void* k, const void* v,
                                int hb, int kv_int8, float scale,
                                cudaStream_t stream);
 
-// K3 for bf16 q, on the tensor cores (paged_verify_mma.cu).
-cudaError_t paged_verify_bf16(const void* q, const void* k, const void* v,
+// K1 (t 1, ahead 0) and K3 (ahead 1) for bf16 q, on the tensor cores
+// (decode_mma.cu): window row i attends col < length + i + ahead.
+cudaError_t paged_window_bf16(const void* q, const void* k, const void* v,
                               const void* ks, const void* vs,
                               const void* table, const void* lengths,
                               void* out, int B, int t, int H, int Hkv, int hd,
-                              int ps, int n_blocks, int n_splits, int kv_int8,
-                              float scale, cudaStream_t stream);
+                              int ps, int n_blocks, int n_splits, int ahead,
+                              int kv_int8, float scale, cudaStream_t stream);
 
 }  // namespace port_kernels
 
@@ -118,7 +122,7 @@ __device__ __forceinline__ void load_paged_kv8(
   }
 }
 
-// -- K1: paged decode ---------------------------------------------------------
+// -- K1: paged decode (f32 q) --------------------------------------------------
 //
 // grid (n_splits, B * Hkv), cluster (n_splits, 1, 1), 128 threads. A key
 // row is read by hd/8 lanes (8 dims each); a warp covers 32/(hd/8) rows
@@ -129,13 +133,13 @@ __device__ __forceinline__ void load_paged_kv8(
 // pages, pps = ceil(live pages / n_splits): the splits share the live
 // length, not the table width, so a short slot in a long table still
 // spreads over every split.
-template <typename QT, typename KT, int HD, int G>
+template <typename KT, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
+paged_decode_kernel(const float* __restrict__ q, const KT* __restrict__ kp,
                     const KT* __restrict__ vp, const float* __restrict__ ks,
                     const float* __restrict__ vs,
                     const int* __restrict__ table,
-                    const int* __restrict__ lengths, QT* __restrict__ out,
+                    const int* __restrict__ lengths, float* __restrict__ out,
                     int n_kv, int ps, int n_blocks, float scale) {
   constexpr bool kQuant = IsInt8<KT>::value;
   constexpr int LPR = HD / 8;             // lanes per key row
@@ -270,7 +274,7 @@ paged_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
       mg_l[h] = lsum;
     }
   }
-  cluster_merge_rows<HD, false, QT>(
+  cluster_merge_rows<HD, false, float>(
       G, mg_m, mg_l, [&](int h) { return &mg_acc[h][0]; },
       [&](int h) {
         return out + (static_cast<size_t>(b) * n_heads + kvh * G + h) * HD;
@@ -585,7 +589,7 @@ inline float softmax_scale(int hd) {
   return static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
 }
 
-template <typename QT, typename KT, int HD>
+template <typename KT, int HD>
 cudaError_t launch_decode(int g, const void* q, const void* k, const void* v,
                           const void* ks, const void* vs, const void* table,
                           const void* lengths, void* out, int B, int Hkv,
@@ -597,15 +601,15 @@ cudaError_t launch_decode(int g, const void* q, const void* k, const void* v,
   {                                                                         \
     static bool fits = false;                                               \
     const cudaError_t err = check_cluster_fits(                             \
-        paged_decode_kernel<QT, KT, HD, GV>, kThreads, 0, fits);            \
+        paged_decode_kernel<KT, HD, GV>, kThreads, 0, fits);                \
     if (err != cudaSuccess) return err;                                     \
     return launch_cluster(                                                  \
-        paged_decode_kernel<QT, KT, HD, GV>, grid, kThreads, 0, stream,     \
-        static_cast<const QT*>(q), static_cast<const KT*>(k),               \
+        paged_decode_kernel<KT, HD, GV>, grid, kThreads, 0, stream,         \
+        static_cast<const float*>(q), static_cast<const KT*>(k),            \
         static_cast<const KT*>(v), static_cast<const float*>(ks),           \
         static_cast<const float*>(vs), static_cast<const int*>(table),      \
-        static_cast<const int*>(lengths), static_cast<QT*>(out), Hkv, ps,   \
-        n_blocks, softmax_scale(HD));                                       \
+        static_cast<const int*>(lengths), static_cast<float*>(out), Hkv,    \
+        ps, n_blocks, softmax_scale(HD));                                   \
   }
   switch (g) {
     case 1: K1_LAUNCH(1)
@@ -645,7 +649,7 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// f32 q only: bf16 q goes to the tensor-core kernel (paged_verify_mma.cu).
+// f32 q only: bf16 q goes to the tensor-core kernel (decode_mma.cu).
 template <typename PT, int HD>
 cudaError_t launch_verify(const void* q, const void* k, const void* v,
                           const void* ks, const void* vs, const void* table,
@@ -678,31 +682,28 @@ extern "C" {
 // q [B, H, hd]; k/v [n_pages, ps, Hkv, hd]; ks/vs [n_pages, ps, Hkv, 1]
 // f32 (int8 pools only, else null); table [B, n_blocks] i32; lengths [B]
 // i32 -> out [B, H, hd] in q's dtype; n_splits in 1 .. kMaxSplits, each a
-// block of one cluster.
+// block of one cluster. bf16 q goes to the tensor-core kernel
+// (decode_mma.cu), f32 q to the CUDA-core one.
 int paged_decode_attention_launch(const void* q, const void* k, const void* v,
                                   const void* ks, const void* vs,
                                   const void* table, const void* lengths,
                                   void* out, int B, int H, int Hkv, int hd,
                                   int ps, int n_blocks, int n_splits,
                                   int q_bf16, int kv_int8, void* stream) {
-  const int g = H / Hkv;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K1_ARGS g, q, k, v, ks, vs, table, lengths, out, B, Hkv, ps, \
+  if (q_bf16)
+    return port_kernels::paged_window_bf16(q, k, v, ks, vs, table, lengths,
+                                           out, B, 1, H, Hkv, hd, ps,
+                                           n_blocks, n_splits, 0, kv_int8,
+                                           softmax_scale(hd), st);
+#define K1_ARGS H / Hkv, q, k, v, ks, vs, table, lengths, out, B, Hkv, ps, \
                 n_blocks, n_splits, st
-  if (hd == 64) {
-    if (q_bf16)
-      return kv_int8 ? launch_decode<__nv_bfloat16, int8_t, 64>(K1_ARGS)
-                     : launch_decode<__nv_bfloat16, __nv_bfloat16, 64>(K1_ARGS);
-    return kv_int8 ? launch_decode<float, int8_t, 64>(K1_ARGS)
-                   : launch_decode<float, float, 64>(K1_ARGS);
-  }
-  if (hd == 128) {
-    if (q_bf16)
-      return kv_int8 ? launch_decode<__nv_bfloat16, int8_t, 128>(K1_ARGS)
-                     : launch_decode<__nv_bfloat16, __nv_bfloat16, 128>(K1_ARGS);
-    return kv_int8 ? launch_decode<float, int8_t, 128>(K1_ARGS)
-                   : launch_decode<float, float, 128>(K1_ARGS);
-  }
+  if (hd == 64)
+    return kv_int8 ? launch_decode<int8_t, 64>(K1_ARGS)
+                   : launch_decode<float, 64>(K1_ARGS);
+  if (hd == 128)
+    return kv_int8 ? launch_decode<int8_t, 128>(K1_ARGS)
+                   : launch_decode<float, 128>(K1_ARGS);
 #undef K1_ARGS
   return cudaErrorInvalidValue;
 }
@@ -739,7 +740,7 @@ int paged_prefill_attention_launch(const void* q, const void* k, const void* v,
 // q [B, t, H, hd]; k/v/ks/vs as above; table [B, n_blocks] i32; lengths
 // [B] i32 (committed rows before the window) -> out [B, t, H, hd] in q's
 // dtype; n_splits as K1's. bf16 q goes to the tensor-core kernel
-// (paged_verify_mma.cu), f32 q to the CUDA-core one.
+// (decode_mma.cu), f32 q to the CUDA-core one.
 int paged_verify_attention_launch(const void* q, const void* k, const void* v,
                                   const void* ks, const void* vs,
                                   const void* table, const void* lengths,
@@ -748,9 +749,9 @@ int paged_verify_attention_launch(const void* q, const void* k, const void* v,
                                   int q_bf16, int kv_int8, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_bf16)
-    return port_kernels::paged_verify_bf16(q, k, v, ks, vs, table, lengths,
+    return port_kernels::paged_window_bf16(q, k, v, ks, vs, table, lengths,
                                            out, B, t, H, Hkv, hd, ps,
-                                           n_blocks, n_splits, kv_int8,
+                                           n_blocks, n_splits, 1, kv_int8,
                                            softmax_scale(hd), st);
 #define K3_ARGS q, k, v, ks, vs, table, lengths, out, B, t, H, Hkv, ps, \
                 n_blocks, n_splits, st

@@ -30,7 +30,8 @@
 //   each value times its row scale in f32, rounded to bf16 and stored to
 //   the next stage after them (the operands dense_prefill_reference builds
 //   when it dequantizes to q's dtype), so their loads overlap the products
-//   too. Both staging paths live in paged_stage.cuh, shared with K3.
+//   too. Both staging paths live in paged_stage.cuh, shared with K1, K3
+//   and K4.
 // - S = Q K^T and O += P V on mma.sync, the online softmax in registers
 //   (online_softmax: rows lane/4 and lane/4 + 8, quad shuffles, f32 p into
 //   the row sum, P rounded once to bf16 as the A fragments of P V).
@@ -117,14 +118,16 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const PT* __restrict__ kp,
     bf16* Kd = Ks + st * kPfK * LD;
     bf16* Vd = Vs + st * kPfK * LD;
     if (ch >= n_pre) {
-      stage_bf16_chunk<HD>(tk + tail_off, tv + tail_off, nullptr, ps, n_kv,
-                           kvh, (ch - n_pre) * kPfK, tok_hi + 1, Kd, Vd);
+      stage_bf16_chunk<HD>(tk + tail_off, tv + tail_off,
+                           ContiguousRows{0, n_kv, nullptr},
+                           (ch - n_pre) * kPfK, tok_hi + 1, Kd, Vd);
     } else if constexpr (IsInt8<PT>::value) {
-      held.load(kp, vp, ks, vs, trow, ps, n_kv, kvh, ch * kPfK, hit);
+      held.load(kp, vp, ks, vs, PagedRows{trow, ps, n_kv, kvh}, ch * kPfK,
+                hit);
       held_at = Kd;
     } else {
-      stage_bf16_chunk<HD>(kp, vp, trow, ps, n_kv, kvh, ch * kPfK, hit, Kd,
-                           Vd);
+      stage_bf16_chunk<HD>(kp, vp, PagedRows{trow, ps, n_kv, kvh},
+                           ch * kPfK, hit, Kd, Vd);
     }
   };
   auto store_held = [&]() {

@@ -1,16 +1,23 @@
-// Staging of 64-row K/V chunks of a paged pool into shared memory by a
-// block of 128 threads, for the tensor-core kernels paged_prefill_mma.cu
-// (K2) and paged_verify_mma.cu (K3). Row c of a chunk comes from page
-// table[c / ps], row c % ps, so a chunk is independent of the page size:
-// it may span several pages or end inside one.
+// Staging of 64-row K/V chunks into shared memory by a block of 128
+// threads, for the tensor-core kernels paged_prefill_mma.cu (K2) and
+// decode_mma.cu (K1, K3 and K4 in bf16). Where row c of a chunk lies is
+// the row source's business (PagedRows, ContiguousRows), so a chunk is
+// independent of the page size: it may span several pages or end inside
+// one, and a contiguous cache is read the same way.
 //
 // bf16 rows go by cp.async straight into the stage (stage_bf16_chunk).
 // int8 rows cannot: they are widened to bf16 first, so they go through
 // registers (Int8Chunk): loaded before the products of the chunk in
 // flight, stored to the next stage after them, so their loads overlap the
 // products too. K2 stores them dequantized (value * row scale, rounded to
-// bf16); K3 stores the raw values (exact in bf16) and the rows' scales,
-// which it applies to the scores and the probabilities.
+// bf16); K1, K3 and K4 store the raw values (exact in bf16) and the rows'
+// scales, which they apply to the scores and the probabilities.
+//
+// A row the source marks unset (K4's validity bitmap) is never read: its
+// copy is a cp.async zero fill (src-size 0) and its int8 values and scales
+// are zeros, so a chunk with no set row moves no bytes. The bitmap bytes
+// are read a chunk ahead of the copies they predicate (RowFlags), so the
+// byte reads never wait in front of the ring.
 #pragma once
 
 #include "common.cuh"
@@ -21,16 +28,95 @@ namespace port_kernels {
 constexpr int kChunkRows = 64;            // K/V rows per chunk
 constexpr int kChunkThreads = 128;        // the block that stages a chunk
 
+// Row sources of one (entry, kv head): source(c) is the index of logical
+// row c in the [rows][HD] K/V (and the [rows] scales).
+//
+// Paged: page trow[c / ps], row c % ps of the pool [n_pages, ps, Hkv, HD]
+// (K1, K2's cached prefix, K3).
+struct PagedRows {
+  static constexpr bool kBitmap = false;
+  const int* __restrict__ trow;           // the entry's block-table row
+  int ps, n_kv, kvh;
+  __device__ __forceinline__ size_t operator()(int c) const {
+    return (static_cast<size_t>(trow[c / ps]) * ps + c % ps) * n_kv + kvh;
+  }
+  // Slot b's rows through table [B, n_blocks] (no bitmap).
+  __device__ __forceinline__ static PagedRows of(const int* table,
+                                                 const uint8_t*, int b,
+                                                 int kvh, int ps,
+                                                 int n_blocks, int n_kv) {
+    return PagedRows{table + static_cast<size_t>(b) * n_blocks, ps, n_kv,
+                     kvh};
+  }
+};
+
+// Contiguous: row c at row0 + c * n_kv (K4's cache [B, S, Hkv, HD], row0
+// = b * S * Hkv + kvh; K2's tail, whose pointers sit at its entry and
+// head, row0 = 0), with an optional validity bitmap of one byte a row
+// (K4; null: every row is set).
+struct ContiguousRows {
+  static constexpr bool kBitmap = true;
+  size_t row0;
+  int n_kv;
+  const uint8_t* __restrict__ bitmap;     // the entry's [rows] bytes
+  __device__ __forceinline__ size_t operator()(int c) const {
+    return row0 + static_cast<size_t>(c) * n_kv;
+  }
+  // Slot b's rows of a cache [B, S, Hkv, HD], one page of S rows a slot
+  // (ps = S, no table), and its row of the bitmap [B, S] (or null).
+  __device__ __forceinline__ static ContiguousRows of(const int*,
+                                                      const uint8_t* bitmap,
+                                                      int b, int kvh, int ps,
+                                                      int, int n_kv) {
+    const size_t row = static_cast<size_t>(b) * ps;
+    return ContiguousRows{row * n_kv + kvh, n_kv,
+                          bitmap != nullptr ? bitmap + row : nullptr};
+  }
+};
+
+// Every row set (a source without a bitmap), in RowFlags' place.
+struct AllSet {
+  __device__ __forceinline__ bool operator()(int) const { return true; }
+  __device__ __forceinline__ void store(uint8_t*) const {}
+};
+
+// The bitmap bytes of the rows one thread stages in a chunk, the thread's
+// j-th copy (i = threadIdx.x + j * kChunkThreads) covering row i / SEGS:
+// SEGS is HD / 8 for bf16 copies (stage_bf16_chunk), HD / 16 for int8
+// rows (Int8Chunk). load() issues the byte reads; the bytes are used a
+// chunk later, when its copies are issued (flags(j)).
+template <int SEGS>
+struct RowFlags {
+  static constexpr int N = kChunkRows * SEGS / kChunkThreads;
+  uint8_t f[N];
+
+  __device__ __forceinline__ void load(const uint8_t* __restrict__ bitmap,
+                                       int c0, int c_end) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int c = c0 + (threadIdx.x + j * kChunkThreads) / SEGS;
+      f[j] = bitmap == nullptr ? 1 : (c < c_end ? bitmap[c] : 0);
+    }
+  }
+  __device__ __forceinline__ bool operator()(int j) const { return f[j]; }
+  // Each row's flag into Ms [kChunkRows] (one thread a row).
+  __device__ __forceinline__ void store(uint8_t* Ms) const {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = threadIdx.x + j * kChunkThreads;
+      if (i % SEGS == 0) Ms[i / SEGS] = f[j];
+    }
+  }
+};
+
 // bf16 rows c0 .. c0+kChunkRows-1 of one chunk, K and V, into Kd / Vd
-// [kChunkRows][ld(HD)] by cp.async; rows at or past c_end become zeros.
-// Pool rows come through the entry's table row (row c: page trow[c / ps],
-// row c % ps, kv head kvh); with trow null, row c is at kp / vp + c * n_kv
-// * HD (K2's tail, kp / vp at the entry's kv head).
-template <int HD>
+// [kChunkRows][ld(HD)] by cp.async; rows at or past c_end, and rows whose
+// copy set(j) refuses, become zeros and are not read.
+template <int HD, typename Rows, typename Set = AllSet>
 __device__ __forceinline__ void stage_bf16_chunk(
     const bf16* __restrict__ kp, const bf16* __restrict__ vp,
-    const int* __restrict__ trow, int ps, int n_kv, int kvh, int c0,
-    int c_end, bf16* Kd, bf16* Vd) {
+    const Rows& source, int c0, int c_end, bf16* Kd, bf16* Vd,
+    const Set& set = Set()) {
   constexpr int SEGS = HD / 8;            // 16-byte segments of a row
   static_assert(kChunkRows * SEGS % kChunkThreads == 0,
                 "whole copies per thread");
@@ -40,13 +126,8 @@ __device__ __forceinline__ void stage_bf16_chunk(
     const int r = i / SEGS;
     const int sg = i - r * SEGS;
     const int c = c0 + r;
-    const bool ok = c < c_end;
-    size_t row = 0;
-    if (ok)
-      row = trow != nullptr
-                ? (static_cast<size_t>(trow[c / ps]) * ps + c % ps) * n_kv +
-                      kvh
-                : static_cast<size_t>(c) * n_kv;
+    const bool ok = c < c_end && set(j);
+    const size_t row = ok ? source(c) : 0;
     cp_async16(Kd + r * ld(HD) + sg * 8, kp + row * HD + sg * 8, ok);
     cp_async16(Vd + r * ld(HD) + sg * 8, vp + row * HD + sg * 8, ok);
   }
@@ -64,14 +145,15 @@ struct Int8Chunk {
   uint4 k[N], v[N];
   float ks[N], vs[N];
 
-  // Rows c0 .. c0+kChunkRows-1 through the entry's table row; zeros (and
-  // scale 0) at or past c_end.
+  // Rows c0 .. c0+kChunkRows-1 of the source; zeros (and scale 0) at or
+  // past c_end and where set(j) refuses the thread's j-th row.
+  template <typename Rows, typename Set = AllSet>
   __device__ __forceinline__ void load(const int8_t* __restrict__ kp,
                                        const int8_t* __restrict__ vp,
                                        const float* __restrict__ k_scale,
                                        const float* __restrict__ v_scale,
-                                       const int* __restrict__ trow, int ps,
-                                       int n_kv, int kvh, int c0, int c_end) {
+                                       const Rows& source, int c0, int c_end,
+                                       const Set& set = Set()) {
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const int i = threadIdx.x + j * kChunkThreads;
@@ -79,9 +161,8 @@ struct Int8Chunk {
       const int c = c0 + r;
       k[j] = v[j] = make_uint4(0, 0, 0, 0);
       ks[j] = vs[j] = 0.f;
-      if (c < c_end) {
-        const size_t row =
-            (static_cast<size_t>(trow[c / ps]) * ps + c % ps) * n_kv + kvh;
+      if (c < c_end && set(j)) {
+        const size_t row = source(c);
         const int at = (i - r * SEGS) * 16;
         k[j] = *reinterpret_cast<const uint4*>(kp + row * HD + at);
         v[j] = *reinterpret_cast<const uint4*>(vp + row * HD + at);
@@ -106,7 +187,8 @@ struct Int8Chunk {
   }
 
   // The raw values as bf16 (exact) into Kd / Vd and each row's scales into
-  // Ksc / Vsc [kChunkRows] (K3, which scales scores and probabilities).
+  // Ksc / Vsc [kChunkRows] (K1, K3, K4, which scale scores and
+  // probabilities).
   __device__ __forceinline__ void store_raw(bf16* Kd, bf16* Vd, float* Ksc,
                                             float* Vsc) const {
 #pragma unroll

@@ -7,8 +7,8 @@ kernels and their plain PyTorch versions.
   pool ``[n_pages, ps, Hkv, hd]`` through a ``[B, n_blocks]`` block table,
   masked to ``col < lengths``, pages past the length skipped, int8 K/V
   dequantized with per-row f32 scales. The JAX package merged its split-K
-  partials in XLA (``_combine_splits`` here, the plain merge); the kernel
-  merges them itself, across the thread-block cluster its splits form.
+  partials in XLA; the kernel merges them itself, across the thread-block
+  cluster its splits form.
 - ``paged_prefill_attention`` (K2) replaces the Pallas
   ``paged_prefill_attention``: the prefix-cache tail prefill — cached
   prefix pages through ``prefix_table`` (fully visible below
@@ -23,13 +23,15 @@ kernels and their plain PyTorch versions.
   ``flash_decode_attention``: one query row per slot against a
   contiguous cache ``[B, S, Hkv, hd]``, masked to ``col < lengths`` and
   an optional validity ``bitmap [B, S]`` (the shared-cursor engine's slot
-  windows), any S, split over the live rows and merged by
-  ``_combine_splits``.
+  windows), any S, split over the live rows and merged in the kernel as
+  K1 is.
 
-Each wrapper runs its kernel on CUDA tensors (``ops/csrc/
-paged_attention.cu``, ``paged_prefill_mma.cu``, ``paged_verify_mma.cu`` and
-``flash_decode.cu``, built at first use by ``ops/_build.py``) and its plain
-version on CPU tensors; any other
+bf16 q of K1, K3 and K4 runs on one tensor-core body (``ops/csrc/
+decode_mma.cu``), which reads a page pool through the table or a
+contiguous cache through its bitmap. Each wrapper runs its kernel on CUDA
+tensors (``ops/csrc/paged_attention.cu``, ``paged_prefill_mma.cu``,
+``decode_mma.cu`` and ``flash_decode.cu``, built at first use by
+``ops/_build.py``) and its plain version on CPU tensors; any other
 device raises, and a CUDA tensor never reaches the plain version.
 ``paged_decode_reference`` (= ``gather_paged_kv`` +
 ``dense_decode_reference``), ``dense_prefill_reference``,
@@ -57,8 +59,9 @@ KERNEL_GROUPS = (1, 2, 4, 8)          # g = n_heads / n_kv_heads
 # K3's stacked query rows a block: 64 on the tensor cores (bf16, kVfQ),
 # 32 on the CUDA cores (f32, kQRows).
 VERIFY_Q_ROWS = {torch.bfloat16: 64, torch.float32: 32}
-# The most splits of one (slot, kv head) for K1 and K3: the splits are the
-# blocks of one thread-block cluster, at most the portable 8 (kMaxSplits).
+# The most splits of one (slot, kv head) for K1, K3 and K4: the splits are
+# the blocks of one thread-block cluster, at most the portable 8
+# (kMaxSplits).
 MAX_SPLITS = 8
 _SM_COUNT_H100 = 132
 
@@ -111,8 +114,8 @@ def decode_plan(s: int, block_k: Optional[int] = None,
     return block_k, n_splits
 
 
-# Rows one K4 block covers per loop step at hd 64 (16 row groups x 4 in
-# flight): a split narrower than this leaves lanes idle.
+# Rows of one K4 chunk (the tensor-core body's, kChunkRows; the f32 body's
+# loop step at hd 64): a split narrower than this leaves lanes idle.
 _FLASH_DECODE_SPLIT_ROWS = 64
 
 
@@ -120,11 +123,12 @@ def flash_decode_plan(live_rows: int, batch: int = 1, n_kv: int = 1) -> int:
     """K4's split count on the card for at most ``live_rows`` attendable
     rows per slot: enough (slot x kv head x split) blocks for about two
     per SM, as ``paged_plan`` fills them, never a split narrower than one
-    block's loop step. The kernel divides each slot's own live rows
-    (``< lengths[b]``), not S, among the splits."""
+    64-row chunk nor more than ``MAX_SPLITS`` (one cluster). The kernel
+    divides each slot's own live rows (``< lengths[b]``), not S, among the
+    splits."""
     want = -(-2 * _SM_COUNT_H100 // max(1, batch * n_kv))
     most = -(-max(1, live_rows) // _FLASH_DECODE_SPLIT_ROWS)
-    return max(1, min(most, want))
+    return max(1, min(most, want, MAX_SPLITS))
 
 
 def contiguous_as_paged(cache: torch.Tensor, block_k: int):
@@ -364,20 +368,6 @@ def paged_verify_reference(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_verify_reference.calls = 0
-
-
-def _combine_splits(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
-                    b: int, n_heads: int, hd: int,
-                    dtype: torch.dtype) -> torch.Tensor:
-    """Split-K combine: LSE merge of K4's unnormalised partials acc
-    [B*Hkv, ns, g, hd], m/l [B*Hkv, ns, g, 1] (K1 and K3 merge in the
-    kernel). An empty split (acc 0, m -1e30, l 0) drops out; a fully
-    masked row yields zeros."""
-    m_tot = m.amax(dim=1, keepdim=True)
-    w = torch.exp(m - m_tot)
-    l_tot = (l * w).sum(dim=1)                       # [BH, g, 1]
-    out = (acc * w).sum(dim=1) / torch.clamp(l_tot, min=1e-20)
-    return out.reshape(b, n_heads, hd).to(dtype)
 
 
 # -- wrappers -------------------------------------------------------------------
@@ -684,26 +674,24 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                or not bitmap.is_contiguous()):
         raise ValueError(f"flash_decode_attention: the bitmap must be "
                          f"contiguous on {q.device}")
-    lens = _lengths_vector(lengths, b, q.device)
-    g = n_heads // n_kv
+    # An int length (the engine's cursor) rides as a kernel argument: no
+    # fill, so the output is the wrapper's one allocation.
+    lens = None if isinstance(lengths, int) else _lengths_vector(
+        lengths, b, q.device)
     ns = flash_decode_plan(live_rows, b, n_kv)
-    acc = torch.empty((b * n_kv, ns, g, hd), dtype=torch.float32,
-                      device=q.device)
-    mx = torch.empty((b * n_kv, ns, g, 1), dtype=torch.float32,
-                     device=q.device)
-    sm = torch.empty_like(mx)
+    out = torch.empty_like(q)
     from ._build import load_library
 
     lib = load_library()
     err = lib.flash_decode_attention_launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale),
-        _ptr(bitmap), _ptr(lens), _ptr(acc), _ptr(mx), _ptr(sm),
+        _ptr(bitmap), _ptr(lens), live_rows if lens is None else 0, _ptr(out),
         b, n_heads, n_kv, hd, s, ns,
         int(q.dtype == torch.bfloat16), int(quant),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _raise_on(err, "flash_decode_attention")
     flash_decode_attention.launches += 1
-    return _combine_splits(acc, mx, sm, b, n_heads, hd, q.dtype)
+    return out
 
 
 flash_decode_attention.launches = 0

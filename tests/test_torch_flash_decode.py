@@ -149,12 +149,78 @@ def test_decode_plan_equals_jax(s):
 
 def test_split_plan_fills_the_card():
     """K4's split count: about two blocks per SM, never a split under one
-    block's 64-row loop step, one split for one row."""
+    64-row chunk, one split for one row, and at most MAX_SPLITS: the
+    splits of a (slot, kv head) are one thread-block cluster."""
     assert da.flash_decode_plan(1024, batch=8, n_kv=16) == 3
-    assert da.flash_decode_plan(2048, batch=1, n_kv=16) == 17
+    assert da.flash_decode_plan(2048, batch=1, n_kv=16) == 8
     assert da.flash_decode_plan(100, batch=1, n_kv=1) == 2
     assert da.flash_decode_plan(0, batch=1, n_kv=1) == 1
     assert da.flash_decode_plan(4096, batch=64, n_kv=8) == 1
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 8, 64])
+@pytest.mark.parametrize("n_kv", [1, 2, 8, 16])
+def test_split_plan_fits_one_cluster(batch, n_kv):
+    """No K4 plan exceeds the cluster cap at any live length, and every
+    plan is at least one split."""
+    for rows in (0, 1, 63, 64, 65, 512, 1024, 2048, 8192, 1 << 20):
+        ns = da.flash_decode_plan(rows, batch, n_kv)
+        assert 1 <= ns <= da.MAX_SPLITS
+        assert ns <= max(1, -(-rows // 64))
+
+
+def _decode_rounded(q, k, v, lengths, bitmap, k_scale=None, v_scale=None):
+    """K4's bf16 tensor-core arithmetic (``decode_mma.cu``) on the CPU: the
+    raw cache rows as operands (an int8 value is exact in bf16), f32
+    scores times the row's k_scale, masked to rows < length that the
+    bitmap sets, the unnormalised p = exp(s - m) in f32 summed into l,
+    then p times v_scale rounded once to bf16 against the raw V rows."""
+    b, n_heads, hd = q.shape
+    g = n_heads // k.shape[2]
+    s = torch.einsum("bhgd,bkhd->bhgk", q.float().reshape(b, -1, g, hd),
+                     k.float()) / hd ** 0.5
+    if k_scale is not None:
+        s = s * k_scale[..., 0].permute(0, 2, 1)[:, :, None]
+    mask = (torch.arange(k.shape[1])[None] < lengths[:, None]) & bitmap
+    s = torch.where(mask[:, None, None], s, -np.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    if v_scale is not None:
+        p = p * v_scale[..., 0].permute(0, 2, 1)[:, :, None]
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(torch.bfloat16).float(),
+                       v.float()) / l
+    return out.reshape(b, n_heads, hd)
+
+
+@pytest.mark.parametrize("hkv", [8, 2, 1], ids=["g1", "g4", "g8"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_bf16_decode_rounding_fits_card_tolerance(hkv, quant):
+    """K4's bf16 numerics on the tensor cores (f32 scores, int8 scales on
+    the scores and on p, P rounded once to bf16, l from the unscaled p),
+    over a bitmap window, stay inside atol = rtol = 2e-2, the card's
+    tolerance, of the plain version on the same bf16 inputs and of the
+    JAX kernel (interpret mode); the rounding is visible (it differs from
+    the all-f32 result)."""
+    j, t, tol = qkv(12, "bf16", B=3, Hkv=hkv, hd=64, S=128, quant=quant)
+    lengths = np.array([128, 100, 37], np.int32)
+    bitmap = np.zeros((3, 128), bool)
+    bitmap[:, 20:90] = True                     # the slot's window
+    bitmap[2, :30] = True
+    tq, tk, tv, tsc = t
+    tlen, tbm = torch.from_numpy(lengths), torch.from_numpy(bitmap)
+    got = _decode_rounded(tq, tk, tv, tlen, tbm, **tsc)
+    torch.testing.assert_close(
+        got, da.flash_decode_reference(tq, tk, tv, tlen, bitmap=tbm,
+                                       **tsc).float(), atol=tol, rtol=tol)
+    jq, jk, jv, jsc = j
+    close(got, jda.flash_decode_attention(
+        jq, jk, jv, jnp.asarray(lengths), bitmap=jnp.asarray(bitmap),
+        block_k=16, interpret=True, **jsc), tol)
+    f32 = da.flash_decode_reference(
+        tq.float(), tk if quant else tk.float(), tv if quant else tv.float(),
+        tlen, bitmap=tbm, **tsc)
+    torch.testing.assert_close(got, f32, atol=tol, rtol=tol)
+    assert not torch.equal(got, f32)
 
 
 def test_contiguous_as_paged_equals_jax():

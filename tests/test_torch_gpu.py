@@ -231,15 +231,10 @@ def test_verify_rows_equal_decode_kernel(cuda, dtype):
 @pytest.mark.gpu
 @DTYPES
 @QUANT
-def test_decode_and_verify_kernels_are_deterministic(cuda, dtype, quant,
-                                                     monkeypatch):
+def test_decode_and_verify_kernels_are_deterministic(cuda, dtype, quant):
     """K1 and K3 merge their splits across the cluster in a fixed order
     and with no atomics: two launches on the same inputs give the same
-    bits. Neither reaches the PyTorch split merge (K4's)."""
-    def no_merge(*a, **k):
-        raise AssertionError("K1/K3 called _combine_splits")
-
-    monkeypatch.setattr(da, "_combine_splits", no_merge)
+    bits."""
     gen = torch.Generator().manual_seed(3)
     B, t, H, n_kv, hd, ps, nb = 3, 5, 32, 8, 128, 16, 24
     q = torch.randn((B, t, H, hd), generator=gen).to(dtype).to(cuda)
@@ -314,6 +309,63 @@ def test_flash_decode_kernel_matches_plain(cuda, hd, n_heads, n_kv, S, bitmap,
         assert not got[3].any()
     assert torch.equal(got, da.flash_decode_attention(q, k, v, lens,
                                                       bitmap=bm, **sc))
+
+
+# (hd, n_heads, n_kv, S, B) -> the split count flash_decode_plan gives at a
+# cursor of S rows (one cluster of that many blocks a slot and kv head):
+# 1, 3, 5 and 8, B = 1 too.
+FLASH_DECODE_SHAPES = {
+    "serve-ns3": ((64, 16, 16, 2048, 8), 3),
+    "b1-ns8": ((64, 16, 16, 2048, 1), 8),
+    "gqa4-b1-ns5": ((128, 32, 8, 320, 1), 5),
+    "gqa4-ns1": ((128, 32, 8, 64, 8), 1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ns", list(FLASH_DECODE_SHAPES.values()),
+                         ids=list(FLASH_DECODE_SHAPES))
+@DTYPES
+@QUANT
+def test_flash_decode_splits_merge_in_kernel(cuda, shape, ns, dtype, quant):
+    """K4 at split counts 1 to 8 (each one cluster, merged in the kernel):
+    the engine's call (the cursor as an int, the bitmap) with a window at
+    the end of the length, one at its start, a slot with no set bit and
+    one with holes; then [B] lengths with 0 and 1 and no bitmap. Each call
+    launches once, allocates only its output, and replays bit for bit."""
+    hd, n_heads, n_kv, S, B = shape
+    assert da.flash_decode_plan(S, B, n_kv) == ns
+    gen = torch.Generator().manual_seed(hd + n_heads + S + B)
+    q = torch.randn((B, n_heads, hd), generator=gen).to(dtype).to(cuda)
+    k, v, sc = _pool(gen, B, S, n_kv, hd, dtype, quant, cuda)
+    w = max(S // 4, 1)
+    bm = torch.rand((B, S), generator=gen) < 0.5
+    bm[0] = False
+    bm[0, S - w:] = True                     # the window ending at the cursor
+    if B > 1:
+        bm[1] = False
+        bm[1, :w] = True                     # a window at the start
+        bm[2] = False                        # no set bit
+    bm = bm.to(cuda)
+    lens = _lengths(B, [S, 1, 0, S // 2 + 3, 65], cuda)
+    for lengths, bitmap in ((S, bm), (lens, None)):
+        calls = da.flash_decode_reference.calls
+        launches = da.flash_decode_attention.launches
+        allocs = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+        got = da.flash_decode_attention(q, k, v, lengths, bitmap=bitmap, **sc)
+        assert torch.cuda.memory_stats(cuda)["allocation.all.allocated"] \
+            == allocs + 1
+        assert da.flash_decode_attention.launches == launches + 1
+        assert da.flash_decode_reference.calls == calls
+        ref = da.flash_decode_reference(q, k, v, lengths, bitmap=bitmap, **sc)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        _close(got, ref, dtype)
+        # Slot 2 has no set bit, and lengths put 0 at slot 2: zeros.
+        if B > 2:
+            assert not got[2].any()
+        assert torch.equal(got, da.flash_decode_attention(
+            q, k, v, lengths, bitmap=bitmap, **sc))
 
 
 @pytest.mark.gpu

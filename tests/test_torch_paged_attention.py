@@ -117,23 +117,24 @@ def test_gather_paged_kv_matches_jax():
 
 
 def test_combine_splits_matches_jax():
-    """The split-K LSE merge, including an empty split (m -1e30, l 0)
-    and a fully masked row, against the JAX combine."""
+    """The split-K merge's contract, which K1, K3 and K4 keep inside their
+    kernels (a cluster merge on the card): the JAX kernel split four ways
+    and merged by its ``_combine_splits`` equals the port's unsplit plain
+    version, with empty splits (every row of a split past a short length)
+    and a fully masked row, which yields zeros on both sides."""
     rng = np.random.default_rng(2)
-    bh, ns, g, hd = 3, 4, 2, 8
-    acc = rng.normal(size=(bh, ns, g, hd)).astype(np.float32)
-    m = rng.normal(size=(bh, ns, g, 1)).astype(np.float32)
-    lsum = rng.uniform(0.5, 2.0, size=(bh, ns, g, 1)).astype(np.float32)
-    acc[0, 1], m[0, 1], lsum[0, 1] = 0.0, -1e30, 0.0    # empty split
-    acc[2], m[2], lsum[2] = 0.0, -1e30, 0.0              # masked rows
-    got = da._combine_splits(torch.from_numpy(acc), torch.from_numpy(m),
-                             torch.from_numpy(lsum), 3, 2, hd, torch.float32)
-    lanes = lambda a: np.repeat(a, 128, axis=-1)          # noqa: E731
-    ref = jda._combine_splits(jnp.asarray(acc), jnp.asarray(lanes(m)),
-                              jnp.asarray(lanes(lsum)), 3, 2, hd,
-                              jnp.float32)
-    close(got, ref, 1e-6)
-    assert not got[2].any()
+    b, s, n_kv, g, hd = 3, 64, 2, 2, 16
+    jq, tq = both(rng.normal(size=(b, n_kv * g, hd)).astype(np.float32),
+                  jnp.float32, torch.float32)
+    (jk, tk), (jv, tv) = (
+        both(rng.normal(size=(b, s, n_kv, hd)).astype(np.float32),
+             jnp.float32, torch.float32) for _ in range(2))
+    lens = np.array([20, 0, 64], np.int32)
+    ref = jda.flash_decode_attention(jq, jk, jv, jnp.asarray(lens),
+                                     block_k=8, n_splits=4, interpret=True)
+    got = da.flash_decode_reference(tq, tk, tv, torch.from_numpy(lens))
+    close(got, ref, 2e-5)
+    assert not got[1].any() and not np.asarray(ref)[1].any()
 
 
 # -- K2 -------------------------------------------------------------------------

@@ -162,7 +162,7 @@ def test_verify_plan():
 
 def _verify_rounded(q, k_pages, v_pages, table, lengths, k_scale=None,
                     v_scale=None):
-    """K3's tensor-core arithmetic (``paged_verify_mma.cu``) on the CPU:
+    """K3's tensor-core arithmetic (``decode_mma.cu``) on the CPU:
     the raw pool rows as operands (an int8 value is exact in bf16), f32
     scores times the row's f32 k_scale after the product, the unnormalised
     p = exp(s - m) in f32 summed into l, then p times v_scale rounded once
