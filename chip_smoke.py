@@ -101,6 +101,30 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    4 (K3 through the paged view of the cache), with its tokens per verify
    and how far its greedy stream agrees with generate's (bf16: near-ties
    may part them; phase 2 holds the identity at f32).
+8. the serving lifecycle and the KV tier. (a) phase 2's f32 config, a
+   17-page pool and four waves of five requests (A on a shared system
+   prompt, B unique, C on A's system prompt, D = B again): a card engine
+   drained in the middle of wave C, persisted by
+   ``lifecycle.drain_to_checkpoint`` into a temporary directory and
+   resumed by ``resume_or_fresh`` into a fresh card engine must give the
+   streams of the CPU engine's undrained, untiered run (plain, int8 KV,
+   speculative, and tiered with ``dram_pages=24``), the resumed engine
+   launching K2 and K1 (K3 speculative) and no plain version. (b) phase 3's
+   engine and shared-prefix traffic in bf16 with max_new 128 (32
+   requests; then 16 with int8 KV): drained after one step and restored
+   into a 160-page pool, the streams must equal an uninterrupted run;
+   prints the drain and restore ms, ``snap.nbytes()`` and the pages
+   moved. (c) three waves of 8 requests of 512 tokens at the serve config
+   (A on a 384-token system prompt, B unique, C on A's system prompt)
+   with ``kv_tiering=True, dram_pages=64`` in 73 pages (B evicts all of
+   A's cached pages), tiering off in 73 pages, and the default pool that
+   evicts nothing: the tiered streams must equal the large pool's, wave
+   C's skipped prefill tokens equal the large pool's and exceed the
+   untiered run's; prints the demote and promote ms, promotions and K2
+   launches of each run, and the untiered run's first divergence from
+   the large pool (its dense prefill may part at a bf16 near-tie). The
+   allocator's and the tier's invariants are asserted after every drain,
+   restore and wave.
 
 ``--profile`` adds profiled serving runs (plain decode, speculative and
 the contiguous engine) and one profiled training step: the card's busy
@@ -1161,6 +1185,270 @@ def phase_contiguous_full_width(dev, card, profile_too) -> dict:
     return dict(bf16=st, mixed=mst, int8=qst, generate_speculative=gs)
 
 
+# -- phase 8: the serving lifecycle and the KV tier ------------------------------
+
+def check_pools(eng) -> None:
+    """The page allocator's partition and, on a tiered engine, the host
+    tier's invariants; a breach raises and fails the run."""
+    eng._alloc.assert_consistent()
+    if eng._alloc.tier is not None:
+        eng._alloc.tier.assert_consistent()
+
+
+def lifecycle_waves(rng, vocab, n, sys_len, uniq_len):
+    """Phase 8's waves: A shares a system prompt, B is unique prompts, C
+    shares A's system prompt again, D repeats B (its pages by then
+    demoted or forgotten)."""
+    a = shared_prefix_traffic(rng, vocab, n, sys_len, uniq_len)
+    b = [list(rng.integers(0, vocab, sys_len + uniq_len)) for _ in range(n)]
+    c = [a[0][:sys_len] + list(rng.integers(0, vocab, uniq_len))
+         for _ in range(n)]
+    return a, b, c, b
+
+
+def phase_lifecycle_vs_cpu(dev) -> dict:
+    """(a) Phase 2's small f32 config: a card engine is drained in the
+    middle of wave C, persisted through ``lifecycle.drain_to_checkpoint``,
+    resumed with ``resume_or_fresh`` into a fresh card engine and run to
+    the end; its streams must equal the CPU engine's undrained run with
+    tiering off (plain, int8 KV, speculative, tiered). The resumed card
+    engine must launch K2 and K1 (K3 speculative) and no plain version."""
+    import tempfile
+
+    from k8s_gpu_scheduler_tpu_torch.models import lifecycle
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+    from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    cfg = LlamaConfig(vocab=256, d_model=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_ff=512, max_seq=256,
+                      dtype=torch.float32, decode_attn="fused", remat=False)
+    # 17 pages: four requests in flight fill the pool, so wave B evicts
+    # wave A's cached pages and wave C evicts B's.
+    base = dict(n_slots=4, max_len=128, chunk=4, prefill_bucket=16,
+                kv_layout="paged", page_size=16, prefix_cache=True,
+                n_pages=17)
+    kinds = {"plain": {}, "int8kv": dict(kv_dtype="int8"),
+             "spec": dict(speculative=True, gamma=3),
+             "tiered": dict(kv_tiering=True, dram_pages=24)}
+    # Five requests a wave on four slots: the fifth of wave C, queued at
+    # the drain, mounts the pages its wave's first finisher donated (K2).
+    waves = lifecycle_waves(np.random.default_rng(0), cfg.vocab, 5, 32, 9)
+    out = {}
+    for name, kw in kinds.items():
+        ref_kw = {k: v for k, v in kw.items()
+                  if k not in ("kv_tiering", "dram_pages")}
+        model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        ref_eng = ContinuousBatcher(model, cfg, device="cpu", **base,
+                                    **ref_kw)
+        ref = [s for w in waves for s in drive(ref_eng, w, 12)]
+        model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+
+        def make():
+            return ContinuousBatcher(model, cfg, device=dev, **base, **kw)
+
+        eng = make()
+        got = drive(eng, waves[0], 12) + drive(eng, waves[1], 12)
+        ids = [eng.submit(p, max_new=12) for p in waves[2]]
+        done = dict(eng.step())
+        with tempfile.TemporaryDirectory() as d:
+            snap = lifecycle.drain_to_checkpoint(eng, d)
+            check_pools(eng)
+            eng, resumed = lifecycle.resume_or_fresh(make, d)
+        check_pools(eng)
+        da.reset_counters()
+        while eng.pending:
+            done.update(eng.step())
+        got += [done[i] for i in ids] + drive(eng, waves[3], 12)
+        check_pools(eng)
+        c = da.counters()
+        m = eng.pool_metrics()
+        log(f"  {name}: resumed {resumed} requests, {len(snap.page_ids)} "
+            f"pages, {len(snap.tier_keys)} tier pages; after: {c}, "
+            f"promotions {m.get('page_promotions_total')}")
+        if got != ref:
+            raise SystemExit(f"{name}: card drain/persist/resume diverges "
+                             f"from the CPU's undrained run:\n  gpu {got}\n"
+                             f"  cpu {ref}")
+        need = ["paged_prefill_attention", "paged_verify_attention"
+                if kw.get("speculative") else "paged_decode_attention"]
+        if not (resumed and all(c[k] for k in need)) \
+                or any(c[k] for k in PLAIN):
+            raise SystemExit(f"{name}: the resumed engine missed {need} or "
+                             f"called a plain version: {c}")
+        if kw.get("kv_tiering") and not (snap.tier_keys
+                                         and m["page_promotions_total"]):
+            raise SystemExit(f"tiered: the snapshot shipped no tier or the "
+                             f"resumed engine promoted nothing: {m}")
+        out[name] = dict(tokens=sum(map(len, got)), resumed=resumed,
+                         pages=len(snap.page_ids),
+                         tier_pages=len(snap.tier_keys))
+    return out
+
+
+def _synced_ms(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def phase_drain_restore_full_width(dev, card) -> dict:
+    """(b) Phase 3's engine and shared-prefix traffic in bf16, max_new 128
+    (two steps a request at chunk 64, so a drain after one step catches
+    every slot mid-stream): drained after one step and restored into an
+    engine of another ``n_pages``, the streams must equal an uninterrupted
+    run in this process; then the same with int8 KV."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+    from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    rng = np.random.default_rng(8)
+    base = dict(n_slots=8, max_len=cfg.max_seq, chunk=64, prefill_bucket=512,
+                kv_layout="paged", page_size=64, prefix_cache=True)
+    max_new = 128
+    out = {}
+    for name, n, kw in (("bf16", 32, {}), ("int8kv", 16,
+                                           dict(kv_dtype="int8"))):
+        prompts = shared_prefix_traffic(rng, cfg.vocab, n, 384, 128)
+        ref = drive(ContinuousBatcher(model, cfg, device=dev, **base, **kw),
+                    prompts, max_new)
+        eng = ContinuousBatcher(model, cfg, device=dev, **base, **kw)
+        ids = [eng.submit(p, max_new=max_new) for p in prompts]
+        done = dict(eng.step())
+        snap, drain_ms = _synced_ms(eng.drain)
+        check_pools(eng)
+        # The default pool is 1 + 8 * 32 = 257 pages; restore into 160.
+        fresh = ContinuousBatcher(model, cfg, device=dev, n_pages=160,
+                                  **base, **kw)
+        resumed, restore_ms = _synced_ms(lambda: fresh.restore(snap))
+        check_pools(fresh)
+        da.reset_counters()
+        while fresh.pending:
+            done.update(fresh.step())
+        check_pools(fresh)
+        c = da.counters()
+        got = [done[i] for i in ids]
+        st = dict(requests=n, in_flight=len(snap.slot_req),
+                  queued=len(snap.queue), resumed=resumed,
+                  pages_moved=len(snap.page_ids),
+                  snapshot_bytes=snap.nbytes(), drain_ms=drain_ms,
+                  restore_ms=restore_ms,
+                  drain_duration_seconds=eng.pool_metrics()[
+                      "drain_duration_seconds"],
+                  restore_duration_seconds=fresh.pool_metrics()[
+                      "restore_duration_seconds"], launches=c)
+        log(f"  [{card}] {name}: {json.dumps(st)}")
+        if got != ref:
+            first = next(i for i, (a, b) in enumerate(zip(got, ref))
+                         if a != b)
+            raise SystemExit(f"{name}: drain/restore changed stream {first}"
+                             f":\n  got {got[first]}\n  ref {ref[first]}")
+        if not (snap.slot_req and c["paged_decode_attention"]
+                and c["paged_prefill_attention"]) \
+                or any(c[k] for k in PLAIN):
+            raise SystemExit(f"{name}: the restore caught no slot in flight "
+                             f"or missed K1/K2: {st}")
+        out[name] = st
+    return out
+
+
+def _timed_method(eng, name, acc) -> None:
+    """Wrap ``eng.<name>`` so each call adds its synchronised ms to
+    ``acc[name]`` and one to ``acc[name + "_calls"]``."""
+    orig = getattr(eng, name)
+
+    def timed(*args, **kw):
+        res, ms = _synced_ms(lambda: orig(*args, **kw))
+        acc[name] = acc.get(name, 0.0) + ms
+        acc[name + "_calls"] = acc.get(name + "_calls", 0) + 1
+        return res
+
+    setattr(eng, name, timed)
+
+
+def phase_tiering_full_width(dev, card) -> dict:
+    """(c) Tiering at the serve config, bf16, three waves of 8 requests of
+    512 tokens (A on a 384-token system prompt, B unique, C on A's system
+    prompt again), max_new 64, chunk 64, page 64: with ``kv_tiering=True,
+    dram_pages=64`` and 73 pages (B evicts all of A's cached pages), with
+    tiering off at 73 pages, and with the default 257-page pool that evicts
+    nothing. The tiered run's streams must equal the large pool's (C reads
+    A's promoted bytes through the same K2 and K1), and wave C's skipped
+    prefill tokens equal the large pool's and exceed the untiered run's;
+    the untiered run recomputes the prefix densely, so its first
+    divergence from the large pool, if any, is printed."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+    from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    a, b, c, _ = lifecycle_waves(np.random.default_rng(9), cfg.vocab, 8,
+                                 384, 128)
+    base = dict(n_slots=8, max_len=cfg.max_seq, chunk=64, prefill_bucket=512,
+                kv_layout="paged", page_size=64, prefix_cache=True)
+    runs = {"tiered": dict(n_pages=73, kv_tiering=True, dram_pages=64),
+            "untiered": dict(n_pages=73), "large": {}}
+    out, streams = {}, {}
+    for name, kw in runs.items():
+        eng = ContinuousBatcher(model, cfg, device=dev, **base, **kw)
+        acc: dict = {}
+        if kw.get("kv_tiering"):
+            _timed_method(eng, "_drain_demotions", acc)
+            _timed_method(eng, "_scatter_pages", acc)
+        da.reset_counters()
+        got, skipped = [], []
+        for wave in (a, b, c):
+            before = eng.pool_metrics()["prefill_tokens_skipped"]
+            got += drive(eng, wave, 64)
+            check_pools(eng)
+            skipped.append(eng.pool_metrics()["prefill_tokens_skipped"]
+                           - before)
+        counts = da.counters()
+        m = eng.pool_metrics()
+        streams[name] = got
+        st = dict(skipped_by_wave=skipped,
+                  k2_launches=counts["paged_prefill_attention"],
+                  k1_launches=counts["paged_decode_attention"],
+                  evictions=m.get("prefix_evictions"),
+                  demotions=m.get("page_demotions_total"),
+                  promotions=m.get("page_promotions_total"),
+                  demote_ms=acc.get("_drain_demotions"),
+                  demote_calls=acc.get("_drain_demotions_calls"),
+                  promote_ms=acc.get("_scatter_pages"),
+                  promote_calls=acc.get("_scatter_pages_calls"))
+        log(f"  [{card}] {name}: {json.dumps(st)}")
+        if any(counts[k] for k in PLAIN) or malformed(got, 64, cfg.vocab):
+            raise SystemExit(f"{name}: a plain version ran or a stream is "
+                             f"malformed: {counts}")
+        out[name] = st
+    if streams["tiered"] != streams["large"]:
+        raise SystemExit("the tiered run's streams differ from the large "
+                         "pool's")
+    div = next((i for i, (x, y) in enumerate(zip(streams["untiered"],
+                                                  streams["large"]))
+                if x != y), None)
+    where = "none" if div is None else (
+        f"stream {div}, token "
+        f"{next(j for j, (p, q) in enumerate(zip(streams['untiered'][div], streams['large'][div])) if p != q)}")
+    log(f"  [{card}] untiered vs large pool, first divergence: {where}")
+    out["untiered_first_divergence"] = where
+    t, u, g = (out[k]["skipped_by_wave"][2]
+               for k in ("tiered", "untiered", "large"))
+    if not (t == g > u and out["tiered"]["promotions"]):
+        raise SystemExit(f"wave C skipped {t} (tiered), {g} (large), {u} "
+                         f"(untiered), promotions "
+                         f"{out['tiered']['promotions']}")
+    return out
+
+
 def profiled(card, label, fn) -> None:
     """Run ``fn`` (returning (streams, stats)) under torch.profiler and
     print the card's busy share of the wall time and its device time by
@@ -1520,6 +1808,14 @@ def main() -> int:
     train = phase_train_full_width(dev, card, profile_too, train_layers)
     log("phase 7: full-width contiguous path, bf16")
     contig = phase_contiguous_full_width(dev, card, profile_too)
+    log("phase 8: the serving lifecycle and the KV tier")
+    log("  (a) drain, persist and resume on the card against the CPU's "
+        "undrained run (f32, TF32 off)")
+    log(f"  {json.dumps(phase_lifecycle_vs_cpu(dev))}")
+    log("  (b) full-width drain and restore into another pool, bf16")
+    phase_drain_restore_full_width(dev, card)
+    log("  (c) full-width tiering: waves A, B, C, bf16")
+    phase_tiering_full_width(dev, card)
     # Each kernel's launches come from the run of the path that runs it:
     # K1 and K2 from phase 3's main path, K3 from phase 4's, K4 from phase
     # 7's serve-loop run, K5-K7 from phase 6's timed steps.

@@ -38,6 +38,17 @@ backward from the cursor into the freed slot's rows
 ``cursor + 1`` and the bitmap) per layer per tick; when every slot has
 drained, the cursor and the bitmap reset (an epoch roll).
 
+**Lifecycle and KV tier** (paged only). ``drain()`` flushes, gathers every
+referenced pool page once and returns a ``ServingSnapshot``
+(``models/snapshot.py``, the JAX package's wire format); ``restore()``
+re-lays it out into a fresh engine of any pool size, and ``absorb()`` merges
+a partial drain (``drain(slots=...)``) into a running one.
+``kv_tiering=True`` demotes evicted prefix pages into a host tier
+(``paging.HostTierStore``) in one batched gather a step boundary and
+promotes them back in one scatter (``_scatter_pages``) before the matching
+slot's first prefill. ``fault_injector`` (``testing/faults.py``) fires
+``serve.step`` and ``serve.propose``.
+
 **Single sequence.** ``generate`` prefills a ``[B, T]`` prompt batch and
 decodes greedily through ``forward_with_cache`` (K4 per layer per token
 with ``cfg.decode_attn="fused"``); ``generate_speculative`` (B = 1)
@@ -73,10 +84,14 @@ from ..ops.decode_attention import (
 )
 from ..ops.layers import apply_rope, rms_norm, rope_freqs
 from ..ops.quant import qdot
+from ..testing.faults import Preempted
 from .llama import Block, Llama, LlamaConfig, mlp_sublayer
-from .paging import NULL_PAGE, PageAllocator
+from .paging import NULL_PAGE, HostTierStore, PageAllocator
 from .prefix_cache import PrefixCache
 from .proposers import SlotView, resolve_proposer
+from .snapshot import (
+    ServingSnapshot, SnapshotError, as_words, check_fingerprint, host_dtype,
+)
 
 NEG_INF = -1e30
 _MASK64 = (1 << 64) - 1
@@ -230,6 +245,12 @@ def _kv_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     s = torch.clamp(x32.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
     q = torch.clamp(torch.round(x32 / s), -127, 127)
     return q.to(torch.int8), s
+
+
+def _host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype that holds a pool plane on the host: bf16 as its
+    16-bit words, f32 and int8 as themselves."""
+    return host_dtype(str(dtype).replace("torch.", ""))
 
 
 def _shaped_logits(logits: torch.Tensor, temperature: float,
@@ -783,14 +804,10 @@ def _prefill_multi_fn(model: Llama, cfg: LlamaConfig, k, v, k_s, v_s,
 # where JAX defaults to 256: 256 turns on a flight recorder the port does
 # not have yet.
 _LATER_SLICES = {
-    "kv_tiering": (False, "the lifecycle and tiering slice"),
-    "dram_pages": (None, "the lifecycle and tiering slice"),
-    "kv_tier_disk": (None, "the lifecycle and tiering slice"),
     "mesh": (None, "the multi-device slice"),
     "weight_sharding": (True, "the multi-device slice"),
     "tp_combine": ("all_gather", "the multi-device slice"),
     "role": ("mixed", "the fleet slice"),
-    "fault_injector": (None, "the lifecycle slice"),
     "tracer": (None, "the observability slice"),
     "clock": (None, "the observability slice"),
     "flight_capacity": (0, "the observability slice"),
@@ -829,6 +846,12 @@ class ContinuousBatcher:
     ``prefill_attn``) raise ``ValueError`` on this layout, and
     ``pool_metrics()`` is empty.
 
+    The paged engine drains to a snapshot (``drain``), restores one into a
+    fresh engine (``restore``) and absorbs a shed slot (``absorb``);
+    ``kv_tiering`` demotes evicted prefix pages to host DRAM
+    (``dram_pages``, then disk under ``kv_tier_disk``) and promotes them
+    back; ``fault_injector`` is the chaos hook.
+
     ``model`` must live on ``device`` (default ``"cuda"``; the CPU only
     when asked). ``cfg.decode_attn`` must be ``"fused"``: the port serves
     through the attention kernels. The JAX engine's other options raise
@@ -853,10 +876,8 @@ class ContinuousBatcher:
                  tp_combine: str = "all_gather", role: str = "mixed",
                  fault_injector=None, tracer=None, clock=None,
                  flight_capacity: int = 0):
-        given = dict(kv_tiering=kv_tiering, dram_pages=dram_pages,
-                     kv_tier_disk=kv_tier_disk, mesh=mesh,
-                     weight_sharding=weight_sharding, tp_combine=tp_combine,
-                     role=role, fault_injector=fault_injector, tracer=tracer,
+        given = dict(mesh=mesh, weight_sharding=weight_sharding,
+                     tp_combine=tp_combine, role=role, tracer=tracer,
                      clock=clock, flight_capacity=flight_capacity)
         for name, (off, slice_name) in _LATER_SLICES.items():
             if given[name] != off:
@@ -874,6 +895,21 @@ class ContinuousBatcher:
             raise ValueError(f"prefill_attn must be None/'auto'/'kernel'/"
                              f"'gather', got {prefill_attn!r}")
         paged = kv_layout == "paged"
+        # KV tiering: a capacity knob behind the prefix tree, absent from
+        # fingerprint() like n_pages.
+        if kv_tiering and not paged:
+            raise ValueError(
+                "kv_tiering=True requires kv_layout='paged' (the tier "
+                "demotes page-pool pages behind the radix tree)")
+        if kv_tiering and not prefix_cache:
+            raise ValueError(
+                "kv_tiering=True requires prefix_cache=True (demotion "
+                "parks CACHED tree pages; without the tree there is "
+                "nothing to tier)")
+        if not kv_tiering and (dram_pages is not None
+                               or kv_tier_disk is not None):
+            raise ValueError(
+                "dram_pages/kv_tier_disk require kv_tiering=True")
         if not paged:
             for name, on, why in (
                     ("speculative=True", speculative,
@@ -944,9 +980,21 @@ class ContinuousBatcher:
         self._angles = rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                   device=dev)
         self._last = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+        # Chaos hook (testing/faults.py): ``serve.step`` fires once a step
+        # before any state changes, ``serve.propose`` once a slot a
+        # proposal; page-pressure rules hold pool pages hostage.
+        self._faults = fault_injector
+        self._chaos_pages: list = []
+        # Lifecycle: a drained engine refuses further work; restore()
+        # fills a fresh one. Durations and the resumed count are gauges.
+        self._drained = False
+        self._drain_s: Optional[float] = None
+        self._restore_s: Optional[float] = None
+        self._resumed = 0
         if paged:
             self._init_paged(page_size, n_pages, prefix_cache,
-                             prefill_chunk_tokens)
+                             prefill_chunk_tokens, kv_tiering, dram_pages,
+                             kv_tier_disk)
         else:
             # One shared write cursor; per-slot validity bitmap and rope
             # position reconcile slots at different request offsets.
@@ -994,10 +1042,12 @@ class ContinuousBatcher:
                 None, None)
 
     def _init_paged(self, page_size: int, n_pages: Optional[int],
-                    prefix_cache: bool,
-                    prefill_chunk_tokens: Optional[int]) -> None:
+                    prefix_cache: bool, prefill_chunk_tokens: Optional[int],
+                    kv_tiering: bool, dram_pages: Optional[int],
+                    kv_tier_disk: Optional[str]) -> None:
         """The paged layout's state: pool, allocator, block table, lens,
-        prefix tree and the chunked-prefill queue."""
+        prefix tree (over a host tier when tiering) and the
+        chunked-prefill queue."""
         cfg, n_slots, dev = self.cfg, self.n_slots, self.device
         if self.S % page_size:
             raise ValueError(f"cache capacity {self.S} not divisible by "
@@ -1033,12 +1083,23 @@ class ContinuousBatcher:
         self._slot_shared: Dict[int, list] = {}  # slot -> mounted hit pages
         self._slot_prompt: Dict[int, list] = {}
         self._last_denied: Optional[int] = None
-        self._prefix = (PrefixCache(self._alloc, page_size)
+        # KV tiering: LRU eviction demotes cached leaves into the host
+        # tier (default capacity: the pool's pages) instead of forgetting
+        # them; a match through a demoted path promotes its pages back
+        # before the slot's first prefill (_admit_paged). kv_tier_disk
+        # spills the tier's coldest pages there when its DRAM is full.
+        self._tier = (HostTierStore(int(dram_pages) if dram_pages is not None
+                                    else int(n_pages), disk_dir=kv_tier_disk)
+                      if kv_tiering else None)
+        self._prefix = (PrefixCache(self._alloc, page_size, tier=self._tier)
                         if prefix_cache else None)
         self._skipped_tokens = 0
         # Per-admission prefix hit lengths (tokens, a miss is 0), drained by
         # pool_metrics() as ``prefix_hit_token_batch``; oldest dropped.
         self._hit_tok_buf: deque = deque(maxlen=4096)
+        # The promoted subset of those hit lengths (tokens whose pages
+        # came back from the host tier), drained the same way.
+        self._promoted_hit_buf: deque = deque(maxlen=4096)
         # Device bytes of the pool and of the weights, fixed at build:
         # numel x element size, never a read of the live tensors.
         self._kv_pool_dev_bytes = sum(
@@ -1053,6 +1114,10 @@ class ContinuousBatcher:
     # -- API ---------------------------------------------------------------
     def submit(self, prompt, max_new: int) -> int:
         """Queue one request; returns its id. ``prompt``: 1-D token ids."""
+        if self._drained:
+            raise RuntimeError(
+                "engine is drained: admission is stopped; restore() the "
+                "snapshot into a fresh engine")
         prompt = [int(t) for t in prompt]
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
@@ -1086,15 +1151,6 @@ class ContinuousBatcher:
     @property
     def pending(self) -> int:
         return len(self._queue) + len(self._slot_req)
-
-    def drain(self, slots=None):
-        raise NotImplementedError("drain() comes with the lifecycle slice")
-
-    def restore(self, snap):
-        raise NotImplementedError("restore() comes with the lifecycle slice")
-
-    def absorb(self, snap):
-        raise NotImplementedError("absorb() comes with the lifecycle slice")
 
     def _ladder(self, prompt_len: int) -> int:
         """Prefill bucket: the base bucket doubled until it fits, clamped
@@ -1226,7 +1282,10 @@ class ContinuousBatcher:
         self._budget.pop(rid, None)
         self._eos_scanned.pop(rid, None)
         self._drop_spec(slot, rid)
-        self._free_slot_pages(slot)
+        if slot in self._slot_pages:
+            self._free_slot_pages(slot)
+        else:
+            self._prefill_pending.pop(slot, None)
         self._out.pop(rid, None)
         self._arrival.pop(rid, None)
         self._first_tok.pop(rid, None)
@@ -1246,19 +1305,51 @@ class ContinuousBatcher:
             req_id, prompt = self._queue[0]
             P = len(prompt)
             hits: list = []
+            demoted: list = []
             if self._prefix is not None:
                 # Retain before any eviction: the slot's reference pins
                 # the hit path so the LRU sweep cannot reclaim it.
-                hits = self._prefix.match(
-                    prompt, count=req_id != self._last_denied)
+                if self._tier is not None:
+                    # The path runs through demoted nodes too: the
+                    # resident prefix mounts as usual, the demoted suffix
+                    # is promoted into fresh pages below (a pending
+                    # demotion the walk crosses is cancelled in place).
+                    path, demoted = self._prefix.match_tiered(
+                        prompt, count=req_id != self._last_denied)
+                    hits = path[:len(path) - len(demoted)]
+                else:
+                    hits = self._prefix.match(
+                        prompt, count=req_id != self._last_denied)
                 if hits:
                     self._alloc.retain(hits)
+            # Fresh pages: the slot's own reservation plus one per demoted
+            # hit page to promote into.
             need = (self._pages_needed(P, self._budget[req_id], req_id)
-                    - len(hits))
-            if self._prefix is not None and need > self._alloc.free_count:
-                self._prefix.evict(need - self._alloc.free_count)
+                    - len(hits) - len(demoted))
+            if self._prefix is not None \
+                    and need + len(demoted) > self._alloc.free_count:
+                self._prefix.evict(need + len(demoted)
+                                   - self._alloc.free_count)
+                if self._tier is not None:
+                    # evict() only enqueued demotions: their pages free
+                    # once the readback drains. The tier's capacity shed
+                    # in that drain may forget the tail of this very
+                    # path; keep the still-promotable prefix.
+                    self._drain_demotions()
+                    alive = 0
+                    for nd in demoted:
+                        if nd.demoted is None \
+                                or not self._tier.has(nd.demoted):
+                            break
+                        alive += 1
+                    if alive < len(demoted):
+                        del demoted[alive:]
+                        need = (self._pages_needed(
+                            P, self._budget[req_id], req_id)
+                            - len(hits) - len(demoted))
             pages = self._alloc.alloc(
-                need, count_denied=req_id != self._last_denied)
+                need + len(demoted),
+                count_denied=req_id != self._last_denied)
             if pages is None:
                 if hits:
                     self._alloc.free(hits)
@@ -1268,6 +1359,21 @@ class ContinuousBatcher:
                 self._last_denied = None
             self._queue.pop(0)
             slot = free.pop()
+            if demoted:
+                # Promotion: the demoted suffix's parked bytes land in the
+                # first len(demoted) fresh pages before the slot's first
+                # prefill; they then mount like resident hits. The tree
+                # adopts the allocation's reference, the slot retains.
+                promo, pages = pages[:len(demoted)], pages[len(demoted):]
+                pay = [self._tier.pop(nd.demoted) for nd in demoted]
+                self._scatter_pages(promo, *(
+                    None if pay[0][i] is None
+                    else np.stack([p[i] for p in pay], axis=1)
+                    for i in range(4)))
+                self._prefix.promote(demoted, promo)
+                self._alloc.retain(promo)
+                hits = hits + promo
+                self._promoted_hit_buf.append(len(promo) * ps)
             row = self._table_np[slot]
             row[:] = NULL_PAGE
             row[:len(hits)] = hits                   # shared, read-only
@@ -1385,8 +1491,12 @@ class ContinuousBatcher:
         remaining = {s: len(self._slot_prompt[s]) - d
                      for s, d in self._prefill_pending.items()}
         grants: Dict[int, int] = {}
+        # Chunking off: a slot restored or absorbed mid-prefill finishes
+        # its whole remainder in one chunk.
         left = self._prefill_chunk
-        progressed = True
+        if left is None:
+            grants = dict(remaining)
+        progressed = left is not None
         while progressed and left > 0:
             progressed = False
             for slot in self._prefill_pending:
@@ -1462,7 +1572,15 @@ class ContinuousBatcher:
         chunk (or, speculative, one verify) over the fully prefilled
         slots — mid-prefill slots ride it inactive. Only the verify reads
         back. Returns the finished req ids."""
+        if self._drained:
+            raise RuntimeError(
+                "engine is drained: restore() the snapshot into a fresh "
+                "engine")
         self._last_step_t = time.monotonic()
+        if self._faults is not None:
+            # May raise (drop, preempt) before any state changes this
+            # step; page-pressure rules come back to be applied.
+            self._apply_page_pressure(self._faults.fire("serve.step"))
         if self.layout == "contiguous":
             return self._step_contiguous()
         finished = self._admit_paged()
@@ -1608,14 +1726,19 @@ class ContinuousBatcher:
         props = np.zeros((self.n_slots, self.gamma), np.int32)
         views = []
         for slot, rid in ready.items():
-            # A proposal that fails fails only its own request.
+            # A proposal that fails fails only its own request; Preempted
+            # is the whole engine's drain signal and passes through.
             try:
+                if self._faults is not None:
+                    self._faults.fire("serve.propose")
                 view = SlotView(slot, rid, self._slot_prompt[slot],
                                 self._out[rid])
                 if self._proposer.batched:
                     views.append(view)
                 else:
                     props[slot] = self._proposer.propose(view, self.gamma)
+            except Preempted:
+                raise
             except Exception as e:  # noqa: BLE001 — isolate the request
                 self._fail_request(slot, rid, e)
         q = None
@@ -1739,10 +1862,16 @@ class ContinuousBatcher:
         bytes (constants of the build), the age of the last step's start
         while work is pending (else 0.0), and the per-admission prefix hit
         lengths since the last call (``prefix_hit_token_batch``, drained
+        here); the last drain's and restore's seconds and the requests
+        resumed; on a tiered engine the tier's gauges and the promoted hit
+        lengths since the last call (``promoted_hit_token_batch``, drained
         here). The contiguous layout has no pool: {}."""
         if self.layout != "paged":
             return {}
         out: Dict[str, object] = self._alloc.metrics()
+        out["drain_duration_seconds"] = self._drain_s or 0.0
+        out["restore_duration_seconds"] = self._restore_s or 0.0
+        out["requests_resumed_total"] = float(self._resumed)
         if self._prefix is not None:
             out.update(self._prefix.metrics())
             out["prefill_tokens_skipped"] = float(self._skipped_tokens)
@@ -1778,7 +1907,549 @@ class ContinuousBatcher:
         if self._hit_tok_buf:
             out["prefix_hit_token_batch"] = tuple(self._hit_tok_buf)
             self._hit_tok_buf.clear()
+        if self._promoted_hit_buf:
+            out["promoted_hit_token_batch"] = tuple(self._promoted_hit_buf)
+            self._promoted_hit_buf.clear()
         return out
+
+    # -- lifecycle: drain / restore / absorb -------------------------------
+    def fingerprint(self) -> Dict[str, object]:
+        """The engine-compat contract a snapshot carries, key for key the
+        JAX engine's: what must match for restored page bytes to be
+        addressed and decoded the same (layout, page geometry, dtypes,
+        model dims) and the knobs the slot state's page reservations
+        assume (chunk, speculative, gamma). ``n_pages`` is recorded but
+        exempt from the check (pages are re-laid out through the
+        allocator); tiering, chunked prefill, donation and the weights
+        are not recorded: none changes how a restored page decodes."""
+        cfg = self.cfg
+        paged = self.layout == "paged"
+        fp: Dict[str, object] = {
+            "layout": self.layout,
+            "kv_dtype": self.kv_dtype,
+            "dtype": str(cfg.dtype).replace("torch.", ""),
+            "decode_attn": cfg.decode_attn,
+            "n_layers": cfg.n_layers,
+            "n_kv_heads": cfg.n_kv_heads,
+            "n_heads": cfg.n_heads,
+            "head_dim": cfg.head_dim,
+            "vocab": cfg.vocab,
+            "n_slots": self.n_slots,
+            "chunk": self.chunk,
+            "bucket": self.bucket,
+            "capacity": self.S,
+            "eos_id": self.eos_id,
+            "temperature": self.temperature,
+            "top_k": self.top_k,
+            "speculative": self.spec,
+            "gamma": self.gamma if self.spec else None,
+            "prefix_cache": paged and self._prefix is not None,
+        }
+        if paged:
+            fp["page_size"] = self.page_size
+            fp["n_pages"] = self._alloc.n_pages
+        return fp
+
+    def _planes(self) -> list:
+        """The pool's planes: k, v and, int8, the two scale planes."""
+        return [t for t in (self._k, self._v, self._ks, self._vs)
+                if t is not None]
+
+    def _gather_pages(self, pages) -> list:
+        """Host copies ``[L, len(pages), ps, Hkv, x]`` of pool ``pages`` in
+        every plane: one ``index_select`` a plane into one flat device
+        buffer, then one device-to-host copy (into pinned memory on a
+        card). bf16 planes come back as their 16-bit words
+        (``np.uint16``)."""
+        idx = torch.as_tensor(np.asarray(pages, np.int64), device=self.device)
+        picked = [t.index_select(1, idx) for t in self._planes()]
+        dev = torch.cat([t.reshape(-1).view(torch.uint8) for t in picked])
+        host = torch.empty(dev.numel(), dtype=torch.uint8,
+                           pin_memory=dev.is_cuda)
+        flat = host.copy_(dev).numpy()
+        out, off = [], 0
+        for t in picked:
+            n = t.numel() * t.element_size()
+            out.append(flat[off:off + n].view(_host_dtype(t.dtype))
+                       .reshape(tuple(t.shape)))
+            off += n
+        return out
+
+    def _scatter_pages(self, pages, k, v, ks=None, vs=None) -> None:
+        """Land host page bytes ``[L, len(pages), ps, Hkv, x]`` (+ int8
+        scale planes) in pool ``pages``: the one copy path of restore,
+        absorb and tier promotion. Every plane's bytes go through one
+        staging tensor (pinned on a card) in one non-blocking
+        host-to-device copy, then one ``index_copy_`` a plane. bf16
+        planes take 16-bit words (or an array whose dtype is named
+        bfloat16)."""
+        if self._ks is not None and ks is None:
+            raise SnapshotError(
+                "int8-KV engine but the shipped pages carry no scale planes")
+        planes = self._planes()
+        host = []
+        for t, a in zip(planes, (k, v, ks, vs)):
+            a = np.ascontiguousarray(as_words(np.asarray(a)))
+            want = (t.shape[0], len(pages)) + tuple(t.shape[2:])
+            if a.shape != want or a.dtype.itemsize != t.element_size():
+                raise SnapshotError(
+                    f"page payload {a.dtype} {a.shape} does not fit the "
+                    f"{t.dtype} pool's {want}")
+            host.append(a)
+        staging = torch.empty(sum(a.nbytes for a in host), dtype=torch.uint8,
+                              pin_memory=self.device.type == "cuda")
+        buf, off = staging.numpy(), 0
+        for a in host:
+            buf[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+            off += a.nbytes
+        dev = staging.to(self.device, non_blocking=True)
+        idx = torch.as_tensor(np.asarray(pages, np.int64), device=self.device)
+        off = 0
+        for t, a in zip(planes, host):
+            t.index_copy_(1, idx,
+                          dev[off:off + a.nbytes].view(t.dtype).view(a.shape))
+            off += a.nbytes
+
+    def _drain_demotions(self) -> None:
+        """Resolve the pending demotions at a step boundary: one batched
+        gather of their pages (``_gather_pages``), committed into the host
+        tier page by page; each pool page then returns to the free list.
+        A commit the tier refuses (full, nothing evictable) forgets the
+        node instead: demote-before-forget never blocks admission."""
+        if self._tier is None:
+            return
+        pend = self._tier.take_pending()
+        if not pend:
+            return
+        planes = self._gather_pages([p for _, p in pend])
+        for i, (key, page) in enumerate(pend):
+            payload = tuple(np.ascontiguousarray(a[:, i]) for a in planes)
+            if len(payload) == 2:                # no int8 scale planes
+                payload += (None, None)
+            if not self._tier.commit(key, payload):
+                self._prefix.drop_demoted(key)
+            self._alloc.drop_cached(page)
+
+    def _apply_page_pressure(self, rules) -> None:
+        """Apply the ``page_pressure`` rules the step hook returned: hold
+        the largest requested count of pages out of the allocator (as many
+        as are free: pressure takes what is there), and release hostages
+        no rule wants any more."""
+        if self.layout != "paged":
+            return
+        want = max((r.pages for r in rules), default=0)
+        held = len(self._chaos_pages)
+        if want > held:
+            take = min(want - held, self._alloc.free_count)
+            if take:
+                got = self._alloc.alloc(take, count_denied=False)
+                if got:
+                    self._chaos_pages.extend(got)
+        elif want < held:
+            release = self._chaos_pages[want:]
+            del self._chaos_pages[want:]
+            self._alloc.free(release)
+
+    @torch.no_grad()
+    def drain(self, slots=None) -> ServingSnapshot:
+        """Stop admission and serialise the in-flight state machine to the
+        host (a preemption's first half; ``restore`` on a fresh engine is
+        the second). Deferred reads are flushed, pending demotions
+        resolved, page-pressure hostages freed, and every referenced pool
+        page (live slots' own and mounted pages, prefix-tree pages) is
+        gathered once, with the block tables, ``lens``, slot bindings,
+        budgets, emitted streams, the queue, the tree as token paths and
+        the host tier coldest first. Speculative proposals are not kept:
+        they are recomputed after restore. The engine refuses further
+        work afterwards.
+
+        ``slots`` drains only those active slots (load shedding): the
+        snapshot is ``partial`` (no queue, tree or tier), goes to
+        ``absorb()`` on another engine, and this engine keeps serving;
+        the shed slots retire through the reap path, their pages donated
+        into the local tree."""
+        if self.layout != "paged":
+            raise SnapshotError(
+                "drain() requires kv_layout='paged' (the snapshot format "
+                "is pool pages + block tables)")
+        if self._drained:
+            raise RuntimeError("engine already drained")
+        partial = slots is not None
+        if partial:
+            slots = sorted(int(s) for s in slots)
+            if not slots:
+                raise ValueError("partial drain needs at least one slot")
+            missing = [s for s in slots if s not in self._slot_req]
+            if missing:
+                raise ValueError(
+                    f"cannot shed inactive slot(s) {missing}: only active "
+                    f"slots carry migratable requests")
+        t0 = time.monotonic()
+        self._flush()
+        # dump_paths names demoted chunks by tier key, so every pending
+        # demotion commits before the tree is walked.
+        self._drain_demotions()
+        if not partial and self._chaos_pages:  # hostages are not state
+            self._alloc.free(self._chaos_pages)
+            self._chaos_pages = []
+        ids: list = []
+        seen: set = set()
+
+        def add(pages):
+            for p in pages:
+                p = int(p)
+                # A negative entry is a demoted chunk, -(tier key + 1):
+                # its bytes ride the tier sidecar.
+                if p > 0 and p not in seen:
+                    seen.add(p)
+                    ids.append(p)
+
+        shed = slots if partial else sorted(self._slot_req)
+        for slot in shed:
+            add(self._slot_shared.get(slot, ()))
+            add(self._slot_pages.get(slot, ()))
+        tree_paths = (self._prefix.dump_paths()
+                      if self._prefix is not None and not partial else [])
+        for _, pages in tree_paths:
+            add(pages)
+        tier_entries = (self._tier.items_coldest_first()
+                        if self._tier is not None and not partial else [])
+        tier = [None] * 4
+        if tier_entries:
+            tier = [None if tier_entries[0][1][i] is None
+                    else np.stack([p[i] for _, p in tier_entries], axis=1)
+                    for i in range(4)]
+        if ids:
+            planes = self._gather_pages(ids)
+        else:
+            cfg = self.cfg
+            empty = (cfg.n_layers, 0, self.page_size, cfg.n_kv_heads,
+                     cfg.head_dim)
+            planes = [np.zeros(empty, _host_dtype(self._k.dtype))] * 2
+            if self._ks is not None:
+                planes += [np.zeros(empty[:-1] + (1,), np.float32)] * 2
+        lens = self._lens.cpu().numpy().astype(np.int32)
+        last = self._last.cpu().numpy().astype(np.int32)
+        shed_set = set(shed)
+        shed_rids = ({int(self._slot_req[s]) for s in shed_set}
+                     if partial else None)
+        if partial:
+            # Rows of slots that stay must not ride: their pages do not.
+            table = np.full_like(self._table_np, NULL_PAGE)
+            table[shed] = self._table_np[shed]
+        else:
+            table = self._table_np.copy()
+
+        def keep_slot(s):
+            return not partial or int(s) in shed_set
+
+        def keep_rid(r):
+            return not partial or int(r) in shed_rids
+
+        # A mid-prefill slot's device lens is not authoritative; the host
+        # chunk scheduler is. lens = prefill_done is also how restore and
+        # absorb re-queue its unprefilled tail.
+        for s, d in self._prefill_pending.items():
+            if keep_slot(s):
+                lens[s] = d
+        snap = ServingSnapshot(
+            fingerprint=self.fingerprint(),
+            page_ids=ids,
+            k_pages=planes[0],
+            v_pages=planes[1],
+            k_scales=planes[2] if self._ks is not None else None,
+            v_scales=planes[3] if self._ks is not None else None,
+            table=table,
+            lens=lens,
+            last=last,
+            slot_req={int(s): int(r) for s, r in self._slot_req.items()
+                      if keep_slot(s)},
+            slot_pages={int(s): [int(p) for p in pg]
+                        for s, pg in self._slot_pages.items()
+                        if keep_slot(s)},
+            slot_shared={int(s): [int(p) for p in pg]
+                         for s, pg in self._slot_shared.items()
+                         if keep_slot(s)},
+            slot_prompt={int(s): [int(t) for t in pr]
+                         for s, pr in self._slot_prompt.items()
+                         if keep_slot(s)},
+            budgets={int(r): int(b) for r, b in self._budget.items()
+                     if keep_rid(r)},
+            out={int(r): [int(t) for t in ts]
+                 for r, ts in self._out.items() if keep_rid(r)},
+            queue=[] if partial else [(int(r), [int(t) for t in pr])
+                                     for r, pr in self._queue],
+            next_id=0 if partial else self._next_id,
+            eos_scanned={int(r): int(n)
+                         for r, n in self._eos_scanned.items()
+                         if keep_rid(r)},
+            tree_paths=tree_paths,
+            tier_keys=[int(key) for key, _ in tier_entries],
+            tier_k=tier[0], tier_v=tier[1], tier_ks=tier[2],
+            tier_vs=tier[3],
+            arrival={r: t for r, t in self._arrival.items() if keep_rid(r)},
+            first_tok={r: t for r, t in self._first_tok.items()
+                       if keep_rid(r)},
+            drained_mono=time.monotonic(),
+            drained_wall=time.time(),
+            skipped_tokens=0 if partial else self._skipped_tokens,
+            flight=[],
+            partial=partial,
+            spec_ema=({int(r): float(v) for r, v in self._spec_ema.items()
+                       if keep_rid(r)} if self.spec else {}),
+            spec_eff=({int(r): int(v)
+                       for r, v in self._spec_eff_last.items()
+                       if keep_rid(r)} if self.spec else {}),
+            spec_reserve=({int(r): int(v)
+                           for r, v in self._spec_reserve.items()
+                           if keep_rid(r)} if self.spec else {}),
+            spec_fleet_ema=(float(self._spec_fleet_ema)
+                            if self.spec else 1.0),
+        )
+        snap.validate()
+        if partial:
+            # The shed slots leave through the reap path: their
+            # transcript-so-far donates into the local tree, the rest
+            # frees now; the requests continue on the absorbing engine.
+            for slot in shed:
+                rid = self._slot_req.pop(slot)
+                decoded = self._donatable_decoded(rid)
+                for book in (self._budget, self._out, self._eos_scanned,
+                             self._arrival, self._first_tok):
+                    book.pop(rid, None)
+                self._drop_spec(slot, rid)
+                self._free_slot_pages(slot, decoded)
+            return snap
+        self._drained = True
+        self._drain_s = time.monotonic() - t0
+        return snap
+
+    @torch.no_grad()
+    def restore(self, snap: ServingSnapshot) -> int:
+        """Fill this fresh engine from a whole drained snapshot and resume
+        every interrupted stream as an uninterrupted run would. The pages
+        are re-laid out through this engine's allocator (any ``n_pages``
+        they fit in) and every block table, slot page list and tree path
+        is remapped; refcounts are rebuilt so ``assert_consistent`` holds
+        (and is asserted). The host tier's hottest entries that fit
+        ``dram_pages`` are kept (none on an untiered engine), and tree
+        paths stop at a dropped one. Clocks are rebased so latency
+        records charge the downtime. Sampled streams stay valid samples,
+        not the same ones: dispatch seeds restart. Returns the number of
+        resumed requests (in flight and queued)."""
+        if self.layout != "paged":
+            raise SnapshotError("restore() requires kv_layout='paged'")
+        if self._drained:
+            raise RuntimeError(
+                "cannot restore into a drained engine — build a fresh one")
+        if (self._slot_req or self._queue or self._next_id
+                or self._reads or self._alloc.in_use):
+            raise SnapshotError(
+                "restore() needs a FRESH engine (no admitted slots, no "
+                "queue, no allocated pages)")
+        if snap.partial:
+            raise SnapshotError(
+                "partial snapshot (a shed slot subset): absorb() it into "
+                "a running replica; restore() rebuilds a whole engine")
+        check_fingerprint(snap.fingerprint, self.fingerprint())
+        snap.validate()
+        t0 = time.monotonic()
+        lut = self._upload_snapshot_pages(snap)
+        table = np.asarray(snap.table, np.int64)
+        if table.shape != self._table_np.shape:
+            raise SnapshotError(
+                f"block table shape {table.shape} != "
+                f"{self._table_np.shape}")
+        if table.max(initial=0) >= len(lut) or (lut[table] < 0).any():
+            raise SnapshotError(
+                "block table references pages the snapshot did not ship")
+        self._table_np = lut[table].astype(np.int32)
+        self._table_dirty = True
+        self._lens = torch.as_tensor(np.array(snap.lens, np.int32),
+                                     device=self.device)
+        self._last = torch.as_tensor(np.array(snap.last, np.int32),
+                                     device=self.device)
+
+        def remap(pages):
+            return [int(lut[p]) for p in pages]
+
+        if snap.tree_paths and self._prefix is None:
+            raise SnapshotError(
+                "snapshot carries a prefix tree but prefix_cache=False")
+        # Tier entries ship coldest first: keep the hottest tail that
+        # fits; an untiered engine drops them all.
+        keymap: Dict[int, int] = {}
+        if snap.tier_keys and self._tier is not None:
+            lo = max(0, len(snap.tier_keys) - self._tier.dram_pages)
+            for i in range(lo, len(snap.tier_keys)):
+                payload = tuple(
+                    None if a is None else np.ascontiguousarray(a[:, i])
+                    for a in (snap.tier_k, snap.tier_v, snap.tier_ks,
+                              snap.tier_vs))
+                nk = self._tier.restore_entry(payload)
+                if nk is not None:
+                    keymap[int(snap.tier_keys[i])] = nk
+        for tokens, pages in snap.tree_paths:
+            mapped: list = []
+            for p in pages:
+                p = int(p)
+                if p >= 0:
+                    mapped.append(int(lut[p]))
+                    continue
+                nk = keymap.get(-p - 1)
+                if nk is None:               # dropped tier entry: truncate
+                    break
+                mapped.append(-(nk + 1))
+            if mapped:
+                self._prefix.insert(
+                    list(tokens)[:len(mapped) * self.page_size], mapped)
+        self._slot_req = dict(snap.slot_req)
+        self._slot_pages = {s: remap(pg) for s, pg in snap.slot_pages.items()}
+        self._slot_shared = {s: remap(pg)
+                             for s, pg in snap.slot_shared.items()}
+        for pg in self._slot_shared.values():
+            if pg:
+                self._alloc.retain(pg)
+        self._slot_prompt = {s: list(pr) for s, pr in snap.slot_prompt.items()}
+        self._budget = dict(snap.budgets)
+        self._out = {r: list(ts) for r, ts in snap.out.items()}
+        self._queue = [(r, list(pr)) for r, pr in snap.queue]
+        self._next_id = snap.next_id
+        self._eos_scanned = dict(snap.eos_scanned)
+        self._skipped_tokens = snap.skipped_tokens
+        if self.spec:
+            # The pinned reservations are load-bearing: the restored
+            # effective windows must keep to the pages admitted for.
+            self._spec_ema = dict(snap.spec_ema)
+            self._spec_eff_last = dict(snap.spec_eff)
+            self._spec_reserve = dict(snap.spec_reserve)
+            self._spec_fleet_ema = float(snap.spec_fleet_ema)
+        # Slots drained mid-prefill (lens < prompt length) re-queue their
+        # unprefilled tail, oldest request first.
+        lens = np.asarray(snap.lens)
+        for s in sorted(self._slot_req, key=lambda s: self._slot_req[s]):
+            pr = self._slot_prompt.get(s)
+            if pr is not None and int(lens[s]) < len(pr):
+                self._prefill_pending[s] = int(lens[s])
+        now_m, now_w = time.monotonic(), time.time()
+        self._arrival = snap.rebased_clock(snap.arrival, now_m, now_w)
+        self._first_tok = snap.rebased_clock(snap.first_tok, now_m, now_w)
+        self._alloc.assert_consistent()
+        self._resumed = snap.n_requests_in_flight
+        self._restore_s = time.monotonic() - t0
+        return self._resumed
+
+    def _upload_snapshot_pages(self, snap: ServingSnapshot) -> np.ndarray:
+        """Restore's and absorb's page move: fresh pages for the shipped
+        ids (evicting tree-only pages on a shortage), the bytes scattered
+        in (``_scatter_pages``); returns the old→new id table (-1 for an
+        unshipped id, the null page onto itself)."""
+        need = len(snap.page_ids)
+        if self._prefix is not None and need > self._alloc.free_count:
+            self._prefix.evict(need - self._alloc.free_count)
+            self._drain_demotions()
+        new = self._alloc.alloc(need)
+        if new is None:
+            raise SnapshotError(
+                f"snapshot references {need} pages but the pool has "
+                f"only {self._alloc.free_count} free")
+        lut = np.full(max(snap.page_ids, default=0) + 1, -1, np.int64)
+        lut[NULL_PAGE] = NULL_PAGE
+        for old, nw in zip(snap.page_ids, new):
+            lut[old] = nw
+        if new:
+            self._scatter_pages(new, snap.k_pages, snap.v_pages,
+                                snap.k_scales, snap.v_scales)
+        return lut
+
+    @torch.no_grad()
+    def absorb(self, snap: ServingSnapshot) -> Dict[int, int]:
+        """Merge a partial snapshot (``drain(slots=...)`` on another
+        engine) into this running engine. Each shed slot takes a free
+        local slot and its request a fresh local id; returns
+        ``{old id: new id}``. Pages the source had mounted read-only
+        arrive slot-owned (a page two shed slots shared is allocated once
+        and retained per extra holder), so ``assert_consistent`` holds on
+        both engines; latency clocks rebase across the hop."""
+        if self.layout != "paged":
+            raise SnapshotError("absorb() requires kv_layout='paged'")
+        if self._drained:
+            raise RuntimeError("cannot absorb into a drained engine")
+        if not snap.partial:
+            raise SnapshotError(
+                "absorb() takes a PARTIAL snapshot (drain(slots=...)); "
+                "restore() a full snapshot into a fresh engine")
+        if snap.tree_paths:
+            raise SnapshotError(
+                "partial snapshot must not carry a prefix tree")
+        check_fingerprint(snap.fingerprint, self.fingerprint())
+        snap.validate()
+        free_slots = sorted(s for s in range(self.n_slots)
+                            if s not in self._slot_req)
+        if len(snap.slot_req) > len(free_slots):
+            raise SnapshotError(
+                f"snapshot carries {len(snap.slot_req)} slots but only "
+                f"{len(free_slots)} are free here")
+        lut = self._upload_snapshot_pages(snap)
+        now_m, now_w = time.monotonic(), time.time()
+        arrival = snap.rebased_clock(snap.arrival, now_m, now_w)
+        first = snap.rebased_clock(snap.first_tok, now_m, now_w)
+        lens = self._lens.cpu().numpy().copy()
+        last = self._last.cpu().numpy().copy()
+        mapping: Dict[int, int] = {}
+        claimed: set = set()
+        # Source-id order: the chunk scheduler keeps charging the oldest
+        # migrated request first.
+        for src in sorted(snap.slot_req, key=lambda s: snap.slot_req[s]):
+            rid = int(snap.slot_req[src])
+            tgt = free_slots.pop(0)
+            new_rid = self._next_id
+            self._next_id += 1
+            mapping[rid] = new_rid
+            row = np.asarray(snap.table[src], np.int64)
+            if row.max(initial=0) >= len(lut) or (lut[row] < 0).any():
+                raise SnapshotError(
+                    "block table references pages the snapshot did not "
+                    "ship")
+            self._table_np[tgt] = lut[row].astype(np.int32)
+            pages = [int(lut[p])
+                     for p in (list(snap.slot_shared.get(src, []))
+                               + list(snap.slot_pages.get(src, [])))]
+            for p in pages:
+                if p in claimed:
+                    self._alloc.retain([p])
+                claimed.add(p)
+            self._slot_req[tgt] = new_rid
+            self._slot_pages[tgt] = pages
+            self._slot_shared[tgt] = []
+            self._slot_prompt[tgt] = [int(t) for t in snap.slot_prompt[src]]
+            self._budget[new_rid] = int(snap.budgets[rid])
+            self._out[new_rid] = [int(t) for t in snap.out.get(rid, [])]
+            if rid in snap.eos_scanned:
+                self._eos_scanned[new_rid] = int(snap.eos_scanned[rid])
+            if rid in arrival:
+                self._arrival[new_rid] = arrival[rid]
+            if rid in first:
+                self._first_tok[new_rid] = first[rid]
+            if self.spec:
+                if rid in snap.spec_ema:
+                    self._spec_ema[new_rid] = float(snap.spec_ema[rid])
+                if rid in snap.spec_eff:
+                    self._spec_eff_last[new_rid] = int(snap.spec_eff[rid])
+                if rid in snap.spec_reserve:
+                    self._spec_reserve[new_rid] = int(snap.spec_reserve[rid])
+            lens[tgt] = int(snap.lens[src])
+            last[tgt] = int(snap.last[src])
+            if lens[tgt] < len(self._slot_prompt[tgt]):
+                self._prefill_pending[tgt] = int(lens[tgt])
+        self._lens = torch.as_tensor(lens.astype(np.int32),
+                                     device=self.device)
+        self._last = torch.as_tensor(last.astype(np.int32),
+                                     device=self.device)
+        self._table_dirty = True
+        self._alloc.assert_consistent()
+        self._resumed += len(mapping)
+        return mapping
 
     def _reap_eos(self) -> list:
         """Free slots whose flushed output now holds eos."""

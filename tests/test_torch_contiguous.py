@@ -329,7 +329,7 @@ def test_max_new_one_burst_is_capped_per_step():
 
 
 def test_submit_and_option_errors():
-    _, cfg, _, model = bridged()
+    jcfg, cfg, params, model = bridged()
 
     def build(**kw):
         return ContinuousBatcher(model, cfg, device="cpu",
@@ -348,19 +348,31 @@ def test_submit_and_option_errors():
                       (dict(prefill_attn="kernel"), "prefill_attn requires"),
                       (dict(prefill_attn="gather"), "prefill_attn requires"),
                       (dict(kv_layout="ring"), "kv_layout must be"),
-                      (dict(prefill_attn="einsum"), "prefill_attn must be")):
+                      (dict(prefill_attn="einsum"), "prefill_attn must be"),
+                      (dict(kv_tiering=True),
+                       "kv_tiering=True requires kv_layout='paged'")):
         with pytest.raises(ValueError, match=match):
             build(**kw)
-    for kw, match in ((dict(kv_tiering=True), "lifecycle and tiering"),
-                      (dict(mesh=object()), "multi-device"),
+    for kw, match in ((dict(mesh=object()), "multi-device"),
                       (dict(role="prefill"), "fleet"),
                       (dict(kv_layout="paged", page_size=8,
                             prefill_attn="gather"), "kernel only")):
         with pytest.raises(NotImplementedError, match=match):
             build(**kw)
+    # The contiguous layout cannot drain, restore or absorb, in JAX too:
+    # the snapshot format is pool pages and block tables.
+    from k8s_gpu_scheduler_tpu.models.snapshot import (
+        SnapshotError as JSnapshotError)
+    from k8s_gpu_scheduler_tpu_torch.models.snapshot import SnapshotError
+    jeng = jserving.ContinuousBatcher(params, jcfg, **ENGINE)
     for name in ("drain", "restore", "absorb"):
-        with pytest.raises(NotImplementedError, match="lifecycle"):
+        with pytest.raises(JSnapshotError, match="kv_layout='paged'") as j:
+            getattr(jeng, name)(None)
+        with pytest.raises(SnapshotError, match="kv_layout='paged'") as e:
             getattr(eng, name)(None)
+        assert str(e.value) == str(j.value)
+    with pytest.raises(ValueError, match="kv_layout='paged'"):
+        jserving.ContinuousBatcher(params, jcfg, **ENGINE, kv_tiering=True)
     with pytest.raises(NotImplementedError, match="decode_attn"):
         ContinuousBatcher(model, dataclasses.replace(cfg,
                                                      decode_attn="dense"),

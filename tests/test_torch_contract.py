@@ -6,7 +6,8 @@ Both engines get the same f32 tiny weights (JAX ``init_params``, carried
 by the bridge) and the same traffic from a numpy seed; the JAX engine runs
 its Pallas kernels in interpret mode, the port its plain versions (CPU
 tensors). Options and gauges of slices not ported yet are listed here by
-name, with the slice that brings them."""
+name, with the slice that brings them; the tier's knobs and the lifecycle
+gauges are held to JAX's."""
 import inspect
 import time
 
@@ -23,9 +24,6 @@ from test_torch_serving import ENGINE, configs, step_all
 # JAX options the port accepts at their JAX defaults and refuses otherwise,
 # each with a value that needs the slice named.
 DEFERRED = [
-    pytest.param("dram_pages", 64, "lifecycle and tiering", id="dram_pages"),
-    pytest.param("kv_tier_disk", "tier", "lifecycle and tiering",
-                 id="kv_tier_disk"),
     pytest.param("weight_sharding", False, "multi-device",
                  id="weight_sharding"),
     pytest.param("tp_combine", "psum", "multi-device", id="tp_combine"),
@@ -33,9 +31,6 @@ DEFERRED = [
 ]
 # Paged pool_metrics() keys of the JAX engine that come with later slices.
 NOT_PORTED_KEYS = {
-    "drain_duration_seconds": "lifecycle",
-    "restore_duration_seconds": "lifecycle",
-    "requests_resumed_total": "lifecycle",
     "requests_shed_total": "fleet",
     "tp": "multi-device",
     "tp_combine": "multi-device",
@@ -63,6 +58,27 @@ def test_deferred_options_raise_naming_their_slice(weights, name, value,
     _, cfg, _, model = weights
     with pytest.raises(NotImplementedError, match=slice_name):
         ContinuousBatcher(model, cfg, device="cpu", **{name: value})
+
+
+@pytest.mark.parametrize("name,value", [("dram_pages", 64),
+                                        ("kv_tier_disk", "tier")],
+                         ids=["dram_pages", "kv_tier_disk"])
+def test_tier_knobs_need_tiering_as_in_jax(weights, name, value):
+    """The tier's knobs raise JAX's error without ``kv_tiering=True`` and
+    build a tiered engine with it (``dram_pages`` its DRAM capacity)."""
+    jcfg, cfg, params, model = weights
+    errors = []
+    for build, w, c in ((JEngine, params, jcfg),
+                        (ContinuousBatcher, model, cfg)):
+        kw = {} if build is JEngine else dict(device="cpu")
+        with pytest.raises(ValueError) as e:
+            build(w, c, **ENGINE, **kw, **{name: value})
+        errors.append(str(e.value))
+        eng = build(w, c, **ENGINE, **kw, kv_tiering=True, **{name: value})
+        errors.append(eng.pool_metrics()["tier_dram_capacity"])
+    assert errors[0] == errors[2] == \
+        "dram_pages/kv_tier_disk require kv_tiering=True"
+    assert errors[1] == errors[3] == (64.0 if name == "dram_pages" else 17.0)
 
 
 def test_jax_defaults_are_the_ports_and_accepted(weights):
@@ -141,6 +157,9 @@ def test_pool_metrics_keys_and_gauges_match_jax(weights):
     assert set(NOT_PORTED_KEYS) <= set(want)
     for key in ("kv_pool_device_bytes", "weight_device_bytes"):
         assert got[key] == want[key] > 0
+    for key in ("drain_duration_seconds", "restore_duration_seconds",
+                "requests_resumed_total"):
+        assert got[key] == want[key] == 0.0
     assert got["last_step_age_seconds"] == want["last_step_age_seconds"] \
         == 0.0
 

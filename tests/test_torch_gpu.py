@@ -469,6 +469,96 @@ def test_engine_on_card_matches_cpu(cuda, kw):
 SMALL = dict(vocab=256, d_model=128, n_layers=2, n_heads=2, n_kv_heads=1,
              d_ff=256, max_seq=128, dtype=torch.float32, decode_attn="fused",
              remat=False)
+# 13 pages: three requests in flight fill the pool, so each wave evicts
+# the pages the one before it cached.
+LIFECYCLE = dict(n_slots=3, max_len=128, chunk=4, prefill_bucket=16,
+                 kv_layout="paged", page_size=16, prefix_cache=True,
+                 n_pages=13)
+
+
+def _waves(vocab):
+    """Wave A: four requests on a 32-token system prompt; B: four unique;
+    C: A's system prompt again. Four requests on three slots: each wave's
+    last request mounts what its first finisher donated."""
+    rng = np.random.default_rng(0)
+    system = list(rng.integers(0, vocab, 32))
+    a = [system + list(rng.integers(0, vocab, 9)) for _ in range(4)]
+    b = [list(rng.integers(0, vocab, 41)) for _ in range(4)]
+    c = [system + list(rng.integers(0, vocab, 9)) for _ in range(4)]
+    return a, b, c
+
+
+def _lifecycle_streams(cfg, dev, drain=False, restore_kw=None, **kw):
+    """The waves' streams on one engine; with ``drain``, the engine is
+    drained after wave C's first step and restored into a fresh one
+    (``restore_kw`` overrides) that finishes. Returns (streams, the last
+    engine, the snapshot or None)."""
+    model = init_params(LlamaConfig(**cfg), torch.Generator().manual_seed(0),
+                        dev)
+
+    def make(**over):
+        return ContinuousBatcher(model, LlamaConfig(**cfg), device=dev,
+                                 **{**LIFECYCLE, **kw, **over})
+
+    eng, streams, snap = make(), [], None
+    for i, wave in enumerate(_waves(cfg["vocab"])):
+        ids = [eng.submit(p, 12) for p in wave]
+        done = {}
+        if drain and i == 2:
+            done.update(eng.step())
+            snap = eng.drain()
+            eng._alloc.assert_consistent()
+            eng = make(**(restore_kw or {}))
+            assert eng.restore(snap) == snap.n_requests_in_flight > 0
+        while eng.pending:
+            done.update(eng.step())
+        eng._alloc.assert_consistent()
+        streams += [done[r] for r in ids]
+    return streams, eng, snap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, dict(kv_dtype="int8"),
+                                dict(speculative=True, gamma=3)],
+                         ids=["f32", "int8kv", "spec"])
+def test_drain_restore_on_card_matches_cpu(cuda, kw):
+    """A card engine drained mid-stream and restored into a fresh card
+    engine with a larger pool finishes every stream as the CPU engine's
+    undrained run does (f32); the resumed engine launches the kernels and
+    calls no plain version."""
+    ref, _, _ = _lifecycle_streams(SMALL, "cpu", **kw)
+    da.reset_counters()
+    got, eng, snap = _lifecycle_streams(SMALL, cuda, drain=True,
+                                        restore_kw=dict(n_pages=40), **kw)
+    assert got == ref
+    assert snap.slot_req and snap.queue
+    c = da.counters()
+    assert c["paged_prefill_attention"] > 0
+    assert c["paged_verify_attention" if kw.get("speculative")
+             else "paged_decode_attention"] > 0
+    assert not (c["paged_decode_reference"] or c["dense_prefill_reference"]
+                or c["paged_verify_reference"]), c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, dict(kv_dtype="int8")],
+                         ids=["f32", "int8kv"])
+def test_tiering_on_card_matches_cpu_untiered(cuda, kw):
+    """KV tiering on the card (demotion gathers, promotion scatters) gives
+    the CPU engine's streams with tiering off, at f32; wave C promotes
+    wave A's pages back, and a drain with a populated tier restores into
+    a tiered card engine that finishes the same streams."""
+    ref, _, _ = _lifecycle_streams(SMALL, "cpu", **kw)
+    tier = dict(kv_tiering=True, dram_pages=16)
+    got, eng, _ = _lifecycle_streams(SMALL, cuda, **tier, **kw)
+    assert got == ref
+    m = eng.pool_metrics()
+    assert m["page_demotions_total"] > 0 and m["page_promotions_total"] > 0
+    again, eng, snap = _lifecycle_streams(SMALL, cuda, drain=True,
+                                          restore_kw=tier, **tier, **kw)
+    assert again == ref and snap.tier_keys
+    eng._alloc.tier.assert_consistent()
+
 
 
 @pytest.mark.gpu

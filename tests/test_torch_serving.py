@@ -144,22 +144,76 @@ def test_run_matches_step():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_tiering=True), dict(mesh=object()),
-    dict(role="prefill"), dict(fault_injector=object()),
-    dict(tracer=object()), dict(flight_capacity=256)],
+    dict(mesh=object()), dict(role="prefill"), dict(tracer=object()),
+    dict(flight_capacity=256)],
     ids=lambda kw: next(iter(kw)))
 def test_later_slice_options_raise(kw):
     with pytest.raises(NotImplementedError, match="slice"):
         _port_engine(**kw)
 
 
-def test_lifecycle_methods_raise_and_dense_decode_refused():
-    eng = _port_engine()
-    for name in ("drain", "restore", "absorb"):
-        with pytest.raises(NotImplementedError, match="lifecycle"):
-            getattr(eng, name)(None)
-    _, cfg = configs()
-    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+@pytest.mark.parametrize("kw", [
+    dict(kv_tiering=True),
+    dict(fault_injector=("serve.step", "page_pressure"))],
+    ids=lambda kw: next(iter(kw)))
+def test_lifecycle_options_build_engines_as_jax_does(kw):
+    """The lifecycle slice's options build a serving engine, as they do
+    in JAX: a tiered engine reports JAX's tier gauges, and an injector's
+    ``serve.step`` hook fires once a step (here holding pages hostage)."""
+    from k8s_gpu_scheduler_tpu.testing.faults import FaultInjector as JInj
+    from k8s_gpu_scheduler_tpu.testing.faults import FaultRule as JRule
+    from k8s_gpu_scheduler_tpu_torch.testing.faults import (
+        FaultInjector, FaultRule)
+
+    jcfg, cfg = configs()
+    params = j_init(jcfg, jax.random.PRNGKey(0))
+    model = params_from_numpy(jax.tree.map(np.asarray, params), cfg, "cpu")
+    if "fault_injector" in kw:
+        site, kind = kw["fault_injector"]
+        jkw = dict(fault_injector=JInj(rules=[JRule(site, kind, every=1,
+                                                    pages=3)]))
+        kw = dict(fault_injector=FaultInjector(rules=[FaultRule(
+            site, kind, every=1, pages=3)]))
+    else:
+        jkw = kw
+    engines = (JEngine(params, jcfg, **ENGINE, **jkw),
+               ContinuousBatcher(model, cfg, device="cpu", **ENGINE, **kw))
+    got = []
+    for eng in engines:
+        eng.submit(list(range(3, 20)), max_new=4)
+        eng.step()
+        got.append(eng.pool_metrics())
+    assert set(got[1]) == set(got[0]) - {
+        "requests_shed_total", "tp", "tp_combine",
+        "weight_sliced_device_bytes"}
+    for key in ("pages_in_use", "pages_free", "tier_dram_capacity"):
+        assert got[1].get(key) == got[0].get(key)
+    if "fault_injector" in kw:
+        assert kw["fault_injector"].log == [("serve.step", 1,
+                                             "page_pressure")]
+        assert len(engines[1]._chaos_pages) == 3
+    else:
+        assert got[1]["tier_dram_capacity"] == 1 + 2 * 8
+
+
+def test_drain_of_idle_engine_and_dense_decode_refused():
+    """drain() of an engine with nothing in flight gives JAX's zero-page
+    snapshot; the drained engine refuses work. decode_attn='dense' is
+    still refused: the port serves through the attention kernels."""
+    jcfg, cfg = configs()
+    params = j_init(jcfg, jax.random.PRNGKey(0))
+    model = params_from_numpy(jax.tree.map(np.asarray, params), cfg, "cpu")
+    jsnap = JEngine(params, jcfg, **ENGINE).drain()
+    eng = ContinuousBatcher(model, cfg, device="cpu", **ENGINE)
+    snap = eng.drain()
+    assert snap.fingerprint == jsnap.fingerprint
+    assert snap.page_ids == jsnap.page_ids == []
+    assert snap.k_pages.shape == jsnap.k_pages.shape
+    assert snap.n_requests_in_flight == 0
+    with pytest.raises(RuntimeError, match="drained"):
+        eng.submit([1, 2, 3], max_new=2)
+    with pytest.raises(RuntimeError, match="drained"):
+        eng.step()
     with pytest.raises(NotImplementedError, match="decode_attn"):
         ContinuousBatcher(model, dataclasses.replace(cfg, decode_attn="dense"),
                           device="cpu")
