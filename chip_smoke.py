@@ -126,6 +126,21 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    allocator's and the tier's invariants are asserted after every drain,
    restore and wave.
 
+9. observability at full width: phase 3's engine and traffic (and then
+   phase 4's speculative engine and traffic) run untraced with no flight
+   recorder, then with an ``obs.Tracer`` and the default recorder (256):
+   the streams and the kernel launches (K1 and K2; K3) must be equal and
+   no plain version run, no span dropped, the spans (queue, admit,
+   prefill, decode_chunk, reap; verify and rewind) written by
+   ``write_perfetto`` must pass ``validate_perfetto``, and one
+   ``pool_metrics()`` snapshot exported by ``export_serving_pool`` must
+   expose ``tpu_serve_phase_duration_seconds`` for every phase that ran.
+   Prints each phase's span count, total host ms and mean ms a span (a
+   dispatch span ends when its kernels are enqueued), then decode tokens/s
+   and wall for untraced (flight 0), the defaults and traced, three runs
+   of each in turn (no gate: the host's spread is wider than the
+   instrumentation).
+
 ``--profile`` adds profiled serving runs (plain decode, speculative and
 the contiguous engine) and one profiled training step: the card's busy
 share and its time by kernel; and the CUDA kernels one paged decode
@@ -146,8 +161,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1449,6 +1466,136 @@ def phase_tiering_full_width(dev, card) -> dict:
     return out
 
 
+# -- phase 9: observability ------------------------------------------------------
+
+def obs_run(model, cfg, prompts, max_new, traced, **kw):
+    """Phase 3's engine (``kw`` overrides) over ``prompts``: traced with an
+    ``obs.Tracer`` and the default flight recorder, or untraced with none;
+    nothing synchronises inside the run. Returns (streams, counters,
+    engine, tracer, one pool_metrics() snapshot, wall s)."""
+    from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
+    from k8s_gpu_scheduler_tpu_torch.obs import Tracer
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    tr = Tracer() if traced else None
+    eng = ContinuousBatcher(model, cfg, device=model.device, **{
+        **dict(n_slots=8, max_len=cfg.max_seq, chunk=max_new,
+               prefill_bucket=512, kv_layout="paged", page_size=64,
+               prefix_cache=True), **kw,
+        **(dict(tracer=tr) if traced else dict(flight_capacity=0))})
+    torch.cuda.synchronize()
+    da.reset_counters()
+    t0 = time.perf_counter()
+    streams = drive(eng, prompts, max_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return streams, da.counters(), eng, tr, eng.pool_metrics(), wall
+
+
+def check_traced(card, label, model, cfg, prompts, max_new, spans,
+                 kernels, **kw) -> dict:
+    """An untraced run and a traced run of the same traffic: equal streams
+    and launches of ``kernels``, no plain version, no span dropped, the
+    ``spans`` named, a Perfetto file that validates, and an exposition
+    with every phase that ran. Prints the phases' host-time rollup."""
+    from k8s_gpu_scheduler_tpu_torch.metrics import (
+        PHASE_HISTOGRAM, Registry, export_serving_pool)
+    from k8s_gpu_scheduler_tpu_torch.obs import (
+        validate_perfetto, write_perfetto)
+
+    off = obs_run(model, cfg, prompts, max_new, False, **kw)
+    streams, counts, eng, tr, pool, wall = obs_run(
+        model, cfg, prompts, max_new, True, **kw)
+    launched = {k: counts[k] for k in kernels}
+    if streams != off[0]:
+        raise SystemExit(f"{label}: the traced streams differ from the "
+                         f"untraced ones")
+    if launched != {k: off[1][k] for k in kernels} \
+            or not all(launched.values()) \
+            or any(c[k] for c in (counts, off[1]) for k in PLAIN):
+        raise SystemExit(f"{label}: traced launches {counts}, untraced "
+                         f"{off[1]}")
+    names = {s.name for s in tr.spans()}
+    if tr.dropped or not spans <= names:
+        raise SystemExit(f"{label}: {tr.dropped} spans dropped, spans "
+                         f"{sorted(names)} lack {sorted(spans - names)}")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        write_perfetto(tr.spans(), path)
+        with open(path, encoding="utf-8") as fh:
+            doc = json.load(fh)
+    problems = validate_perfetto(doc)
+    if problems:
+        raise SystemExit(f"{label}: the Perfetto document fails: "
+                         f"{problems[:5]}")
+    reg = Registry()
+    export_serving_pool(reg, pool)
+    text = reg.expose()
+    ran = sorted({p for p, _ in pool.get("phase_durations", ())})
+    missing = [p for p in ran
+               if f'{PHASE_HISTOGRAM}_count{{phase="{p}"}}' not in text]
+    if not ran or missing:
+        raise SystemExit(f"{label}: the exposition lacks phases {missing} "
+                         f"(ran {ran})")
+    rollup: dict = {}
+    for phase, sec in pool["phase_durations"]:
+        n, ms = rollup.get(phase, (0, 0.0))
+        rollup[phase] = (n + 1, ms + 1e3 * sec)
+    for phase, (n, ms) in sorted(rollup.items(), key=lambda x: -x[1][1]):
+        log(f"  [{card}] {label} {phase}: {n} spans, {ms:.3f} host ms, "
+            f"{ms / n:.4f} ms a span")
+    kinds: dict = {}
+    for r in eng._flight.records():
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    st = dict(spans=len(tr), perfetto_events=len(doc["traceEvents"]),
+              flight_records=kinds, launches=launched, wall_s=wall,
+              untraced_wall_s=off[5],
+              phases={p: dict(spans=n, host_ms=ms)
+                      for p, (n, ms) in rollup.items()})
+    log(f"  [{card}] {label}: {json.dumps(st)}")
+    return st
+
+
+def phase_observability(dev, card) -> dict:
+    """Phase 9: phase 3's and phase 4's traffic traced against untraced
+    (``check_traced``), then the instrumentation's cost on decode tokens/s
+    and wall, three runs of each setting in turn."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+    from k8s_gpu_scheduler_tpu_torch.obs import Tracer
+
+    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    rng = np.random.default_rng(0)               # phase 3's prompts
+    shared_prefix_traffic(rng, cfg.vocab, 8, 384, 128)
+    prompts = shared_prefix_traffic(rng, cfg.vocab, 32, 384, 128)
+    rng = np.random.default_rng(2)               # phase 4's prompts
+    repeated_phrases(rng, cfg.vocab, 8)
+    phrases = repeated_phrases(rng, cfg.vocab, 32)
+    out = dict(paged=check_traced(
+        card, "paged", model, cfg, prompts, 64,
+        {"queue", "admit", "prefill", "decode_chunk", "reap"},
+        ("paged_decode_attention", "paged_prefill_attention")))
+    out["speculative"] = check_traced(
+        card, "speculative", model, cfg, phrases, 64,
+        {"queue", "admit", "prefill", "verify", "rewind", "reap"},
+        ("paged_verify_attention",), **SPEC_ENGINE)
+    settings = {"untraced, flight 0": lambda: dict(flight_capacity=0),
+                "defaults (flight 256)": dict,
+                "traced": lambda: dict(tracer=Tracer())}
+    runs: dict = {name: [] for name in settings}
+    for _ in range(3):
+        for name, kw in settings.items():
+            _, st = serve_run(model, cfg, prompts, 64, **kw())
+            runs[name].append((st["decode_tokens_per_s"], st["wall_s"]))
+    for name, rs in runs.items():
+        log(f"  [{card}] overhead, {name}: decode tokens/s "
+            f"{[round(r[0], 1) for r in rs]}, wall s "
+            f"{[round(r[1], 4) for r in rs]}")
+    out["overhead"] = runs
+    return out
+
+
 def profiled(card, label, fn) -> None:
     """Run ``fn`` (returning (streams, stats)) under torch.profiler and
     print the card's busy share of the wall time and its device time by
@@ -1816,6 +1963,9 @@ def main() -> int:
     phase_drain_restore_full_width(dev, card)
     log("  (c) full-width tiering: waves A, B, C, bf16")
     phase_tiering_full_width(dev, card)
+    log("phase 9: observability at full width: traced against untraced, "
+        "bf16")
+    phase_observability(dev, card)
     # Each kernel's launches come from the run of the path that runs it:
     # K1 and K2 from phase 3's main path, K3 from phase 4's, K4 from phase
     # 7's serve-loop run, K5-K7 from phase 6's timed steps.

@@ -49,6 +49,16 @@ promotes them back in one scatter (``_scatter_pages``) before the matching
 slot's first prefill. ``fault_injector`` (``testing/faults.py``) fires
 ``serve.step`` and ``serve.propose``.
 
+**Observability** (``obs/``). Every host time the engine reads goes
+through its ``clock`` (a ``VirtualClock`` in tests). ``tracer`` collects
+the JAX engine's phase spans, under its names, lanes and attributes
+(queue, admit, prefill, prefill_chunk, decode_chunk, verify, rewind,
+reap; drain, shed, restore, absorb; demote, promote); the flight recorder
+(``flight_capacity``, 256 by default, 0 for none) keeps one record per
+step and rides the snapshot through drain and restore. A span brackets
+host work: a dispatch span ends when its kernels are enqueued. No hook
+reads a device value.
+
 **Single sequence.** ``generate`` prefills a ``[B, T]`` prompt batch and
 decodes greedily through ``forward_with_cache`` (K4 per layer per token
 with ``cfg.decode_attn="fused"``); ``generate_speculative`` (B = 1)
@@ -68,7 +78,7 @@ or slot); there is no global RNG.
 from __future__ import annotations
 
 import math
-import time
+import threading
 from collections import OrderedDict, deque
 from functools import partial
 from typing import Dict, Optional, Tuple
@@ -77,6 +87,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.flight import FlightRecorder
+from ..obs.trace import SYSTEM_CLOCK
 from ..ops.decode_attention import (
     DEFAULT_PAGE_SIZE, contiguous_as_paged, decode_plan,
     flash_decode_attention, paged_decode_attention, paged_plan,
@@ -800,17 +812,12 @@ def _prefill_multi_fn(model: Llama, cfg: LlamaConfig, k, v, k_s, v_s,
 
 # Options of the JAX engine that later slices of the port bring, with the
 # value that means "off" (for weight_sharding and tp_combine: JAX's
-# defaults, which change nothing without a mesh). flight_capacity keeps 0
-# where JAX defaults to 256: 256 turns on a flight recorder the port does
-# not have yet.
+# defaults, which change nothing without a mesh).
 _LATER_SLICES = {
     "mesh": (None, "the multi-device slice"),
     "weight_sharding": (True, "the multi-device slice"),
     "tp_combine": ("all_gather", "the multi-device slice"),
     "role": ("mixed", "the fleet slice"),
-    "tracer": (None, "the observability slice"),
-    "clock": (None, "the observability slice"),
-    "flight_capacity": (0, "the observability slice"),
 }
 
 
@@ -852,6 +859,11 @@ class ContinuousBatcher:
     (``dram_pages``, then disk under ``kv_tier_disk``) and promotes them
     back; ``fault_injector`` is the chaos hook.
 
+    ``clock`` (default the system clock) is the time every queue wait,
+    TTFT, watchdog age and span reads; ``tracer`` (an ``obs.Tracer``,
+    default None) records the phase spans; ``flight_capacity`` (default
+    256, 0 for none) sizes the flight recorder's ring.
+
     ``model`` must live on ``device`` (default ``"cuda"``; the CPU only
     when asked). ``cfg.decode_attn`` must be ``"fused"``: the port serves
     through the attention kernels. The JAX engine's other options raise
@@ -875,10 +887,9 @@ class ContinuousBatcher:
                  weight_sharding: bool = True,
                  tp_combine: str = "all_gather", role: str = "mixed",
                  fault_injector=None, tracer=None, clock=None,
-                 flight_capacity: int = 0):
+                 flight_capacity: int = 256):
         given = dict(mesh=mesh, weight_sharding=weight_sharding,
-                     tp_combine=tp_combine, role=role, tracer=tracer,
-                     clock=clock, flight_capacity=flight_capacity)
+                     tp_combine=tp_combine, role=role)
         for name, (off, slice_name) in _LATER_SLICES.items():
             if given[name] != off:
                 raise NotImplementedError(
@@ -980,6 +991,20 @@ class ContinuousBatcher:
         self._angles = rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                   device=dev)
         self._last = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+        # Observability: every host time read goes through ``_clock``;
+        # ``_obs_mu`` guards what a scrape thread reads while the step
+        # loop writes, so pool_metrics() takes one consistent snapshot.
+        # Every buffer is bounded, dropping its oldest entry.
+        self._clock = clock or SYSTEM_CLOCK
+        self._tracer = tracer
+        self._flight = (FlightRecorder(flight_capacity, self._clock)
+                        if flight_capacity else None)
+        self._obs_mu = threading.Lock()
+        self._phase_buf: deque = deque(maxlen=4096)
+        self._timelines: "OrderedDict[int, list]" = OrderedDict()
+        self._rid_label: Dict[int, str] = {}
+        self._step_faults: list = []      # fault kinds fired this step
+        self._step_admitted = 0           # admissions this step
         # Chaos hook (testing/faults.py): ``serve.step`` fires once a step
         # before any state changes, ``serve.propose`` once a slot a
         # proposal; page-pressure rules hold pool pages hostage.
@@ -991,6 +1016,7 @@ class ContinuousBatcher:
         self._drain_s: Optional[float] = None
         self._restore_s: Optional[float] = None
         self._resumed = 0
+        self._shed_total = 0                     # requests shed to a peer
         if paged:
             self._init_paged(page_size, n_pages, prefix_cache,
                              prefill_chunk_tokens, kv_tiering, dram_pages,
@@ -1023,7 +1049,7 @@ class ContinuousBatcher:
         self._request_errors = 0
         # Liveness: host time of the last step's start
         # (``last_step_age_seconds``).
-        self._last_step_t = time.monotonic()
+        self._last_step_t = self._clock.monotonic()
 
     def _kv_buffers(self, shape: Tuple[int, ...]):
         """Zeroed (k, v, k_scale, v_scale) of ``shape`` [..., hd]: int8
@@ -1111,9 +1137,78 @@ class ContinuousBatcher:
         # Prefill dispatches per (tb, hb) rung; hb > 0 rungs run K2.
         self.prefill_rungs: Dict[Tuple[int, int], int] = {}
 
+    # -- observability -----------------------------------------------------
+    _TIMELINE_MAX = 1024                  # completed-request timeline cap
+
+    def _rid(self, req_id: int) -> str:
+        """Span correlation label of a request: its ``trace_id`` or
+        ``req-<n>``."""
+        return self._rid_label.get(req_id, f"req-{req_id}")
+
+    def _obs_span(self, phase: str, t0: float, t1: float,
+                  rid: Optional[int] = None, lane: str = "engine",
+                  fold: bool = True, **attrs) -> None:
+        """Record one phase span: to the tracer (with the rid label), to
+        the request's timeline, and — when ``fold`` — into the
+        phase-duration batch pool_metrics() drains. Per-slot lane copies
+        of an engine-wide dispatch span pass fold=False so the histogram
+        counts each dispatch once."""
+        label = None if rid is None else self._rid(rid)
+        self._tracer.record(phase, t0, t1, lane=lane, rid=label, **attrs)
+        evicted: list = []
+        with self._obs_mu:
+            if fold:
+                self._phase_buf.append((phase, t1 - t0))
+            if rid is not None:
+                tl = self._timelines.get(rid)
+                if tl is None:
+                    while len(self._timelines) >= self._TIMELINE_MAX:
+                        evicted.append(self._timelines.popitem(last=False)[0])
+                    tl = self._timelines.setdefault(rid, [])
+                tl.append({"phase": phase, "t0": t0, "t1": t1, **attrs})
+        for old in evicted:
+            # A trace label lives as long as the timeline that needs it.
+            self._rid_label.pop(old, None)
+
+    def request_timeline(self, rid) -> Optional[Dict[str, object]]:
+        """A traced request's timeline: the ordered phase events and a
+        per-phase rollup {count, total_s}; None if it was never traced.
+        ``rid`` is the request id or its trace label."""
+        if isinstance(rid, str):
+            # A copy: submit() and the timeline eviction change the dict.
+            matches = [i for i, lbl in self._rid_label.copy().items()
+                       if lbl == rid]
+            if not matches and rid.startswith("req-"):
+                try:
+                    matches = [int(rid[4:])]
+                except ValueError:
+                    matches = []
+            if not matches:
+                return None
+            rid = matches[-1]
+        with self._obs_mu:
+            events = [dict(e) for e in self._timelines.get(rid, [])]
+        if not events:
+            return None
+        phases: Dict[str, Dict[str, float]] = {}
+        for e in events:
+            p = phases.setdefault(e["phase"], {"count": 0, "total_s": 0.0})
+            p["count"] += 1
+            p["total_s"] += e["t1"] - e["t0"]
+        return {"request": rid, "trace_id": self._rid(rid),
+                "events": events, "phases": phases}
+
+    def label_request(self, req_id: int, label: Optional[str]) -> None:
+        """Attach a trace label to a live request (after ``absorb()``
+        gave it a fresh local id: labels do not ride snapshots)."""
+        if label:
+            self._rid_label[int(req_id)] = str(label)
+
     # -- API ---------------------------------------------------------------
-    def submit(self, prompt, max_new: int) -> int:
-        """Queue one request; returns its id. ``prompt``: 1-D token ids."""
+    def submit(self, prompt, max_new: int,
+               trace_id: Optional[str] = None) -> int:
+        """Queue one request; returns its id. ``prompt``: 1-D token ids;
+        ``trace_id`` labels its spans (default ``req-<id>``)."""
         if self._drained:
             raise RuntimeError(
                 "engine is drained: admission is stopped; restore() the "
@@ -1144,7 +1239,9 @@ class ContinuousBatcher:
             # submit: admission quotes the same figure on every retry.
             self._spec_reserve[req_id] = self._spec_overshoot()
             self._spec_ema[req_id] = self._spec_fleet_ema
-        self._arrival[req_id] = time.monotonic()
+        self._arrival[req_id] = self._clock.monotonic()
+        if trace_id is not None:
+            self._rid_label[req_id] = str(trace_id)
         self._queue.append((req_id, prompt))
         return req_id
 
@@ -1304,6 +1401,8 @@ class ContinuousBatcher:
         while free and self._queue and len(adm) < self.n_slots:
             req_id, prompt = self._queue[0]
             P = len(prompt)
+            t_adm = self._clock.monotonic()
+            evicted = 0
             hits: list = []
             demoted: list = []
             if self._prefix is not None:
@@ -1328,8 +1427,8 @@ class ContinuousBatcher:
                     - len(hits) - len(demoted))
             if self._prefix is not None \
                     and need + len(demoted) > self._alloc.free_count:
-                self._prefix.evict(need + len(demoted)
-                                   - self._alloc.free_count)
+                evicted = need + len(demoted) - self._alloc.free_count
+                self._prefix.evict(evicted)
                 if self._tier is not None:
                     # evict() only enqueued demotions: their pages free
                     # once the readback drains. The tier's capacity shed
@@ -1353,6 +1452,13 @@ class ContinuousBatcher:
             if pages is None:
                 if hits:
                     self._alloc.free(hits)
+                if self._tracer is not None \
+                        and req_id != self._last_denied:
+                    # The admission-stall marker, once per blocked head.
+                    self._tracer.event(
+                        "page_shortage", lane="engine",
+                        rid=self._rid(req_id), need=need,
+                        free=self._alloc.free_count)
                 self._last_denied = req_id
                 break
             if req_id == self._last_denied:
@@ -1364,6 +1470,7 @@ class ContinuousBatcher:
                 # first len(demoted) fresh pages before the slot's first
                 # prefill; they then mount like resident hits. The tree
                 # adopts the allocation's reference, the slot retains.
+                t_pr = self._clock.monotonic()
                 promo, pages = pages[:len(demoted)], pages[len(demoted):]
                 pay = [self._tier.pop(nd.demoted) for nd in demoted]
                 self._scatter_pages(promo, *(
@@ -1373,7 +1480,11 @@ class ContinuousBatcher:
                 self._prefix.promote(demoted, promo)
                 self._alloc.retain(promo)
                 hits = hits + promo
-                self._promoted_hit_buf.append(len(promo) * ps)
+                with self._obs_mu:
+                    self._promoted_hit_buf.append(len(promo) * ps)
+                if self._tracer is not None:
+                    self._obs_span("promote", t_pr, self._clock.monotonic(),
+                                   rid=req_id, pages=len(promo))
             row = self._table_np[slot]
             row[:] = NULL_PAGE
             row[:len(hits)] = hits                   # shared, read-only
@@ -1382,12 +1493,20 @@ class ContinuousBatcher:
             hit_tok = len(hits) * ps
             self._skipped_tokens += hit_tok
             if self._prefix is not None:
-                self._hit_tok_buf.append(hit_tok)
+                with self._obs_mu:
+                    self._hit_tok_buf.append(hit_tok)
             # The uncached tail's bucket, rounded up to whole pages (the
             # prefill scatter writes whole pages).
             tb = -(-self._ladder(P - hit_tok) // ps) * ps
             adm.append((req_id, slot, pages, prompt,
                         (tb, self._hb_bucket(len(hits))), hits))
+            if self._tracer is not None:
+                self._obs_span("queue", self._arrival.get(req_id, t_adm),
+                               t_adm, rid=req_id, prompt_len=P)
+                self._obs_span("admit", t_adm, self._clock.monotonic(),
+                               rid=req_id, slot=slot, bucket=tb,
+                               hit_pages=len(hits), new_pages=len(pages),
+                               evicted=evicted)
             if self._prefill_chunk is not None:
                 # Chunked admission: bind the slot and queue its prefill
                 # for _advance_prefill; the first token (and the budget
@@ -1411,6 +1530,7 @@ class ContinuousBatcher:
                 self._slot_shared[slot] = hits
                 self._slot_prompt[slot] = prompt
         if self._prefill_chunk is not None:
+            self._step_admitted = len(adm)
             return finished                  # _advance_prefill dispatches
         for run in self._group_admissions(adm):
             tb, hb = run[0][4]
@@ -1425,10 +1545,21 @@ class ContinuousBatcher:
                     [pg[j] if j < len(pg) else NULL_PAGE for j in range(npg)],
                     [h[j] if j < len(h) else NULL_PAGE for j in range(hb)],
                     len(h) * ps, tail, len(tail)))
+            t_pf = self._clock.monotonic()
             firsts = self._dispatch_prefill_paged(norm, tb, hb)
             self._reads.append(("firsts", firsts, [rid for rid, *_ in run]))
+            if self._tracer is not None:
+                t1 = self._clock.monotonic()
+                self._obs_span("prefill", t_pf, t1, bucket=tb,
+                               prefix_bucket=hb,
+                               requests=[self._rid(r) for r, *_ in run])
+                for rid, slot, _, _, _, h in run:
+                    self._obs_span("prefill", t_pf, t1, rid=rid,
+                                   lane=f"slot{slot}", fold=False,
+                                   hit_pages=len(h))
         for pages, hits, prompt in free_after:
             self._retire_pages(pages, hits, prompt)
+        self._step_admitted = len(adm)
         return finished
 
     def _dispatch_prefill_paged(self, rows, tb: int, hb: int):
@@ -1541,12 +1672,24 @@ class ContinuousBatcher:
                      [int(self._table_np[e[1]][j]) if j < e[5] // ps
                       else NULL_PAGE for j in range(hb)],
                      e[5], e[3], e[6]) for e in rows]
+            t_pf = self._clock.monotonic()
             firsts = self._dispatch_prefill_paged(norm, tb, hb)
             # Only final chunks carry a first token; the others read back
             # as None and _flush drops them.
             self._reads.append(("firsts", firsts,
                                 [e[0] if e[7] else None for e in run]))
             self._prefill_chunks_total += len(run)
+            if self._tracer is not None:
+                t1 = self._clock.monotonic()
+                self._obs_span("prefill_chunk", t_pf, t1, bucket=tb,
+                               prefix_bucket=hb,
+                               tokens=int(sum(e[6] for e in run)),
+                               requests=[self._rid(e[0]) for e in run])
+                for e in run:
+                    self._obs_span("prefill_chunk", t_pf, t1, rid=e[0],
+                                   lane=f"slot{e[1]}", fold=False,
+                                   tokens=e[6], done=e[5] + e[6],
+                                   final=e[7])
         finished: list = []
         retire: list = []
         for rid, slot, _, _, _, done, cb, fin in entries:
@@ -1561,8 +1704,17 @@ class ContinuousBatcher:
                 del self._slot_req[slot]
                 self._drop_spec(slot, rid)
                 retire.append(slot)
+                if self._tracer is not None:
+                    t_rp = self._clock.monotonic()
+                    self._obs_span("reap", t_rp, self._clock.monotonic(),
+                                   rid=rid, slot=slot)
         for slot in retire:                          # after every dispatch
             self._free_slot_pages(slot)
+        if entries and self._flight is not None:
+            self._flight.record(
+                "prefill_chunk", slots=len(entries),
+                tokens=int(sum(e[6] for e in entries)),
+                backlog=self._prefill_backlog(), retired=len(finished))
         return finished
 
     # -- step --------------------------------------------------------------
@@ -1576,11 +1728,24 @@ class ContinuousBatcher:
             raise RuntimeError(
                 "engine is drained: restore() the snapshot into a fresh "
                 "engine")
-        self._last_step_t = time.monotonic()
+        with self._obs_mu:
+            self._last_step_t = self._clock.monotonic()
+        self._step_faults = []
         if self._faults is not None:
             # May raise (drop, preempt) before any state changes this
-            # step; page-pressure rules come back to be applied.
-            self._apply_page_pressure(self._faults.fire("serve.step"))
+            # step; page-pressure rules come back to be applied. The
+            # faults fired this step land in the flight recorder, as a
+            # ``fault`` record when one raises.
+            n0 = len(self._faults.log)
+            try:
+                rules = self._faults.fire("serve.step")
+            except BaseException:
+                if self._flight is not None:
+                    self._flight.record("fault", injected=[
+                        k for _, _, k in self._faults.log[n0:]])
+                raise
+            self._step_faults = [k for _, _, k in self._faults.log[n0:]]
+            self._apply_page_pressure(rules)
         if self.layout == "contiguous":
             return self._step_contiguous()
         finished = self._admit_paged()
@@ -1589,7 +1754,13 @@ class ContinuousBatcher:
                  if s not in self._prefill_pending}
         if ready:
             step = self._verify_step if self.spec else self._decode_step
-            finished.extend(step(ready))
+            return step(ready, finished)
+        if not self.spec and self._flight is not None:
+            self._flight.record("admit_only", active=0,
+                                admitted=self._step_admitted,
+                                retired=len(finished),
+                                pool_free=self._alloc.free_count,
+                                faults=self._step_faults)
         return finished
 
     def _step_contiguous(self) -> list:
@@ -1632,6 +1803,12 @@ class ContinuousBatcher:
             self._cursor = cursor
             slot = free.pop()
             adm.append((req_id, slot, cursor, prompt, tb))
+            if self._tracer is not None:
+                now = self._clock.monotonic()
+                self._obs_span("queue", self._arrival.get(req_id, now),
+                               now, rid=req_id, prompt_len=P)
+                self._obs_span("admit", now, self._clock.monotonic(),
+                               rid=req_id, slot=slot, bucket=tb)
             self._budget[req_id] -= 1                # first token = prefill
             if self._budget[req_id] <= 0:            # max_new == 1
                 finished.append(req_id)
@@ -1642,6 +1819,7 @@ class ContinuousBatcher:
         for run in self._group_admissions(adm):
             tb = run[0][4]
             self._dispatch_no += 1
+            t_pf = self._clock.monotonic()
             firsts = _prefill_multi_fn(
                 self.model, self.cfg, self._k, self._v, self._ks, self._vs,
                 self._bitmap, self._rope_pos, self._last,
@@ -1651,10 +1829,24 @@ class ContinuousBatcher:
                 real_lens=[len(e[3]) for e in run],
                 seed=(self.seed, 1, self._dispatch_no),
                 temperature=self.temperature, top_k=self.top_k)
+            if self._tracer is not None:
+                t1 = self._clock.monotonic()
+                self._obs_span("prefill", t_pf, t1, bucket=tb,
+                               requests=[self._rid(e[0]) for e in run])
+                for e in run:
+                    self._obs_span("prefill", t_pf, t1, rid=e[0],
+                                   lane=f"slot{e[1]}", fold=False)
             self._reads.append(("firsts", firsts, [e[0] for e in run]))
         if not self._slot_req:
+            if self._flight is not None:
+                self._flight.record("admit_only", active=0,
+                                    admitted=len(adm),
+                                    retired=len(finished),
+                                    faults=self._step_faults)
             return finished
+        n_active = len(self._slot_req)
         self._dispatch_no += 1
+        t_dec = self._clock.monotonic()
         self._rope_pos, self._last, toks = _decode_chunk_fn(
             self.model, self.cfg, self.chunk, self._k, self._v, self._ks,
             self._vs, self._bitmap, self._cursor, self._rope_pos, self._last,
@@ -1670,23 +1862,50 @@ class ContinuousBatcher:
                 finished.append(req_id)
                 del self._budget[req_id]
                 del self._slot_req[slot]             # slot free now
+                if self._tracer is not None:
+                    now = self._clock.monotonic()
+                    self._obs_span("reap", now, now, rid=req_id, slot=slot)
         self._reads.append(("chunk", toks, takes))
+        self._record_decode(t_dec, n_active, len(adm), takes, finished,
+                            cursor=self._cursor)
         return finished
+
+    def _record_decode(self, t_dec: float, n_active: int, admitted: int,
+                       takes: list, finished: list, **fields) -> None:
+        """A decode dispatch's ``decode_chunk`` spans (the engine lane and
+        one per slot) and its ``decode`` flight record, from host state
+        only (``n_active`` counts the slots the dispatch ran)."""
+        if self._tracer is not None:
+            t1 = self._clock.monotonic()
+            self._obs_span("decode_chunk", t_dec, t1, active=n_active,
+                           chunk=self.chunk)
+            for req_id, slot, take in takes:
+                self._obs_span("decode_chunk", t_dec, t1, rid=req_id,
+                               lane=f"slot{slot}", fold=False, tokens=take)
+        if self._flight is not None:
+            self._flight.record(
+                "decode",
+                wall_ms=round((self._clock.monotonic() - t_dec) * 1e3, 3),
+                active=n_active, admitted=admitted,
+                tokens=sum(t for _, _, t in takes),
+                retired=len(finished), **fields,
+                faults=self._step_faults)
 
     def _active(self, ready: dict) -> torch.Tensor:
         return torch.as_tensor([s in ready for s in range(self.n_slots)],
                                device=self.device)
 
-    def _decode_step(self, ready: dict) -> list:
+    def _decode_step(self, ready: dict, finished: list) -> list:
         """One decode chunk over ``ready`` {slot: req id}; its tokens are
-        read back later (``_flush``)."""
+        read back later (``_flush``). Appends the requests it finishes to
+        ``finished`` (this step's so far) and returns it."""
         self._dispatch_no += 1
+        t_dec = self._clock.monotonic()
         self._lens, self._last, toks = _decode_chunk_paged_fn(
             self.model, self.cfg, self.chunk, self.page_size, self._k,
             self._v, self._ks, self._vs, self._device_table(), self._lens,
             self._last, self._active(ready), self._angles,
             (self.seed, 0, self._dispatch_no), self.temperature, self.top_k)
-        finished: list = []
         takes: list = []                             # (req id, slot, n)
         for slot, req_id in ready.items():
             budget = self._budget[req_id]
@@ -1697,10 +1916,17 @@ class ContinuousBatcher:
                 finished.append(req_id)
                 del self._budget[req_id]
                 del self._slot_req[slot]
+                t_rp = self._clock.monotonic()
                 # This chunk's tokens are not flushed yet: only the
                 # flushed prefix donates (the conservative bound).
                 self._free_slot_pages(slot, self._donatable_decoded(req_id))
+                if self._tracer is not None:
+                    self._obs_span("reap", t_rp, self._clock.monotonic(),
+                                   rid=req_id, slot=slot)
         self._reads.append(("chunk", toks, takes))
+        self._record_decode(t_dec, len(ready), self._step_admitted, takes,
+                            finished, pool_free=self._alloc.free_count,
+                            pool_in_use=self._alloc.in_use)
         return finished
 
     def _spec_eff_window(self, rid: int) -> int:
@@ -1716,11 +1942,12 @@ class ContinuousBatcher:
             w = 1
         return max(0, min(w, self._spec_reserve.get(rid, self.gamma)))
 
-    def _verify_step(self, ready: dict) -> list:
+    def _verify_step(self, ready: dict, finished: list) -> list:
         """Propose for every ready slot, then one verify dispatch; each
         slot commits 1..gamma+1 tokens. The next proposals depend on this
         step's tokens, so the step reads them back at once — after
-        flushing the pending prefill firsts the proposers read."""
+        flushing the pending prefill firsts the proposers read. Appends
+        the requests it finishes to ``finished`` and returns it."""
         self._flush()
         self._dispatch_no += 1
         props = np.zeros((self.n_slots, self.gamma), np.int32)
@@ -1757,11 +1984,12 @@ class ContinuousBatcher:
         ready = {s: r for s, r in self._slot_req.items()
                  if s not in self._prefill_pending}
         if not ready:                                # every slot failed
-            return []
+            return finished
         eff = np.zeros((self.n_slots,), np.int32)
         for slot, rid in ready.items():
             eff[slot] = self._spec_eff_window(rid)
         dev = self.device
+        t_ver = self._clock.monotonic()
         self._lens, self._last, toks, accepts = _verify_chunk_paged_fn(
             self.model, self.cfg, self.gamma, self.page_size, self._k,
             self._v, self._ks, self._vs, self._device_table(), self._lens,
@@ -1772,8 +2000,8 @@ class ContinuousBatcher:
             q=None if q is None else torch.as_tensor(q, device=dev),
             temperature=self.temperature, top_k=self.top_k)
         toks, accepts = toks.cpu().numpy(), accepts.cpu().numpy()
-        finished: list = []
-        step_used = step_eff = 0
+        t_ver1 = self._clock.monotonic()
+        step_used = step_emitted = step_eff = 0
         for slot, rid in ready.items():
             take = min(self._budget[rid], int(accepts[slot]) + 1)
             self._out[rid].extend(int(tk) for tk in toks[slot, :take])
@@ -1782,6 +2010,7 @@ class ContinuousBatcher:
             used = take - 1
             eff_i = int(eff[slot])
             step_used += used
+            step_emitted += take
             step_eff += eff_i
             if self.spec_adaptive:
                 if eff_i > 0:            # a closed window carries no signal
@@ -1793,22 +2022,49 @@ class ContinuousBatcher:
                         (1.0 - _SPEC_FLEET_ALPHA) * self._spec_fleet_ema
                         + _SPEC_FLEET_ALPHA * rate)
                 self._spec_eff_last[rid] = eff_i
-            self._spec_slot_steps += 1
-            self._spec_proposed += eff_i
-            self._spec_accepted += used
-            self._spec_emitted += take
-            self._spec_rewound += self.gamma - used
+            with self._obs_mu:
+                self._spec_slot_steps += 1
+                self._spec_proposed += eff_i
+                self._spec_accepted += used
+                self._spec_emitted += take
+                self._spec_rewound += self.gamma - used
+            if self._tracer is not None:
+                self._obs_span("verify", t_ver, t_ver1, rid=rid,
+                               lane=f"slot{slot}", fold=False,
+                               accepted=used, tokens=take)
+                if self.gamma - used:
+                    # The rewind is a host-side lens clamp: an instant.
+                    self._obs_span("rewind", t_ver1, t_ver1, rid=rid,
+                                   lane=f"slot{slot}",
+                                   rewound=self.gamma - used)
             self._budget[rid] -= take
             if self._budget[rid] <= 0:
                 finished.append(rid)
                 del self._budget[rid]
                 del self._slot_req[slot]
                 self._drop_spec(slot, rid)
+                t_rp = self._clock.monotonic()
                 # The commits are in _out already: the donation sees the
                 # whole stream.
                 self._free_slot_pages(slot, self._donatable_decoded(rid))
-        if step_eff:
-            self._spec_accept_buf.append(step_used / step_eff)
+                if self._tracer is not None:
+                    self._obs_span("reap", t_rp, self._clock.monotonic(),
+                                   rid=rid, slot=slot)
+        with self._obs_mu:
+            if step_eff:
+                self._spec_accept_buf.append(step_used / step_eff)
+        if self._tracer is not None:
+            self._obs_span("verify", t_ver, t_ver1, active=len(ready),
+                           gamma=self.gamma)
+        if self._flight is not None:
+            self._flight.record(
+                "verify", wall_ms=round((t_ver1 - t_ver) * 1e3, 3),
+                active=len(ready), admitted=self._step_admitted,
+                tokens=step_emitted,
+                accept_rate=(round(step_used / step_eff, 4)
+                             if step_eff else 0.0),
+                retired=len(finished), pool_free=self._alloc.free_count,
+                pool_in_use=self._alloc.in_use, faults=self._step_faults)
         return finished
 
     def _flush(self) -> None:
@@ -1817,7 +2073,7 @@ class ContinuousBatcher:
         if not self._reads:
             return
         vals = [arr.cpu().numpy() for _, arr, _ in self._reads]
-        now = time.monotonic()
+        now = self._clock.monotonic()
         for (kind, _, meta), got in zip(self._reads, vals):
             if kind == "firsts":
                 for req_id, val in zip(meta, got):   # pad rows fall off
@@ -1835,7 +2091,7 @@ class ContinuousBatcher:
 
     def _record_done(self, req_ids, now: Optional[float] = None) -> None:
         if now is None:
-            now = time.monotonic()
+            now = self._clock.monotonic()
         for rid in req_ids:
             arrival = self._arrival.pop(rid, now)
             first = self._first_tok.pop(rid, now)
@@ -1865,13 +2121,18 @@ class ContinuousBatcher:
         here); the last drain's and restore's seconds and the requests
         resumed; on a tiered engine the tier's gauges and the promoted hit
         lengths since the last call (``promoted_hit_token_batch``, drained
-        here). The contiguous layout has no pool: {}."""
+        here); with a tracer, the ``(phase, seconds)`` spans since the last
+        call (``phase_durations``, drained here). What the step loop
+        writes is read in one ``_obs_mu`` snapshot, so a scrape thread
+        never pairs one step's counters with another's age or batches.
+        The contiguous layout has no pool: {}."""
         if self.layout != "paged":
             return {}
         out: Dict[str, object] = self._alloc.metrics()
         out["drain_duration_seconds"] = self._drain_s or 0.0
         out["restore_duration_seconds"] = self._restore_s or 0.0
         out["requests_resumed_total"] = float(self._resumed)
+        out["requests_shed_total"] = float(self._shed_total)
         if self._prefix is not None:
             out.update(self._prefix.metrics())
             out["prefill_tokens_skipped"] = float(self._skipped_tokens)
@@ -1880,36 +2141,43 @@ class ContinuousBatcher:
         out["request_errors_total"] = float(self._request_errors)
         out["kv_pool_device_bytes"] = float(self._kv_pool_dev_bytes)
         out["weight_device_bytes"] = float(self._weight_dev_bytes)
-        out["last_step_age_seconds"] = (
-            max(0.0, time.monotonic() - self._last_step_t)
-            if self.pending else 0.0)
-        if self.spec:
-            out["spec_accept_rate"] = (
-                self._spec_accepted / self._spec_proposed
-                if self._spec_proposed else 0.0)
-            out["spec_tokens_per_dispatch"] = (
-                self._spec_emitted / self._spec_slot_steps
-                if self._spec_slot_steps else 0.0)
-            out["spec_rewound_tokens_total"] = float(self._spec_rewound)
-            out["spec_proposer"] = self._proposer.name
-            effs = ([self._spec_eff_last[r] for r in self._slot_req.values()
-                     if r in self._spec_eff_last]
-                    if self.spec_adaptive else [])
-            if not effs:
-                effs = [self.gamma if not self.spec_adaptive
-                        else self._spec_overshoot()]
-            out["spec_gamma_agg"] = {"min": float(min(effs)),
-                                     "mean": float(sum(effs) / len(effs)),
-                                     "max": float(max(effs))}
-            if self._spec_accept_buf:
-                out["spec_accept_batch"] = tuple(self._spec_accept_buf)
-                self._spec_accept_buf = []
-        if self._hit_tok_buf:
-            out["prefix_hit_token_batch"] = tuple(self._hit_tok_buf)
-            self._hit_tok_buf.clear()
-        if self._promoted_hit_buf:
-            out["promoted_hit_token_batch"] = tuple(self._promoted_hit_buf)
-            self._promoted_hit_buf.clear()
+        with self._obs_mu:
+            out["last_step_age_seconds"] = (
+                max(0.0, self._clock.monotonic() - self._last_step_t)
+                if self.pending else 0.0)
+            if self.spec:
+                out["spec_accept_rate"] = (
+                    self._spec_accepted / self._spec_proposed
+                    if self._spec_proposed else 0.0)
+                out["spec_tokens_per_dispatch"] = (
+                    self._spec_emitted / self._spec_slot_steps
+                    if self._spec_slot_steps else 0.0)
+                out["spec_rewound_tokens_total"] = float(self._spec_rewound)
+                out["spec_proposer"] = self._proposer.name
+                effs = ([self._spec_eff_last[r]
+                         for r in self._slot_req.values()
+                         if r in self._spec_eff_last]
+                        if self.spec_adaptive else [])
+                if not effs:
+                    effs = [self.gamma if not self.spec_adaptive
+                            else self._spec_overshoot()]
+                out["spec_gamma_agg"] = {
+                    "min": float(min(effs)),
+                    "mean": float(sum(effs) / len(effs)),
+                    "max": float(max(effs))}
+                if self._spec_accept_buf:
+                    out["spec_accept_batch"] = tuple(self._spec_accept_buf)
+                    self._spec_accept_buf.clear()
+            if self._phase_buf:
+                out["phase_durations"] = tuple(self._phase_buf)
+                self._phase_buf.clear()
+            if self._hit_tok_buf:
+                out["prefix_hit_token_batch"] = tuple(self._hit_tok_buf)
+                self._hit_tok_buf.clear()
+            if self._promoted_hit_buf:
+                out["promoted_hit_token_batch"] = \
+                    tuple(self._promoted_hit_buf)
+                self._promoted_hit_buf.clear()
         return out
 
     # -- lifecycle: drain / restore / absorb -------------------------------
@@ -2021,6 +2289,7 @@ class ContinuousBatcher:
         pend = self._tier.take_pending()
         if not pend:
             return
+        t0 = self._clock.monotonic()
         planes = self._gather_pages([p for _, p in pend])
         for i, (key, page) in enumerate(pend):
             payload = tuple(np.ascontiguousarray(a[:, i]) for a in planes)
@@ -2029,6 +2298,9 @@ class ContinuousBatcher:
             if not self._tier.commit(key, payload):
                 self._prefix.drop_demoted(key)
             self._alloc.drop_cached(page)
+        if self._tracer is not None:
+            self._obs_span("demote", t0, self._clock.monotonic(),
+                           pages=len(pend))
 
     def _apply_page_pressure(self, rules) -> None:
         """Apply the ``page_pressure`` rules the step hook returned: hold
@@ -2084,7 +2356,7 @@ class ContinuousBatcher:
                 raise ValueError(
                     f"cannot shed inactive slot(s) {missing}: only active "
                     f"slots carry migratable requests")
-        t0 = time.monotonic()
+        t0 = self._clock.monotonic()
         self._flush()
         # dump_paths names demoted chunks by tier key, so every pending
         # demotion commits before the tree is walked.
@@ -2130,6 +2402,14 @@ class ContinuousBatcher:
                 planes += [np.zeros(empty[:-1] + (1,), np.float32)] * 2
         lens = self._lens.cpu().numpy().astype(np.int32)
         last = self._last.cpu().numpy().astype(np.int32)
+        if self._flight is not None and not partial:
+            # Recorded before the ring is shipped, so the drain marker
+            # rides the snapshot: a restored ring reads ... decode,
+            # drain, restore ... across the process boundary.
+            self._flight.record(
+                "drain", pages=len(ids), in_flight=len(self._slot_req),
+                queued=len(self._queue),
+                wall_ms=round((self._clock.monotonic() - t0) * 1e3, 3))
         shed_set = set(shed)
         shed_rids = ({int(self._slot_req[s]) for s in shed_set}
                      if partial else None)
@@ -2190,10 +2470,11 @@ class ContinuousBatcher:
             arrival={r: t for r, t in self._arrival.items() if keep_rid(r)},
             first_tok={r: t for r, t in self._first_tok.items()
                        if keep_rid(r)},
-            drained_mono=time.monotonic(),
-            drained_wall=time.time(),
+            drained_mono=self._clock.monotonic(),
+            drained_wall=self._clock.wall(),
             skipped_tokens=0 if partial else self._skipped_tokens,
-            flight=[],
+            flight=([] if partial or self._flight is None
+                    else self._flight.to_payload()),
             partial=partial,
             spec_ema=({int(r): float(v) for r, v in self._spec_ema.items()
                        if keep_rid(r)} if self.spec else {}),
@@ -2211,6 +2492,7 @@ class ContinuousBatcher:
             # The shed slots leave through the reap path: their
             # transcript-so-far donates into the local tree, the rest
             # frees now; the requests continue on the absorbing engine.
+            self._shed_total += len(shed)
             for slot in shed:
                 rid = self._slot_req.pop(slot)
                 decoded = self._donatable_decoded(rid)
@@ -2219,9 +2501,21 @@ class ContinuousBatcher:
                     book.pop(rid, None)
                 self._drop_spec(slot, rid)
                 self._free_slot_pages(slot, decoded)
+            if self._flight is not None:
+                self._flight.record(
+                    "shed", slots=len(shed), pages=len(ids),
+                    requests=len(snap.slot_req),
+                    pool_free=self._alloc.free_count,
+                    wall_ms=round((self._clock.monotonic() - t0) * 1e3, 3))
+            if self._tracer is not None:
+                self._obs_span("shed", t0, self._clock.monotonic(),
+                               slots=len(shed), pages=len(ids))
             return snap
         self._drained = True
-        self._drain_s = time.monotonic() - t0
+        self._drain_s = self._clock.monotonic() - t0
+        if self._tracer is not None:
+            self._obs_span("drain", t0, self._clock.monotonic(),
+                           pages=len(ids))
         return snap
 
     @torch.no_grad()
@@ -2253,7 +2547,7 @@ class ContinuousBatcher:
                 "a running replica; restore() rebuilds a whole engine")
         check_fingerprint(snap.fingerprint, self.fingerprint())
         snap.validate()
-        t0 = time.monotonic()
+        t0 = self._clock.monotonic()
         lut = self._upload_snapshot_pages(snap)
         table = np.asarray(snap.table, np.int64)
         if table.shape != self._table_np.shape:
@@ -2331,12 +2625,25 @@ class ContinuousBatcher:
             pr = self._slot_prompt.get(s)
             if pr is not None and int(lens[s]) < len(pr):
                 self._prefill_pending[s] = int(lens[s])
-        now_m, now_w = time.monotonic(), time.time()
+        now_m, now_w = self._clock.monotonic(), self._clock.wall()
         self._arrival = snap.rebased_clock(snap.arrival, now_m, now_w)
         self._first_tok = snap.rebased_clock(snap.first_tok, now_m, now_w)
         self._alloc.assert_consistent()
         self._resumed = snap.n_requests_in_flight
-        self._restore_s = time.monotonic() - t0
+        self._restore_s = self._clock.monotonic() - t0
+        if self._flight is not None:
+            # The drained engine's ring (this package's or the JAX one's)
+            # carries on here, its seq continued; this record marks the
+            # seam.
+            self._flight.seed(snap.flight)
+            self._flight.record(
+                "restore", resumed=self._resumed,
+                pages=len(snap.page_ids),
+                downtime_s=round(max(0.0, now_w - snap.drained_wall), 3),
+                wall_ms=round(self._restore_s * 1e3, 3))
+        if self._tracer is not None:
+            self._obs_span("restore", t0, self._clock.monotonic(),
+                           resumed=self._resumed)
         return self._resumed
 
     def _upload_snapshot_pages(self, snap: ServingSnapshot) -> np.ndarray:
@@ -2390,8 +2697,10 @@ class ContinuousBatcher:
             raise SnapshotError(
                 f"snapshot carries {len(snap.slot_req)} slots but only "
                 f"{len(free_slots)} are free here")
+        t0 = self._clock.monotonic()
+        need = len(snap.page_ids)
         lut = self._upload_snapshot_pages(snap)
-        now_m, now_w = time.monotonic(), time.time()
+        now_m, now_w = self._clock.monotonic(), self._clock.wall()
         arrival = snap.rebased_clock(snap.arrival, now_m, now_w)
         first = snap.rebased_clock(snap.first_tok, now_m, now_w)
         lens = self._lens.cpu().numpy().copy()
@@ -2449,6 +2758,14 @@ class ContinuousBatcher:
         self._table_dirty = True
         self._alloc.assert_consistent()
         self._resumed += len(mapping)
+        if self._flight is not None:
+            self._flight.record(
+                "absorb", resumed=len(mapping), pages=need,
+                pool_free=self._alloc.free_count,
+                wall_ms=round((self._clock.monotonic() - t0) * 1e3, 3))
+        if self._tracer is not None:
+            self._obs_span("absorb", t0, self._clock.monotonic(),
+                           resumed=len(mapping), pages=need)
         return mapping
 
     def _reap_eos(self) -> list:
@@ -2462,9 +2779,13 @@ class ContinuousBatcher:
                 del self._budget[req_id]
                 self._eos_scanned.pop(req_id, None)
                 self._drop_spec(slot, req_id)
+                t_rp = self._clock.monotonic()
                 if self.layout == "paged":
                     self._free_slot_pages(slot,
                                           self._donatable_decoded(req_id))
+                if self._tracer is not None:
+                    self._obs_span("reap", t_rp, self._clock.monotonic(),
+                                   rid=req_id, slot=slot, eos=True)
                 reaped.append(req_id)
             else:
                 self._eos_scanned[req_id] = len(out)

@@ -23,9 +23,10 @@ on the host as their raw 16-bit words (``np.uint16``), and the meta doc's
 incoming array whose dtype is named ``bfloat16`` (the JAX package's
 ``ml_dtypes`` arrays) is taken as its words, bit for bit. f32 and int8
 payloads keep their numpy dtypes, so their wire form is the JAX
-package's byte for byte. A snapshot's ``flight`` ring (the JAX engine's
-flight recorder) is carried through and ignored: the port has no
-recorder yet.
+package's byte for byte. A snapshot's ``flight`` ring (the engine's
+flight recorder, ``obs/flight.py``) rides through: ``drain()`` ships the
+ring and ``restore()`` seeds the fresh engine's recorder from it,
+whichever package drained it.
 """
 from __future__ import annotations
 
@@ -84,12 +85,12 @@ class ServingSnapshot:
     tree_paths: List[Tuple[List[int], List[int]]]  # (tokens, pages), LRU order
     arrival: Dict[int, float] = field(default_factory=dict)
     first_tok: Dict[int, float] = field(default_factory=dict)
-    drained_mono: float = 0.0              # time.monotonic() at drain
-    drained_wall: float = 0.0              # time.time() at drain
+    drained_mono: float = 0.0              # engine clock's monotonic()
+    drained_wall: float = 0.0              # engine clock's wall()
     skipped_tokens: int = 0
-    # The JAX engine's flight-recorder ring (JSON-safe per-step
-    # records): carried through unread, the port has no recorder yet.
-    # Default [] keeps older snapshots loading.
+    # The draining engine's flight-recorder ring (JSON-safe per-step
+    # records), seeded into the restoring engine's recorder. Default []
+    # keeps older snapshots loading.
     flight: List[Dict[str, Any]] = field(default_factory=list)
     # PARTIAL snapshot (load shedding): a filter over ``slot_req`` —
     # only the shed slots' pages/bookkeeping, no queue, no prefix tree,

@@ -27,11 +27,9 @@ DEFERRED = [
     pytest.param("weight_sharding", False, "multi-device",
                  id="weight_sharding"),
     pytest.param("tp_combine", "psum", "multi-device", id="tp_combine"),
-    pytest.param("clock", object(), "observability", id="clock"),
 ]
 # Paged pool_metrics() keys of the JAX engine that come with later slices.
 NOT_PORTED_KEYS = {
-    "requests_shed_total": "fleet",
     "tp": "multi-device",
     "tp_combine": "multi-device",
     "weight_sliced_device_bytes": "multi-device",
@@ -83,10 +81,12 @@ def test_tier_knobs_need_tiering_as_in_jax(weights, name, value):
 
 def test_jax_defaults_are_the_ports_and_accepted(weights):
     """The six options added to the port default to the JAX engine's
-    values, as does ``kv_layout``; passing those defaults explicitly does
-    not raise."""
+    values, as do ``kv_layout`` and the observability options (``tracer``,
+    ``flight_capacity``); passing those defaults explicitly does not
+    raise."""
     names = ("dram_pages", "kv_tier_disk", "donate_decoded",
-             "weight_sharding", "tp_combine", "clock", "kv_layout")
+             "weight_sharding", "tp_combine", "clock", "kv_layout",
+             "tracer", "flight_capacity")
     jax_sig = inspect.signature(JEngine.__init__).parameters
     port_sig = inspect.signature(ContinuousBatcher.__init__).parameters
     defaults = {n: jax_sig[n].default for n in names}
@@ -158,7 +158,7 @@ def test_pool_metrics_keys_and_gauges_match_jax(weights):
     for key in ("kv_pool_device_bytes", "weight_device_bytes"):
         assert got[key] == want[key] > 0
     for key in ("drain_duration_seconds", "restore_duration_seconds",
-                "requests_resumed_total"):
+                "requests_resumed_total", "requests_shed_total"):
         assert got[key] == want[key] == 0.0
     assert got["last_step_age_seconds"] == want["last_step_age_seconds"] \
         == 0.0

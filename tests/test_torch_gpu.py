@@ -541,6 +541,41 @@ def test_drain_restore_on_card_matches_cpu(cuda, kw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, dict(speculative=True, gamma=3)],
+                         ids=["plain", "spec"])
+def test_traced_engine_on_card_matches_untraced(cuda, kw, tmp_path):
+    """A traced engine with the flight recorder on the card gives the
+    streams and the kernel launches of an untraced one without it, calls
+    no plain version, and its spans export to a Perfetto document that
+    validates."""
+    from k8s_gpu_scheduler_tpu_torch.obs import (
+        Tracer, validate_perfetto, write_perfetto)
+
+    got = []
+    for traced in (False, True):
+        tr = Tracer() if traced else None
+        da.reset_counters()
+        streams, eng, _ = _lifecycle_streams(
+            SMALL, cuda, tracer=tr, flight_capacity=256 if traced else 0,
+            **kw)
+        c = da.counters()
+        got.append((streams, c))
+    assert got[0] == got[1]
+    c = got[1][1]
+    assert c["paged_prefill_attention"] > 0
+    assert c["paged_verify_attention" if kw else "paged_decode_attention"] > 0
+    assert not (c["paged_decode_reference"] or c["dense_prefill_reference"]
+                or c["paged_verify_reference"]), c
+    names = {s.name for s in tr.spans()}
+    assert {"queue", "admit", "prefill", "reap"} <= names
+    assert ({"verify", "rewind"} if kw else {"decode_chunk"}) <= names
+    doc = write_perfetto(tr.spans(), str(tmp_path / "trace.json"))
+    assert validate_perfetto(doc) == []
+    kinds = {r["kind"] for r in eng._flight.records()}
+    assert ("verify" if kw else "decode") in kinds
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kw", [{}, dict(kv_dtype="int8")],
                          ids=["f32", "int8kv"])
 def test_tiering_on_card_matches_cpu_untiered(cuda, kw):
