@@ -140,6 +140,50 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    and wall for untraced (flight 0), the defaults and traced, three runs
    of each in turn (no gate: the host's spread is wider than the
    instrumentation).
+10. the entry point. (a) ``main(["--serve", "--ckpt-dir", tmp])`` in
+   this process (so its launches are counted), SIGTERM raised at the
+   second wave line: exit 0, a snapshot written, K1 launched (1 + 4 ×
+   waves) × 64 ticks × 8 layers times and no plain version; a second
+   ``main()`` boots through ``resume_or_fresh`` from that directory and
+   serves one wave; ``--int8`` once more with ``TPU_HBM_LIMIT_BYTES`` at
+   half the card, where ``torch.cuda.get_per_process_memory_fraction``
+   must read the fraction ``apply_hbm_limit`` computed. Every wave line
+   must parse with decode_tok_s > 0. (b) ``train_loop`` at phase 6's cut,
+   checkpointed at step 2 by ``TrainCheckpointer`` and restored into
+   fresh objects for steps 3-4: the losses must equal an uninterrupted
+   4-step run bit for bit, K5-K7 launch 2·L·2, L·2 and L·2 times; prints
+   the save and restore ms and the checkpoint's bytes. Then ``main()``'s
+   training branch at 32 layers must refuse before allocating.
+11. the fleet at bench_fleet's TPU configuration on one card: 3 replicas
+   of a 4-layer model (d_model 1024, 16 heads, vocab 32000), 8 slots,
+   chunk 8, bucket 128, page 64, int8 KV, the prefix cache; 96 requests
+   over 3 hot 128-token system prompts, Poisson 2.0 a router step,
+   max_new 48. Affinity (one forced shed mid-trace) and round-robin
+   through ``Router.submit``/``step``: K1 and K2 launch, no plain
+   version, affinity's prefix-hit rate above round-robin's, ≥ 1 request
+   migrated; prints fleet tokens/s and TTFT p50 by policy and class.
+12. (a) the same fleet with a ``FaultProxy`` making r1's ``step`` raise
+   ``ReplicaCrashed`` from its 10th call: nothing lost, no error, one
+   failover, replayed tokens ≤ delivered ones, streams equal to the
+   same fleet's no-fault run; then ``checkpoint_journal`` after three
+   steps and a fresh router over the same directory finishes every open
+   entry. (b) bench_disagg's trace (38 short requests, two 1024-token
+   ones) through one role="prefill" replica (256-token prefill chunks)
+   and two role="decode" ones, against three mixed replicas: every
+   request handed off, nothing lost, equal streams; prints the handoff
+   ms.
+   Phases 11 and 12 run in bf16 and again in f32. Every run must end
+   with no request error, nothing lost and every stream at its full
+   budget; a run with no fault injected must also leave every replica
+   live. Greedy streams must be equal in f32. In bf16 a row's GEMM sums
+   depend on the rows beside it in its dispatch, and one bf16 unit can
+   move a K/V row's int8 code by a step (``logit_spread`` prints how far
+   each moves a row's logits), so two schedules of the same requests can
+   part at a near-tie. There at most a capped share of the streams may
+   part (``PART_CAP``), and at each parting token the dense forward over
+   the prompt and the common prefix must put both chosen tokens within
+   ``NEAR_TIE`` times that spread of its top logit; eight streams with a
+   far token swapped in must each fail that test.
 
 ``--profile`` adds profiled serving runs (plain decode, speculative and
 the contiguous engine) and one profiled training step: the card's busy
@@ -1856,6 +1900,708 @@ def timed_step(step, model, batch):
 
 # -- main ---------------------------------------------------------------------------
 
+# -- phases 10-12: the entry point and the fleet tier ----------------------
+SERVE_TICKS = 64                 # main --serve: max_new 64 = chunk 64
+
+
+class _WaveTap:
+    """Stands in for ``sys.stdout`` around ``main()``: echoes and keeps
+    every line, and after the ``stop_after``-th wave line raises SIGTERM
+    in this (the main) thread, so the guard is set before the loop's next
+    wave-boundary check: exactly ``stop_after`` waves run."""
+
+    def __init__(self, out, stop_after):
+        self.out, self.stop_after = out, stop_after
+        self.lines, self._buf = [], ""
+
+    def write(self, s):
+        self.out.write(s)
+        self._buf += s
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append(line)
+            waves = sum(ln.startswith("llama serve qps=")
+                        for ln in self.lines)
+            if line.startswith("llama serve qps=") \
+                    and waves == self.stop_after:
+                import signal
+
+                signal.raise_signal(signal.SIGTERM)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_main(dev, argv, waves):
+    """``main(argv)`` in this process until SIGTERM after ``waves`` waves:
+    (exit code, output lines, counters of the run, restores made)."""
+    from k8s_gpu_scheduler_tpu_torch.models import llama
+    from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    restores, real = [], ContinuousBatcher.restore
+
+    def restore(self, snap):
+        restores.append(snap.n_requests_in_flight)
+        return real(self, snap)
+
+    tap, stdout = _WaveTap(sys.stdout, waves), sys.stdout
+    ContinuousBatcher.restore = restore
+    sys.stdout = tap
+    code = None
+    try:
+        torch.cuda.synchronize()
+        da.reset_counters()
+        llama.main(argv, device=dev)
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.stdout = stdout
+        ContinuousBatcher.restore = real
+    torch.cuda.synchronize()
+    return code, tap.lines, da.counters(), restores
+
+
+def phase_main_serve(dev, card) -> dict:
+    """Phase 10a: ``main --serve`` through the real entry point."""
+    import shutil
+    import signal
+
+    from k8s_gpu_scheduler_tpu_torch.models import lifecycle
+    from k8s_gpu_scheduler_tpu_torch.utils import enforcement
+
+    layers = 8
+    tmp = tempfile.mkdtemp(prefix="main_serve_")
+    snap_dir = os.path.join(tmp, "serve_snapshot")
+    prev = signal.getsignal(signal.SIGTERM)
+    runs = {}
+    total = torch.cuda.get_device_properties(dev).total_memory
+    try:
+        for label, extra, waves, env in (
+                ("bf16", [], 2, {}),
+                ("resumed", [], 1, {}),
+                ("int8", ["--int8"], 1,
+                 {"TPU_HBM_LIMIT_BYTES": str(total // 2)})):
+            os.environ.update(env)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            try:
+                code, lines, c, restores = run_main(
+                    dev, ["--serve", "--ckpt-dir", tmp] + extra, waves)
+                fraction = (torch.cuda.get_per_process_memory_fraction(0)
+                            if env else None)
+            finally:
+                for k in env:
+                    os.environ.pop(k)
+                torch.cuda.set_per_process_memory_fraction(1.0, dev)
+            wall = time.perf_counter() - t0
+            parsed = [dict(kv.split("=") for kv in ln.split()[2:])
+                      for ln in lines if ln.startswith("llama serve qps=")]
+            # warmup: one dispatch; a wave: 4 x 8 slots, one dispatch each
+            want = (1 + 4 * len(parsed)) * SERVE_TICKS * layers
+            st = dict(exit=code, waves=len(parsed), lines=lines,
+                      wall_s=wall, restores=restores,
+                      steps=lifecycle._steps(snap_dir),
+                      k1=c["paged_decode_attention"], k1_predicted=want,
+                      decode_tok_s=[float(p["decode_tok_s"])
+                                    for p in parsed])
+            if env:
+                st["fraction"] = fraction
+                st["fraction_computed"] = enforcement.hbm_fraction(
+                    env, total)
+            log(f"  [{card}] main --serve {label}: {json.dumps(st)}")
+            runs[label] = st
+            if code != 0:
+                raise SystemExit(f"main --serve {label} exited {code!r}")
+            if len(parsed) != waves or not all(
+                    x > 0 for x in st["decode_tok_s"]):
+                raise SystemExit(f"main --serve {label}: wave lines {lines}")
+            if st["k1"] != want or any(c[k] for k in PLAIN):
+                raise SystemExit(f"main --serve {label} launched {c}, K1 "
+                                 f"predicted {want}")
+            if lifecycle.load_snapshot(snap_dir) is None:
+                raise SystemExit(f"main --serve {label} wrote no snapshot")
+            if label != "bf16" and restores != [0]:
+                raise SystemExit(f"main --serve {label} did not boot "
+                                 f"through resume_or_fresh: {restores}")
+            if env and st["fraction"] != st["fraction_computed"]:
+                raise SystemExit(f"memory fraction {st['fraction']} != "
+                                 f"{st['fraction_computed']}")
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
+RESUME_BT = (8, 2048)            # phase 10b: phase 6's batch
+
+
+def phase_train_resume(dev, card) -> dict:
+    """Phase 10b: ``train_loop`` at phase 6's cut, checkpointed at step 2
+    by ``TrainCheckpointer`` and resumed into fresh objects for steps
+    3-4; the losses must equal an uninterrupted 4-step run bit for bit.
+    Then ``main()``'s training branch at 32 layers must refuse before
+    allocating."""
+    import shutil
+
+    from k8s_gpu_scheduler_tpu_torch.models import llama
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        Llama, LlamaConfig, make_optimizer, train_loop)
+    from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
+        counters, reset_counters)
+    from k8s_gpu_scheduler_tpu_torch.utils.checkpoint import (
+        TrainCheckpointer)
+
+    (B, T), layers = RESUME_BT, 4
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=layers,
+                              attn_impl="flash")
+    torch.cuda.empty_cache()
+    model, _, batch = train_setup(dev, cfg, B, T)
+    state0 = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    ref = train_loop(model, make_optimizer(model, 3e-4), batch, max_steps=4)
+    ref = torch.stack(ref).cpu()
+    del model
+
+    def fresh():
+        m = Llama(cfg, dev)
+        return m, make_optimizer(m, 3e-4)
+
+    tmp = tempfile.mkdtemp(prefix="train_resume_")
+    try:
+        torch.cuda.empty_cache()
+        model, opt = fresh()
+        model.load_state_dict(state0)
+        ck = TrainCheckpointer(tmp)
+        save_ms = []
+        real_save = ck.save
+
+        def timed_save(step, state, force=False):
+            out, ms = _synced_ms(lambda: real_save(step, state, force))
+            save_ms.append(ms)
+            return out
+
+        ck.save = timed_save
+        first = train_loop(model, opt, batch, ck, every=2, max_steps=2)
+        first = torch.stack(first).cpu()
+        del model, opt
+        torch.cuda.empty_cache()
+        ck = TrainCheckpointer(tmp)
+        nbytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _, fs in os.walk(tmp) for f in fs)
+        (step_no, (model, opt)), restore_ms = _synced_ms(
+            lambda: ck.restore_or(fresh))
+        reset_counters()
+        rest = train_loop(model, opt, batch, ck, step_no=step_no, every=2,
+                          max_steps=4)
+        torch.cuda.synchronize()
+        c = counters()
+        rest = torch.stack(rest).cpu()
+        del model, opt
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got = torch.cat([first, rest])
+    st = dict(B=B, T=T, n_layers=layers, ref_losses=ref.tolist(),
+              resumed_losses=got.tolist(), bitwise=torch.equal(got, ref),
+              restored_step=step_no, save_ms=save_ms, restore_ms=restore_ms,
+              checkpoint_bytes=nbytes, launches=c)
+    log(f"  [{card}] {json.dumps(st)}")
+    want = (2 * layers * 2, layers * 2, layers * 2)
+    if step_no != 2 or not st["bitwise"]:
+        raise SystemExit(f"training resumed at {step_no}, losses {got} vs "
+                         f"{ref}")
+    if tuple(c[k] for k in FLASH) != want or any(c[k] for k in FLASH_PLAIN):
+        raise SystemExit(f"resumed training launched {c}, want {want}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    try:
+        llama.main([], device=dev)
+        raise SystemExit("main()'s 32-layer training branch did not refuse")
+    except SystemExit as e:
+        msg = str(e.code)
+    need = llama.train_state_bytes(LlamaConfig.llama3_8b())
+    if str(need) not in msg or torch.cuda.memory_allocated(dev) != before:
+        raise SystemExit(f"main()'s training branch: {msg!r}, allocated "
+                         f"{torch.cuda.memory_allocated(dev) - before} B")
+    log(f"  main() training branch refused before allocating: {msg}")
+    st["refusal"] = msg
+    st["launches"] = dict(c)
+    return st
+
+
+FLEET_CFG = dict(vocab=32000, d_model=1024, n_layers=4, n_heads=16,
+                 n_kv_heads=16, d_ff=4096, max_seq=2048, remat=False,
+                 decode_attn="fused")
+FLEET_ENGINE = dict(n_slots=8, max_len=2048, chunk=8, prefill_bucket=128,
+                    kv_layout="paged", page_size=64, kv_dtype="int8",
+                    prefix_cache=True)
+FLEET_REQUESTS = 96             # bench_fleet's TPU trace
+
+
+def fleet_trace(vocab, n_req, rate=2.0, n_classes=3, page=64, seed=0,
+                max_new=48):
+    """bench_fleet's trace: ``n_req`` prompts over ``n_classes`` hot
+    two-page system prompts plus 3-9 unique tokens each, class order and
+    Poisson arrivals (in router steps) from one numpy seed; returns the
+    schedule (arrival, prompt, max_new) and each request's class."""
+    rng = np.random.default_rng(seed)
+    hot = [list(rng.integers(0, vocab, 2 * page)) for _ in range(n_classes)]
+    classes = [int(c) for c in rng.integers(0, n_classes, n_req)]
+    prompts = [hot[c] + list(rng.integers(0, vocab, 3 + i % 7))
+               for i, c in enumerate(classes)]
+    arrive = np.floor(np.cumsum(
+        rng.exponential(1.0 / rate, n_req))).astype(int)
+    return [(int(a), p, max_new) for a, p in zip(arrive, prompts)], classes
+
+
+def fleet_model(dev, dtype):
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+
+    cfg = LlamaConfig(**FLEET_CFG, dtype=dtype)
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0), dev)
+
+
+def dense_logits(model, x, int8=False) -> torch.Tensor:
+    """The dense forward's logits [B, T, vocab] f32 for tokens ``x``; with
+    ``int8`` every K/V row is first rounded through the engine's
+    per-token-per-head int8 (``_kv_quant``), as the paged pools hold it."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        attn_sublayer, mlp_sublayer)
+    from k8s_gpu_scheduler_tpu_torch.models.serving import _kv_quant
+    from k8s_gpu_scheduler_tpu_torch.ops.attention import dense_attention
+    from k8s_gpu_scheduler_tpu_torch.ops.layers import rms_norm, rope_freqs
+    from k8s_gpu_scheduler_tpu_torch.ops.quant import qdot
+
+    cfg = model.cfg
+
+    def rounded(t):
+        if not int8:
+            return t
+        q, scale = _kv_quant(t)
+        return (q.float() * scale).to(t.dtype)
+
+    def attend(q, k, v):
+        return dense_attention(q, rounded(k), rounded(v), causal=True)
+
+    angles = rope_freqs(cfg.head_dim, x.shape[1], cfg.rope_theta,
+                        device=x.device)
+    h = model.embed[x].to(cfg.dtype)
+    with torch.no_grad():
+        for blk in model.blocks:
+            h = mlp_sublayer(cfg, attn_sublayer(cfg, h, blk, angles, attend),
+                             blk)
+        return qdot(rms_norm(h, model.final_norm), model.lm_head).float()
+
+
+def logit_spread(model, cfg, dev) -> dict:
+    """Max |logit| movement of one 135-token row under what differs between
+    two schedules of one request: the batch it is computed in (alone
+    against inside a batch of 8; cuBLAS picks its GEMM by the batch's
+    size) and its K/V's int8 rounding (with against without; one bf16 unit
+    of difference can move a row's int8 code by a step)."""
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (8, 135))).to(dev)
+    alone = dense_logits(model, x[:1], int8=True)
+    return dict(
+        batch=(alone - dense_logits(model, x, int8=True)[:1]).abs().max(
+            ).item(),
+        int8=(alone - dense_logits(model, x[:1])).abs().max().item())
+
+
+# A bf16 parting token's largest logit gap below the dense forward's top,
+# in units of ``logit_spread``: two near-tied tokens sit within about
+# twice that spread of each other, while a wrong page, scale or replay
+# picks a token far below the top.
+NEAR_TIE = 4.0
+# The share of bf16 streams that may part from their reference: PERF.md
+# §6 reads 9 and 11 of 96 (fleet), 2 of 96 (crash), 0 of 48 (disagg),
+# and 11 of 24 after the journal restart, whose streams are all
+# re-prefilled mid-stream.
+PART_CAP = {"fleet": 0.25, "chaos": 0.25, "journal": 0.5, "disagg": 0.25}
+
+
+def check_full(label, streams, budgets) -> None:
+    """Every stream came back with its whole budget (no eos is set)."""
+    short = [i for i, (s, m) in enumerate(zip(streams, budgets))
+             if s is None or len(s) != m]
+    if len(streams) != len(budgets) or short:
+        raise SystemExit(f"{label}: {len(short)} of {len(budgets)} streams "
+                         f"missing or short, first {short[:5]}")
+
+
+def check_delivered(label, router, streams, budgets, faults=False) -> None:
+    """``Router.step`` isolates a replica's raise into a health transition
+    and fails requests into ``router.errors``: fail unless no request
+    errored or was lost and every stream is whole, and, with no fault
+    injected, unless every replica stayed live."""
+    stt = router.stats()
+    if router.errors or stt["requests_lost"] or (
+            not faults and router.health.transition_count):
+        raise SystemExit(
+            f"{label}: errors {router.errors}, lost {stt['requests_lost']}, "
+            f"health {stt['health_states']} after "
+            f"{router.health.transition_count} transitions")
+    check_full(label, streams, budgets)
+
+
+def parting_gaps(model, prompts, streams, ref) -> list:
+    """For each stream that parts from its reference: the int8-rounded
+    dense forward's logits after the prompt and the common prefix, and the
+    larger of the two parting tokens' gaps below their top."""
+    gaps = []
+    for p, s, r in zip(prompts, streams, ref):
+        if s == r:
+            continue
+        pos = next(j for j, (a, b) in enumerate(zip(s, r)) if a != b)
+        x = torch.tensor([[int(t) for t in list(p) + r[:pos]]],
+                         device=model.lm_head.device)
+        lg = dense_logits(model, x, int8=True)[0, -1]
+        gaps.append((lg.max() - torch.minimum(lg[s[pos]], lg[r[pos]])
+                     ).item())
+    return gaps
+
+
+def check_streams(label, dtype, streams, ref, prompts, model, spread,
+                  cap) -> dict:
+    """Greedy identity against ``ref`` (both whole): exact in f32. In bf16
+    at most ``cap`` of the streams may part, each at a near-tie: both
+    parting tokens within ``NEAR_TIE`` times the larger ``logit_spread``
+    of the dense forward's top logit. The gate proves it can see a fault:
+    the first 8 reference streams, each with its middle token swapped for
+    a far one (as a wrong page or scale derails a stream), must all fail
+    it. Returns the streams differing, the first divergence and the
+    largest parting and smallest fault gaps in units of the spread."""
+    n_bad, where = first_divergence(streams, ref)
+    out = dict(streams_differing=n_bad, first_divergence=where)
+    if dtype == torch.float32:
+        if n_bad:
+            raise SystemExit(f"{label} (f32): {n_bad} streams differ, "
+                             f"first at {where}")
+        return out
+    unit = max(spread.values())
+    gaps = parting_gaps(model, prompts, streams, ref)
+    faults = []
+    for r in ref[:8]:
+        j = len(r) // 2
+        faults.append(r[:j] + [(r[j] + model.cfg.vocab // 2)
+                               % model.cfg.vocab] + r[j + 1:])
+    caught = parting_gaps(model, prompts[:8], faults, ref[:8])
+    out.update(worst_gap_over_spread=max(gaps, default=0.0) / unit,
+               fault_gap_over_spread=min(caught) / unit)
+    if n_bad > cap * len(ref) or max(gaps, default=0.0) > NEAR_TIE * unit:
+        raise SystemExit(
+            f"{label} (bf16): {n_bad} of {len(ref)} streams part (cap "
+            f"{cap}), gaps {gaps} against a spread of {spread}")
+    if min(caught) <= NEAR_TIE * unit:
+        raise SystemExit(f"{label} (bf16): the near-tie gate misses a "
+                         f"fault: gaps {caught} against {spread}")
+    return out
+
+
+def first_divergence(streams, ref):
+    """(requests whose stream differs, first (request, token) that does),
+    for whole streams of equal budgets."""
+    bad = [i for i, (s, r) in enumerate(zip(streams, ref)) if s != r]
+    if not bad:
+        return 0, None
+    s, r = streams[bad[0]], ref[bad[0]]
+    return len(bad), (bad[0], next(j for j, (a, b) in enumerate(zip(s, r))
+                                   if a != b))
+
+
+def fleet_drive(router, sched, clock=None, shed_at=None):
+    """The bench legs' loop over ``sched`` (arrival step, prompt, max_new):
+    submit on schedule, step the router until everything is done,
+    advancing ``clock`` 20 ms a step; with ``shed_at``, force one shed off
+    the busiest replica once that many requests were submitted. Returns
+    (streams, migrated, wall s, router steps)."""
+    from k8s_gpu_scheduler_tpu_torch.fleet import FleetError
+
+    frids, done, migrated, nxt, t = [], {}, 0, 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while nxt < len(sched) or router.pending:
+        while nxt < len(sched) and sched[nxt][0] <= t:
+            frids.append(router.submit(sched[nxt][1], max_new=sched[nxt][2]))
+            nxt += 1
+        done.update(router.step())
+        if clock is not None:
+            clock.advance(0.02)
+        if shed_at is not None and nxt >= shed_at and migrated == 0:
+            stats = {r: rep.engine.replica_stats()
+                     for r, rep in router._replicas.items()}
+            src = max(stats, key=lambda r: (stats[r]["active_slots"], r))
+            dst = min(stats, key=lambda r: (stats[r]["active_slots"], r))
+            if src != dst and stats[src]["active_slots"] > 1:
+                try:
+                    migrated = router.shed(src, dst)
+                except FleetError:
+                    pass            # the target is tight this step
+        t += 1
+    torch.cuda.synchronize()
+    return [done.get(f) for f in frids], migrated, \
+        time.perf_counter() - t0, t
+
+
+def phase_fleet(dev, card, dtype, n_req=FLEET_REQUESTS) -> dict:
+    """Phase 11: bench_fleet's TPU configuration on one card: 3 replicas,
+    affinity (with one forced shed) and round-robin on one Poisson
+    trace, every stream whole and against a single engine's
+    (``check_streams``)."""
+    from k8s_gpu_scheduler_tpu_torch.fleet import Router
+    from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    cfg, model = fleet_model(dev, dtype)
+    sched, classes = fleet_trace(cfg.vocab, n_req)
+    prompts, budgets = [p for _, p, _ in sched], [m for _, _, m in sched]
+    ref = drive(ContinuousBatcher(model, cfg, device=dev, **FLEET_ENGINE),
+                prompts, budgets)
+    check_full("one engine", ref, budgets)
+    out = {"logit_spread": logit_spread(model, cfg, dev)}
+    log(f"  [{card}] {dtype}: a row's logits move by up to "
+        f"{out['logit_spread']['batch']} between a batch of 1 and of 8, and "
+        f"{out['logit_spread']['int8']} with its K/V rounded through int8")
+    for policy in ("affinity", "round_robin"):
+        router = Router([(f"r{i}", ContinuousBatcher(
+            model, cfg, device=dev, **FLEET_ENGINE)) for i in range(3)],
+            policy=policy)
+        da.reset_counters()
+        streams, migrated, wall, steps = fleet_drive(
+            router, sched,
+            shed_at=n_req // 2 if policy == "affinity" else None)
+        c = da.counters()
+        met = router.pop_request_metrics()
+        ttft = sorted(m["ttft_s"] * 1e3 for m in met.values())
+        by_class = {}
+        for frid, m in met.items():
+            by_class.setdefault(classes[frid], []).append(m["ttft_s"] * 1e3)
+        stt = router.stats()
+        check_delivered(f"fleet {policy}", router, streams, budgets)
+        st = dict(dtype=str(dtype), requests=n_req, router_steps=steps,
+                  wall_s=wall,
+                  tokens_per_s=sum(map(len, streams)) / wall,
+                  ttft_p50_ms=ttft[len(ttft) // 2],
+                  ttft_p50_ms_by_class={
+                      k: sorted(v)[len(v) // 2]
+                      for k, v in sorted(by_class.items())},
+                  prefix_hit_rate=stt["aggregate_prefix_hit_rate"],
+                  migrated=migrated, degraded_routes=stt["degraded_routes"],
+                  launches=c)
+        st.update(check_streams(f"fleet {policy}", dtype, streams, ref,
+                                prompts, model, out["logit_spread"],
+                                PART_CAP["fleet"]))
+        log(f"  [{card}] fleet {policy}: {json.dumps(st)}")
+        out[policy] = st
+        if not (c["paged_decode_attention"] and c["paged_prefill_attention"]) \
+                or any(c[k] for k in PLAIN):
+            raise SystemExit(f"fleet {policy} launched {c}")
+    if not out["affinity"]["prefix_hit_rate"] \
+            > out["round_robin"]["prefix_hit_rate"]:
+        raise SystemExit("affinity's prefix-hit rate is not above "
+                         "round-robin's")
+    if out["affinity"]["migrated"] < 1:
+        raise SystemExit("the forced shed migrated nothing")
+    return out
+
+
+def phase_fleet_chaos(dev, card, dtype, n_req=FLEET_REQUESTS) -> dict:
+    """Phase 12a: bench_fleet_chaos's shape. A ``FaultProxy`` around r1
+    makes its ``step`` raise ``ReplicaCrashed`` from its 10th call on, so
+    the router declares it dead, replays its journaled requests on the
+    survivors and rebuilds it through the engine factory. Against the
+    same fleet's no-fault run: nothing lost, every stream whole and equal
+    (``check_streams``), replayed ≤ delivered tokens. Then ``checkpoint_journal``
+    mid-run, and a fresh router over ``load_journal`` finishes the open
+    entries."""
+    import shutil
+
+    from k8s_gpu_scheduler_tpu_torch import obs
+    from k8s_gpu_scheduler_tpu_torch.fleet import HealthPolicy, Router
+    from k8s_gpu_scheduler_tpu_torch.metrics.exporter import (
+        FLEET_LOST_TOTAL, Registry)
+    from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+    from k8s_gpu_scheduler_tpu_torch.testing.faults import (
+        FaultInjector, FaultProxy, FaultRule, ReplicaCrashed)
+    from k8s_gpu_scheduler_tpu_torch.utils.retry import RetryPolicy
+
+    cfg, model = fleet_model(dev, dtype)
+    sched, _ = fleet_trace(cfg.vocab, n_req)
+    prompts, budgets = [p for _, p, _ in sched], [m for _, _, m in sched]
+    spread = logit_spread(model, cfg, dev)
+
+    def factory(rid):
+        return ContinuousBatcher(model, cfg, device=dev, **FLEET_ENGINE)
+
+    def fleet(faulty, journal_dir=None):
+        clock = obs.VirtualClock()
+        inj = FaultInjector(seed=13, rules=[
+            FaultRule("r1.step", "crash", after=9, every=1)])
+        engines = [(f"r{i}", factory(f"r{i}")) for i in range(3)]
+        if faulty:
+            engines[1] = ("r1", FaultProxy(engines[1][1], inj, "r1",
+                                           drop_exc=ReplicaCrashed))
+        reg = Registry()
+        router = Router(
+            engines, metrics=reg, engine_factory=factory, clock=clock,
+            journal_dir=journal_dir,
+            health=HealthPolicy(quarantine=RetryPolicy(
+                attempts=8, base_s=0.05, multiplier=2.0, max_s=0.2,
+                jitter=0.5)), health_seed=13)
+        return router, reg, inj, clock
+
+    clean, _, _, clk = fleet(False)
+    want, _, clean_wall, _ = fleet_drive(clean, sched, clock=clk)
+    check_delivered("no-fault fleet", clean, want, budgets)
+    router, reg, inj, clk = fleet(True)
+    da.reset_counters()
+    got, _, wall, steps = fleet_drive(router, sched, clock=clk)
+    c = da.counters()
+    stt = router.stats()
+    lost = sum(reg.counter(FLEET_LOST_TOTAL).value(replica=f"r{i}")
+               for i in range(3)) + reg.counter(FLEET_LOST_TOTAL).value()
+    st = dict(dtype=str(dtype), requests=n_req, router_steps=steps,
+              wall_s=wall,
+              no_fault_wall_s=clean_wall, injected=len(inj.log),
+              failovers=stt["failovers"], lost=lost,
+              replayed_tokens=stt["replayed_tokens"],
+              delivered_tokens=stt["journal_delivered_tokens"],
+              health_states=stt["health_states"], errors=len(router.errors),
+              launches=c)
+    log(f"  [{card}] fleet chaos: {json.dumps(st)}")
+    if lost or stt["failovers"] < 1 \
+            or stt["replayed_tokens"] > stt["journal_delivered_tokens"]:
+        raise SystemExit(f"fleet chaos: {st}, errors {router.errors}")
+    check_delivered("fleet chaos", router, got, budgets, faults=True)
+    st.update(check_streams("fleet chaos", dtype, got, want, prompts, model,
+                            spread, PART_CAP["chaos"]))
+    log(f"  [{card}] crash against no fault: {st['streams_differing']} "
+        f"streams differ, worst gap {st.get('worst_gap_over_spread')}")
+    if not c["paged_decode_attention"] or any(c[k] for k in PLAIN):
+        raise SystemExit(f"fleet chaos launched {c}")
+    # The journal across a router restart.
+    jdir = tempfile.mkdtemp(prefix="journal_")
+    try:
+        r1, _, _, clk = fleet(False, jdir)
+        for _, p, max_new in sched[:24]:
+            r1.submit(p, max_new=max_new)
+        for _ in range(3):
+            r1.step()
+            clk.advance(0.02)
+        r1.checkpoint_journal()
+        open_before = {f: r1.journal.stream(f)
+                       for f in r1.journal.open_frids()}
+        if r1.errors or r1.health.transition_count:
+            raise SystemExit(f"journal restart: the first router failed "
+                             f"{r1.errors}")
+        del r1
+        r2, _, _, clk = fleet(False, jdir)
+        done = {}
+        while r2.pending:
+            done.update(r2.step())
+            clk.advance(0.02)
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+    frids = sorted(open_before)
+    if set(done) != set(open_before) or not open_before:
+        raise SystemExit(f"journal restart: {len(open_before)} open entries, "
+                         f"{len(done)} finished")
+    check_delivered("journal restart", r2, [done[f] for f in frids],
+                    [budgets[f] for f in frids])
+    st["journal_restart"] = dict(
+        open_entries=len(open_before), finished=len(done), lost=0,
+        **check_streams("journal restart", dtype, [done[f] for f in frids],
+                        [want[f] for f in frids],
+                        [prompts[f] for f in frids], model, spread,
+                        PART_CAP["journal"]))
+    log(f"  [{card}] journal restart: {json.dumps(st['journal_restart'])}")
+    return st
+
+
+def disagg_trace(vocab, seed=0):
+    """bench_disagg's trace: 38 shorts of 64 tokens (64 new) at 2.0 a
+    step, two 1024-token longs (16 new) at steps 8 and 20, each with a
+    burst of four shorts."""
+    rng = np.random.default_rng(seed)
+    arr = np.floor(np.cumsum(rng.exponential(1.0 / 2.0, 38))).astype(int)
+    sched = [(int(s), list(rng.integers(0, vocab, 64)), 64) for s in arr]
+    for ls in (8, 20):
+        sched.append((ls, list(rng.integers(0, vocab, 1024)), 16))
+        for burst in (ls, ls + 1):
+            for _ in range(2):
+                sched.append((burst, list(rng.integers(0, vocab, 64)), 64))
+    sched.sort(key=lambda e: e[0])
+    return sched
+
+
+def phase_disagg(dev, card, dtype) -> dict:
+    """Phase 12b: bench_disagg's shape — one role="prefill" replica
+    (chunked prefill, 256 tokens a step) and two role="decode" replicas,
+    against a mixed fleet of three, on one trace: every stream whole and
+    equal (``check_streams``), every request handed off."""
+    from k8s_gpu_scheduler_tpu_torch import obs
+    from k8s_gpu_scheduler_tpu_torch.fleet import Router
+    from k8s_gpu_scheduler_tpu_torch.metrics.exporter import Registry
+    from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    cfg, model = fleet_model(dev, dtype)
+    sched = disagg_trace(cfg.vocab)
+    prompts, budgets = [p for _, p, _ in sched], [m for _, _, m in sched]
+    kw = dict(FLEET_ENGINE, prefix_cache=False)
+
+    def engine(**extra):
+        return ContinuousBatcher(model, cfg, device=dev, **kw, **extra)
+
+    out = {}
+    for label in ("mixed", "disagg"):
+        if label == "mixed":
+            reps = [(f"m{i}", engine(prefill_chunk_tokens=256))
+                    for i in range(3)]
+            pools = None
+        else:
+            reps = [("p0", engine(role="prefill", prefill_chunk_tokens=256)),
+                    ("d0", engine(role="decode")),
+                    ("d1", engine(role="decode"))]
+            pools = {"prefill": ["p0"], "decode": ["d0", "d1"]}
+        tr = obs.Tracer()
+        router = Router(reps, pools=pools, policy="round_robin",
+                        metrics=Registry(), tracer=tr)
+        da.reset_counters()
+        streams, _, wall, t = fleet_drive(router, sched)
+        c = da.counters()
+        stt = router.stats()
+        check_delivered(f"{label} fleet", router, streams, budgets)
+        hand = [1e3 * (s.t1 - s.t0) for s in tr.spans()
+                if s.name == "handoff"]
+        out[label] = dict(streams=streams,
+                          stats=dict(
+                              requests=len(sched), router_steps=t,
+                              wall_s=wall, handoffs=stt["handoffs"],
+                              lost=stt["requests_lost"],
+                              handoff_ms_p50=(sorted(hand)[len(hand) // 2]
+                                              if hand else None),
+                              handoff_ms_max=max(hand) if hand else None,
+                              launches=c))
+        log(f"  [{card}] {label}: {json.dumps(out[label]['stats'])}")
+        if not (c["paged_decode_attention"] and c["paged_prefill_attention"]) \
+                or any(c[k] for k in PLAIN):
+            raise SystemExit(f"{label} fleet launched {c}")
+    st = out["disagg"]["stats"]
+    if st["handoffs"] != len(sched):
+        raise SystemExit(f"disaggregated fleet: {st}")
+    st.update(dtype=str(dtype), **check_streams(
+        "disaggregated fleet", dtype, out["disagg"]["streams"],
+        out["mixed"]["streams"], prompts, model,
+        logit_spread(model, cfg, dev), PART_CAP["disagg"]))
+    log(f"  [{card}] disagg against mixed: {st['streams_differing']} "
+        f"streams differ, worst gap {st.get('worst_gap_over_spread')}")
+    return dict(mixed=out["mixed"]["stats"], disagg=st)
+
+
 def sass_counts(lib, opcode: str) -> dict:
     """{kernel: count of ``opcode`` instructions in its SASS} for the
     kernels of ``lib`` that have any, from ``cuobjdump -sass``; empty where
@@ -1878,6 +2624,23 @@ def sass_counts(lib, opcode: str) -> dict:
         elif name and f" {opcode}" in line:
             counts[name] = counts.get(name, 0) + 1
     return counts
+
+
+def phases_10_to_12(dev, card) -> None:
+    log("phase 10: the entry point. (a) main --serve, bf16, int8, resumed")
+    phase_main_serve(dev, card)
+    log("  (b) training resumed from a TrainCheckpointer (llama3_8b widths, "
+        "4 layers, B 8, T 2048)")
+    phase_train_resume(dev, card)
+    for dtype in (torch.bfloat16, torch.float32):
+        log(f"phase 11: the fleet at bench_fleet's configuration (3 "
+            f"replicas, 4 layers, int8 KV), {dtype}")
+        phase_fleet(dev, card, dtype)
+        log(f"phase 12: (a) a replica crashed by a FaultProxy, then the "
+            f"journal across a router restart, {dtype}")
+        phase_fleet_chaos(dev, card, dtype)
+        log(f"  (b) disaggregated pools against a mixed fleet, {dtype}")
+        phase_disagg(dev, card, dtype)
 
 
 def main() -> int:
@@ -1966,6 +2729,7 @@ def main() -> int:
     log("phase 9: observability at full width: traced against untraced, "
         "bf16")
     phase_observability(dev, card)
+    phases_10_to_12(dev, card)
     # Each kernel's launches come from the run of the path that runs it:
     # K1 and K2 from phase 3's main path, K3 from phase 4's, K4 from phase
     # 7's serve-loop run, K5-K7 from phase 6's timed steps.

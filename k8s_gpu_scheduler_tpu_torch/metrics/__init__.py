@@ -1,8 +1,8 @@
 """Metrics layer of the port: the Prometheus text-format exporter and
-the serving-pool export (copy of the JAX package's exporter, less the
-fleet metrics and the decode-fallback counter)."""
+the serving-pool export and the fleet router's metric names (copy of the
+JAX package's exporter, less the decode-fallback counter)."""
 from .exporter import (
-    DEFAULT_BUCKETS, PHASE_BUCKETS, PHASE_HISTOGRAM, PREFIX_HIT_BUCKETS,
+    FLEET_COUNTERS, FLEET_GAUGES, FLEET_HISTOGRAMS, DEFAULT_BUCKETS, PHASE_BUCKETS, PHASE_HISTOGRAM, PREFIX_HIT_BUCKETS,
     PREFIX_HIT_HISTOGRAM, PROMOTED_HIT_HISTOGRAM, SERVING_POOL_GAUGES,
     SPEC_ACCEPT_BUCKETS, SPEC_ACCEPT_HISTOGRAM, SPEC_GAMMA_GAUGE,
     TP_COMBINE_INFO, Counter, Gauge, Histogram, MetricsServer, Registry,
@@ -12,6 +12,9 @@ from .exporter import (
 __all__ = [
     "Counter",
     "DEFAULT_BUCKETS",
+    "FLEET_COUNTERS",
+    "FLEET_GAUGES",
+    "FLEET_HISTOGRAMS",
     "Gauge",
     "Histogram",
     "MetricsServer",

@@ -5,9 +5,11 @@ registered in a ``Registry``, served as Prometheus text exposition on
 ``ContinuousBatcher.pool_metrics()`` snapshot under the JAX engine's
 metric names (``tpu_serve_*``), so one dashboard reads either engine.
 
-Not copied: the fleet-router counters and gauges (they come with the
-fleet tier) and ``export_decode_fallbacks`` (the port never downgrades a
-fused decode to a dense path: its kernel wrappers launch or raise).
+The fleet router's counters, gauges and histogram (``FLEET_*``, names and
+help text as in JAX) are here too. Not copied: ``export_decode_fallbacks``
+and its ``tpu_serve_decode_fallback_total`` counter (the port never
+downgrades a fused decode to a dense path: its kernel wrappers launch or
+raise).
 """
 from __future__ import annotations
 
@@ -445,6 +447,87 @@ def export_serving_pool(registry: "Registry", pool_metrics: Dict[str, float],
             buckets=SPEC_ACCEPT_BUCKETS)
         for rate in accepts:
             hist.observe(float(rate), proposer=proposer, **labels)
+
+
+# Fleet-router counters (fleet/router.py increments these; the names are
+# the metrics contract the README documents). ``routed`` carries
+# {replica=, policy=} — policy "affinity" (cache-aware scoring) vs
+# "degraded" (stale/unreachable summaries → round-robin).
+FLEET_ROUTED_TOTAL = "tpu_fleet_routed_requests_total"
+FLEET_SHED_TOTAL = "tpu_fleet_shed_requests_total"
+FLEET_MIGRATED_TOTAL = "tpu_fleet_migrated_requests_total"
+FLEET_AFFINITY_HITS_TOTAL = "tpu_fleet_prefix_affinity_hits_total"
+# Crash tolerance (fleet/health.py + fleet/journal.py): failovers =
+# dead-replica declarations that replayed journaled requests; replayed
+# tokens = the redundant re-decoded verify window per failover (bounded
+# by journaled delivered tokens — the chaos CI leg asserts it); lost =
+# requests that vanished without a journal record (MUST stay 0 — the
+# zero-loss contract); expired = per-request deadlines enforced at the
+# router (submit(deadline_s=)).
+FLEET_FAILOVERS_TOTAL = "tpu_fleet_failovers_total"
+FLEET_REPLAYED_TOKENS_TOTAL = "tpu_fleet_replayed_tokens_total"
+FLEET_LOST_TOTAL = "tpu_fleet_requests_lost_total"
+FLEET_EXPIRED_TOTAL = "tpu_fleet_deadline_expired_total"
+# Disaggregated pools (fleet/router.py pools=): handoffs = completed
+# prefill→decode phase-boundary migrations (partial drain → absorb),
+# labeled {src=,dst=}. The duration histogram covers drain+absorb+
+# re-point wall time and is registered LAZILY at the first handoff — a
+# Histogram eagerly exposes zeroed unlabeled series at construction,
+# and a colocated fleet's exposition must stay free of it.
+FLEET_HANDOFFS_TOTAL = "tpu_fleet_handoffs_total"
+FLEET_HANDOFF_DURATION = "tpu_fleet_handoff_duration_seconds"
+FLEET_COUNTERS = {
+    FLEET_ROUTED_TOTAL:
+        "requests admitted through the fleet router, by replica/policy",
+    FLEET_SHED_TOTAL:
+        "requests shed out of a hot replica (partial drain), by source",
+    FLEET_MIGRATED_TOTAL:
+        "shed requests successfully absorbed, by target replica",
+    FLEET_AFFINITY_HITS_TOTAL:
+        "routed requests whose chosen replica had a non-zero cached "
+        "prefix match",
+    FLEET_FAILOVERS_TOTAL:
+        "replica deaths whose in-flight requests were replayed onto "
+        "survivors, by (dead) replica",
+    FLEET_REPLAYED_TOKENS_TOTAL:
+        "journaled tokens re-decoded for replay verification "
+        "(bounded rework: <= delivered tokens per failover)",
+    FLEET_LOST_TOTAL:
+        "requests lost without a journal record (zero-loss contract: "
+        "must stay 0)",
+    FLEET_EXPIRED_TOTAL:
+        "requests failed at the router for exceeding their deadline",
+    FLEET_HANDOFFS_TOTAL:
+        "prefill→decode pool handoffs (drain→absorb at the phase "
+        "boundary), by source/target replica",
+}
+
+# Histogram help texts live here (not inline at the registration site)
+# for the same reason the counter/gauge catalogs do: the catalog test
+# pins every tpu_fleet_* family to a non-empty HELP string.
+FLEET_HISTOGRAMS = {
+    FLEET_HANDOFF_DURATION:
+        "wall seconds per handoff: partial drain + absorb + fleet-id "
+        "re-point (lazily registered at the first handoff)",
+}
+
+# Fleet gauges: replica_state is a one-hot {replica=,state=} family (1
+# on the current state, 0 elsewhere — the PromQL-friendly encoding of an
+# enum); journal size is the router's open-entry count (in-flight
+# requests whose delivery record would drive a replay right now).
+FLEET_REPLICA_STATE = "tpu_fleet_replica_state"
+FLEET_JOURNAL_SIZE = "tpu_fleet_journal_inflight_requests"
+FLEET_REPLICA_ROLE = "tpu_fleet_replica_role"
+FLEET_GAUGES = {
+    FLEET_REPLICA_STATE:
+        "replica health state (fleet/health.py), one-hot over "
+        "{replica=,state=live|suspect|dead|quarantined|rejoining}",
+    FLEET_JOURNAL_SIZE:
+        "open request-journal entries (in-flight fleet requests)",
+    FLEET_REPLICA_ROLE:
+        "replica pool role (disaggregated serving), one-hot over "
+        "{replica=,role=mixed|prefill|decode}",
+}
 
 
 class MetricsServer:

@@ -6,7 +6,8 @@ and on a request drains the engine to a directory on the pod's volume
 (:func:`drain_to_checkpoint`); the replacement process calls
 :func:`resume_or_fresh` and every interrupted stream resumes where it
 stopped. A ``testing.faults.Preempted`` injection drives the same helpers
-in tests, with no signal.
+in tests, with no signal. The fleet router persists its request journal
+the same way (``persist_journal``/``load_journal``).
 
 Persistence is the port's own: ``snap.to_pytree()`` (a dict of numpy
 arrays) is written as one ``.npz`` (``allow_pickle=False``) into a step
@@ -129,6 +130,24 @@ def load_snapshot(directory: str) -> Optional[ServingSnapshot]:
     when there is none (first boot)."""
     tree = _load_pytree(directory)
     return None if tree is None else ServingSnapshot.from_pytree(tree)
+
+
+def persist_journal(journal, directory: str) -> None:
+    """Persist a fleet request journal (``fleet/journal.py``
+    ``RequestJournal``) the same way: the snapshot carries a replica's KV
+    state for cooperative recovery, the journal the router's delivery
+    record for recovery after a crash that never drained. Keep the two in
+    distinct directories (each is its own step lineage)."""
+    _persist_pytree(journal.to_pytree(), directory)
+
+
+def load_journal(directory: str):
+    """Latest persisted request journal under ``directory``, or None
+    when there is none (a fresh router)."""
+    from ..fleet.journal import RequestJournal
+
+    tree = _load_pytree(directory)
+    return None if tree is None else RequestJournal.from_pytree(tree)
 
 
 def resume_or_fresh(make_engine: Callable[[], object],

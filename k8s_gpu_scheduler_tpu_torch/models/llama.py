@@ -19,9 +19,11 @@ block becomes ``torch.utils.checkpoint`` per block, and optax's
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch import nn
@@ -277,3 +279,222 @@ def make_train_step(cfg: LlamaConfig, mesh: Optional[object],
         return loss.detach()
 
     return step
+
+
+# -- the pod's entry point -------------------------------------------------
+def n_params(cfg: LlamaConfig) -> int:
+    """The decoder's parameter count (``Llama``'s tensors)."""
+    D, hd, F = cfg.d_model, cfg.head_dim, cfg.d_ff
+    block = (D * cfg.n_heads * hd + 2 * D * cfg.n_kv_heads * hd
+             + cfg.n_heads * hd * D + 3 * D * F + 2 * D)
+    return cfg.n_layers * block + 2 * cfg.vocab * D + D
+
+
+def train_state_bytes(cfg: LlamaConfig) -> int:
+    """Bytes of the training state before any activation: the weights,
+    their gradients and AdamW's two moments, all in the model's dtype."""
+    return 4 * n_params(cfg) * torch.empty((), dtype=cfg.dtype).element_size()
+
+
+def wave_p99_ms(metrics: Dict[int, Dict[str, float]]) -> float:
+    """The p99 of a wave's per-request latencies in ms (the JAX serve
+    loop's nearest-rank pick), 0.0 for an empty wave."""
+    lats = sorted(m["latency_s"] * 1000 for m in metrics.values())
+    return lats[min(len(lats) - 1,
+                    round(0.99 * (len(lats) - 1)))] if lats else 0.0
+
+
+def serve_loop(eng, cfg: LlamaConfig, prompt_len: int, max_new: int, guard,
+               snap_dir: Optional[str] = None, publish=None, throttle=None,
+               slo: float = 0.0, max_waves: Optional[int] = None, sleep=None) -> int:
+    """The ``--serve`` loop of ``main()``: one warmup request of
+    ``max_new + 1`` tokens (its latency record discarded), then waves of
+    ``4 × n_slots`` random prompts of ``prompt_len`` tokens, each printing
+    ``llama serve qps=… decode_tok_s=… prefill_tok=… slo=… p99_ms=…``,
+    publishing ``(qps, p99_ms)``, pacing through ``throttle`` and to about
+    1 Hz. At a wave boundary where ``guard.requested`` is set the engine
+    drains to ``snap_dir`` (when given) and the loop raises
+    ``SystemExit(0)``. A wave drains every request it submitted, so that
+    snapshot normally holds none in flight, as in JAX. Returns after
+    ``max_waves`` waves when that is given (else it never returns)."""
+    from .lifecycle import drain_to_checkpoint
+
+    sleep = time.sleep if sleep is None else sleep
+    rng = np.random.default_rng(0)
+
+    def prompt_arr():
+        return rng.integers(0, cfg.vocab, prompt_len)
+
+    eng.submit(prompt_arr(), max_new=max_new + 1)
+    eng.run()                                   # warm every dispatch up
+    eng.pop_request_metrics()                   # no warmup latency
+    waves = 0
+    while True:
+        if guard.requested:
+            if snap_dir is not None:
+                snap = drain_to_checkpoint(eng, snap_dir)
+                print(f"llama serve worker=0 drained "
+                      f"{snap.n_requests_in_flight} requests to "
+                      f"{snap_dir}", flush=True)
+            raise SystemExit(0)
+        if max_waves is not None and waves >= max_waves:
+            return waves
+        t0 = time.perf_counter()
+        n_req = 4 * eng.n_slots
+        for _ in range(n_req):
+            eng.submit(prompt_arr(), max_new=max_new)
+        done = eng.run()
+        dt = time.perf_counter() - t0
+        # Tokens actually emitted: with an eos, requests stop early.
+        n_tok = sum(len(v) for v in done.values())
+        p99 = wave_p99_ms(eng.pop_request_metrics())
+        print(f"llama serve qps={n_req / dt:.2f} "
+              f"decode_tok_s={n_tok / dt:.1f} "
+              f"prefill_tok={n_req * prompt_len} slo={slo} "
+              f"p99_ms={p99:.1f}", flush=True)
+        waves += 1
+        if publish is not None:
+            publish(n_req / dt, p99_ms=p99)
+        if throttle is not None:
+            throttle.pace(dt)
+        # About 1 Hz: each publish is a registry read and write.
+        sleep(max(0.0, 1.0 - dt))
+
+
+def train_loop(model: Llama, opt: torch.optim.Optimizer,
+               batch: Dict[str, torch.Tensor], ckpt=None, step_no: int = 0,
+               every: int = 100, max_steps: Optional[int] = None) -> list:
+    """The training loop of ``main()``: one ``make_train_step`` update a
+    step, a ``llama pretrain worker=0 step=… tok/s=… loss=…`` line each
+    and ``ckpt.maybe_save(step, (model, opt), every)``. ``main()``'s
+    training branch refuses its 32-layer step on one card, so the JAX
+    loop's pacing and publishing come back with the multi-device slice
+    that runs it. ``step_no`` is the step the state has reached
+    (a restored checkpoint's); the loop stops after step ``max_steps``
+    when that is given. Returns the losses of the steps it ran (detached
+    device scalars); ``ckpt`` is closed on the way out."""
+    step = make_train_step(model.cfg, None, opt)
+    B, T = batch["tokens"].shape
+    losses = []
+    try:
+        while max_steps is None or step_no < max_steps:
+            t0 = time.perf_counter()
+            loss = step(model, batch)
+            loss_f = float(loss)                 # the step's one host read
+            step_dt = time.perf_counter() - t0
+            step_no += 1
+            losses.append(loss)
+            print(f"llama pretrain worker=0 step={step_no} "
+                  f"tok/s={B * T / step_dt:.0f} loss={loss_f:.3f}",
+                  flush=True)
+            if ckpt is not None:
+                ckpt.maybe_save(step_no, (model, opt), every=every)
+    finally:
+        if ckpt is not None:
+            ckpt.close()
+    return losses
+
+
+def single_process(env=None) -> None:
+    """Refuse a gang of more than one worker (``TPU_WORKER_HOSTNAMES``
+    naming several addresses): the JAX entry point joins
+    ``jax.distributed`` there, and the port's multi-process path is the
+    multi-device slice (ROADMAP queue 1, "Multi-device")."""
+    import os
+
+    src = os.environ if env is None else env
+    workers = [h for h in src.get("TPU_WORKER_HOSTNAMES", "").split(",")
+               if h]
+    if len(workers) > 1:
+        raise NotImplementedError(
+            f"a gang of {len(workers)} workers needs a multi-process "
+            f"rendezvous, which the port brings with the multi-device "
+            f"slice (ROADMAP queue 1, 'Multi-device'); run one worker")
+
+
+SERVE_HELP = (
+    "serve the paged ContinuousBatcher at the JAX serve config (d_model "
+    "1024, 8 layers, 16 heads, vocab 32000, bf16) with decode_attn='fused'"
+    ": the port decodes through its attention kernels, where the JAX "
+    "entry point serves this config with decode_attn='dense'")
+
+
+def main(argv=None, *, device="cuda") -> None:
+    """The pod's entry point (``python -m
+    k8s_gpu_scheduler_tpu_torch.models.llama``), with the JAX entry
+    point's flags: ``--serve`` runs the paged engine's serve loop
+    (``serve_loop``), resumed from ``<ckpt-dir>/serve_snapshot`` when a
+    drained snapshot is there and drained to it on SIGTERM; without it,
+    the training branch (``train_loop`` at llama3_8b, B 8, T 2048, AdamW
+    3e-4, resumed from ``--ckpt-dir``). The scheduler-injected limits
+    (``utils/enforcement.py``) are applied and the recommender publisher
+    built before anything is allocated on ``device``."""
+    import argparse
+    import dataclasses
+    import os
+
+    parser = argparse.ArgumentParser(
+        prog="python -m k8s_gpu_scheduler_tpu_torch.models.llama")
+    parser.add_argument("--serve", action="store_true", help=SERVE_HELP)
+    parser.add_argument("--prompt-len", type=int, default=512)
+    parser.add_argument("--max-new", type=int, default=64)
+    parser.add_argument("--int8", action="store_true",
+                        help="weight-only int8 serving (ops/quant.py)")
+    parser.add_argument("--temperature", type=float, default=0.0)
+    parser.add_argument("--top-k", type=int, default=0)
+    parser.add_argument("--eos-id", type=int, default=None)
+    parser.add_argument("--ckpt-dir", default=os.environ.get("TPU_CKPT_DIR"))
+    parser.add_argument("--ckpt-every", type=int, default=100)
+    args = parser.parse_args(argv)
+
+    from ..recommender.collector import make_workload_publisher
+    from ..utils.enforcement import apply_env_limits
+
+    dev = resolve_device(device)
+    single_process()
+    throttle = apply_env_limits(device=dev)
+    slo = float(os.environ.get("SLO", "0") or 0)
+    publish = make_workload_publisher(n_devices=1)
+
+    if args.serve:
+        from .lifecycle import PreemptionGuard, resume_or_fresh
+        from .serving import ContinuousBatcher
+
+        cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+        model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        if args.int8:
+            from ..ops.quant import quantize_llama_params
+
+            model = quantize_llama_params(model)
+        Tp, max_new = args.prompt_len, args.max_new
+
+        def mk_engine():
+            return ContinuousBatcher(
+                model, cfg, n_slots=8, max_len=cfg.max_seq, chunk=max_new,
+                prefill_bucket=max(Tp, 16), eos_id=args.eos_id,
+                temperature=args.temperature, top_k=args.top_k,
+                kv_layout="paged", device=dev)
+
+        snap_dir = (os.path.join(args.ckpt_dir, "serve_snapshot")
+                    if args.ckpt_dir else None)
+        eng, resumed = resume_or_fresh(mk_engine, snap_dir)
+        if resumed:
+            print(f"llama serve worker=0 resumed {resumed} "
+                  f"in-flight requests from {snap_dir}", flush=True)
+        guard = PreemptionGuard().install()
+        serve_loop(eng, cfg, Tp, max_new, guard, snap_dir=snap_dir,
+                   publish=publish, throttle=throttle, slo=slo)
+        return
+
+    cfg, B, T = LlamaConfig.llama3_8b(), 8, 2048
+    raise SystemExit(
+        f"llama pretrain: llama3_8b's weights, gradients and AdamW moments "
+        f"take {train_state_bytes(cfg)} bytes before any activation, and "
+        f"its B {B}, T {T} step does not fit one card (14 of its 32 "
+        f"layers is the deepest that fits an 80 GB H100); sharded training "
+        f"comes with the multi-device slice (ROADMAP queue 1, "
+        f"'Multi-device')")
+
+
+if __name__ == "__main__":
+    main()

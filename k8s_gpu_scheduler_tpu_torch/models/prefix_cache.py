@@ -376,6 +376,32 @@ class PrefixCache:
         node = self._demoted.get(key)
         return node is not None and not node.children
 
+    def digest(self, top_k: int = 8,
+               max_tokens: int = 512) -> List[Tuple]:
+        """Compact routing digest: the ``top_k`` hottest root-to-leaf
+        token paths (most recent ``last_used`` first) as ``(tokens,
+        cached_len)`` pairs, each token list truncated to ``max_tokens``
+        — what a fleet replica publishes so the router can score
+        ``prefix_match_len(prompt, digest)`` without the whole tree.
+        ``cached_len`` is the path's full cached length (it can exceed
+        ``len(tokens)``): a match against a truncated path under-claims,
+        never over-claims. Tiered caches emit ``(tokens, cached_len,
+        resident_len)`` triples, ``resident_len`` the path's longest
+        fully resident prefix in tokens; the remainder pays a promotion
+        upload."""
+        paths = self.dump_paths()                # coldest first
+        out: List[Tuple] = []
+        for tokens, pages in reversed(paths[-top_k:] if top_k else []):
+            cached = len(pages) * self.page_size
+            if self._tier is None:
+                out.append((tokens[:max_tokens], cached))
+            else:
+                resident = next(
+                    (i for i, p in enumerate(pages) if p < 0), len(pages))
+                out.append((tokens[:max_tokens], cached,
+                            resident * self.page_size))
+        return out
+
     def dump_paths(self) -> List[Tuple[List[int], List[int]]]:
         """The tree as root-to-LEAF ``(tokens, pages)`` paths, ordered by
         the leaf's LRU clock (coldest first) — the serializable form a

@@ -817,7 +817,6 @@ _LATER_SLICES = {
     "mesh": (None, "the multi-device slice"),
     "weight_sharding": (True, "the multi-device slice"),
     "tp_combine": ("all_gather", "the multi-device slice"),
-    "role": ("mixed", "the fleet slice"),
 }
 
 
@@ -857,7 +856,13 @@ class ContinuousBatcher:
     fresh engine (``restore``) and absorbs a shed slot (``absorb``);
     ``kv_tiering`` demotes evicted prefix pages to host DRAM
     (``dram_pages``, then disk under ``kv_tier_disk``) and promotes them
-    back; ``fault_injector`` is the chaos hook.
+    back; ``fault_injector`` is the chaos hook. ``role`` ("mixed",
+    "prefill" or "decode") places the engine in a disaggregated fleet:
+    a "prefill" engine admits and prefills but never decodes, holding
+    ready slots for the router's handoff. The fleet router reads
+    ``replica_stats``, ``cache_digest``, ``emitted``, ``cancel``,
+    ``active_slot_ids``, ``pages_referenced`` and
+    ``handoff_ready_slots``.
 
     ``clock`` (default the system clock) is the time every queue wait,
     TTFT, watchdog age and span reads; ``tracer`` (an ``obs.Tracer``,
@@ -889,7 +894,7 @@ class ContinuousBatcher:
                  fault_injector=None, tracer=None, clock=None,
                  flight_capacity: int = 256):
         given = dict(mesh=mesh, weight_sharding=weight_sharding,
-                     tp_combine=tp_combine, role=role)
+                     tp_combine=tp_combine)
         for name, (off, slice_name) in _LATER_SLICES.items():
             if given[name] != off:
                 raise NotImplementedError(
@@ -900,8 +905,10 @@ class ContinuousBatcher:
                              f"got {kv_layout!r}")
         if cfg.decode_attn != "fused":
             raise NotImplementedError(
-                f"decode_attn={cfg.decode_attn!r}: the port serves through "
-                f"the attention kernels; use decode_attn='fused'")
+                f"decode_attn={cfg.decode_attn!r} is refused by the port's "
+                f"standing rule: it serves through the attention kernels "
+                f"(decode_attn='fused'), and no later slice brings the "
+                f"dense decode path")
         if prefill_attn not in (None, "auto", "kernel", "gather"):
             raise ValueError(f"prefill_attn must be None/'auto'/'kernel'/"
                              f"'gather', got {prefill_attn!r}")
@@ -937,8 +944,26 @@ class ContinuousBatcher:
                         f"{name} requires kv_layout='paged' ({why})")
         if prefill_attn == "gather":
             raise NotImplementedError(
-                "prefill_attn='gather': the port prefills cached prefixes "
-                "through the prefix-attention kernel only")
+                "prefill_attn='gather' is refused by the port's standing "
+                "rule: it serves through the attention kernels (cached "
+                "prefixes prefill through the prefix-attention kernel "
+                "only), and no later slice brings the gather path")
+        # Disaggregated serving (fleet/router.py pools=): "prefill" runs
+        # admission and chunked prefill and never dispatches a decode or
+        # verify — ready slots park until the router hands them to a
+        # decode replica; "decode" is an advisory label (the engine
+        # behaves as "mixed"). Not in fingerprint(): the pools of one
+        # fleet differ in role by design.
+        if role not in ("mixed", "prefill", "decode"):
+            raise ValueError(
+                f"role must be 'mixed', 'prefill' or 'decode', got "
+                f"{role!r}")
+        if role == "prefill" and kv_layout != "paged":
+            raise ValueError(
+                "role='prefill' requires kv_layout='paged' (handoff "
+                "drains the slot's pages to a decode replica; the "
+                "contiguous cache has no migratable pages)")
+        self.role = role
         self.layout = kv_layout
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -1379,9 +1404,9 @@ class ContinuousBatcher:
         self._budget.pop(rid, None)
         self._eos_scanned.pop(rid, None)
         self._drop_spec(slot, rid)
-        if slot in self._slot_pages:
+        if self.layout == "paged" and slot in self._slot_pages:
             self._free_slot_pages(slot)
-        else:
+        elif self.layout == "paged":
             self._prefill_pending.pop(slot, None)
         self._out.pop(rid, None)
         self._arrival.pop(rid, None)
@@ -1752,6 +1777,18 @@ class ContinuousBatcher:
         finished.extend(self._advance_prefill())
         ready = {s: r for s, r in self._slot_req.items()
                  if s not in self._prefill_pending}
+        if self.role == "prefill":
+            # Prefill-pool replica: the decode (or verify) dispatch is the
+            # decode pool's job. Ready slots (prompt resident, first token
+            # emitted) park here until the router hands them off.
+            if self._flight is not None:
+                self._flight.record("prefill_only", active=0,
+                                    held=len(ready),
+                                    admitted=self._step_admitted,
+                                    retired=len(finished),
+                                    pool_free=self._alloc.free_count,
+                                    faults=self._step_faults)
+            return finished
         if ready:
             step = self._verify_step if self.spec else self._decode_step
             return step(ready, finished)
@@ -2768,6 +2805,106 @@ class ContinuousBatcher:
                            resumed=len(mapping), pages=need)
         return mapping
 
+    # -- fleet-tier inputs (fleet/summary.py and fleet/router.py) ---------
+    def emitted(self, req_id: int) -> list:
+        """Tokens emitted so far by an in-flight request (eos-truncated, a
+        copy): the fleet router's journal reads this after every step.
+        Unknown or finished ids return []."""
+        self._flush()                       # no-op between steps
+        out = self._out.get(req_id)
+        return self._truncate_eos(list(out)) if out else []
+
+    def cancel(self, req_id: int, reason: str = "cancelled") -> bool:
+        """Retire one request now — queued or active — with an error
+        record (``self.errors``) and its pages returned to the pool: the
+        router's deadline enforcement and failover cleanup. Returns False
+        for ids this engine does not hold."""
+        self._flush()                       # deferred reads may name it
+        for i, (rid, _prompt) in enumerate(self._queue):
+            if rid == req_id:               # never admitted: no pages yet
+                del self._queue[i]
+                self.errors[req_id] = f"Cancelled: {reason}"
+                self._request_errors += 1
+                for d in (self._budget, self._out, self._arrival,
+                          self._eos_scanned, self._first_tok):
+                    d.pop(req_id, None)
+                if self.spec:
+                    self._spec_ema.pop(req_id, None)
+                    self._spec_reserve.pop(req_id, None)
+                return True
+        for slot, rid in self._slot_req.items():
+            if rid == req_id:
+                self._fail_request(slot, req_id, RuntimeError(reason))
+                self.errors[req_id] = f"Cancelled: {reason}"
+                return True
+        return False
+
+    def replica_stats(self) -> Dict[str, object]:
+        """Instantaneous load numbers a fleet replica publishes for
+        cache-aware routing: host-side reads, no device sync."""
+        if self.layout != "paged":
+            raise ValueError(
+                "replica_stats() requires kv_layout='paged' (the fleet "
+                "tier routes on page watermarks)")
+        if self.spec:
+            # One instant for both: a stats read racing a step never
+            # tears proposed against accepted.
+            with self._obs_mu:
+                spec_proposed = self._spec_proposed
+                spec_accepted = self._spec_accepted
+        else:
+            spec_proposed = spec_accepted = 0
+        return {
+            "page_size": self.page_size,
+            "pages_total": self._alloc.n_pages - 1,
+            "pages_free": self._alloc.free_count,
+            "role": self.role,
+            "n_slots": self.n_slots,
+            "active_slots": len(self._slot_req),
+            "queued": len(self._queue),
+            "prefill_backlog_tokens": self._prefill_backlog(),
+            "tp": 1,                        # one card: no tensor islands
+            "weight_device_bytes": int(self._weight_dev_bytes),
+            "dram_cached_pages": (len(self._tier)
+                                  if self._tier is not None else 0),
+            "spec_accept_rate": (
+                round(spec_accepted / spec_proposed, 4)
+                if spec_proposed else 0.0),
+        }
+
+    def cache_digest(self, top_k: int = 8, max_tokens: int = 512) -> list:
+        """Routing digest of the radix prefix cache (the top-K hottest
+        cached token paths, ``PrefixCache.digest``); [] when the cache is
+        off."""
+        if self.layout != "paged" or self._prefix is None:
+            return []
+        return self._prefix.digest(top_k, max_tokens)
+
+    def active_slot_ids(self) -> list:
+        """Sorted slot ids bound to a request — the shed candidates."""
+        return sorted(self._slot_req)
+
+    def pages_referenced(self, slots) -> int:
+        """Distinct non-null pages the given active slots reference (own
+        and mounted shared): the router's precheck that a shed or handoff
+        target has room before the drain."""
+        seen: set = set()
+        for s in slots:
+            seen.update(int(p) for p in self._slot_shared.get(s, ()))
+            seen.update(int(p) for p in self._slot_pages.get(s, ()))
+        seen.discard(NULL_PAGE)
+        return len(seen)
+
+    def handoff_ready_slots(self) -> list:
+        """Sorted (slot, req id) pairs whose prefill is complete — the
+        slots a disaggregated router may drain to the decode pool
+        (mid-prefill slots are left out: handoff happens at the phase
+        boundary)."""
+        if self.layout != "paged":
+            return []
+        return sorted((s, r) for s, r in self._slot_req.items()
+                      if s not in self._prefill_pending)
+
     def _reap_eos(self) -> list:
         """Free slots whose flushed output now holds eos."""
         reaped: list = []
@@ -2816,6 +2953,12 @@ class ContinuousBatcher:
         """Drain everything submitted; returns {req id: tokens}. Without
         an eos every chunk dispatches back to back and the results are
         read once at the end."""
+        if self.role == "prefill":
+            raise RuntimeError(
+                "run() on a role='prefill' engine would spin forever: "
+                "prefill-pool replicas never dispatch decode, so "
+                "requests only complete after a fleet handoff — drive "
+                "the engine through Router(pools=...) instead")
         if self.eos_id is not None:
             done: Dict[int, list] = {}
             while self.pending:

@@ -1,5 +1,9 @@
 """Test harness pieces of the port: seeded fault injection
 (``faults.py``)."""
-from .faults import FaultInjector, FaultRule, InjectedFault, Preempted
+from .faults import (
+    FaultInjector, FaultProxy, FaultRule, InjectedFault, Preempted,
+    ReplicaCrashed,
+)
 
-__all__ = ["FaultInjector", "FaultRule", "InjectedFault", "Preempted"]
+__all__ = ["FaultInjector", "FaultProxy", "FaultRule", "InjectedFault",
+           "Preempted", "ReplicaCrashed"]

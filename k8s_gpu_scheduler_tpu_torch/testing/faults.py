@@ -1,16 +1,19 @@
 """Seeded, deterministic fault injection for the port's serving engine
-(trimmed copy of the JAX package's ``testing/faults.py``; the hard-kill
-``ReplicaCrashed`` and the ``FaultProxy`` wrapper come with the fleet
-slice).
+and fleet (copy of the JAX package's ``testing/faults.py``).
 
-Hook points are named ``site`` strings fired from the engine:
-``serve.step`` once per step before any state changes, and
-``serve.propose`` once per slot per speculative proposal. A site's call
+Hook points are named ``site`` strings fired from the engine and the
+fleet router: ``serve.step`` once per step before any state changes,
+``serve.propose`` once per slot per speculative proposal, ``fleet.step``
+once per router step and ``replica.crash`` once per serving replica per
+router step; a ``FaultProxy`` fires ``<site>.<method>`` before every
+public method call of the object it wraps (a summary store, an engine).
+A site's call
 counter is the injection clock. A ``FaultRule`` picks call indices at a
 site (explicit ``at``, periodic ``every``, an ``after``/``until`` window,
 or a seeded probability ``p``) and names the fault: ``drop`` raises,
 ``delay`` sleeps, ``preempt`` raises ``Preempted`` (the in-process
-stand-in for SIGTERM that a drain/restore loop catches), and
+stand-in for SIGTERM that a drain/restore loop catches), ``crash`` raises
+``ReplicaCrashed`` (the hard kill: the router discards the engine), and
 ``page_pressure`` is returned to the engine, which holds that many pool
 pages hostage. Matching depends only on (rule, call index) and, for ``p``,
 a ``random.Random`` seeded from (seed, rule, site), so a seed replays its
@@ -24,7 +27,7 @@ import zlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Type
 
-_KINDS = ("drop", "delay", "preempt", "page_pressure")
+_KINDS = ("drop", "delay", "preempt", "page_pressure", "crash")
 
 
 class InjectedFault(Exception):
@@ -36,6 +39,15 @@ class Preempted(InjectedFault):
     """The preemption signal: raised out of the batcher step loop so the
     serve loop can drain/snapshot/restore — the in-process stand-in for the
     SIGTERM a GKE spot preemption delivers."""
+
+
+class ReplicaCrashed(InjectedFault):
+    """The hard-kill signal (kind="crash"): unlike :class:`Preempted`,
+    nothing cooperative follows — the fleet router discards the engine
+    object outright (no drain, no snapshot) and recovery is the router's
+    journal replay. Fired from ``fleet.step`` and ``replica.crash``; the
+    per-site call index picks which replica dies, since the router visits
+    replicas in id order."""
 
 
 @dataclass(frozen=True)
@@ -139,9 +151,39 @@ class FaultInjector:
                 self._sleep(rule.delay_s)
             elif rule.kind == "preempt":
                 raise Preempted(f"injected preemption at {site}#{index}")
+            elif rule.kind == "crash":
+                raise ReplicaCrashed(f"injected crash at {site}#{index}")
             elif rule.kind == "drop":
                 exc = rule.exc or drop_exc
                 raise exc(f"injected {site}#{index} drop")
             else:
                 passive.append(rule)
         return passive
+
+
+class FaultProxy:
+    """Wrap any object so every public method call first fires
+    ``<site>.<method>`` on the injector — how a test flaps a summary store
+    or an engine without the wrapped class knowing. Attribute reads pass
+    through untouched; only calls inject, and only calls of methods the
+    target has (a name it lacks raises ``AttributeError``, never a
+    silent miss)."""
+
+    def __init__(self, target, injector: FaultInjector, site: str,
+                 drop_exc: Type[BaseException] = InjectedFault) -> None:
+        self._target = target
+        self._injector = injector
+        self._site = site
+        self._drop_exc = drop_exc
+
+    def __getattr__(self, name: str):
+        attr = getattr(self._target, name)
+        if not callable(attr) or name.startswith("_"):
+            return attr
+        injector, site, exc = self._injector, self._site, self._drop_exc
+
+        def fired(*args, **kwargs):
+            injector.fire(f"{site}.{name}", drop_exc=exc)
+            return attr(*args, **kwargs)
+
+        return fired

@@ -350,11 +350,12 @@ def test_submit_and_option_errors():
                       (dict(kv_layout="ring"), "kv_layout must be"),
                       (dict(prefill_attn="einsum"), "prefill_attn must be"),
                       (dict(kv_tiering=True),
-                       "kv_tiering=True requires kv_layout='paged'")):
+                       "kv_tiering=True requires kv_layout='paged'"),
+                      (dict(role="prefill"),
+                       "role='prefill' requires kv_layout='paged'")):
         with pytest.raises(ValueError, match=match):
             build(**kw)
     for kw, match in ((dict(mesh=object()), "multi-device"),
-                      (dict(role="prefill"), "fleet"),
                       (dict(kv_layout="paged", page_size=8,
                             prefill_attn="gather"), "kernel only")):
         with pytest.raises(NotImplementedError, match=match):

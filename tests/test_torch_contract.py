@@ -28,6 +28,15 @@ DEFERRED = [
                  id="weight_sharding"),
     pytest.param("tp_combine", "psum", "multi-device", id="tp_combine"),
 ]
+# JAX options the port refuses for good, by its standing rule: it serves
+# through the attention kernels, so no later slice brings the dense decode
+# or the gather prefix prefill.
+REFUSED = [
+    pytest.param({"decode_attn": "dense"}, {}, "decode_attn='dense'",
+                 id="decode_attn=dense"),
+    pytest.param({}, {"prefill_attn": "gather"}, "prefill_attn='gather'",
+                 id="prefill_attn=gather"),
+]
 # Paged pool_metrics() keys of the JAX engine that come with later slices.
 NOT_PORTED_KEYS = {
     "tp": "multi-device",
@@ -56,6 +65,37 @@ def test_deferred_options_raise_naming_their_slice(weights, name, value,
     _, cfg, _, model = weights
     with pytest.raises(NotImplementedError, match=slice_name):
         ContinuousBatcher(model, cfg, device="cpu", **{name: value})
+
+
+@pytest.mark.parametrize("cfg_kw,eng_kw,what", REFUSED)
+def test_refused_options_name_the_standing_rule(weights, cfg_kw, eng_kw,
+                                                what):
+    """Both options the JAX engine accepts and the port refuses raise
+    ``NotImplementedError`` saying it is the port's standing rule, not a
+    later slice, while the JAX engine builds with them."""
+    import dataclasses
+
+    jcfg, cfg, params, model = weights
+    JEngine(params, dataclasses.replace(jcfg, **cfg_kw), **ENGINE, **eng_kw)
+    with pytest.raises(NotImplementedError) as e:
+        ContinuousBatcher(model, dataclasses.replace(cfg, **cfg_kw),
+                          device="cpu", **ENGINE, **eng_kw)
+    msg = str(e.value)
+    assert what in msg and "standing rule" in msg
+    assert "no later slice" in msg
+
+
+@pytest.mark.parametrize("role", ["mixed", "prefill", "decode"])
+def test_role_is_accepted_as_in_jax(weights, role):
+    """``role`` is no longer deferred: each of JAX's three values builds a
+    paged engine that reports it, and an unknown one raises JAX's
+    ``ValueError``."""
+    jcfg, cfg, params, model = weights
+    eng = ContinuousBatcher(model, cfg, device="cpu", **ENGINE, role=role)
+    assert eng.role == JEngine(params, jcfg, **ENGINE, role=role).role == role
+    assert eng.replica_stats()["role"] == role
+    with pytest.raises(ValueError, match="role must be"):
+        ContinuousBatcher(model, cfg, device="cpu", **ENGINE, role="both")
 
 
 @pytest.mark.parametrize("name,value", [("dram_pages", 64),

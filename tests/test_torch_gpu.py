@@ -789,3 +789,96 @@ def test_train_steps_on_card_match_cpu(cuda):
     assert _train_losses(cfg, cuda) == card
     dense = _train_losses(dataclasses.replace(cfg, attn_impl="dense"), cuda)
     assert dense == pytest.approx(card, rel=1e-4)
+
+
+def _fleet_traffic(vocab, n=8, seed=0):
+    """``n`` prompts over two shared 32-token system prompts."""
+    rng = np.random.default_rng(seed)
+    hot = [list(rng.integers(0, vocab, 32)) for _ in range(2)]
+    return [hot[i % 2] + list(rng.integers(0, vocab, 3 + i % 5))
+            for i in range(n)]
+
+
+def _fleet_engine(model, dev, **kw):
+    return ContinuousBatcher(model, LlamaConfig(**SMALL), device=dev, **{
+        **dict(n_slots=3, max_len=128, chunk=4, prefill_bucket=16,
+               kv_layout="paged", page_size=16, prefix_cache=True), **kw})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("role", ["mixed", "prefill"])
+def test_fleet_engine_methods_on_card_match_cpu(cuda, role):
+    """The methods the router reads (``emitted``, ``replica_stats``,
+    ``cache_digest``, ``active_slot_ids``, ``pages_referenced``,
+    ``handoff_ready_slots``, ``cancel``) on a card engine equal the CPU
+    engine's over the same steps (f32); a ``role="prefill"`` engine parks
+    its ready slots and launches no decode kernel."""
+    got = []
+    for dev in ("cpu", cuda):
+        model = init_params(LlamaConfig(**SMALL),
+                            torch.Generator().manual_seed(0), dev)
+        eng = _fleet_engine(model, dev, role=role,
+                            prefill_chunk_tokens=16)
+        ids = [eng.submit(p, 12) for p in _fleet_traffic(256, n=5)]
+        da.reset_counters()
+        seen = []
+        for _ in range(4):
+            eng.step()
+            seen.append(([eng.emitted(r) for r in ids],
+                         eng.replica_stats(), eng.cache_digest(4, 64),
+                         eng.active_slot_ids(),
+                         eng.pages_referenced(eng.active_slot_ids()),
+                         eng.handoff_ready_slots()))
+        cancelled = (eng.cancel(ids[-1], reason="deadline"),
+                     eng.cancel(10 ** 6), dict(eng.errors))
+        eng._alloc.assert_consistent()
+        got.append((seen, cancelled))
+        if dev != "cpu":
+            c = da.counters()
+            assert not (c["paged_decode_reference"]
+                        or c["dense_prefill_reference"]), c
+            assert (c["paged_decode_attention"] == 0) == (role == "prefill")
+    assert got[0] == got[1]
+    assert got[1][1][:2] == (True, False)
+
+
+@pytest.mark.gpu
+def test_router_on_card_launches_kernels_and_matches_cpu(cuda):
+    """A 2-replica ``Router`` over card engines, with a forced shed: the
+    streams equal the CPU fleet's and a single CPU engine's (f32), K1 and
+    K2 launch, and no plain version runs on the card."""
+    from k8s_gpu_scheduler_tpu_torch import fleet, obs
+
+    prompts = _fleet_traffic(256)
+    got = []
+    for dev in ("cpu", cuda):
+        model = init_params(LlamaConfig(**SMALL),
+                            torch.Generator().manual_seed(0), dev)
+        clk = obs.VirtualClock()
+        engines = {f"r{i}": _fleet_engine(model, dev, clock=clk)
+                   for i in range(2)}
+        rtr = fleet.Router(list(engines.items()), clock=clk)
+        da.reset_counters()
+        frids = [rtr.submit(p, max_new=12) for p in prompts]
+        done = rtr.step()
+        src = max(engines, key=lambda r: len(engines[r].active_slot_ids()))
+        moved = rtr.shed(src, "r1" if src == "r0" else "r0",
+                         slots=engines[src].active_slot_ids()[:1])
+        done.update(rtr.run())
+        c = da.counters()
+        got.append(([done[f] for f in frids], moved, rtr.stats()))
+        if dev != "cpu":
+            assert c["paged_decode_attention"] > 0
+            assert c["paged_prefill_attention"] > 0
+            assert not (c["paged_decode_reference"]
+                        or c["dense_prefill_reference"]
+                        or c["paged_verify_reference"]), c
+        else:
+            ref = _fleet_engine(model, "cpu")
+            ids = [ref.submit(p, 12) for p in prompts]
+            single = {}
+            while ref.pending:
+                single.update(ref.step())
+            assert got[0][0] == [single[i] for i in ids]
+    assert got[0] == got[1]
+    assert got[1][1] == 1 and got[1][2]["aggregate_prefix_hit_rate"] > 0

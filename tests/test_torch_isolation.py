@@ -19,6 +19,14 @@ MODULES = sorted(
         ".__init__", "")
     for p in PORT.rglob("*.py"))
 
+# The modules of the entry-point and fleet slice: copies of framework-free
+# JAX modules, which must still import nothing of the JAX package.
+FLEET_SLICE = ["k8s_gpu_scheduler_tpu_torch." + m for m in (
+    "config", "fleet", "fleet.health", "fleet.journal", "fleet.pools",
+    "fleet.router", "fleet.summary", "recommender", "recommender.collector",
+    "registry", "registry.client", "registry.inventory", "utils",
+    "utils.checkpoint", "utils.enforcement", "utils.retry")]
+
 JAX_PKG = re.compile(
     r"^\s*(from|import)\s+k8s_gpu_scheduler_tpu(\.|\b)"
     r"|import_module\(\s*['\"]k8s_gpu_scheduler_tpu(\.|\b)", re.M)
@@ -42,7 +50,8 @@ def test_every_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     assert "k8s_gpu_scheduler_tpu_torch.models.proposers" in MODULES
     assert "k8s_gpu_scheduler_tpu_torch.ops.flash_attention" in MODULES
-    assert len(MODULES) >= 14
+    assert set(FLEET_SLICE) <= set(MODULES)
+    assert len(MODULES) >= 14 + len(FLEET_SLICE)
 
 
 @pytest.mark.parametrize("path", SOURCES,

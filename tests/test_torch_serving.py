@@ -144,7 +144,7 @@ def test_run_matches_step():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(role="prefill")],
+    dict(mesh=object()), dict(tp_combine="psum")],
     ids=lambda kw: next(iter(kw)))
 def test_later_slice_options_raise(kw):
     with pytest.raises(NotImplementedError, match="slice"):
