@@ -64,8 +64,11 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    prefill bucket 512, 32 requests of 512-token prompts sharing a
    384-token system prompt. Counters are zeroed just before and read just
    after: K1 and K2 must have launched and no plain version been called.
-   A second greedy run must reproduce the streams. Then a shorter pass
-   with int8 weights and an int8 KV pool.
+   A second greedy run must reproduce the streams; 16 of the requests run
+   again under torch.profiler (the card's busy share and its time by
+   kernel); then a shorter pass with int8 weights and an int8 KV pool.
+   Prints decode tokens/s, TTFT p50, the synchronised and the
+   enqueue-only host ms a decode tick and the peak memory.
 4. the speculative path at full width: the same config with
    speculative=True, gamma 4, the bigram proposer, prefill bucket 128, on
    32 requests of a random 16-token phrase repeated 8 times, max_new 64
@@ -185,9 +188,38 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    ``NEAR_TIE`` times that spread of its top logit; eight streams with a
    far token swapped in must each fail that test.
 
-``--profile`` adds profiled serving runs (plain decode, speculative and
-the contiguous engine) and one profiled training step: the card's busy
-share and its time by kernel; and the CUDA kernels one paged decode
+13. mixture-of-experts serving. (a) a small f32 MoE config (4 experts,
+   top 2) in the paged, prefix-cached engine on the CPU and on the card:
+   equal greedy streams and skipped prefill tokens, the card launching K1
+   and K2 and no plain version. (b) Mixtral-8x7B's published widths
+   (hidden 4096, 32 heads, 8 kv heads, intermediate 14336, 8 experts, top
+   2, vocab 32000, rope_theta 1e6; depth cut to 8 layers, max_seq to
+   2048), bf16, dropless experts, weights drawn on the card from a seed,
+   phase 3's engine, traffic (8 slots, page 64, chunk 64, bucket 512,
+   the prefix cache; 32 requests of a 384-token system prompt plus 128
+   unique tokens, max_new 64), checks and prints, profiled pass and int8
+   pass.
+14. mixture-of-experts training at the same widths, 4 layers, B 8, T
+   2048, the capacity path with its balance aux, flash attention, remat,
+   AdamW 3e-4, one fixed batch: a warm-up step, then 2 timed steps (K5 2L,
+   K6 and K7 L launches a step, no plain version); the losses and the aux
+   must be finite and the last loss below the first. Prints step ms,
+   tokens/s, the operations the step executes (``moe_step_flops``) and
+   their rate's share of 989 TFLOP/s, and the peak memory.
+15. BERT-base: ``classify`` at the tiny config on the card against the CPU
+   (f32 and bf16), then ``python -m k8s_gpu_scheduler_tpu_torch.models.
+   bert`` in a process of its own until it prints three ``bert-base qps=``
+   lines, each with qps > 0; it is then sent SIGTERM and must end by that
+   signal with no traceback.
+16. ResNet-50: ``forward`` at the tiny f32 config on the card against the
+   CPU on 32x32 and 33x33 images, then ``python -m
+   k8s_gpu_scheduler_tpu_torch.models.resnet`` the same way: three
+   ``resnet50 img/s=`` lines with img/s > 0 and a finite loss.
+
+``--profile`` adds profiled serving runs (speculative and the contiguous
+engine) and one profiled training step: the card's busy
+share and its time by kernel; a profiled BERT-base call and ResNet-50
+step (phases 15-16's shapes); and the CUDA kernels one paged decode
 dispatch launches per layer per tick, one verify dispatch per layer per
 verify and one contiguous decode dispatch per layer per tick (``--parent
 DIR``: the same count for the package in DIR, a copy of another tree, in a
@@ -947,8 +979,10 @@ def phase_contiguous_vs_cpu(dev) -> dict:
 
 class _DecodeTimer:
     """Times the engine's decode-chunk and verify dispatches on the host
-    clock, synchronised at both ends, by wrapping the module functions the
-    engine calls for the duration of a ``with`` block."""
+    clock, synchronised at both ends (``seconds``), and the part of that
+    until the dispatch returns, its kernels enqueued (``enqueue_seconds``),
+    by wrapping the module functions the engine calls for the duration of
+    a ``with`` block."""
 
     NAMES = ("_decode_chunk_paged_fn", "_verify_chunk_paged_fn",
              "_decode_chunk_fn")
@@ -956,7 +990,7 @@ class _DecodeTimer:
     def __enter__(self):
         from k8s_gpu_scheduler_tpu_torch.models import serving
 
-        self.seconds, self._mod = 0.0, serving
+        self.seconds, self.enqueue_seconds, self._mod = 0.0, 0.0, serving
         self._orig = {n: getattr(serving, n) for n in self.NAMES}
 
         def wrap(orig):
@@ -964,6 +998,7 @@ class _DecodeTimer:
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 out = orig(*args, **kw)
+                self.enqueue_seconds += time.perf_counter() - t
                 torch.cuda.synchronize()
                 self.seconds += time.perf_counter() - t
                 return out
@@ -1009,6 +1044,7 @@ def serve_run(model, cfg, prompts, max_new, **kw):
     st = dict(
         requests=len(prompts), tokens=n_tok, wall_s=wall,
         tokens_per_s=n_tok / wall, decode_s=dec.seconds,
+        decode_enqueue_s=dec.enqueue_seconds,
         decode_tokens_per_s=(n_tok - len(prompts)) / dec.seconds,
         ttft_p50_ms=1e3 * ttft[len(ttft) // 2], launches=counts)
     if paged:
@@ -1025,47 +1061,81 @@ def serve_run(model, cfg, prompts, max_new, **kw):
     return streams, st
 
 
-def phase_full_width(dev, card) -> dict:
-    from k8s_gpu_scheduler_tpu_torch.models.llama import (
-        LlamaConfig, init_params)
+def serve_full_width(card, label, cfg, make_model) -> dict:
+    """Phase 3's checks on ``make_model()`` (the model is built and freed
+    here): a warm-up, then 32 shared-prefix requests (K1 and K2 launched,
+    prompt tokens skipped, no plain version, well-formed streams, the
+    synchronised ms a decode tick and the peak memory), a second greedy
+    run that must reproduce them, 16 of them profiled (the card's busy
+    share), and 16 with int8 weights and an int8 KV pool."""
     from k8s_gpu_scheduler_tpu_torch.ops.quant import quantize_llama_params
 
-    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
-    model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = make_model()
+    torch.cuda.synchronize()
+    log(f"  [{card}] {label}: {sum(p.numel() for p in model.parameters())} "
+        f"parameters, set up in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     max_new = 64
     # Warm-up on other prompts (allocator growth, cuBLAS handles).
     serve_run(model, cfg, shared_prefix_traffic(rng, cfg.vocab, 8, 384, 128),
               max_new)
     prompts = shared_prefix_traffic(rng, cfg.vocab, 32, 384, 128)
+    torch.cuda.reset_peak_memory_stats()
     streams, st = serve_run(model, cfg, prompts, max_new)
-    log(f"  [{card}] bf16: {json.dumps(st)}")
+    st.update(tick_stats(st, cfg),
+              peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  [{card}] {label} bf16: {json.dumps(st)}")
     c = st["launches"]
     if not (c["paged_decode_attention"] > 0
             and c["paged_prefill_attention"] > 0
             and st["prefill_tokens_skipped"] > 0):
-        raise SystemExit(f"main path missed a kernel or the cache: {st}")
+        raise SystemExit(f"{label} missed a kernel or the cache: {st}")
     if any(c[k] for k in PLAIN):
-        raise SystemExit(f"main path called a plain version: {c}")
+        raise SystemExit(f"{label} called a plain version: {c}")
     if malformed(streams, max_new, cfg.vocab):
-        raise SystemExit("malformed streams on the main path")
-    again, st2 = serve_run(model, cfg, prompts, max_new)
+        raise SystemExit(f"malformed streams on the {label}")
+    again, _ = serve_run(model, cfg, prompts, max_new)
     if again != streams:
-        raise SystemExit("a second greedy run did not reproduce the streams")
+        raise SystemExit(f"{label}: a second greedy run did not reproduce "
+                         f"the streams")
     log(f"  [{card}] second greedy run reproduced {len(streams)} streams")
+    profiled(card, f"{label} bf16, 16 requests",
+             lambda: serve_run(model, cfg, prompts[:16], max_new))
     qmodel = quantize_llama_params(model)
     del model
-    q_prompts = prompts[:16]
-    qs, qst = serve_run(qmodel, cfg, q_prompts, max_new, kv_dtype="int8")
-    log(f"  [{card}] int8 weights + int8 KV: {json.dumps(qst)}")
+    torch.cuda.empty_cache()
+    qs, qst = serve_run(qmodel, cfg, prompts[:16], max_new, kv_dtype="int8")
+    qst.update(tick_stats(qst, cfg))
+    log(f"  [{card}] {label} int8 weights + int8 KV: {json.dumps(qst)}")
     qc = qst["launches"]
     if not (qc["paged_decode_attention"] > 0
             and qc["paged_prefill_attention"] > 0) \
             or any(qc[k] for k in PLAIN):
-        raise SystemExit(f"int8 pass missed a kernel: {qst}")
+        raise SystemExit(f"{label} int8 pass missed a kernel: {qst}")
     if malformed(qs, max_new, cfg.vocab):
-        raise SystemExit("malformed streams in the int8 pass")
+        raise SystemExit(f"malformed streams in the {label}'s int8 pass")
+    del qmodel
+    torch.cuda.empty_cache()
     return dict(bf16=st, int8=qst)
+
+
+def tick_stats(st, cfg) -> dict:
+    """A serve_run's decode ticks (K1 launches / layers) and the
+    synchronised and the enqueue-only host ms of one."""
+    ticks = st["launches"]["paged_decode_attention"] / cfg.n_layers
+    return dict(ticks=ticks, tick_ms=1e3 * st["decode_s"] / ticks,
+                tick_enqueue_ms=1e3 * st["decode_enqueue_s"] / ticks)
+
+
+def phase_full_width(dev, card) -> dict:
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+
+    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    return serve_full_width(card, "main path", cfg, lambda: init_params(
+        cfg, torch.Generator().manual_seed(0), dev))
 
 
 def malformed(streams, max_new, vocab) -> bool:
@@ -1664,25 +1734,21 @@ def profiled(card, label, fn) -> None:
     busy = sum(ms for ms, _ in rows.values())
     wall = st["wall_s"] * 1e3
     log(f"  [{card}] {label} profiled: wall {wall:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall:.1f} %), {json.dumps(st)}")
+        f"{busy:.3f} ms ({100 * busy / wall:.1f} %) in "
+        f"{sum(n for _, n in rows.values())} kernels, {json.dumps(st)}")
     for key, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:20]:
         log(f"    {ms:10.3f} ms {n:7d}x {100 * ms / busy:5.1f} %  {key[:100]}")
 
 
 def phase_profile(dev, card) -> None:
-    """``--profile``: 16 full-width bf16 requests (two waves) of the main
-    path's traffic, then 16 of the speculative path's, each profiled."""
+    """``--profile``: 16 full-width bf16 requests of the speculative
+    path's traffic, profiled (phase 3 profiles the main path's)."""
     from k8s_gpu_scheduler_tpu_torch.models.llama import (
         LlamaConfig, init_params)
 
     cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
     model = init_params(cfg, torch.Generator().manual_seed(0), dev)
     rng = np.random.default_rng(1)
-    serve_run(model, cfg, shared_prefix_traffic(rng, cfg.vocab, 8, 384, 128),
-              64)
-    prompts = shared_prefix_traffic(rng, cfg.vocab, 16, 384, 128)
-    profiled(card, "plain decode",
-             lambda: serve_run(model, cfg, prompts, 64))
     serve_run(model, cfg, repeated_phrases(rng, cfg.vocab, 8), 16,
               **SPEC_ENGINE)
     phrases = repeated_phrases(rng, cfg.vocab, 16)
@@ -2190,8 +2256,8 @@ def dense_logits(model, x, int8=False) -> torch.Tensor:
     h = model.embed[x].to(cfg.dtype)
     with torch.no_grad():
         for blk in model.blocks:
-            h = mlp_sublayer(cfg, attn_sublayer(cfg, h, blk, angles, attend),
-                             blk)
+            h, _ = mlp_sublayer(cfg, attn_sublayer(cfg, h, blk, angles,
+                                                   attend), blk, dropless=True)
         return qdot(rms_norm(h, model.final_norm), model.lm_head).float()
 
 
@@ -2643,6 +2709,342 @@ def phases_10_to_12(dev, card) -> None:
         phase_disagg(dev, card, dtype)
 
 
+# -- phases 13-16: mixture-of-experts, BERT-base and ResNet-50 -------------
+# Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1 config.json:
+# hidden 4096, 32 heads, 8 kv heads, intermediate 14336, 8 local experts, 2
+# a token, vocab 32000, rope_theta 1e6), written as the port's LlamaConfig.
+# Cuts: depth 32 -> 8 for serving (the serve config's depth) and 4 for
+# training; max_seq 2048 (the serve config's; the traffic needs 576).
+MOE_CFG = dict(vocab=32000, d_model=4096, n_heads=32, n_kv_heads=8,
+               d_ff=14336, max_seq=2048, rope_theta=1e6, n_experts=8,
+               moe_top_k=2, decode_attn="fused")
+MOE_SERVE_LAYERS = 8
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_STEPS = 2             # timed, after one warm-up step
+MOE_TRAIN_BT = (8, 2048)
+SMALL_MOE = dict(vocab=256, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                 d_ff=512, max_seq=256, dtype=torch.float32,
+                 decode_attn="fused", remat=False, n_experts=4, moe_top_k=2)
+
+
+def card_init(cfg, dev, seed=0):
+    """A ``Llama`` of ``cfg`` on ``dev``: normal(0, 0.02) matrices (an MoE
+    router in f32) and unit norms, drawn on the card from ``seed``
+    (``init_params`` draws on the CPU, about 90 s at 11.9 B parameters)."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import Llama
+
+    model = Llama(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if not name.endswith("norm"):
+                p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def phase_moe_vs_cpu(dev) -> dict:
+    """Phase 13a: the paged, prefix-cached engine at a small f32 MoE
+    config on the CPU and on the card: identical greedy streams and
+    skipped prefill tokens; the card launches K1 and K2 and no plain
+    version."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+    from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    cfg = LlamaConfig(**SMALL_MOE)
+    got = {}
+    for where in ("cpu", dev):
+        model = init_params(cfg, torch.Generator().manual_seed(0), where)
+        eng = ContinuousBatcher(model, cfg, n_slots=4, max_len=128, chunk=4,
+                                prefill_bucket=16, kv_layout="paged",
+                                page_size=16, prefix_cache=True, device=where)
+        prompts = shared_prefix_traffic(np.random.default_rng(0), cfg.vocab,
+                                        8, 32, 9)
+        da.reset_counters()
+        # the second wave hits the first's cached system prompt
+        streams = drive(eng, prompts[:4], 12) + drive(eng, prompts[4:], 12)
+        got[str(where)] = (streams,
+                           eng.pool_metrics()["prefill_tokens_skipped"],
+                           da.counters())
+    cpu, gpu = got["cpu"], got[str(dev)]
+    if gpu[:2] != cpu[:2]:
+        raise SystemExit(f"MoE engine on the card diverges from the CPU:\n"
+                         f"  gpu {gpu[:2]}\n  cpu {cpu[:2]}")
+    c = gpu[2]
+    if not (c["paged_decode_attention"] and c["paged_prefill_attention"]
+            and gpu[1] > 0) or any(c[k] for k in PLAIN):
+        raise SystemExit(f"MoE engine on the card launched {c}, skipped "
+                         f"{gpu[1]}")
+    return dict(streams=len(gpu[0]), tokens=sum(map(len, gpu[0])),
+                skipped=gpu[1], launches={k: v for k, v in c.items() if v})
+
+
+def phase_moe_serve(dev, card) -> dict:
+    """Phase 13b: phase 3's engine, traffic and checks at Mixtral-8x7B's
+    widths, dropless MoE, bf16 then int8 weights + int8 KV."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(**MOE_CFG, n_layers=MOE_SERVE_LAYERS, remat=False)
+    log(f"  cut: n_layers 32 -> {cfg.n_layers}, max_seq 32768 -> "
+        f"{cfg.max_seq}; every width, 8 experts and top-2 as published")
+    return serve_full_width(card, "MoE path", cfg,
+                            lambda: card_init(cfg, dev))
+
+
+def moe_step_flops(cfg, B, T) -> float:
+    """Operations one MoE training step executes: the capacity path's
+    projections, attention (causal half), router, one-hot dispatch and
+    combine products and the experts' queues (E x C rows a batch row,
+    C = ``expert_capacity``), run four times (forward, remat forward and
+    the backward's two products), plus the head three times."""
+    from k8s_gpu_scheduler_tpu_torch.ops.moe import expert_capacity
+
+    D, H, Hkv, hd, F_, E = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.head_dim, cfg.d_ff, cfg.n_experts)
+    C = expert_capacity(T, E, cfg.moe_top_k, cfg.moe_capacity_factor)
+    tok = B * T
+    layer = (2 * tok * (2 * D * H * hd + 2 * D * Hkv * hd)
+             + 2 * B * H * T * T * hd                 # QK^T, PV: half each
+             + 2 * tok * D * E                        # router
+             + 2 * 2 * tok * E * C * D                # dispatch, combine
+             + 3 * 2 * B * E * C * D * F_)            # gate, up, down
+    return 4.0 * cfg.n_layers * layer + 3 * 2.0 * tok * D * cfg.vocab
+
+
+def phase_moe_train(dev, card) -> dict:
+    """Phase 14: MoE training at Mixtral's widths (capacity path, balance
+    aux), flash attention, remat, AdamW 3e-4, one fixed batch."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, forward_with_aux, make_optimizer, make_train_step)
+    from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
+        counters, reset_counters)
+
+    B, T = MOE_TRAIN_BT
+    cfg = LlamaConfig(**MOE_CFG, n_layers=MOE_TRAIN_LAYERS,
+                      attn_impl="flash", remat=True)
+    log(f"  cut: n_layers 32 -> {cfg.n_layers} (the weights, gradients and "
+        f"AdamW moments of 32 layers take 373.6 GB); every width, B {B}, "
+        f"T {T}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = card_init(cfg, dev)
+    step = make_train_step(cfg, None, make_optimizer(model, 3e-4))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, T)))
+    batch = {"tokens": tokens.to(dev),
+             "targets": torch.roll(tokens, -1, dims=1).to(dev)}
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  [{card}] {n_params} parameters, set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(model, batch))]                 # warm-up
+    reset_counters()
+    step_s, pending = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pending.append(step(model, batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    c = counters()
+    losses += [float(x) for x in pending]
+    with torch.no_grad():
+        aux = float(forward_with_aux(model, batch["tokens"])[1])
+    mean_s = sum(step_s) / len(step_s)
+    flops = moe_step_flops(cfg, B, T)
+    st = dict(B=B, T=T, n_layers=cfg.n_layers, n_params=n_params,
+              losses=losses, aux=aux, step_ms=[1e3 * x for x in step_s],
+              mean_step_ms=1e3 * mean_s, tokens_per_s=B * T / mean_s,
+              executed_tflop=flops / 1e12,
+              executed_share_of_989=flops / mean_s
+              / PEAK_FLOPS[torch.bfloat16],
+              max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+              launches=c)
+    log(f"  [{card}] {json.dumps(st)}")
+    want = (2 * cfg.n_layers * MOE_TRAIN_STEPS, cfg.n_layers * MOE_TRAIN_STEPS,
+            cfg.n_layers * MOE_TRAIN_STEPS)
+    if not (all(np.isfinite(losses)) and np.isfinite(aux)) \
+            or not losses[-1] < losses[0]:
+        raise SystemExit(f"MoE training: losses {losses}, aux {aux}")
+    if tuple(c[k] for k in FLASH) != want or any(c[k] for k in FLASH_PLAIN):
+        raise SystemExit(f"MoE training launched {c}, want {want} and no "
+                         f"plain version")
+    del model, step, pending
+    torch.cuda.empty_cache()
+    return st
+
+
+def _pod_lines(module, prefix, n=3, timeout=600.0):
+    """Run ``python -m module`` from the package's root until it prints
+    ``n`` lines starting with ``prefix``, then SIGTERM it: (lines, exit
+    code, its standard error). The process is killed on any way out."""
+    import queue
+    import signal
+    import threading
+
+    import k8s_gpu_scheduler_tpu_torch as pkg
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__)))
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, "-m", module], cwd=root,
+                            stdout=subprocess.PIPE, stderr=err, text=True,
+                            env={**os.environ, "PYTHONPATH": root})
+    out: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [out.put(ln) for ln in proc.stdout]
+                     + [out.put(None)], daemon=True).start()
+    lines, deadline = [], time.monotonic() + timeout
+    try:
+        while len(lines) < n:
+            try:
+                line = out.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                break
+            if line is None:
+                break
+            log(f"    {line.rstrip()}")
+            if line.startswith(prefix):
+                lines.append(line.strip())
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.seek(0)
+        stderr = err.read()
+        err.close()
+    return lines, code, stderr
+
+
+def check_pod(label, lines, code, stderr, value_key) -> list:
+    """Three parsed lines with ``value_key`` > 0, ended by the SIGTERM,
+    no traceback: the values, else the phase fails."""
+    import signal
+
+    parsed = [dict(kv.split("=", 1) for kv in ln.split()[1:])
+              for ln in lines]
+    values = [float(p[value_key]) for p in parsed]
+    if len(lines) != 3 or not all(v > 0 for v in values) \
+            or code != -signal.SIGTERM or "Traceback" in stderr:
+        raise SystemExit(f"{label}: lines {lines}, exit {code}, stderr "
+                         f"{stderr[-3000:]}")
+    return parsed
+
+
+def profile_pods(dev, card) -> None:
+    """``--profile``: one BERT-base ``classify`` at the pod's B 32, T 128
+    and one ResNet-50 training step at its B 64, 224x224, each after a
+    warm-up, under torch.profiler."""
+    from k8s_gpu_scheduler_tpu_torch.models import bert, resnet
+
+    model = bert.init_params(bert.BertConfig.base(),
+                             torch.Generator().manual_seed(0), dev)
+    tokens = torch.randint(0, model.cfg.vocab, (32, 128), device=dev)
+
+    def classify():
+        _, ms = _synced_ms(lambda: bert.classify(model, tokens))
+        return None, dict(wall_s=ms / 1e3)
+
+    classify()                                           # warm-up
+    profiled(card, "bert-base classify (B 32, T 128)", classify)
+    del model
+    cfg = resnet.ResNetConfig.resnet50()
+    net = resnet.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    step = resnet.make_train_step(cfg, resnet.make_optimizer(net))
+    batch = {"images": torch.randn(64, 224, 224, 3, device=dev),
+             "labels": torch.randint(0, cfg.n_classes, (64,), device=dev)}
+    timed_step(step, net, batch)                         # warm-up
+    profiled(card, "resnet50 train step (B 64, 224x224)",
+             lambda: timed_step(step, net, batch))
+    del net, step
+    torch.cuda.empty_cache()
+
+
+def phase_bert(dev, card) -> dict:
+    """Phase 15: ``classify`` on the card against the CPU at the tiny
+    config (f32 to 1e-5, bf16 to 2^-6 of the largest logit), then the pod
+    entry point ``python -m k8s_gpu_scheduler_tpu_torch.models.bert``."""
+    from k8s_gpu_scheduler_tpu_torch.models.bert import (
+        BertConfig, classify, init_params)
+
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 128, (4, 48)))
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -6)):
+        cfg = dataclasses.replace(BertConfig.tiny(), dtype=dtype)
+        cpu, gpu = (classify(init_params(cfg, torch.Generator().manual_seed(
+            0), where), tokens.to(where)).cpu() for where in ("cpu", dev))
+        err = float((gpu - cpu).abs().max() / cpu.abs().max())
+        errs[str(dtype)] = err
+        if not err <= tol:
+            raise SystemExit(f"BERT classify on the card, {dtype}: relative "
+                             f"error {err} > {tol}")
+    log(f"  classify card vs CPU, error over the largest logit: "
+        f"{json.dumps(errs)}")
+    lines, code, stderr = _pod_lines(
+        "k8s_gpu_scheduler_tpu_torch.models.bert", "bert-base qps=")
+    parsed = check_pod("bert main()", lines, code, stderr, "qps")
+    st = dict(qps=[float(p["qps"]) for p in parsed], exit=code,
+              errors=errs)
+    log(f"  [{card}] bert-base main(): {json.dumps(st)}")
+    return st
+
+
+def phase_resnet(dev, card) -> dict:
+    """Phase 16: ``forward`` on the card against the CPU at the tiny f32
+    config on 32x32 and 33x33 images (TF32 off; 1e-4), then the pod entry
+    point ``python -m k8s_gpu_scheduler_tpu_torch.models.resnet``."""
+    from k8s_gpu_scheduler_tpu_torch.models.resnet import (
+        ResNetConfig, forward, init_params)
+
+    cfg = dataclasses.replace(ResNetConfig.tiny(), dtype=torch.float32)
+    errs = {}
+    for size in (32, 33):
+        images = torch.from_numpy(np.random.default_rng(size).standard_normal(
+            (4, size, size, 3)).astype(np.float32))
+        cpu, gpu = (forward(init_params(cfg, torch.Generator().manual_seed(
+            0), where), images.to(where)).detach().cpu()
+            for where in ("cpu", dev))
+        errs[f"{size}x{size}"] = err = float((gpu - cpu).abs().max())
+        if not err <= 1e-4:
+            raise SystemExit(f"ResNet forward on the card, {size}x{size}: "
+                             f"error {err} > 1e-4")
+    log(f"  forward card vs CPU, max abs error: {json.dumps(errs)}")
+    lines, code, stderr = _pod_lines(
+        "k8s_gpu_scheduler_tpu_torch.models.resnet", "resnet50 img/s=")
+    parsed = check_pod("resnet main()", lines, code, stderr, "img/s")
+    losses = [float(p["loss"]) for p in parsed]
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"resnet main(): losses {losses}")
+    st = dict(img_s=[float(p["img/s"]) for p in parsed], losses=losses,
+              exit=code, errors=errs)
+    log(f"  [{card}] resnet50 main(): {json.dumps(st)}")
+    return st
+
+
+def phases_13_to_16(dev, card, profile_too=False) -> dict:
+    log("phase 13: MoE serving. (a) a small f32 MoE engine, card against "
+        "CPU (f32, TF32 off)")
+    log(f"  identical greedy streams: {json.dumps(phase_moe_vs_cpu(dev))}")
+    log(f"  (b) Mixtral-8x7B widths, {MOE_SERVE_LAYERS} layers, dropless, "
+        f"bf16 then int8")
+    serve = phase_moe_serve(dev, card)
+    log(f"phase 14: MoE training at Mixtral-8x7B widths, "
+        f"{MOE_TRAIN_LAYERS} layers, bf16")
+    train = phase_moe_train(dev, card)
+    log("phase 15: BERT-base, classify card vs CPU and the pod's main()")
+    bert = phase_bert(dev, card)
+    log("phase 16: ResNet-50, forward card vs CPU and the pod's main()")
+    resnet = phase_resnet(dev, card)
+    if profile_too:
+        log("profile: where a BERT-base call's and a ResNet-50 step's "
+            "device time goes")
+        profile_pods(dev, card)
+    return dict(serve=serve, train=train, bert=bert, resnet=resnet)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     args = sys.argv[1:]
@@ -2730,6 +3132,7 @@ def main() -> int:
         "bf16")
     phase_observability(dev, card)
     phases_10_to_12(dev, card)
+    phases_13_to_16(dev, card, profile_too)
     # Each kernel's launches come from the run of the path that runs it:
     # K1 and K2 from phase 3's main path, K3 from phase 4's, K4 from phase
     # 7's serve-loop run, K5-K7 from phase 6's timed steps.

@@ -1,13 +1,18 @@
-"""Weight bridge between a Llama parameter tree held as numpy arrays (the
-JAX package's layout — layer-stacked ``[L, ...]`` block leaves, int8
-weights as ``{"q", "s"}`` dicts) and the port's ``Llama`` module, both
-ways.
+"""Weight bridge between parameter trees held as numpy arrays (the JAX
+package's layout) and the port's modules: a Llama tree (layer-stacked
+``[L, ...]`` block leaves, int8 weights as ``{"q", "s"}`` dicts) and the
+port's ``Llama`` both ways, and into the port a BERT tree
+(``bert_params_from_numpy``) and a ResNet tree
+(``resnet_params_from_numpy``).
 
-Weights keep the ``[K, N]`` orientation on both sides, so the bridge is a
-copy: block leaf ``blocks[name][l]`` becomes ``model.blocks[l].<name>``.
-bfloat16 arrays (numpy's extension dtype) are carried into the port bit
-for bit; ``params_to_numpy`` widens bfloat16 to float32 (exactly), so it
-needs no numpy extension dtype."""
+Matmul weights keep the ``[K, N]`` orientation on both sides, so for the
+Llama and BERT trees the bridge is a copy: block leaf ``blocks[name][l]``
+becomes ``model.blocks[l].<name>``. An MoE block's leaves (the f32
+``router``, the expert stacks, plain or ``{"q", "s"}``) are carried the
+same way. ResNet's HWIO conv weights become OIHW. bfloat16 arrays
+(numpy's extension dtype) are carried into the port bit for bit;
+``params_to_numpy`` widens bfloat16 to float32 (exactly), so it needs no
+numpy extension dtype."""
 from __future__ import annotations
 
 from typing import Dict, Mapping
@@ -16,7 +21,9 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.bert import Bert, BertConfig
 from .models.llama import Llama, LlamaConfig
+from .models.resnet import ResNet, ResNetConfig
 from .ops.quant import Int8Weight
 
 
@@ -82,3 +89,50 @@ def params_to_numpy(model: Llama) -> Dict:
                                    for blk in model.blocks])
                       for name in names}
     return tree
+
+
+def bert_params_from_numpy(tree: Dict, cfg: BertConfig,
+                           device="cuda") -> Bert:
+    """A JAX-layout BERT tree (numpy leaves) as a ``Bert`` on ``device``
+    (frozen parameters, as ``init_params`` makes them)."""
+    device = resolve_device(device)
+    model = Bert(cfg, device)
+    for name in ("tok_embed", "pos_embed", "final_ln_s", "final_ln_b",
+                 "cls"):
+        delattr(model, name)
+        setattr(model, name, _leaf(tree[name], device, False))
+    for i, blk in enumerate(model.blocks):
+        for name, v in tree["blocks"].items():
+            delattr(blk, name)
+            setattr(blk, name, _leaf(np.asarray(v)[i], device, False))
+    return model
+
+
+def resnet_params_from_numpy(tree: Dict, cfg: ResNetConfig,
+                             device="cuda") -> ResNet:
+    """A JAX-layout ResNet tree (numpy leaves; HWIO convs) as a trainable
+    ``ResNet`` on ``device``: each conv copied into the port's OIHW
+    weight, the stages' zero-size projection placeholders skipped."""
+    device = resolve_device(device)
+    model = ResNet(cfg, device)
+
+    def conv(dst, w):
+        dst.copy_(tensor_from_numpy(w, device).permute(3, 2, 0, 1))
+
+    def bn(dst, src):
+        dst.scale.copy_(tensor_from_numpy(src["scale"], device))
+        dst.bias.copy_(tensor_from_numpy(src["bias"], device))
+
+    with torch.no_grad():
+        conv(model.stem, tree["stem"]["conv"])
+        bn(model.stem_bn, tree["stem"])
+        for blocks, src_blocks in zip(model.stages, tree["stages"]):
+            for blk, src in zip(blocks, src_blocks):
+                for i in (1, 2, 3):
+                    conv(getattr(blk, f"c{i}"), src[f"c{i}"])
+                    bn(getattr(blk, f"b{i}"), src[f"b{i}"])
+                if blk.proj is not None:
+                    conv(blk.proj, src["proj"])
+                    bn(blk.bproj, src["bproj"])
+        model.head.copy_(tensor_from_numpy(tree["head"], device))
+    return model

@@ -9,6 +9,10 @@ Randomness comes only from the ``torch.Generator`` passed to
 ``init_params``. Parameters are created frozen (serving builds no autograd
 graph); ``make_optimizer`` makes them trainable.
 
+Mixture-of-experts configs (``n_experts > 1``) swap every block's
+SwiGLU for ``n_experts`` routed experts (``ops/moe.py``): training routes
+with capacity and adds the Switch balance loss, serving routes dropless.
+
 Training: ``loss_fn`` is the JAX package's causal-LM cross entropy,
 ``make_train_step`` its ``value_and_grad`` + optimizer update (in place
 here: the model and the optimizer hold the state), ``jax.checkpoint`` per
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +36,7 @@ from ..device import resolve_device
 from ..ops.attention import dense_attention
 from ..ops.flash_attention import flash_attention_diff
 from ..ops.layers import apply_rope, rms_norm, rope_freqs, swiglu
+from ..ops.moe import moe_ffn, moe_ffn_dropless
 from ..ops.quant import qdot
 
 
@@ -52,16 +57,13 @@ class LlamaConfig:
     # engine serves.
     decode_attn: str = "dense"
     remat: bool = True
+    # Mixture-of-experts (ops/moe.py): 0 = dense SwiGLU; > 1 routes every
+    # block's FFN over n_experts experts, top moe_top_k a token, with the
+    # balance loss scaled by moe_aux_coef in loss_fn.
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_coef: float = 0.01
-
-    def __post_init__(self) -> None:
-        if self.n_experts > 1:
-            raise NotImplementedError(
-                "mixture-of-experts configs (n_experts > 1) are not ported "
-                "yet: MoE, BERT and ResNet training is its own ROADMAP item")
 
     @property
     def head_dim(self) -> int:
@@ -112,7 +114,9 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One decoder block's weights: pre-norm attention + SwiGLU MLP."""
+    """One decoder block's weights: pre-norm attention + SwiGLU MLP, or,
+    for MoE configs, the f32 ``router [D, E]`` and expert stacks
+    ``w_gate``/``w_up [E, D, F]``, ``w_down [E, F, D]``."""
 
     def __init__(self, cfg: LlamaConfig, device: torch.device) -> None:
         super().__init__()
@@ -120,14 +124,21 @@ class Block(nn.Module):
                             cfg.head_dim, cfg.d_ff)
         dt = cfg.dtype
 
-        def z(*shape):
-            return _param(torch.zeros(shape, dtype=dt, device=device))
+        def z(*shape, dtype=dt):
+            return _param(torch.zeros(shape, dtype=dtype, device=device))
 
         self.attn_norm = _param(torch.ones(D, dtype=dt, device=device))
         self.wq, self.wk, self.wv = z(D, H * hd), z(D, Hkv * hd), z(D, Hkv * hd)
         self.wo = z(H * hd, D)
         self.mlp_norm = _param(torch.ones(D, dtype=dt, device=device))
-        self.w_gate, self.w_up, self.w_down = z(D, F), z(D, F), z(F, D)
+        if cfg.n_experts > 1:
+            E = cfg.n_experts
+            # f32: the softmax over experts decides placements.
+            self.router = z(D, E, dtype=torch.float32)
+            self.w_gate, self.w_up = z(E, D, F), z(E, D, F)
+            self.w_down = z(E, F, D)
+        else:
+            self.w_gate, self.w_up, self.w_down = z(D, F), z(D, F), z(F, D)
 
 
 class Llama(nn.Module):
@@ -158,8 +169,9 @@ class Llama(nn.Module):
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device="cuda") -> Llama:
     """Random weights: normal(0, 0.02) matrices (drawn in f32, cast to the
-    model dtype) and unit norms, from ``generator`` alone. The draws are
-    made on the CPU so a seed gives the same weights on every device."""
+    model dtype; an MoE router stays f32) and unit norms, from
+    ``generator`` alone. The draws are made on the CPU so a seed gives the
+    same weights on every device."""
     model = Llama(cfg, device)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -167,7 +179,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 continue
             w = torch.randn(p.shape, generator=generator,
                             dtype=torch.float32) * 0.02
-            p.copy_(w.to(cfg.dtype))
+            p.copy_(w.to(p.dtype))
     return model
 
 
@@ -183,10 +195,25 @@ def attn_sublayer(cfg: LlamaConfig, x: torch.Tensor, blk: Block,
     return x + qdot(attn.reshape(B, T, cfg.n_heads * cfg.head_dim), blk.wo)
 
 
-def mlp_sublayer(cfg: LlamaConfig, x: torch.Tensor,
-                 blk: Block) -> torch.Tensor:
+def mlp_sublayer(cfg: LlamaConfig, x: torch.Tensor, blk: Block,
+                 dropless: bool = False
+                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
+    """Pre-norm MLP half: dense SwiGLU or routed experts. Returns (x, the
+    balance aux: an f32 scalar tensor from the capacity path, else 0.0,
+    which costs the serving paths no launch). ``dropless`` routes every
+    token to its top-k experts with no capacity (``moe_ffn_dropless``),
+    making the output a per-token function: every serving path uses it.
+    Training keeps the capacity path."""
     h = rms_norm(x, blk.mlp_norm)
-    return x + swiglu(h, blk.w_gate, blk.w_up, blk.w_down)
+    if cfg.n_experts > 1:
+        if dropless:
+            return x + moe_ffn_dropless(h, blk.router, blk.w_gate, blk.w_up,
+                                        blk.w_down, top_k=cfg.moe_top_k), 0.0
+        out, aux = moe_ffn(h, blk.router, blk.w_gate, blk.w_up, blk.w_down,
+                           top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor)
+        return x + out, aux
+    return x + swiglu(h, blk.w_gate, blk.w_up, blk.w_down), 0.0
 
 
 def forward(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
@@ -210,10 +237,10 @@ def _attention(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor,
 
 def forward_with_aux(model: Llama, tokens: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(logits [B, T, vocab] f32, balance aux — 0.0, dense-MLP configs).
-    With ``cfg.remat`` and autograd recording, each block is checkpointed:
-    its activations are recomputed in the backward, as ``jax.checkpoint``
-    does in the JAX package."""
+    """(logits [B, T, vocab] f32, the mean over layers of the MoE balance
+    aux — 0.0 for dense-MLP configs). With ``cfg.remat`` and autograd
+    recording, each block is checkpointed: its activations are recomputed
+    in the backward, as ``jax.checkpoint`` does in the JAX package."""
     cfg = model.cfg
     B, T = tokens.shape
     angles = rope_freqs(cfg.head_dim, T, cfg.rope_theta, device=model.device)
@@ -225,25 +252,33 @@ def forward_with_aux(model: Llama, tokens: torch.Tensor
         return mlp_sublayer(cfg, x, blk)
 
     remat = cfg.remat and torch.is_grad_enabled()
+    auxes = []
     for blk in model.blocks:
         if remat:
-            x = torch.utils.checkpoint.checkpoint(block, x, blk,
-                                                  use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(block, x, blk,
+                                                       use_reentrant=False)
         else:
-            x = block(x, blk)
+            x, aux = block(x, blk)
+        auxes.append(aux)
     x = rms_norm(x, model.final_norm)
     logits = qdot(x, model.lm_head).float()
+    if cfg.n_experts > 1:
+        return logits, torch.stack(auxes).mean()
     return logits, torch.zeros((), dtype=torch.float32, device=model.device)
 
 
 def loss_fn(model: Llama, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Causal-LM cross entropy; batch = {tokens [B, T], targets [B, T]}:
     the mean of logsumexp(logits) - logits[target], the JAX package's
-    form (one reduction and a gather, no [B, T, vocab] log-softmax)."""
-    logits, _ = forward_with_aux(model, batch["tokens"])
+    form (one reduction and a gather, no [B, T, vocab] log-softmax). MoE
+    configs add ``moe_aux_coef`` times the balance aux."""
+    logits, aux = forward_with_aux(model, batch["tokens"])
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, batch["targets"][..., None].long())[..., 0]
-    return (lse - tgt).mean()
+    loss = (lse - tgt).mean()
+    if model.cfg.n_experts > 1:
+        loss = loss + model.cfg.moe_aux_coef * aux
+    return loss
 
 
 def make_optimizer(model: Llama, lr: float = 3e-4) -> torch.optim.AdamW:
@@ -282,18 +317,29 @@ def make_train_step(cfg: LlamaConfig, mesh: Optional[object],
 
 
 # -- the pod's entry point -------------------------------------------------
+def _router_params(cfg: LlamaConfig) -> int:
+    return cfg.n_layers * cfg.d_model * cfg.n_experts \
+        if cfg.n_experts > 1 else 0
+
+
 def n_params(cfg: LlamaConfig) -> int:
-    """The decoder's parameter count (``Llama``'s tensors)."""
+    """The decoder's parameter count (``Llama``'s tensors): an MoE block
+    holds ``E`` experts' ``3·D·F`` and the router's ``D·E``."""
     D, hd, F = cfg.d_model, cfg.head_dim, cfg.d_ff
+    experts = cfg.n_experts if cfg.n_experts > 1 else 1
     block = (D * cfg.n_heads * hd + 2 * D * cfg.n_kv_heads * hd
-             + cfg.n_heads * hd * D + 3 * D * F + 2 * D)
-    return cfg.n_layers * block + 2 * cfg.vocab * D + D
+             + cfg.n_heads * hd * D + experts * 3 * D * F + 2 * D)
+    return (cfg.n_layers * block + _router_params(cfg)
+            + 2 * cfg.vocab * D + D)
 
 
 def train_state_bytes(cfg: LlamaConfig) -> int:
     """Bytes of the training state before any activation: the weights,
-    their gradients and AdamW's two moments, all in the model's dtype."""
-    return 4 * n_params(cfg) * torch.empty((), dtype=cfg.dtype).element_size()
+    their gradients and AdamW's two moments, each in its parameter's
+    dtype (the model's; an MoE router's f32)."""
+    size = torch.empty((), dtype=cfg.dtype).element_size()
+    router = _router_params(cfg)
+    return 4 * ((n_params(cfg) - router) * size + router * 4)
 
 
 def wave_p99_ms(metrics: Dict[int, Dict[str, float]]) -> float:

@@ -66,6 +66,12 @@ proposes by bigram lookup and verifies each 1 + gamma window in one
 forward, K3 over the contiguous cache viewed as pages
 (``ops.contiguous_as_paged``).
 
+**Mixture of experts.** Every serving forward (prefill, decode, verify,
+both layouts) routes an MoE config's FFN dropless
+(``mlp_sublayer(..., dropless=True)``), as the JAX engine does: a
+token's output depends neither on the tokens batched with it nor on the
+prefill padding.
+
 The pool and the caches are updated in place by each dispatch (JAX
 donated and replaced them; in place keeps one copy). Token reads are
 deferred exactly as in the JAX engine (``_reads``/``_flush``): a step
@@ -209,7 +215,7 @@ def forward_with_cache(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
         attn = cached_attention(q, k_all[layer], v_all[layer], pos,
                                 impl=cfg.decode_attn, verify=verify)
         x = x + qdot(attn.reshape(B, t, cfg.n_heads * cfg.head_dim), blk.wo)
-        x = mlp_sublayer(cfg, x, blk)
+        x, _ = mlp_sublayer(cfg, x, blk, dropless=True)
     x = rms_norm(x, model.final_norm)
     logits = qdot(x, model.lm_head).float()
     return logits, {"k": k_all, "v": v_all, "len": pos + t}
@@ -445,7 +451,7 @@ def _decode_chunk_paged_fn(model: Llama, cfg: LlamaConfig, chunk: int,
             attn = paged_decode_attention(q[:, 0], k[layer], v[layer], table,
                                           attend, **scales)
             x = x + qdot(attn.reshape(B, 1, hidden), blk.wo)
-            x = mlp_sublayer(cfg, x, blk)
+            x, _ = mlp_sublayer(cfg, x, blk, dropless=True)
         x = rms_norm(x, model.final_norm)
         logits = qdot(x[:, 0], model.lm_head).float()
         gen = (_generator(dev, *seed, tick) if temperature > 0 else None)
@@ -524,7 +530,7 @@ def _verify_chunk_paged_fn(model: Llama, cfg: LlamaConfig, gamma: int,
         attn = paged_verify_attention(qq, k[layer], v[layer], table, lens,
                                       **scales)
         x = x + qdot(attn.reshape(B, t, hidden), blk.wo)
-        x = mlp_sublayer(cfg, x, blk)
+        x, _ = mlp_sublayer(cfg, x, blk, dropless=True)
     x = rms_norm(x, model.final_norm)
     logits = qdot(x, model.lm_head).float()                     # [B, t, V]
     eff_i = (torch.full((B,), gamma, dtype=torch.int64, device=dev)
@@ -628,7 +634,7 @@ def _prefill_multi_paged_fn(model: Llama, cfg: LlamaConfig, page_size: int,
                                            hits_t, kk, vv, **scales)
             x = x + qdot(attn.reshape(M, tb, cfg.n_heads * cfg.head_dim),
                          blk.wo)
-            x = mlp_sublayer(cfg, x, blk)
+            x, _ = mlp_sublayer(cfg, x, blk, dropless=True)
             mks.append(kk)
             mvs.append(vv)
         mk, mv = torch.stack(mks), torch.stack(mvs)
@@ -733,7 +739,7 @@ def _decode_chunk_fn(model: Llama, cfg: LlamaConfig, chunk: int, k, v, k_s,
             attn = flash_decode_attention(q[:, 0], k[layer], v[layer],
                                           row + 1, bitmap=bitmap, **scales)
             x = x + qdot(attn.reshape(B, 1, hidden), blk.wo)
-            x = mlp_sublayer(cfg, x, blk)
+            x, _ = mlp_sublayer(cfg, x, blk, dropless=True)
         x = rms_norm(x, model.final_norm)
         logits = qdot(x[:, 0], model.lm_head).float()
         gen = (_generator(dev, *seed, tick) if temperature > 0 else None)

@@ -6,7 +6,10 @@ Scheme: symmetric per-output-channel int8. For a weight ``w [..., K, N]``
 gives ``s [..., 1, N]`` and ``q = round(w / s)``; by linearity
 ``(x @ q) * s == x @ (q * s)``, so ``qdot`` applies the scale after the
 matmul. ``qdot`` stays a PyTorch op: the JAX package left the int8
-convert to XLA's fusion, and no Pallas kernel sits behind it.
+convert to XLA's fusion, and no Pallas kernel sits behind it. Expert
+stacks (``[E, D, F]``, ``[E, F, D]``) quantize by the same rule, one scale
+per (expert, channel), and go through ``qeinsum``; the f32 router is
+never quantized.
 
 A quantized weight is an ``Int8Weight`` module (buffers ``q`` int8 and
 ``s`` f32) or, for functional callers, a ``{"q", "s"}`` dict.
@@ -64,10 +67,36 @@ def qdot(x: torch.Tensor, w: Weight) -> torch.Tensor:
     return x @ w
 
 
+def qeinsum(spec: str, x: torch.Tensor, w: Weight) -> torch.Tensor:
+    """``einsum(spec, x, w)`` for a plain or quantized expert stack, for
+    the two MoE specs ``"btd,edf->betf"`` and ``"betf,efd->betd"``. Each
+    is one batched matmul over the expert axis into ``[E, B·T, N]``, where
+    an int8 stack's ``[E, 1, N]`` scale applies in f32; the result is a
+    ``[B, E, T, N]`` view of it. (``torch.einsum`` would copy the whole
+    ``[E, D, F]`` weight for the first spec, to put its contraction axis
+    first.)"""
+    quantized = isinstance(w, (Int8Weight, dict))
+    wt = w["q"].to(x.dtype) if quantized else w
+    E, N = wt.shape[0], wt.shape[-1]
+    if spec == "btd,edf->betf":
+        B, T, _ = x.shape
+        lhs = x.reshape(1, B * T, -1)
+    elif spec == "betf,efd->betd":
+        B, _, T, _ = x.shape
+        lhs = x.transpose(0, 1).reshape(E, B * T, -1)
+    else:
+        raise ValueError(f"qeinsum: unsupported spec {spec!r}")
+    y = torch.matmul(lhs, wt)
+    if quantized:
+        y = (y.float() * w["s"]).to(x.dtype)
+    return y.view(E, B, T, N).transpose(0, 1)
+
+
 def quantize_llama_params(model: nn.Module) -> nn.Module:
-    """A copy of a ``models.llama.Llama`` with every block matmul weight and
-    the lm_head replaced by ``Int8Weight`` modules (the JAX function's
-    tree rewrite, on modules). The source model is left untouched."""
+    """A copy of a ``models.llama.Llama`` with every block matmul weight
+    (expert stacks included) and the lm_head replaced by ``Int8Weight``
+    modules (the JAX function's tree rewrite, on modules). The source model
+    is left untouched."""
     out = copy.deepcopy(model)
     for blk in out.blocks:
         for name in BLOCK_WEIGHTS:

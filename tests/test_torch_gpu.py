@@ -882,3 +882,105 @@ def test_router_on_card_launches_kernels_and_matches_cpu(cuda):
             assert got[0][0] == [single[i] for i in ids]
     assert got[0] == got[1]
     assert got[1][1] == 1 and got[1][2]["aggregate_prefix_hit_rate"] > 0
+
+
+# -- mixture-of-experts, BERT and ResNet ------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, dict(kv_dtype="int8")],
+                         ids=["f32", "int8kv"])
+def test_moe_engine_on_card_matches_cpu(cuda, kw):
+    """The paged, prefix-cached engine at a small f32 MoE config (dropless
+    experts on every serving path): the card's greedy streams and skipped
+    prefill tokens equal the CPU's; K1 and K2 launch, no plain version."""
+    cfg = LlamaConfig(**SMALL, n_experts=4, moe_top_k=2)
+    prompts = _fleet_traffic(cfg.vocab, n=6)
+    got = []
+    for dev in ("cpu", cuda):
+        model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        eng = ContinuousBatcher(model, cfg, n_slots=3, max_len=128, chunk=4,
+                                prefill_bucket=16, kv_layout="paged",
+                                page_size=16, prefix_cache=True, device=dev,
+                                **kw)
+        da.reset_counters()
+        streams = []
+        for wave in (prompts[:2], prompts[2:]):    # the second wave hits
+            ids = [eng.submit(p, 10) for p in wave]
+            done = {}
+            while eng.pending:
+                done.update(eng.step())
+            streams += [done[i] for i in ids]
+        got.append((streams, eng.pool_metrics()["prefill_tokens_skipped"]))
+        if dev != "cpu":
+            c = da.counters()
+            assert c["paged_decode_attention"] and c["paged_prefill_attention"]
+            assert not (c["paged_decode_reference"]
+                        or c["dense_prefill_reference"]), c
+    assert got[0] == got[1] and got[1][1] > 0
+
+
+@pytest.mark.gpu
+def test_moe_train_steps_on_card_match_cpu(cuda):
+    """Three f32 AdamW steps of an MoE config (capacity path, balance aux)
+    with flash attention and remat: the card's losses equal the CPU's to
+    1e-5 relative, K5-K7 launch 2L / L / L times a step, and a second card
+    run replays bit for bit."""
+    cfg = LlamaConfig(vocab=256, d_model=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, d_ff=512, max_seq=128,
+                      dtype=torch.float32, attn_impl="flash", remat=True,
+                      n_experts=4, moe_top_k=2)
+    cpu = _train_losses(cfg, "cpu")
+    reset_counters()
+    card = _train_losses(cfg, cuda)
+    c = counters()
+    assert (c["flash_forward"], c["flash_backward_dq"],
+            c["flash_backward_dkv"]) == (2 * 2 * 3, 2 * 3, 2 * 3), c
+    assert card == pytest.approx(cpu, rel=1e-5)
+    assert _train_losses(cfg, cuda) == card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -6)],
+                         ids=["f32", "bf16"])
+def test_bert_classify_on_card_matches_cpu(cuda, dtype, tol):
+    """Tiny BERT's logits on the card against the CPU, relative to the
+    largest logit: 1e-5 at f32 (TF32 off), 2^-6 at bf16 (products summed
+    in other orders, as the JAX comparison's bf16 bound)."""
+    from k8s_gpu_scheduler_tpu_torch.models.bert import (
+        BertConfig, classify, init_params as bert_init)
+
+    cfg = dataclasses.replace(BertConfig.tiny(), dtype=dtype)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 48)))
+    cpu, gpu = (classify(bert_init(cfg, torch.Generator().manual_seed(0),
+                                   dev), tokens.to(dev)).cpu()
+                for dev in ("cpu", cuda))
+    assert float((gpu - cpu).abs().max() / cpu.abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [32, 33])
+def test_resnet_forward_and_step_on_card_match_cpu(cuda, size):
+    """Tiny f32 ResNet on the card (cuDNN, TF32 off) against the CPU on
+    32x32 ("SAME" pads asymmetrically) and 33x33 images: logits to 1e-4
+    and the losses of three SGD-momentum steps to 1e-5 relative."""
+    from k8s_gpu_scheduler_tpu_torch.models.resnet import (
+        ResNetConfig, forward, init_params as resnet_init, make_optimizer,
+        make_train_step as resnet_step)
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(ResNetConfig.tiny(), dtype=torch.float32)
+    rng = np.random.default_rng(size)
+    images = torch.from_numpy(rng.standard_normal(
+        (4, size, size, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, cfg.n_classes, 4))
+    out = []
+    for dev in ("cpu", cuda):
+        model = resnet_init(cfg, torch.Generator().manual_seed(0), dev)
+        logits = forward(model, images.to(dev)).detach().cpu()
+        step = resnet_step(cfg, make_optimizer(model))
+        batch = {"images": images.to(dev), "labels": labels.to(dev)}
+        out.append((logits, [float(step(model, batch)) for _ in range(3)]))
+    torch.testing.assert_close(out[1][0], out[0][0], atol=1e-4, rtol=0)
+    assert out[1][1] == pytest.approx(out[0][1], rel=1e-5)

@@ -162,10 +162,19 @@ def test_a_gang_of_workers_is_refused(monkeypatch):
 
 
 def test_parameter_count_is_the_modules():
-    for cfg in (TINY, dataclasses.replace(TINY, n_kv_heads=2)):
+    """Dense, GQA and MoE (experts and router counted; the f32 router's
+    state at 4 bytes an entry)."""
+    for cfg in (TINY, dataclasses.replace(TINY, n_kv_heads=2),
+                dataclasses.replace(TINY, n_experts=4,
+                                    dtype=torch.bfloat16)):
         model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         assert llama.n_params(cfg) == sum(p.numel()
                                           for p in model.parameters())
+        assert llama.train_state_bytes(cfg) == 4 * sum(
+            p.numel() * p.element_size() for p in model.parameters())
+    mixtral = dataclasses.replace(LlamaConfig.llama3_8b(), vocab=32000,
+                                  n_experts=8)
+    assert llama.n_params(mixtral) == 46_702_792_704
 
 
 def test_wave_p99_is_the_jax_loops_pick():

@@ -18,7 +18,8 @@ from k8s_gpu_scheduler_tpu.ops import attention as jattn
 from k8s_gpu_scheduler_tpu.ops import layers as jlayers
 from k8s_gpu_scheduler_tpu.ops import quant as jquant
 from k8s_gpu_scheduler_tpu_torch.bridge import params_from_numpy
-from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig, forward
+from k8s_gpu_scheduler_tpu_torch.models.llama import (
+    LlamaConfig, forward, init_params)
 from k8s_gpu_scheduler_tpu_torch.models.serving import _kv_quant
 from k8s_gpu_scheduler_tpu_torch.ops import attention, layers, quant
 
@@ -152,5 +153,14 @@ def test_quantize_llama_params_matches_jax():
 
 
 def test_moe_config_raises():
-    with pytest.raises(NotImplementedError, match="MoE, BERT and ResNet"):
-        LlamaConfig(n_experts=4)
+    """An MoE config constructs and its blocks run; what still raises is
+    an expert product spec ``qeinsum`` does not serve."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), n_experts=4,
+                              dtype=torch.float32)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert model.blocks[0].router.dtype == torch.float32
+    logits = forward(model, torch.zeros((1, 8), dtype=torch.long))
+    assert logits.shape == (1, 8, cfg.vocab) and torch.isfinite(logits).all()
+    with pytest.raises(ValueError, match="unsupported spec"):
+        quant.qeinsum("btd,edf->bte", torch.zeros(1, 2, 3),
+                      torch.zeros(4, 3, 5))
