@@ -216,6 +216,27 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    k8s_gpu_scheduler_tpu_torch.models.resnet`` the same way: three
    ``resnet50 img/s=`` lines with img/s > 0 and a finite loss.
 
+17. tensor-parallel paged serving (``ContinuousBatcher(mesh=)``), the
+   serve config in bf16 on phase 3's traffic, its rank worlds started by
+   ``parallel.spawn``. (a) An NCCL world of one through a tp = 1 mesh:
+   streams equal the single-card engine's, K1 2048 and K2 24, no plain
+   version. (b) A gloo world of two ranks sharing the card (NCCL refuses
+   two ranks on one device) at tp = 2, ``all_gather`` combine, Megatron
+   slices: every rank launches K1 and K2 as often as one card did; each
+   rank's pool and sliced weights are exactly half one card's; the bf16
+   streams part from one card's only at near-ties, at most a quarter of
+   them; at f32 (16 requests, and 16 speculative ones for K3) the streams
+   are identical and every rank's K1/K2/K3 launches equal one card's.
+   (c) ``psum``: the f32 logits of the island's block walk within 1e-4 of
+   the largest of one card's, bf16 streams parting only at near-ties;
+   ``weight_sharding=False`` counted once on each rank, its streams held
+   as (b)'s. (d) A drain at tp = 2 restored into a single-card engine
+   (f32): the uninterrupted run's streams. (e) int8 weights and an int8
+   KV pool at tp = 2. (f) GQA at llama3_8b's widths (32/8 heads, hd 128,
+   d_ff 14336; depth cut to 4): K1 at group 4 on 16/4 local heads, as
+   many launches on each rank as on one card. The leader and the
+   followers each read their own launch counters.
+
 ``--profile`` adds profiled serving runs (speculative and the contiguous
 engine) and one profiled training step: the card's busy
 share and its time by kernel; a profiled BERT-base call and ResNet-50
@@ -3045,6 +3066,384 @@ def phases_13_to_16(dev, card, profile_too=False) -> dict:
     return dict(serve=serve, train=train, bert=bert, resnet=resnet)
 
 
+# Phase 17: tensor-parallel paged serving ---------------------------------
+TP_GQA = dict(vocab=128256, d_model=4096, n_layers=4, n_heads=32,
+              n_kv_heads=8, d_ff=14336, max_seq=2048, decode_attn="fused")
+TP_SUBSET = 16                  # requests of the f32 and side runs: 2 waves
+TP_SUB_NEW = 32                 # their budget
+TP_PART_CAP = 0.25              # bf16 streams that may part, as phase 11
+                                # (all_gather, replicated; not psum)
+TP_PSUM_TOL = 1e-4              # f32 psum logits, of the largest |logit|
+TP_TIMEOUT = 900                # seconds a rank world may take
+
+
+def tp_rank_device():
+    """A rank's card: card 0 (the ranks of a gloo world share it), TF32
+    off and the kernels' library loaded (the parent built it)."""
+    from k8s_gpu_scheduler_tpu_torch.ops import _build
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    return torch.device("cuda", 0)
+
+
+def tp_engine_kw(cfg, max_new, **kw):
+    """Phase 3's engine settings (serve_run's)."""
+    return {**dict(n_slots=8, max_len=cfg.max_seq, chunk=int(max_new),
+                   prefill_bucket=512, kv_layout="paged", page_size=64,
+                   prefix_cache=True), **kw}
+
+
+def tp_run(model, cfg, prompts, max_new, mesh, **kw):
+    """One run on a fresh engine of this rank (mesh=None: a single-card
+    engine): the leader drives ``prompts``, a follower replays. Counters
+    are zeroed just before and read just after. Returns (streams or None
+    on a follower, stats)."""
+    from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    eng = ContinuousBatcher(model, cfg, device=model.device, mesh=mesh,
+                            **tp_engine_kw(cfg, max_new, **kw))
+    torch.cuda.synchronize()
+    da.reset_counters()
+    t0 = time.perf_counter()
+    with _DecodeTimer() as dec:
+        if eng.is_leader:
+            streams = drive(eng, prompts, max_new)
+            eng.close()
+        else:
+            eng.follow()
+            streams = None
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pool = eng.pool_metrics()
+    st = dict(launches=da.counters(), wall_s=wall, decode_s=dec.seconds,
+              decode_enqueue_s=dec.enqueue_seconds,
+              **{k: pool[k] for k in (
+                  "tp", "tp_combine", "kv_pool_device_bytes",
+                  "weight_device_bytes", "weight_sliced_device_bytes")})
+    if st["launches"]["paged_decode_attention"]:
+        st.update(tick_stats(st, cfg))
+    if streams is not None:
+        n_tok = sum(map(len, streams))
+        st.update(tokens=n_tok, tokens_per_s=n_tok / wall,
+                  decode_tokens_per_s=(n_tok - len(prompts)) / dec.seconds)
+    return streams, st
+
+
+def tp_traffic(vocab):
+    """Phase 3's warm-up and main prompts, and the first TP_SUBSET of
+    phase 4's main prompts (after its eight warm-up ones)."""
+    rng = np.random.default_rng(0)
+    warm = shared_prefix_traffic(rng, vocab, 8, 384, 128)
+    main = shared_prefix_traffic(rng, vocab, 32, 384, 128)
+    rng = np.random.default_rng(2)
+    repeated_phrases(rng, vocab, 8)
+    return warm, main, repeated_phrases(rng, vocab, TP_SUBSET)
+
+
+def tp_models(dev):
+    """The serve config in bf16 and f32, their weights from seed 0."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+
+    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    return ((cfg, init_params(cfg, torch.Generator().manual_seed(0), dev)),
+            (cfg32, init_params(cfg32, torch.Generator().manual_seed(0),
+                                dev)))
+
+
+def island_logits(model, cfg, x, isl):
+    """The dense causal forward's logits [B, T, vocab] f32 through the
+    serving islands' block walk (``isl`` None: one card's), as the hb == 0
+    prefill runs it."""
+    from k8s_gpu_scheduler_tpu_torch.models.serving import (
+        _attn_residual, _mlp_residual, _qkv_local, cached_attention)
+    from k8s_gpu_scheduler_tpu_torch.ops.layers import rms_norm, rope_freqs
+    from k8s_gpu_scheduler_tpu_torch.ops.quant import qdot
+
+    B, T = x.shape
+    angles = rope_freqs(cfg.head_dim, T, cfg.rope_theta, device=x.device)
+    h = model.embed[x].to(cfg.dtype)
+    with torch.no_grad():
+        for blk in model.blocks:
+            a = rms_norm(h, blk.attn_norm)
+            q, k, v = _qkv_local(cfg, a, blk, angles, (B, T), isl)
+            h = _attn_residual(h, cached_attention(q, k, v, 0), blk.wo,
+                               (B, T), isl)
+            h = _mlp_residual(cfg, h, blk, isl)
+        return qdot(rms_norm(h, model.final_norm), model.lm_head).float()
+
+
+def tp_world_one(rank, world):
+    """17a, an NCCL world of one: phase 3's main path through a tp = 1
+    mesh and through the single-card engine, and the single-card
+    references of phase 17b-f."""
+    from k8s_gpu_scheduler_tpu_torch.parallel import MeshSpec, make_mesh
+
+    dev = tp_rank_device()
+    mesh = make_mesh(MeshSpec({"tp": 1}), dev.type)
+    (cfg, model), (cfg32, model32) = tp_models(dev)
+    warm, main, spec = tp_traffic(cfg.vocab)
+    out = {}
+    tp_run(model, cfg, warm, 64, mesh)                 # warm-up
+    out["mesh"] = tp_run(model, cfg, main, 64, mesh)
+    out["plain"] = tp_run(model, cfg, main, 64, None)
+    out["f32"] = tp_run(model32, cfg32, main[:TP_SUBSET], TP_SUB_NEW, None)
+    out["f32_spec"] = tp_run(model32, cfg32, spec, TP_SUB_NEW, None,
+                             **SPEC_ENGINE)
+    del model, model32
+    torch.cuda.empty_cache()
+    gcfg = gqa_config()
+    out["gqa"] = tp_run(card_init(gcfg, dev), gcfg,
+                        [p[256:] for p in main[:4]], 8, None,
+                        prefix_cache=False, n_slots=4)
+    return out
+
+
+def gqa_config():
+    from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(**TP_GQA)
+
+
+def tp_world_two(rank, world):
+    """17b-f, a gloo world of two ranks on one card: the rank results of
+    each run (streams from the leader only)."""
+    from k8s_gpu_scheduler_tpu_torch.models import serving
+    from k8s_gpu_scheduler_tpu_torch.models.llama import sliced_for_serving
+    from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
+    from k8s_gpu_scheduler_tpu_torch.ops.quant import quantize_llama_params
+    from k8s_gpu_scheduler_tpu_torch.parallel import MeshSpec, make_mesh
+    from k8s_gpu_scheduler_tpu_torch.parallel.island import Island
+    from k8s_gpu_scheduler_tpu_torch.parallel.sharding import mesh_coords
+
+    dev = tp_rank_device()
+    mesh = make_mesh(MeshSpec({"tp": world}), dev.type)
+    (cfg, model), (cfg32, model32) = tp_models(dev)
+    warm, main, spec = tp_traffic(cfg.vocab)
+    sub = main[:TP_SUBSET]
+    out = {}
+    tp_run(model, cfg, warm[:1], 8, mesh)              # warm-up
+    out["bf16"] = tp_run(model, cfg, main, 64, mesh)
+    out["f32"] = tp_run(model32, cfg32, sub, TP_SUB_NEW, mesh)
+    out["f32_spec"] = tp_run(model32, cfg32, spec, TP_SUB_NEW, mesh,
+                             **SPEC_ENGINE)
+    # 17c: psum — f32 logits against one card's, then bf16 streams.
+    x = torch.as_tensor(np.asarray([p[:128] for p in sub[:4]]), device=dev)
+    isl = Island(mesh, dev, True, "psum")
+    got = island_logits(sliced_for_serving(model32, *mesh_coords(mesh)),
+                        cfg32, x, isl)
+    if rank == 0:
+        want = island_logits(model32, cfg32, x, None)
+        out["psum_logits"] = dict(
+            max_abs_diff=(got - want).abs().max().item(),
+            max_abs_logit=want.abs().max().item())
+    out["psum"] = tp_run(model, cfg, sub, TP_SUB_NEW, mesh,
+                         tp_combine="psum")
+    serving.reset_decode_fallback_counts()
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out["replicated"] = tp_run(model, cfg, sub, TP_SUB_NEW, mesh,
+                                   weight_sharding=False)
+    out["replicated_counts"] = serving.decode_fallback_counts()
+    out["replicated_warned"] = sum("weight_sharding=False" in str(w.message)
+                                   for w in caught)
+    # 17d: drain on tp = 2, restore into one card's engine (f32).
+    # chunk 8: requests of 32 tokens are mid-decode after two steps.
+    eng = ContinuousBatcher(model32, cfg32, device=dev, mesh=mesh,
+                            **tp_engine_kw(cfg32, 8))
+    if eng.is_leader:
+        ids = [eng.submit(p, max_new=TP_SUB_NEW) for p in sub]
+        done = {}
+        for _ in range(2):
+            done.update(eng.step())
+        t0 = time.perf_counter()
+        snap = eng.drain()
+        drain_ms = 1e3 * (time.perf_counter() - t0)
+        eng.close()
+        one = ContinuousBatcher(model32, cfg32, device=dev,
+                                **tp_engine_kw(cfg32, 8))
+        t0 = time.perf_counter()
+        one.restore(snap)
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        while one.pending:
+            done.update(one.step())
+        out["drain"] = dict(streams=[done[i] for i in ids],
+                            pages=len(snap.page_ids), drain_ms=drain_ms,
+                            restore_ms=restore_ms,
+                            in_flight=snap.n_requests_in_flight)
+    else:
+        eng.follow()
+    del eng, model32
+    torch.cuda.empty_cache()
+    # 17e: int8 weights and an int8 KV pool.
+    qmodel = quantize_llama_params(model)
+    out["int8"] = tp_run(qmodel, cfg, sub, TP_SUB_NEW, mesh,
+                         kv_dtype="int8")
+    del qmodel, model
+    torch.cuda.empty_cache()
+    # 17f: GQA at llama3_8b widths, depth 4.
+    gcfg = gqa_config()
+    out["gqa"] = tp_run(card_init(gcfg, dev), gcfg,
+                        [p[256:] for p in main[:4]], 8, mesh,
+                        prefix_cache=False, n_slots=4)
+    return out
+
+
+def tp_same_launches(label, ranks, ref, names) -> None:
+    """Every rank launched each kernel in ``names`` as often as the
+    single-card run did, and no plain version ran."""
+    for r, st in enumerate(ranks):
+        c = st["launches"]
+        if any(c[k] for k in PLAIN):
+            raise SystemExit(f"{label}: rank {r} ran a plain version: {c}")
+        for k in names:
+            if c[k] != ref["launches"][k] or not c[k]:
+                raise SystemExit(
+                    f"{label}: rank {r} launched {k} {c[k]} times, one "
+                    f"card {ref['launches'][k]}")
+
+
+def tp_partings(streams, ref) -> list:
+    """For each stream that parts from its reference, the index of the
+    first token that differs."""
+    return [next(j for j, (a, b) in enumerate(zip(s, r)) if a != b)
+            for s, r in zip(streams, ref) if s != r]
+
+
+def phase_tensor_parallel(dev, card) -> dict:
+    """Phase 17 (see the module docstring)."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+    from k8s_gpu_scheduler_tpu_torch.parallel import spawn
+
+    K12 = ("paged_decode_attention", "paged_prefill_attention")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (one,) = spawn(tp_world_one, 1, "nccl", timeout=TP_TIMEOUT,
+                   group_timeout=TP_TIMEOUT)
+    log(f"  [{card}] 17a NCCL world of one: {time.perf_counter() - t0:.1f} s")
+    (s_mesh, st_mesh), (s_one, st_one) = one["mesh"], one["plain"]
+    log(f"  [{card}] 17a tp=1 mesh: {json.dumps(st_mesh)}")
+    log(f"  [{card}] 17a one card:  {json.dumps(st_one)}")
+    if s_mesh != s_one:
+        raise SystemExit("17a: the tp=1 mesh's streams differ from the "
+                         "single-card engine's")
+    tp_same_launches("17a", [st_mesh], st_one, K12)
+    t0 = time.perf_counter()
+    ranks = spawn(tp_world_two, 2, "gloo", timeout=TP_TIMEOUT,
+                  group_timeout=TP_TIMEOUT)
+    log(f"  [{card}] 17b-f gloo world of two on one card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    lead = ranks[0]
+    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    _, main, _ = tp_traffic(cfg.vocab)
+    sub = main[:TP_SUBSET]
+    out = {}
+    # 17b: the main path at tp=2 (all_gather): launches and bytes per rank.
+    st2 = [r["bf16"][1] for r in ranks]
+    for r, st in enumerate(st2):
+        log(f"  [{card}] 17b tp=2 all_gather bf16, rank {r}: "
+            f"{json.dumps(st)}")
+    tp_same_launches("17b bf16", st2, st_one, K12)
+    for r, st in enumerate(st2):
+        if st["kv_pool_device_bytes"] * 2 != st_one["kv_pool_device_bytes"] \
+                or st["weight_sliced_device_bytes"] * 2 != \
+                st_one["weight_sliced_device_bytes"]:
+            raise SystemExit(f"17b: rank {r}'s bytes are not half one "
+                             f"card's: {st} against {st_one}")
+    log(f"  [{card}] 17b per-rank bytes: pool "
+        f"{st2[0]['kv_pool_device_bytes']:.0f} (one card "
+        f"{st_one['kv_pool_device_bytes']:.0f}), weights "
+        f"{st2[0]['weight_device_bytes']:.0f} (one card "
+        f"{st_one['weight_device_bytes']:.0f}), sliced "
+        f"{st2[0]['weight_sliced_device_bytes']:.0f}")
+    # 17b: f32, plain and speculative: identical streams, K3 per rank.
+    for key, names in (("f32", K12), ("f32_spec",
+                                      ("paged_verify_attention",))):
+        if lead[key][0] != one[key][0]:
+            raise SystemExit(
+                f"17b {key}: tp=2 streams differ from one card's: "
+                f"{first_divergence(lead[key][0], one[key][0])}")
+        tp_same_launches(f"17b {key}", [r[key][1] for r in ranks],
+                         one[key][1], names)
+        log(f"  [{card}] 17b {key}: {len(one[key][0])} streams identical; "
+            f"launches per rank "
+            f"{[r[key][1]['launches'] for r in ranks]}")
+    # 17c: psum logits (f32) and the replicated weights' count.
+    pl = lead["psum_logits"]
+    log(f"  [{card}] 17c psum f32 logits: {json.dumps(pl)} (tolerance "
+        f"{TP_PSUM_TOL} of the largest)")
+    if not pl["max_abs_diff"] <= TP_PSUM_TOL * pl["max_abs_logit"]:
+        raise SystemExit(f"17c: psum logits off by {pl}")
+    for r, res in enumerate(ranks):
+        if res["replicated_counts"] != {"weights_replicated": 1} \
+                or res["replicated_warned"] != 1:
+            raise SystemExit(f"17c: rank {r} counted "
+                             f"{res['replicated_counts']}, warned "
+                             f"{res['replicated_warned']} times")
+    # 17d: drain on tp=2, restore on one card (f32).
+    dr = lead["drain"]
+    if dr["streams"] != one["f32"][0]:
+        raise SystemExit("17d: the restored streams differ from the "
+                         "uninterrupted run's")
+    log(f"  [{card}] 17d drain at tp=2 -> restore on one card: "
+        f"{dr['in_flight']} requests, {dr['pages']} pages, drain "
+        f"{dr['drain_ms']:.1f} ms, restore {dr['restore_ms']:.1f} ms; "
+        f"streams identical")
+    # 17e: int8 weights and KV.
+    for r, res in enumerate(ranks):
+        c = res["int8"][1]["launches"]
+        if not all(c[k] for k in K12) or any(c[k] for k in PLAIN):
+            raise SystemExit(f"17e: rank {r} {c}")
+    if malformed(lead["int8"][0], TP_SUB_NEW, cfg.vocab):
+        raise SystemExit("17e: malformed int8 streams")
+    log(f"  [{card}] 17e int8 weights + int8 KV at tp=2: "
+        f"{json.dumps(lead['int8'][1])}")
+    # 17f: GQA, K1 at group 4 on 16/4 local heads.
+    tp_same_launches("17f", [r["gqa"][1] for r in ranks], one["gqa"][1],
+                     ("paged_decode_attention",))
+    log(f"  [{card}] 17f GQA (llama3_8b widths, 4 layers) at tp=2: "
+        f"{json.dumps(lead['gqa'][1])}; first differing token of each "
+        f"parting stream: {tp_partings(lead['gqa'][0], one['gqa'][0])}")
+    if malformed(lead["gqa"][0], 8, TP_GQA["vocab"]):
+        raise SystemExit("17f: malformed GQA streams")
+    # bf16 streams against one card's: each parting at a near-tie. The
+    # all_gather and replicated islands do one card's arithmetic (K1/K3
+    # split as for the model's heads), so their share is capped; psum
+    # rounds each rank's partial product to bf16 before the f32 sum, so
+    # every row moves by up to a unit a layer and nearly every stream
+    # parts somewhere (15 of 16 on an H100): its contract is
+    # the f32 logits' tolerance above, and here only the near-ties.
+    model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+    spread = logit_spread(model, cfg, dev)
+    ref_sub = [s[:TP_SUB_NEW] for s in s_one[:TP_SUBSET]]
+    for key, streams, ref, prompts, cap in (
+            ("17b all_gather", lead["bf16"][0], s_one, main, TP_PART_CAP),
+            ("17c psum", lead["psum"][0], ref_sub, sub, 1.0),
+            ("17c replicated", lead["replicated"][0], ref_sub, sub,
+             TP_PART_CAP)):
+        log(f"  [{card}] {key} bf16: first differing token of each "
+            f"parting stream: {tp_partings(streams, ref)}")
+        out[key] = check_streams(key, torch.bfloat16, streams, ref,
+                                 prompts, model, spread, cap)
+        log(f"  [{card}] {key} bf16 against one card: "
+            f"{json.dumps(out[key])}")
+    for key in ("psum", "replicated"):
+        log(f"  [{card}] 17c {key} bf16 run: {json.dumps(lead[key][1])}")
+    for key in ("psum", "replicated"):
+        tp_same_launches(f"17c {key}", [r[key][1] for r in ranks],
+                         lead[key][1], K12)
+    del model
+    torch.cuda.empty_cache()
+    return dict(one=st_one, tp2=st2, **out)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     args = sys.argv[1:]
@@ -3133,6 +3532,9 @@ def main() -> int:
     phase_observability(dev, card)
     phases_10_to_12(dev, card)
     phases_13_to_16(dev, card, profile_too)
+    log("phase 17: tensor-parallel paged serving, tp=1 on an NCCL world "
+        "of one, tp=2 on a gloo world of two ranks sharing the card")
+    phase_tensor_parallel(dev, card)
     # Each kernel's launches come from the run of the path that runs it:
     # K1 and K2 from phase 3's main path, K3 from phase 4's, K4 from phase
     # 7's serve-loop run, K5-K7 from phase 6's timed steps.

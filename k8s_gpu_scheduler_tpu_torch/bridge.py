@@ -50,11 +50,29 @@ def _layer(v, i: int):
 
 
 def params_from_numpy(tree: Dict, cfg: LlamaConfig, device="cuda",
-                      trainable: bool = False) -> Llama:
+                      trainable: bool = False, mesh=None) -> Llama:
     """The JAX-layout tree ``tree`` (numpy leaves) as a ``Llama`` on
-    ``device``; ``trainable`` parameters take gradients."""
+    ``device``; ``trainable`` parameters take gradients.
+
+    ``mesh`` (a ``DeviceMesh`` with a ``tp`` dim) keeps only this rank's
+    slice of each leaf ``models.llama.serving_weight_specs`` slices, cut
+    from the numpy array before the upload, so the rank never holds the
+    whole model on ``device``: the weights of one rank of a
+    ``ContinuousBatcher(mesh=mesh, weight_sharding=True)``. int8 leaves
+    are cut after quantisation: a column slice takes its scale columns,
+    a row slice keeps the scale whole."""
     device = resolve_device(device)
-    model = Llama(cfg, device)
+    if mesh is not None:
+        from .models.llama import map_weight_tree, serving_weight_specs
+        from .parallel.sharding import mesh_coords, rank_slice
+
+        sizes, index = mesh_coords(mesh)
+        tree = {**tree, "blocks": map_weight_tree(
+            tree["blocks"], serving_weight_specs(tree)["blocks"],
+            lambda a, spec: rank_slice(np.asarray(a), spec, sizes, index))}
+    # The full-size zeros of the module's construction stay on the host
+    # when the leaves are slices.
+    model = Llama(cfg, "cpu" if mesh is not None else device)
     for name in ("embed", "final_norm", "lm_head"):
         delattr(model, name)
         setattr(model, name, _leaf(tree[name], device, trainable))

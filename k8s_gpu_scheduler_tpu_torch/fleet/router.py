@@ -60,9 +60,9 @@ concurrent surface is the store, whose client is thread-safe and
 retry-bounded on its own. Nothing synchronises the card inside ``step``
 beyond each engine's own reads (``emitted`` after its step).
 
-The port has no fused-to-dense decode downgrade, so ``publish`` exports
-no ``tpu_serve_decode_fallback_total`` counter (the JAX router's one
-difference in exposition).
+``publish`` exports the process's serving downgrades as
+``tpu_serve_decode_fallback_total`` as the JAX router does; in the port
+the one reason is ``weights_replicated``.
 """
 from __future__ import annotations
 
@@ -75,7 +75,7 @@ from ..metrics.exporter import (
     FLEET_HANDOFFS_TOTAL, FLEET_HISTOGRAMS, FLEET_JOURNAL_SIZE,
     FLEET_LOST_TOTAL, FLEET_MIGRATED_TOTAL, FLEET_REPLAYED_TOKENS_TOTAL,
     FLEET_REPLICA_ROLE, FLEET_REPLICA_STATE, FLEET_ROUTED_TOTAL,
-    FLEET_SHED_TOTAL, export_serving_pool,
+    FLEET_SHED_TOTAL, export_decode_fallbacks, export_serving_pool,
 )
 from ..models.lifecycle import (
     load_journal, persist_journal, resume_or_fresh,
@@ -390,6 +390,11 @@ class Router:
         Store failures are counted and swallowed: the registry client is
         retry-bounded, and an unreachable summary plane must degrade
         routing, never kill serving."""
+        if self._metrics is not None:
+            # Process-level, not per replica: serving downgrades by reason.
+            from ..models.serving import decode_fallback_counts
+
+            export_decode_fallbacks(self._metrics, decode_fallback_counts())
         reps = ([self._replica(replica_id)] if replica_id is not None
                 else list(self._replicas.values()))
         for rep in reps:

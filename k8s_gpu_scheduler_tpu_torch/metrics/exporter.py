@@ -6,10 +6,11 @@ registered in a ``Registry``, served as Prometheus text exposition on
 metric names (``tpu_serve_*``), so one dashboard reads either engine.
 
 The fleet router's counters, gauges and histogram (``FLEET_*``, names and
-help text as in JAX) are here too. Not copied: ``export_decode_fallbacks``
-and its ``tpu_serve_decode_fallback_total`` counter (the port never
-downgrades a fused decode to a dense path: its kernel wrappers launch or
-raise).
+help text as in JAX) are here too, and ``export_decode_fallbacks`` with its
+``tpu_serve_decode_fallback_total`` counter, which in the port counts one
+reason only: ``weights_replicated`` (``weight_sharding=False`` on a tp > 1
+island). The port never downgrades a fused decode to a dense path: its
+kernel wrappers launch or raise.
 """
 from __future__ import annotations
 
@@ -261,7 +262,7 @@ SERVING_POOL_GAUGES = {
     "prefill_chunks_total":
         "cumulative chunked-prefill dispatches (per-slot chunks)",
     # Multi-chip sharded serving: island width and the per-chip pool
-    # residency (the port serves one card: the whole pool).
+    # residency (one rank's kv-head slice on a tp island).
     "tp": "tensor-parallel island width (1 = single-chip)",
     "kv_pool_device_bytes":
         "per-chip KV pool residency (pool + scale-plane shard bytes)",
@@ -448,6 +449,39 @@ def export_serving_pool(registry: "Registry", pool_metrics: Dict[str, float],
         for rate in accepts:
             hist.observe(float(rate), proposer=proposer, **labels)
 
+
+
+# Serving downgrades (models/serving.py ``_note_decode_fallback``): in the
+# port only ``weights_replicated`` — a tp island whose ranks each hold and
+# multiply the full weights.
+DECODE_FALLBACK_TOTAL = "tpu_serve_decode_fallback_total"
+
+
+def export_decode_fallbacks(registry: "Registry",
+                            counts: Dict[str, float],
+                            labels: Optional[Dict[str, str]] = None) -> None:
+    """Publish ``serving.decode_fallback_counts()`` as the labeled
+    counter ``tpu_serve_decode_fallback_total{reason=}``. The source is
+    an absolute process-level count, so the export incs the delta since
+    the last publish — idempotent across scrapes. The baseline is a
+    watermark kept on the registry's counter instance: a source reset
+    (``serving.reset_decode_fallback_counts``) observed below the old
+    mark re-bases, and the new counts export as fresh increments."""
+    labels = labels or {}
+    c = registry.counter(
+        DECODE_FALLBACK_TOTAL,
+        "decode_attn='fused' configs downgraded to the dense path, "
+        "by reason")
+    marks = getattr(c, "_export_watermark", None)
+    if marks is None:
+        marks = c._export_watermark = {}
+    for reason, n in counts.items():
+        key = tuple(sorted({**labels, "reason": str(reason)}.items()))
+        last = marks.get(key, 0.0)
+        delta = float(n) - last if float(n) >= last else float(n)
+        if delta > 0:
+            c.inc(delta, reason=str(reason), **labels)
+        marks[key] = float(n)
 
 # Fleet-router counters (fleet/router.py increments these; the names are
 # the metrics contract the README documents). ``routed`` carries

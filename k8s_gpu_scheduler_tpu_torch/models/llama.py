@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -166,6 +166,190 @@ class Llama(nn.Module):
         return forward(self, tokens)
 
 
+def param_axes(cfg: LlamaConfig) -> Dict:
+    """Logical sharding axes for every param leaf, in the JAX package's
+    layer-stacked tree layout (the leading 'layers' axis is never
+    sharded). MoE configs stack experts on a leading 'expert' axis (→ ep
+    mesh axis) and add the router."""
+    L = ("layers",)
+    if cfg.n_experts > 1:
+        mlp = {
+            "mlp_norm": L + ("norm",),
+            "router": L + ("embed", "expert"),
+            "w_gate": L + ("expert", "embed", "mlp"),
+            "w_up": L + ("expert", "embed", "mlp"),
+            "w_down": L + ("expert", "mlp", "embed"),
+        }
+    else:
+        mlp = {
+            "mlp_norm": L + ("norm",),
+            "w_gate": L + ("embed", "mlp"),
+            "w_up": L + ("embed", "mlp"),
+            "w_down": L + ("mlp", "embed"),
+        }
+    return {
+        "embed": ("vocab", "embed"),
+        "blocks": {
+            "attn_norm": L + ("norm",),
+            "wq": L + ("embed", "heads"),
+            "wk": L + ("embed", "kv_heads"),
+            "wv": L + ("embed", "kv_heads"),
+            "wo": L + ("heads", "embed"),
+            **mlp,
+        },
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
+def param_specs(cfg: LlamaConfig, rules: Optional[Dict] = None) -> Dict:
+    """Specs (tuples of mesh-axis names) of the training tree. Sharded
+    training is not ported yet (``make_train_step`` refuses a mesh), so
+    nothing in the port places weights by these specs."""
+    from ..parallel.sharding import logical_axis_rules, shard_params_spec
+
+    return shard_params_spec(param_axes(cfg),
+                             rules or logical_axis_rules({"layers": None}))
+
+
+def _block_leaves(blk: nn.Module) -> Dict[str, object]:
+    """A block's weights by name: tensors, and int8 ``Int8Weight``s."""
+    out: Dict[str, object] = dict(blk.named_children())
+    out.update(blk.named_parameters(recurse=False))
+    return out
+
+
+def _tree_view(params) -> Dict:
+    """``params`` (a ``Llama``, or the JAX-layout tree of numpy leaves)
+    as a JAX-layout tree whose block leaves are the first layer's, int8
+    weights as ``{"q", "s"}``: the structure the spec walkers read."""
+    if not isinstance(params, nn.Module):
+        return params
+
+    def leaf(v):
+        return {"q": v.q, "s": v.s} if isinstance(v, nn.Module) else v
+
+    return {"embed": params.embed, "final_norm": params.final_norm,
+            "lm_head": leaf(params.lm_head),
+            "blocks": {k: leaf(v)
+                       for k, v in _block_leaves(params.blocks[0]).items()}}
+
+
+def serving_weight_specs(params, rules: Optional[Dict] = None) -> Dict:
+    """Per-leaf specs of a SERVING params tree under Megatron weight
+    sharding (``ContinuousBatcher(weight_sharding=True)``), over the JAX
+    layer-stacked ``[L, K, N]`` layout: the block projections and MLP
+    weights slice per ``parallel.sharding.WEIGHT_SPECS`` — column-parallel
+    q/k/v/gate/up on their OUTPUT axis, row-parallel o/down on their
+    INPUT axis — and everything else (embed, norms, lm_head) replicates
+    (``()``). ``params`` is a ``Llama`` or a JAX-layout tree. Walks the
+    actual leaves, so int8 ``{"q","s"}`` leaves slice coherently: ``q``
+    follows the weight's spec and the per-output-channel scale ``s``
+    slices with a column's N and stays whole for a row slice (it spans
+    the full contraction — slicing after quantization keeps every rank's
+    dequant exact). Dense-MLP trees only: an MoE tree raises
+    ``ValueError``."""
+    from ..parallel.sharding import WEIGHT_SPECS, weight_slice_spec
+
+    tree = _tree_view(params)
+
+    def replicated(leaf):
+        return {k: () for k in leaf} if isinstance(leaf, dict) else ()
+
+    def block_leaf(name, leaf):
+        kind = WEIGHT_SPECS.get(name)
+        if kind is None:
+            return replicated(leaf)
+        spec = weight_slice_spec(kind, rules)
+        if isinstance(leaf, dict):                   # int8 {"q","s"}
+            return {"q": spec, "s": spec if kind == "column" else ()}
+        return spec
+
+    if "router" in tree.get("blocks", {}):
+        raise ValueError(
+            "serving weight sharding covers dense-MLP trees only "
+            "(MoE expert stacks shard over ep, not tp)")
+    out = {k: replicated(v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = {k: block_leaf(k, v) for k, v in tree["blocks"].items()}
+    return out
+
+
+def sliced_for_serving(model: Llama, sizes: Dict[str, int],
+                       index: Dict[str, int]) -> Llama:
+    """This rank's serving copy of ``model``: every
+    ``serving_weight_specs`` leaf cut to the rank's block
+    (``parallel.sharding.rank_slice`` at the mesh's axis ``sizes`` and the
+    rank's coordinates ``index``), every replicated leaf shared with
+    ``model``. A model whose sliced leaves are already this rank's size
+    (``bridge.params_from_numpy(..., mesh=)``) is returned as it is; the
+    source is never changed."""
+    from ..ops.quant import Int8Weight
+    from ..parallel.sharding import rank_slice
+
+    specs = serving_weight_specs(model)["blocks"]
+    cfg = model.cfg
+    wq = model.blocks[0].wq
+    if tuple((wq.q if isinstance(wq, Int8Weight) else wq).shape) != (
+            cfg.d_model, cfg.n_heads * cfg.head_dim):
+        return model                           # sliced already
+
+    def cut(t, spec):
+        spec = spec[1:]                       # drop the stacked L axis
+        if not any(spec):
+            return t
+        return rank_slice(t, spec, sizes, index).clone()
+
+    out = Llama.__new__(Llama)
+    nn.Module.__init__(out)
+    out.cfg = cfg
+    out.embed, out.final_norm = model.embed, model.final_norm
+    out.lm_head = model.lm_head
+    blocks = []
+    for blk in model.blocks:
+        nb = Block.__new__(Block)
+        nn.Module.__init__(nb)
+        for name, leaf in _block_leaves(blk).items():
+            spec = specs[name]
+            if isinstance(leaf, Int8Weight):
+                leaf = Int8Weight(cut(leaf.q, spec["q"]),
+                                  cut(leaf.s, spec["s"]))
+            elif any(spec):
+                leaf = _param(cut(leaf.detach(), spec))
+            setattr(nb, name, leaf)
+        blocks.append(nb)
+    out.blocks = nn.ModuleList(blocks)
+    return out
+
+
+def map_weight_tree(params, specs, fn):
+    """Walk a params tree and its mirror-shaped spec tree together
+    (nested dicts with array — or int8 ``{"q","s"}`` — leaves, the shape
+    ``serving_weight_specs`` emits): ``fn(leaf, spec)`` at each leaf."""
+    if isinstance(params, Mapping):
+        return {k: map_weight_tree(params[k], specs[k], fn) for k in params}
+    return fn(params, specs)
+
+
+def sliced_weight_bytes(model: Llama) -> int:
+    """Bytes of ``model``'s tensors that ``serving_weight_specs`` slices
+    (an int8 leaf's ``q``, and its scale with a column slice); 0 for an
+    MoE model, which serves with replicated weights only."""
+    from ..ops.quant import Int8Weight
+
+    if model.cfg.n_experts > 1:
+        return 0
+    specs = serving_weight_specs(model)["blocks"]
+    total = 0
+    for blk in model.blocks:
+        for name, leaf in _block_leaves(blk).items():
+            spec = specs[name]
+            pairs = (((leaf.q, spec["q"]), (leaf.s, spec["s"]))
+                     if isinstance(leaf, Int8Weight) else ((leaf, spec),))
+            total += sum(t.numel() * t.element_size()
+                         for t, sp in pairs if any(sp))
+    return total
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device="cuda") -> Llama:
     """Random weights: normal(0, 0.02) matrices (drawn in f32, cast to the
@@ -232,7 +416,8 @@ def _attention(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor,
         return dense_attention(q, k, v, causal=True)
     raise NotImplementedError(
         f"attn_impl={cfg.attn_impl!r}: sequence-parallel attention comes "
-        f"with the multi-device item of the ROADMAP")
+        f"with the multi-device slice of ring and Ulysses attention "
+        f"(ROADMAP queue 1, 'Multi-device', remainder item 3)")
 
 
 def forward_with_aux(model: Llama, tokens: torch.Tensor
@@ -302,7 +487,8 @@ def make_train_step(cfg: LlamaConfig, mesh: Optional[object],
     if mesh is not None:
         raise NotImplementedError(
             "make_train_step(mesh=...): sharded training comes with the "
-            "multi-device item of the ROADMAP; pass mesh=None")
+            "multi-device slice of sharded training (ROADMAP queue 1, "
+            "'Multi-device', remainder item 1); pass mesh=None")
 
     def step(model: Llama, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         if model.cfg != cfg:
@@ -444,8 +630,9 @@ def train_loop(model: Llama, opt: torch.optim.Optimizer,
 def single_process(env=None) -> None:
     """Refuse a gang of more than one worker (``TPU_WORKER_HOSTNAMES``
     naming several addresses): the JAX entry point joins
-    ``jax.distributed`` there, and the port's multi-process path is the
-    multi-device slice (ROADMAP queue 1, "Multi-device")."""
+    ``jax.distributed`` there; the port's gang path comes with ROADMAP
+    queue 1, "Multi-device", remainder item 2 (``parallel.distributed``
+    already holds ``distributed_init_from_env``)."""
     import os
 
     src = os.environ if env is None else env
@@ -454,8 +641,9 @@ def single_process(env=None) -> None:
     if len(workers) > 1:
         raise NotImplementedError(
             f"a gang of {len(workers)} workers needs a multi-process "
-            f"rendezvous, which the port brings with the multi-device "
-            f"slice (ROADMAP queue 1, 'Multi-device'); run one worker")
+            f"rendezvous, which the port brings with main()'s gang path "
+            f"(ROADMAP queue 1, 'Multi-device', remainder item 2); run one "
+            f"worker")
 
 
 SERVE_HELP = (
@@ -538,8 +726,8 @@ def main(argv=None, *, device="cuda") -> None:
         f"take {train_state_bytes(cfg)} bytes before any activation, and "
         f"its B {B}, T {T} step does not fit one card (14 of its 32 "
         f"layers is the deepest that fits an 80 GB H100); sharded training "
-        f"comes with the multi-device slice (ROADMAP queue 1, "
-        f"'Multi-device')")
+        f"comes with the multi-device slice of sharded training (ROADMAP "
+        f"queue 1, 'Multi-device', remainder item 1)")
 
 
 if __name__ == "__main__":

@@ -101,9 +101,12 @@ from ..ops.decode_attention import (
     paged_prefill_attention, paged_verify_attention,
 )
 from ..ops.layers import apply_rope, rms_norm, rope_freqs
-from ..ops.quant import qdot
+from ..ops.quant import Int8Weight, qdot
 from ..testing.faults import Preempted
-from .llama import Block, Llama, LlamaConfig, mlp_sublayer
+from .llama import (
+    Block, Llama, LlamaConfig, mlp_sublayer, sliced_for_serving,
+    sliced_weight_bytes,
+)
 from .paging import NULL_PAGE, HostTierStore, PageAllocator
 from .prefix_cache import PrefixCache
 from .proposers import SlotView, resolve_proposer
@@ -229,7 +232,10 @@ def generate(model: Llama, prompt, cfg: LlamaConfig, max_new: int,
     token ids in the prompt's dtype."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh is not ported yet: it comes with the multi-device slice")
+            "generate(mesh=...) is not ported yet: it comes with the "
+            "multi-device slice of main()'s gang path (ROADMAP queue 1, "
+            "'Multi-device', remainder item 2); the paged "
+            "ContinuousBatcher serves on a mesh")
     prompt = torch.as_tensor(prompt, device=model.device)
     B, t_prompt = prompt.shape
     S = min(max_len or cfg.max_seq, cfg.max_seq)
@@ -252,7 +258,9 @@ def make_server_step(cfg: LlamaConfig, mesh, max_new: int,
     """Request handler: (model, prompt [B, Tp]) → [B, max_new]."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh is not ported yet: it comes with the multi-device slice")
+            "make_server_step(mesh=...) is not ported yet: it comes with "
+            "the multi-device slice of main()'s gang path (ROADMAP queue 1, "
+            "'Multi-device', remainder item 2)")
     return partial(generate, cfg=cfg, max_new=max_new, max_len=max_len)
 
 
@@ -404,12 +412,143 @@ def make_speculative_server_step(cfg: LlamaConfig, max_new: int,
                    top_k=top_k, seed=seed)
 
 
+# -- tensor-parallel islands (mesh=) -------------------------------------------
+#
+# On an island (``parallel.island.Island``, one per rank) every dispatch
+# body runs rank-local: the pool holds the rank's Hkv/tp kv heads of
+# every page, the kernels run unchanged on the rank's H/tp query heads
+# and Hkv/tp pool heads (tp keeps the group size H/Hkv), and the
+# attention output reassembles before the output projection. With
+# ``weight_sharding=True`` the weights ride Megatron-sliced
+# (``models.llama.serving_weight_specs``): column-parallel q/k/v/gate/up
+# slices compute the rank's head/ffn family directly, and row-parallel
+# o/down slices combine once per projection —
+#
+# - ``all_gather``: gather the activation AND the weight slice, then run
+#   the full product: movement only, the arithmetic is the monolithic
+#   dot's, so the streams are the tp = 1 engine's;
+# - ``psum``: contract the local slice and all-reduce the partial
+#   products in f32 — 1/tp the FLOPs and no weight bytes on the wire, but
+#   another reduction order, so it is held to a tolerance.
+#
+# int8 weight leaves are sliced after quantisation: a column slice takes
+# its scale columns, a row slice keeps the scale whole, so each rank's
+# dequant is exact either way. Without weight sharding every rank holds
+# the full weights, computes the full projections and keeps its heads.
+
+# The one downgrade the port counts (JAX ``_note_decode_fallback``):
+# ``weight_sharding=False`` on a tp > 1 island, whose ranks each hold and
+# multiply the full weights. Counted per engine build and warned once
+# per reason per process; the exporter publishes it as
+# ``tpu_serve_decode_fallback_total{reason=}``.
+_decode_fallback_counts: Dict[str, int] = {}
+
+
+def _note_decode_fallback(reason: str, msg: str) -> None:
+    import warnings
+
+    first = reason not in _decode_fallback_counts
+    _decode_fallback_counts[reason] = \
+        _decode_fallback_counts.get(reason, 0) + 1
+    if first:
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
+def decode_fallback_counts() -> Dict[str, int]:
+    """{reason: downgrade decisions} since process start (or the last
+    reset) — the exporter maps this onto the labeled
+    ``tpu_serve_decode_fallback_total`` counter."""
+    return dict(_decode_fallback_counts)
+
+
+def reset_decode_fallback_counts() -> None:
+    _decode_fallback_counts.clear()
+
+
+def _gather_weight(w, isl):
+    """All-gather a row-parallel weight slice back to the full matrix
+    (movement only: rank-order concat is the unsliced layout). int8
+    leaves gather ``q``; the per-output-channel scale is whole on every
+    rank and multiplies after the full dot."""
+    if isinstance(w, (Int8Weight, dict)):
+        return {"q": isl.all_gather(w["q"], 0), "s": w["s"]}
+    return isl.all_gather(w, 0)
+
+
+def _psum_qdot(x: torch.Tensor, w, isl) -> torch.Tensor:
+    """Row-parallel qdot, psum combine: each rank contracts its 1/tp
+    input slice and the partial products sum in f32 across the island.
+    The int8 scale applies AFTER the sum — it is the same on every rank,
+    so scale(psum) == psum(scale) in real arithmetic; the float reduction
+    order still differs from the monolithic dot, hence the tolerance."""
+    if isinstance(w, (Int8Weight, dict)):
+        y = isl.all_reduce((x @ w["q"].to(x.dtype)).float())
+        return (y * w["s"]).to(x.dtype)
+    return isl.all_reduce((x @ w).float()).to(x.dtype)
+
+
+def _qkv_local(cfg: LlamaConfig, h: torch.Tensor, blk: Block,
+               angles: torch.Tensor, lead: Tuple[int, ...], isl):
+    """Roped q/k/v of this rank's head family — the one projection block
+    of every island body (decode tick, verify window, both prefill
+    branches; ``lead`` is the rows' shape). Sliced weights compute the
+    family directly (a matmul's output columns are independent);
+    replicated weights compute the full projections and keep the rank's
+    contiguous heads (rope is per head, so rope-then-slice equals
+    slice-then-rope). Off an island: ``_qkv``."""
+    if isl is None:
+        return _qkv(cfg, h, blk, angles, lead)
+    if isl.wsharded:
+        hd, tp = cfg.head_dim, isl.tp
+        q = qdot(h, blk.wq).reshape(*lead, cfg.n_heads // tp, hd)
+        kk = qdot(h, blk.wk).reshape(*lead, cfg.n_kv_heads // tp, hd)
+        vv = qdot(h, blk.wv).reshape(*lead, cfg.n_kv_heads // tp, hd)
+        return apply_rope(q, angles), apply_rope(kk, angles), vv
+    ax = len(lead)
+    return tuple(isl.heads(t, ax) for t in _qkv(cfg, h, blk, angles, lead))
+
+
+def _attn_residual(x: torch.Tensor, attn: torch.Tensor, wo,
+                   lead: Tuple[int, ...], isl) -> torch.Tensor:
+    """Residual + output projection with the island's head combine.
+    ``attn`` is the rank's head-family output ``[*lead, Hloc, hd]``:
+    replicated-weight islands gather it and multiply the full ``wo``,
+    sliced ones combine by the island's mode (the comment above). Off
+    an island, the single-device epilogue."""
+    if isl is not None and (not isl.wsharded or isl.combine == "all_gather"):
+        attn = isl.all_gather(attn, len(lead))
+    flat = attn.reshape(*lead, -1)
+    if isl is None or not isl.wsharded:
+        return x + qdot(flat, wo)
+    if isl.combine == "all_gather":
+        return x + qdot(flat, _gather_weight(wo, isl))
+    return x + _psum_qdot(flat, wo, isl)
+
+
+def _mlp_residual(cfg: LlamaConfig, x: torch.Tensor, blk: Block, isl
+                  ) -> torch.Tensor:
+    """MLP half of a serving block: ``mlp_sublayer`` (dropless) off an
+    island or with replicated weights; the Megatron-sliced SwiGLU with
+    sliced weights — gate/up column slices give the rank's ffn family,
+    down combines by the island's mode."""
+    if isl is None or not isl.wsharded:
+        x, _ = mlp_sublayer(cfg, x, blk, dropless=True)
+        return x
+    h = rms_norm(x, blk.mlp_norm)
+    act = torch.nn.functional.silu(qdot(h, blk.w_gate)) * qdot(h, blk.w_up)
+    if isl.combine == "all_gather":
+        act = isl.all_gather(act, act.ndim - 1)
+        return x + qdot(act, _gather_weight(blk.w_down, isl))
+    return x + _psum_qdot(act, blk.w_down, isl)
+
+
 def _decode_chunk_paged_fn(model: Llama, cfg: LlamaConfig, chunk: int,
                            page_size: int, k, v, k_s, v_s,
                            table: torch.Tensor, lens: torch.Tensor,
                            last: torch.Tensor, active: torch.Tensor,
                            angles_full: torch.Tensor, seed: Tuple[int, ...],
-                           temperature: float = 0.0, top_k: int = 0):
+                           temperature: float = 0.0, top_k: int = 0,
+                           isl=None):
     """Advance every active slot ``chunk`` tokens against the paged pool
     k/v [L, n_pages, ps, Hkv, hd] (written in place) through ``table``
     [B, n_blocks]. ``lens`` [B] is the rope position, the write address
@@ -417,14 +556,19 @@ def _decode_chunk_paged_fn(model: Llama, cfg: LlamaConfig, chunk: int,
     K/V row goes to the null page (garbage by contract), their stale
     ``lens`` may sit at capacity (the table and rope lookups clamp), and
     ``lens + 1`` keeps their attention length >= 1. Returns (lens, last,
-    emitted [B, chunk] with -1 for inactive slots)."""
+    emitted [B, chunk] with -1 for inactive slots).
+
+    ``isl`` (an ``Island``): the rank's part of a tensor-parallel step —
+    the pool holds its Hkv/tp kv heads, K1 runs on its H/tp query heads,
+    and the heads combine before the output projection (the comment
+    above ``_decode_fallback_counts``); every rank computes the same
+    tokens."""
     quant = k_s is not None
     B = last.shape[0]
     n_blocks = table.shape[1]
     S = n_blocks * page_size
     dev = last.device
     row_ids = torch.arange(B, device=dev)
-    hidden = cfg.n_heads * cfg.head_dim
     toks = []
     for tick in range(chunk):
         x = model.embed[last[:, None]].to(cfg.dtype)            # [B, 1, D]
@@ -435,7 +579,7 @@ def _decode_chunk_paged_fn(model: Llama, cfg: LlamaConfig, chunk: int,
         attend = lens + 1                 # every layer's attention bound
         for layer, blk in enumerate(model.blocks):
             h = rms_norm(x, blk.attn_norm)
-            q, kk, vv = _qkv(cfg, h, blk, angles, (B, 1))
+            q, kk, vv = _qkv_local(cfg, h, blk, angles, (B, 1), isl)
             scales = {}
             if quant:
                 kq, ksn = _kv_quant(kk[:, 0])
@@ -449,9 +593,10 @@ def _decode_chunk_paged_fn(model: Llama, cfg: LlamaConfig, chunk: int,
                 k[layer][pg_w, off_w] = kk[:, 0]
                 v[layer][pg_w, off_w] = vv[:, 0]
             attn = paged_decode_attention(q[:, 0], k[layer], v[layer], table,
-                                          attend, **scales)
-            x = x + qdot(attn.reshape(B, 1, hidden), blk.wo)
-            x, _ = mlp_sublayer(cfg, x, blk, dropless=True)
+                                          attend, plan_kv_heads=cfg.n_kv_heads,
+                                          **scales)
+            x = _attn_residual(x, attn[:, None], blk.wo, (B, 1), isl)
+            x = _mlp_residual(cfg, x, blk, isl)
         x = rms_norm(x, model.final_norm)
         logits = qdot(x[:, 0], model.lm_head).float()
         gen = (_generator(dev, *seed, tick) if temperature > 0 else None)
@@ -470,7 +615,8 @@ def _verify_chunk_paged_fn(model: Llama, cfg: LlamaConfig, gamma: int,
                            seed: Tuple[int, ...],
                            eff: Optional[torch.Tensor] = None,
                            q: Optional[torch.Tensor] = None,
-                           temperature: float = 0.0, top_k: int = 0):
+                           temperature: float = 0.0, top_k: int = 0,
+                           isl=None):
     """One batched speculative verify dispatch over every slot: score the
     t = 1 + gamma window [last, props...] of each active slot in one
     forward, accept the longest valid proposal prefix, and commit the
@@ -495,7 +641,9 @@ def _verify_chunk_paged_fn(model: Llama, cfg: LlamaConfig, gamma: int,
     [B, V] Gumbel noise, so a slot's draws depend on (seed, slot) only.
     ``eff`` [B] is the per-slot effective window: proposal rows at or past
     it never accept. Returns (lens, last, emitted [B, t] with -1 past the
-    commit and for inactive slots, accepts [B])."""
+    commit and for inactive slots, accepts [B]). ``isl``: the rank's part
+    of a tensor-parallel step, as in ``_decode_chunk_paged_fn`` (K3 on
+    the rank's heads; the accept math runs the same on every rank)."""
     quant = k_s is not None
     B = last.shape[0]
     t = 1 + gamma
@@ -503,7 +651,6 @@ def _verify_chunk_paged_fn(model: Llama, cfg: LlamaConfig, gamma: int,
     S = n_blocks * page_size
     dev = last.device
     row_ids = torch.arange(B, device=dev)
-    hidden = cfg.n_heads * cfg.head_dim
     window = torch.cat([last[:, None], props.to(last.dtype)], dim=1)  # [B, t]
     pos = lens[:, None] + torch.arange(t, dtype=lens.dtype, device=dev)
     pg = table[row_ids[:, None], torch.clamp(pos // page_size,
@@ -514,7 +661,7 @@ def _verify_chunk_paged_fn(model: Llama, cfg: LlamaConfig, gamma: int,
     x = model.embed[window.long()].to(cfg.dtype)                # [B, t, D]
     for layer, blk in enumerate(model.blocks):
         h = rms_norm(x, blk.attn_norm)
-        qq, kk, vv = _qkv(cfg, h, blk, angles, (B, t))
+        qq, kk, vv = _qkv_local(cfg, h, blk, angles, (B, t), isl)
         scales = {}
         if quant:
             kq, ksn = _kv_quant(kk)
@@ -528,9 +675,9 @@ def _verify_chunk_paged_fn(model: Llama, cfg: LlamaConfig, gamma: int,
             k[layer][pg_w, off_w] = kk
             v[layer][pg_w, off_w] = vv
         attn = paged_verify_attention(qq, k[layer], v[layer], table, lens,
-                                      **scales)
-        x = x + qdot(attn.reshape(B, t, hidden), blk.wo)
-        x, _ = mlp_sublayer(cfg, x, blk, dropless=True)
+                                      plan_kv_heads=cfg.n_kv_heads, **scales)
+        x = _attn_residual(x, attn, blk.wo, (B, t), isl)
+        x = _mlp_residual(cfg, x, blk, isl)
     x = rms_norm(x, model.final_norm)
     logits = qdot(x, model.lm_head).float()                     # [B, t, V]
     eff_i = (torch.full((B,), gamma, dtype=torch.int64, device=dev)
@@ -588,7 +735,7 @@ def _prefill_multi_paged_fn(model: Llama, cfg: LlamaConfig, page_size: int,
                             hit_lens: np.ndarray, tokens: np.ndarray,
                             tail_lens: np.ndarray, angles_full: torch.Tensor,
                             seed: Tuple[int, ...], temperature: float = 0.0,
-                            top_k: int = 0):
+                            top_k: int = 0, isl=None):
     """Prefill M slots from right-padded tails [M, tb] in one dispatch and
     scatter their K/V rows page-granular into the pool at ``page_ids``
     [M, tb/ps] (the entry's own pages, the bucket overshoot on the null
@@ -604,14 +751,35 @@ def _prefill_multi_paged_fn(model: Llama, cfg: LlamaConfig, page_size: int,
 
     Returns (lens, last, firsts [M]) with each real slot's ``lens`` set to
     hit_len + tail_len and ``last`` to its first sampled token (keyed by
-    slot, so a pad row re-draws its entry's token)."""
+    slot, so a pad row re-draws its entry's token).
+
+    ``isl``: the rank's part of a tensor-parallel prefill. hb == 0 walks
+    the blocks itself on the rank's heads with the dense causal attention
+    ``forward_with_cache`` runs (the same softmax arithmetic, so the
+    all_gather combine keeps the single-device bytes); hb > 0 runs K2 on
+    the rank's heads and pool slice. Each rank scatters its kv heads."""
     quant = k_s is not None
     dev = lens.device
     M, tb = tokens.shape
     npg = page_ids.shape[1]
     hb = prefix_tables.shape[1]
     tok_t = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
-    if hb == 0:
+    if hb == 0 and isl is not None:
+        x = model.embed[tok_t].to(cfg.dtype)
+        angles = angles_full[:tb]
+        mks, mvs = [], []
+        for blk in model.blocks:
+            h = rms_norm(x, blk.attn_norm)
+            q, kk, vv = _qkv_local(cfg, h, blk, angles, (M, tb), isl)
+            attn = cached_attention(q, kk, vv, 0)
+            x = _attn_residual(x, attn, blk.wo, (M, tb), isl)
+            x = _mlp_residual(cfg, x, blk, isl)
+            mks.append(kk)
+            mvs.append(vv)
+        mk, mv = torch.stack(mks), torch.stack(mvs)
+        x = rms_norm(x, model.final_norm)
+        logits = qdot(x, model.lm_head).float()
+    elif hb == 0:
         shape = (cfg.n_layers, M, tb, cfg.n_kv_heads, cfg.head_dim)
         mini = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -627,14 +795,13 @@ def _prefill_multi_paged_fn(model: Llama, cfg: LlamaConfig, page_size: int,
         mks, mvs = [], []
         for layer, blk in enumerate(model.blocks):
             h = rms_norm(x, blk.attn_norm)
-            q, kk, vv = _qkv(cfg, h, blk, angles, (M, tb))
+            q, kk, vv = _qkv_local(cfg, h, blk, angles, (M, tb), isl)
             scales = (dict(k_scale=k_s[layer], v_scale=v_s[layer])
                       if quant else {})
             attn = paged_prefill_attention(q, k[layer], v[layer], ptab_t,
                                            hits_t, kk, vv, **scales)
-            x = x + qdot(attn.reshape(M, tb, cfg.n_heads * cfg.head_dim),
-                         blk.wo)
-            x, _ = mlp_sublayer(cfg, x, blk, dropless=True)
+            x = _attn_residual(x, attn, blk.wo, (M, tb), isl)
+            x = _mlp_residual(cfg, x, blk, isl)
             mks.append(kk)
             mvs.append(vv)
         mk, mv = torch.stack(mks), torch.stack(mvs)
@@ -816,14 +983,9 @@ def _prefill_multi_fn(model: Llama, cfg: LlamaConfig, k, v, k_s, v_s,
     return firsts
 
 
-# Options of the JAX engine that later slices of the port bring, with the
-# value that means "off" (for weight_sharding and tp_combine: JAX's
-# defaults, which change nothing without a mesh).
-_LATER_SLICES = {
-    "mesh": (None, "the multi-device slice"),
-    "weight_sharding": (True, "the multi-device slice"),
-    "tp_combine": ("all_gather", "the multi-device slice"),
-}
+# Device steps whose bodies read and write the slots' lens and last: the
+# leader sends both along with the command.
+_STATE_OPS = ("prefill", "decode", "verify")
 
 
 class ContinuousBatcher:
@@ -875,10 +1037,26 @@ class ContinuousBatcher:
     default None) records the phase spans; ``flight_capacity`` (default
     256, 0 for none) sizes the flight recorder's ring.
 
+    ``mesh`` (a ``DeviceMesh`` with a ``tp`` dim, paged layout only)
+    makes this engine one rank of a tensor-parallel island
+    (``parallel.island``): each rank holds ``Hkv/tp`` kv heads of every
+    pool page and runs K1/K2/K3 on its ``H/tp`` query heads. Every rank
+    builds the engine alike; the tp rank 0 (``is_leader``) takes the
+    requests and runs the host loop, sending each device step to the
+    other ranks, which run ``follow()`` until the leader's ``close()``.
+    ``weight_sharding`` (default True on tp > 1) gives each rank its
+    Megatron slice of the q/k/v/o/MLP weights (``model`` may be the full
+    model or this rank's slices, ``bridge.params_from_numpy(...,
+    mesh=)``); ``tp_combine`` — ``"all_gather"`` (movement only: the
+    streams are tp = 1's) or ``"psum"`` (f32 partial-product reduce,
+    held to a tolerance) — reassembles the row-parallel products.
+    ``weight_sharding=False`` keeps the full weights on every rank,
+    warned once and counted (``decode_fallback_counts``). Snapshots
+    carry all kv heads, so drain, restore and absorb cross tp widths.
+
     ``model`` must live on ``device`` (default ``"cuda"``; the CPU only
     when asked). ``cfg.decode_attn`` must be ``"fused"``: the port serves
-    through the attention kernels. The JAX engine's other options raise
-    ``NotImplementedError`` naming the slice that brings them."""
+    through the attention kernels."""
 
     def __init__(self, model: Llama, cfg: LlamaConfig, n_slots: int = 8,
                  max_len: Optional[int] = None, chunk: int = 8,
@@ -899,16 +1077,22 @@ class ContinuousBatcher:
                  tp_combine: str = "all_gather", role: str = "mixed",
                  fault_injector=None, tracer=None, clock=None,
                  flight_capacity: int = 256):
-        given = dict(mesh=mesh, weight_sharding=weight_sharding,
-                     tp_combine=tp_combine)
-        for name, (off, slice_name) in _LATER_SLICES.items():
-            if given[name] != off:
-                raise NotImplementedError(
-                    f"{name}={given[name]!r} is not ported yet: it comes "
-                    f"with {slice_name}")
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
                              f"got {kv_layout!r}")
+        if mesh is not None and kv_layout != "paged":
+            raise NotImplementedError(
+                "mesh= with kv_layout='contiguous' is refused by the port's "
+                "standing rule: it serves through the attention kernels, "
+                "and the JAX engine serves a mesh-constrained contiguous "
+                "cache only through its dense decode path "
+                "('mesh_contiguous'), which no later slice brings; use "
+                "kv_layout='paged'")
+        if tp_combine not in ("all_gather", "psum"):
+            raise ValueError(
+                f"tp_combine must be 'all_gather' (movement-only, "
+                f"byte-identical) or 'psum' (partial-product reduce, "
+                f"tolerance-checked), got {tp_combine!r}")
         if cfg.decode_attn != "fused":
             raise NotImplementedError(
                 f"decode_attn={cfg.decode_attn!r} is refused by the port's "
@@ -975,6 +1159,13 @@ class ContinuousBatcher:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine device "
                              f"is {self.device}")
+        self._island = None
+        self._closed = False
+        self._tp = 1
+        self._combine = tp_combine
+        if mesh is not None:
+            model = self._init_island(mesh, model, cfg, weight_sharding,
+                                      tp_combine)
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype must be None or 'int8', got "
                              f"{kv_dtype!r}")
@@ -1082,6 +1273,119 @@ class ContinuousBatcher:
         # (``last_step_age_seconds``).
         self._last_step_t = self._clock.monotonic()
 
+    def _init_island(self, mesh, model: Llama, cfg: LlamaConfig,
+                     weight_sharding: bool, tp_combine: str) -> Llama:
+        """Validate a tensor-parallel ``mesh`` as the JAX engine does and
+        join its island; returns the model this rank serves (its weight
+        slices when the weights ride sliced)."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from ..parallel.island import TP_AXIS, Island
+        from ..parallel.sharding import mesh_coords
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                f"mesh must be a torch.distributed DeviceMesh with named "
+                f"dims (parallel.make_mesh), got {type(mesh).__name__}")
+        names = tuple(mesh.mesh_dim_names or ())
+        if TP_AXIS not in names:
+            raise ValueError(
+                f"sharded paged serving needs a mesh with a '{TP_AXIS}' "
+                f"axis; got axes {names}")
+        tp = int(mesh.size(names.index(TP_AXIS)))
+        want_ws = bool(weight_sharding) and tp > 1
+        if want_ws and cfg.n_experts > 1:
+            raise ValueError(
+                "weight_sharding covers dense-MLP configs only (MoE expert "
+                "stacks shard over ep, not tp); pass weight_sharding=False "
+                "for replicated-weight islands")
+        bad = [("kv heads", cfg.n_kv_heads)] if cfg.n_kv_heads % tp else []
+        if want_ws and cfg.d_ff % tp:
+            bad.append(("d_ff", cfg.d_ff))
+        if bad:
+            dims = [cfg.n_kv_heads] + ([cfg.d_ff] if want_ws else [])
+            valid = [d for d in range(1, max(dims) + 1)
+                     if all(v % d == 0 for v in dims)]
+            what = " and ".join(f"{n} ({v})" for n, v in bad)
+            raise ValueError(
+                f"{what} not divisible by tp={tp}: the pool shards the "
+                f"kv-heads dim and weight sharding slices the q/k/v/MLP "
+                f"weights — valid tp divisors for this config: {valid}")
+        if want_ws:
+            model = sliced_for_serving(model, *mesh_coords(mesh))
+        wq = model.blocks[0].wq
+        cols = (wq.q if isinstance(wq, Int8Weight) else wq).shape[1]
+        want = cfg.n_heads * cfg.head_dim // (tp if want_ws else 1)
+        if cols != want:
+            raise ValueError(
+                f"the model's wq has {cols} columns; this rank of a tp={tp} "
+                f"island {'with' if want_ws else 'without'} weight sharding "
+                f"needs {want}")
+        self._tp = tp
+        self._island = Island(mesh, self.device, want_ws, tp_combine)
+        if tp > 1 and not want_ws:
+            _note_decode_fallback(
+                "weights_replicated",
+                f"weight_sharding=False on a tp={tp} island: every chip "
+                f"holds and multiplies the FULL weight matrices — per-chip "
+                f"weight bytes do not scale with tp; see tpu_serve_decode_"
+                f"fallback_total{{reason='weights_replicated'}}")
+        return model
+
+    @property
+    def is_leader(self) -> bool:
+        """True off an island and on its rank 0, the rank that takes
+        requests; a follower rank runs ``follow()`` instead."""
+        return self._island is None or self._island.is_leader
+
+    def _run(self, op: str, **kw):
+        """Run device step ``op`` (``_op_<op>``) here, after sending it to
+        the island's followers when there are any: the command carries
+        the host operands, then ``lens``/``last`` go out as tensors, and
+        the block table when it changed."""
+        isl = self._island
+        if isl is not None and isl.followers:
+            sent = dict(kw)
+            if op in ("decode", "verify") and self._table_dirty:
+                sent["_table"] = self._table_np.copy()
+            isl.send(op, sent)
+            if op in _STATE_OPS:
+                isl.broadcast_(self._lens)
+                isl.broadcast_(self._last)
+        return getattr(self, "_op_" + op)(**kw)
+
+    def follow(self) -> None:
+        """A follower rank's loop: replay every command the leader sends
+        on this rank's weights and pool slice, until the leader's
+        ``close()``. A step that fails here raises here, and the leader's
+        collective with this rank fails with it."""
+        isl = self._island
+        if isl is None or isl.is_leader:
+            raise RuntimeError(
+                "follow() runs on a follower rank of a tp island (mesh= "
+                "with tp > 1, tp rank > 0)")
+        while True:
+            op, kw = isl.recv()
+            if op == "stop":
+                return
+            table = kw.pop("_table", None)
+            if table is not None:
+                self._table_np = table
+                self._table_dirty = True
+            if op in _STATE_OPS:
+                isl.broadcast_(self._lens)
+                isl.broadcast_(self._last)
+            getattr(self, "_op_" + op)(**kw)
+
+    def close(self) -> None:
+        """Leader of a tp island: stop the followers' ``follow()`` loops
+        (once; later calls do nothing). Off an island, nothing."""
+        isl = self._island
+        if isl is not None and isl.is_leader and isl.followers \
+                and not self._closed:
+            isl.send("stop", {})
+        self._closed = True
+
     def _kv_buffers(self, shape: Tuple[int, ...]):
         """Zeroed (k, v, k_scale, v_scale) of ``shape`` [..., hd]: int8
         with f32 [..., 1] scale planes under ``kv_dtype="int8"``, else the
@@ -1129,7 +1433,8 @@ class ContinuousBatcher:
         n_pages = n_pages or (1 + n_slots * self.n_blocks)
         self._alloc = PageAllocator(n_pages)
         self._k, self._v, self._ks, self._vs = self._kv_buffers(
-            (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim))
+            (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads // self._tp,
+             cfg.head_dim))
         # Host mirror of the block table; the device copy is re-uploaded
         # only on steps whose admissions or frees changed it.
         self._table_np = np.zeros((n_slots, self.n_blocks), np.int32)
@@ -1157,14 +1462,17 @@ class ContinuousBatcher:
         # The promoted subset of those hit lengths (tokens whose pages
         # came back from the host tier), drained the same way.
         self._promoted_hit_buf: deque = deque(maxlen=4096)
-        # Device bytes of the pool and of the weights, fixed at build:
-        # numel x element size, never a read of the live tensors.
+        # Device bytes of this rank's pool and weights, fixed at build:
+        # numel x element size, never a read of the live tensors. The
+        # sliced subset covers the leaves serving_weight_specs slices
+        # (1/tp of them on a weight-sharded island; none on MoE).
         self._kv_pool_dev_bytes = sum(
             t.numel() * t.element_size()
             for t in (self._k, self._v, self._ks, self._vs) if t is not None)
         self._weight_dev_bytes = sum(
             t.numel() * t.element_size()
             for t in (*self.model.parameters(), *self.model.buffers()))
+        self._weight_sliced_dev_bytes = sliced_weight_bytes(self.model)
         # Prefill dispatches per (tb, hb) rung; hb > 0 rungs run K2.
         self.prefill_rungs: Dict[Tuple[int, int], int] = {}
 
@@ -1598,9 +1906,8 @@ class ContinuousBatcher:
         prefix row, hit_len, tail tokens, tail_len), padded to n_slots."""
         self._dispatch_no += 1
         self.prefill_rungs[(tb, hb)] = self.prefill_rungs.get((tb, hb), 0) + 1
-        self._lens, self._last, firsts = _prefill_multi_paged_fn(
-            self.model, self.cfg, self.page_size, self._k, self._v, self._ks,
-            self._vs, self._lens, self._last,
+        return self._run(
+            "prefill",
             slots=np.asarray([r[0] for r in rows], np.int32),
             page_ids=np.asarray([r[1] for r in rows], np.int32),
             prefix_tables=np.asarray([r[2] for r in rows],
@@ -1609,10 +1916,41 @@ class ContinuousBatcher:
             tokens=np.asarray([t + [0] * (tb - len(t))
                                for _, _, _, _, t, _ in rows], np.int32),
             tail_lens=np.asarray([r[5] for r in rows], np.int32),
-            angles_full=self._angles,
-            seed=(self.seed, 1, self._dispatch_no),
-            temperature=self.temperature, top_k=self.top_k)
+            seed=(self.seed, 1, self._dispatch_no))
+
+    # -- device steps (``_run`` sends each to an island's followers) -------
+    def _op_prefill(self, **kw) -> torch.Tensor:
+        self._lens, self._last, firsts = _prefill_multi_paged_fn(
+            self.model, self.cfg, self.page_size, self._k, self._v, self._ks,
+            self._vs, self._lens, self._last, angles_full=self._angles,
+            temperature=self.temperature, top_k=self.top_k,
+            isl=self._island, **kw)
         return firsts
+
+    def _op_decode(self, active: np.ndarray, seed: Tuple[int, ...]
+                   ) -> torch.Tensor:
+        self._lens, self._last, toks = _decode_chunk_paged_fn(
+            self.model, self.cfg, self.chunk, self.page_size, self._k,
+            self._v, self._ks, self._vs, self._device_table(), self._lens,
+            self._last, torch.as_tensor(active, device=self.device),
+            self._angles, seed, self.temperature, self.top_k,
+            isl=self._island)
+        return toks
+
+    def _op_verify(self, props: np.ndarray, active: np.ndarray,
+                   seed: Tuple[int, ...], eff: np.ndarray,
+                   q: Optional[np.ndarray]):
+        dev = self.device
+        self._lens, self._last, toks, accepts = _verify_chunk_paged_fn(
+            self.model, self.cfg, self.gamma, self.page_size, self._k,
+            self._v, self._ks, self._vs, self._device_table(), self._lens,
+            self._last, torch.as_tensor(props, device=dev),
+            torch.as_tensor(active, device=dev), self._angles, seed,
+            eff=torch.as_tensor(eff, device=dev),
+            q=None if q is None else torch.as_tensor(q, device=dev),
+            temperature=self.temperature, top_k=self.top_k,
+            isl=self._island)
+        return toks, accepts
 
     def _device_table(self) -> torch.Tensor:
         if self._table_dirty:
@@ -1893,7 +2231,8 @@ class ContinuousBatcher:
         self._rope_pos, self._last, toks = _decode_chunk_fn(
             self.model, self.cfg, self.chunk, self._k, self._v, self._ks,
             self._vs, self._bitmap, self._cursor, self._rope_pos, self._last,
-            self._active(self._slot_req), self._angles,
+            torch.as_tensor(self._active(self._slot_req),
+                            device=self.device), self._angles,
             (self.seed, 0, self._dispatch_no), self.temperature, self.top_k)
         self._cursor += self.chunk
         takes: list = []                             # (req id, slot, n)
@@ -1934,9 +2273,8 @@ class ContinuousBatcher:
                 retired=len(finished), **fields,
                 faults=self._step_faults)
 
-    def _active(self, ready: dict) -> torch.Tensor:
-        return torch.as_tensor([s in ready for s in range(self.n_slots)],
-                               device=self.device)
+    def _active(self, ready: dict) -> np.ndarray:
+        return np.asarray([s in ready for s in range(self.n_slots)])
 
     def _decode_step(self, ready: dict, finished: list) -> list:
         """One decode chunk over ``ready`` {slot: req id}; its tokens are
@@ -1944,11 +2282,8 @@ class ContinuousBatcher:
         ``finished`` (this step's so far) and returns it."""
         self._dispatch_no += 1
         t_dec = self._clock.monotonic()
-        self._lens, self._last, toks = _decode_chunk_paged_fn(
-            self.model, self.cfg, self.chunk, self.page_size, self._k,
-            self._v, self._ks, self._vs, self._device_table(), self._lens,
-            self._last, self._active(ready), self._angles,
-            (self.seed, 0, self._dispatch_no), self.temperature, self.top_k)
+        toks = self._run("decode", active=self._active(ready),
+                         seed=(self.seed, 0, self._dispatch_no))
         takes: list = []                             # (req id, slot, n)
         for slot, req_id in ready.items():
             budget = self._budget[req_id]
@@ -2031,17 +2366,11 @@ class ContinuousBatcher:
         eff = np.zeros((self.n_slots,), np.int32)
         for slot, rid in ready.items():
             eff[slot] = self._spec_eff_window(rid)
-        dev = self.device
         t_ver = self._clock.monotonic()
-        self._lens, self._last, toks, accepts = _verify_chunk_paged_fn(
-            self.model, self.cfg, self.gamma, self.page_size, self._k,
-            self._v, self._ks, self._vs, self._device_table(), self._lens,
-            self._last, torch.as_tensor(props, device=dev),
-            self._active(ready), self._angles,
-            (self.seed, 2, self._dispatch_no),
-            eff=torch.as_tensor(eff, device=dev),
-            q=None if q is None else torch.as_tensor(q, device=dev),
-            temperature=self.temperature, top_k=self.top_k)
+        toks, accepts = self._run("verify", props=props,
+                                  active=self._active(ready),
+                                  seed=(self.seed, 2, self._dispatch_no),
+                                  eff=eff, q=q)
         toks, accepts = toks.cpu().numpy(), accepts.cpu().numpy()
         t_ver1 = self._clock.monotonic()
         step_used = step_emitted = step_eff = 0
@@ -2182,8 +2511,16 @@ class ContinuousBatcher:
         out["prefill_backlog_tokens"] = float(self._prefill_backlog())
         out["prefill_chunks_total"] = float(self._prefill_chunks_total)
         out["request_errors_total"] = float(self._request_errors)
+        # This rank's residency on a tp island (the whole pool and weights
+        # off one): build-time constants, never a read of live tensors.
+        out["tp"] = float(self._tp)
         out["kv_pool_device_bytes"] = float(self._kv_pool_dev_bytes)
         out["weight_device_bytes"] = float(self._weight_dev_bytes)
+        out["weight_sliced_device_bytes"] = \
+            float(self._weight_sliced_dev_bytes)
+        isl = self._island
+        out["tp_combine"] = (self._combine if isl is not None and isl.wsharded
+                             else ("replicated" if self._tp > 1 else "none"))
         with self._obs_mu:
             out["last_step_age_seconds"] = (
                 max(0.0, self._clock.monotonic() - self._last_step_t)
@@ -2271,7 +2608,12 @@ class ContinuousBatcher:
         every plane: one ``index_select`` a plane into one flat device
         buffer, then one device-to-host copy (into pinned memory on a
         card). bf16 planes come back as their 16-bit words
-        (``np.uint16``)."""
+        (``np.uint16``). On a tp island every rank gathers its kv heads
+        and the leader joins them, so the pages leave with all ``Hkv``
+        heads whatever the island's width."""
+        return self._run("gather", pages=[int(p) for p in pages])
+
+    def _op_gather(self, pages: list) -> Optional[list]:
         idx = torch.as_tensor(np.asarray(pages, np.int64), device=self.device)
         picked = [t.index_select(1, idx) for t in self._planes()]
         dev = torch.cat([t.reshape(-1).view(torch.uint8) for t in picked])
@@ -2284,7 +2626,14 @@ class ContinuousBatcher:
             out.append(flat[off:off + n].view(_host_dtype(t.dtype))
                        .reshape(tuple(t.shape)))
             off += n
-        return out
+        isl = self._island
+        if isl is None or not isl.followers:
+            return out
+        parts = isl.gather_to_leader(out)
+        if parts is None:                                # a follower
+            return None
+        return [np.concatenate([p[i] for p in parts], axis=3)
+                for i in range(len(out))]
 
     def _scatter_pages(self, pages, k, v, ks=None, vs=None) -> None:
         """Land host page bytes ``[L, len(pages), ps, Hkv, x]`` (+ int8
@@ -2293,20 +2642,29 @@ class ContinuousBatcher:
         staging tensor (pinned on a card) in one non-blocking
         host-to-device copy, then one ``index_copy_`` a plane. bf16
         planes take 16-bit words (or an array whose dtype is named
-        bfloat16)."""
+        bfloat16). The pages carry all ``Hkv`` heads; on a tp island each
+        rank lands its own."""
         if self._ks is not None and ks is None:
             raise SnapshotError(
                 "int8-KV engine but the shipped pages carry no scale planes")
-        planes = self._planes()
         host = []
-        for t, a in zip(planes, (k, v, ks, vs)):
+        for t, a in zip(self._planes(), (k, v, ks, vs)):
             a = np.ascontiguousarray(as_words(np.asarray(a)))
-            want = (t.shape[0], len(pages)) + tuple(t.shape[2:])
+            want = (t.shape[0], len(pages), t.shape[2],
+                    t.shape[3] * self._tp, t.shape[4])
             if a.shape != want or a.dtype.itemsize != t.element_size():
                 raise SnapshotError(
                     f"page payload {a.dtype} {a.shape} does not fit the "
                     f"{t.dtype} pool's {want}")
             host.append(a)
+        self._run("scatter", pages=[int(p) for p in pages], host=host)
+
+    def _op_scatter(self, pages: list, host: list) -> None:
+        isl = self._island
+        if isl is not None and isl.followers:
+            host = [np.ascontiguousarray(np.split(a, isl.tp, axis=3)[isl.rank])
+                    for a in host]
+        planes = self._planes()
         staging = torch.empty(sum(a.nbytes for a in host), dtype=torch.uint8,
                               pin_memory=self.device.type == "cuda")
         buf, off = staging.numpy(), 0
@@ -2869,7 +3227,7 @@ class ContinuousBatcher:
             "active_slots": len(self._slot_req),
             "queued": len(self._queue),
             "prefill_backlog_tokens": self._prefill_backlog(),
-            "tp": 1,                        # one card: no tensor islands
+            "tp": self._tp,
             "weight_device_bytes": int(self._weight_dev_bytes),
             "dram_cached_pages": (len(self._tier)
                                   if self._tier is not None else 0),

@@ -440,13 +440,17 @@ def _raise_on(err: int, name: str) -> None:
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_table: torch.Tensor,
                            lengths, k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None
+                           v_scale: Optional[torch.Tensor] = None,
+                           plan_kv_heads: Optional[int] = None
                            ) -> torch.Tensor:
     """Decode attention over a paged KV cache: q [B, H, hd] against the
     pool k/v [n_pages, ps, Hkv, hd] through ``block_table`` [B, n_blocks]
     int32, masked to logical rows < ``lengths`` [B] → [B, H, hd] in q's
     dtype. ``k_scale``/``v_scale`` [n_pages, ps, Hkv, 1] f32 switch to an
-    int8 pool. Rows past a length may be garbage; they never contribute."""
+    int8 pool. Rows past a length may be garbage; they never contribute.
+    ``plan_kv_heads`` (default Hkv) is the kv-head count the split plan
+    is made for: a rank of a tp island holds Hkv/tp heads and passes the
+    model's Hkv, so each head is split and merged as on one card."""
     b, n_heads, hd = q.shape
     if k_pages.shape[3] != hd or v_pages.shape != k_pages.shape:
         raise ValueError(f"page pool shape {tuple(k_pages.shape)}/"
@@ -457,7 +461,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{tuple(block_table.shape)}")
     ps, n_kv = k_pages.shape[1], k_pages.shape[2]
     n_blocks = block_table.shape[1]
-    ns = paged_plan(n_blocks, ps, b, n_kv)
+    ns = paged_plan(n_blocks, ps, b, plan_kv_heads or n_kv)
     if ns is None:
         raise ValueError(f"no legal paged blocking for n_blocks={n_blocks}, "
                          f"page_size={ps}")
@@ -560,7 +564,8 @@ paged_prefill_attention.launches = 0
 def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_table: torch.Tensor,
                            lengths, k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None
+                           v_scale: Optional[torch.Tensor] = None,
+                           plan_kv_heads: Optional[int] = None
                            ) -> torch.Tensor:
     """Multi-query verify attention over a paged KV cache: the speculative
     window q [B, t, H, hd] (t = 1 + gamma) against the pool k/v [n_pages,
@@ -570,7 +575,8 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     window row i attends cols < lengths + i + 1. Rows above a row's bound
     (a rejected overshoot, stale pages) never contribute. At t == 1 this
     is ``paged_decode_attention`` at ``lengths + 1``. ``k_scale``/
-    ``v_scale`` [n_pages, ps, Hkv, 1] f32 switch to an int8 pool."""
+    ``v_scale`` [n_pages, ps, Hkv, 1] f32 switch to an int8 pool;
+    ``plan_kv_heads`` as in ``paged_decode_attention``."""
     b, t, n_heads, hd = q.shape
     if k_pages.shape[3] != hd or v_pages.shape != k_pages.shape:
         raise ValueError(f"page pool shape {tuple(k_pages.shape)}/"
@@ -586,7 +592,7 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     g = n_heads // n_kv
     n_blocks = block_table.shape[1]
     n_groups = -(-t * g // VERIFY_Q_ROWS.get(q.dtype, 32))
-    ns = verify_plan(n_blocks, ps, t, b * n_groups, n_kv)
+    ns = verify_plan(n_blocks, ps, t, b * n_groups, plan_kv_heads or n_kv)
     if ns is None:
         raise ValueError(f"no legal verify blocking for n_blocks={n_blocks},"
                          f" page_size={ps}, t={t}")

@@ -355,7 +355,7 @@ def test_submit_and_option_errors():
                        "role='prefill' requires kv_layout='paged'")):
         with pytest.raises(ValueError, match=match):
             build(**kw)
-    for kw, match in ((dict(mesh=object()), "multi-device"),
+    for kw, match in ((dict(mesh=object()), "standing rule"),
                       (dict(kv_layout="paged", page_size=8,
                             prefill_attn="gather"), "kernel only")):
         with pytest.raises(NotImplementedError, match=match):

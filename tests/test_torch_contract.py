@@ -5,9 +5,8 @@ gauges ``pool_metrics()`` reports on the paged layout.
 Both engines get the same f32 tiny weights (JAX ``init_params``, carried
 by the bridge) and the same traffic from a numpy seed; the JAX engine runs
 its Pallas kernels in interpret mode, the port its plain versions (CPU
-tensors). Options and gauges of slices not ported yet are listed here by
-name, with the slice that brings them; the tier's knobs and the lifecycle
-gauges are held to JAX's."""
+tensors). The options the port refuses for good are listed by name; the
+tier's knobs and the lifecycle gauges are held to JAX's."""
 import inspect
 import time
 
@@ -21,28 +20,31 @@ from k8s_gpu_scheduler_tpu_torch.bridge import params_from_numpy
 from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
 from test_torch_serving import ENGINE, configs, step_all
 
-# JAX options the port accepts at their JAX defaults and refuses otherwise,
-# each with a value that needs the slice named.
+# JAX options of the multi-device slice, each with a non-default value:
+# without a mesh they build an engine, as in JAX, and change nothing.
 DEFERRED = [
-    pytest.param("weight_sharding", False, "multi-device",
-                 id="weight_sharding"),
-    pytest.param("tp_combine", "psum", "multi-device", id="tp_combine"),
+    pytest.param("weight_sharding", False, "none", id="weight_sharding"),
+    pytest.param("tp_combine", "psum", "none", id="tp_combine"),
 ]
 # JAX options the port refuses for good, by its standing rule: it serves
-# through the attention kernels, so no later slice brings the dense decode
-# or the gather prefix prefill.
+# through the attention kernels, so no later slice brings the dense decode,
+# the gather prefix prefill or the mesh-constrained contiguous cache (JAX's
+# dense "mesh_contiguous" path). (config overrides, JAX engine kwargs,
+# port engine kwargs, the option's name in the message); a "mesh" entry is
+# a tp = 2 mesh of the package's kind — the port refuses it before reading
+# it, so it gets a placeholder.
 REFUSED = [
-    pytest.param({"decode_attn": "dense"}, {}, "decode_attn='dense'",
+    pytest.param({"decode_attn": "dense"}, {}, {}, "decode_attn='dense'",
                  id="decode_attn=dense"),
-    pytest.param({}, {"prefill_attn": "gather"}, "prefill_attn='gather'",
-                 id="prefill_attn=gather"),
+    pytest.param({}, {"prefill_attn": "gather"}, {"prefill_attn": "gather"},
+                 "prefill_attn='gather'", id="prefill_attn=gather"),
+    pytest.param({}, {"kv_layout": "contiguous", "prefix_cache": False,
+                      "mesh": "tp2"},
+                 {"kv_layout": "contiguous", "prefix_cache": False,
+                  "mesh": object()},
+                 "mesh= with kv_layout='contiguous'",
+                 id="contiguous_on_mesh"),
 ]
-# Paged pool_metrics() keys of the JAX engine that come with later slices.
-NOT_PORTED_KEYS = {
-    "tp": "multi-device",
-    "tp_combine": "multi-device",
-    "weight_sliced_device_bytes": "multi-device",
-}
 
 
 @pytest.fixture(scope="module")
@@ -59,27 +61,43 @@ def engines(weights, **kw):
             ContinuousBatcher(model, cfg, device="cpu", **ENGINE, **kw))
 
 
-@pytest.mark.parametrize("name,value,slice_name", DEFERRED)
+@pytest.mark.parametrize("name,value,combine", DEFERRED)
 def test_deferred_options_raise_naming_their_slice(weights, name, value,
-                                                   slice_name):
-    _, cfg, _, model = weights
-    with pytest.raises(NotImplementedError, match=slice_name):
-        ContinuousBatcher(model, cfg, device="cpu", **{name: value})
+                                                   combine):
+    """The multi-device slice's options are accepted: off a mesh they
+    build the paged engine as in JAX, report tp 1 and JAX's combine label,
+    and serve JAX's streams."""
+    jeng, eng = engines(weights, **{name: value})
+    assert shared_prefix_traffic(eng) == shared_prefix_traffic(jeng)
+    got, want = eng.pool_metrics(), jeng.pool_metrics()
+    for key in ("tp", "tp_combine", "weight_sliced_device_bytes"):
+        assert got[key] == want[key]
+    assert got["tp"] == 1.0 and got["tp_combine"] == combine
+    assert eng.replica_stats()["tp"] == jeng.replica_stats()["tp"] == 1
 
 
-@pytest.mark.parametrize("cfg_kw,eng_kw,what", REFUSED)
-def test_refused_options_name_the_standing_rule(weights, cfg_kw, eng_kw,
-                                                what):
-    """Both options the JAX engine accepts and the port refuses raise
+@pytest.mark.parametrize("cfg_kw,jax_kw,port_kw,what", REFUSED)
+def test_refused_options_name_the_standing_rule(weights, cfg_kw, jax_kw,
+                                                port_kw, what):
+    """The options the JAX engine accepts and the port refuses raise
     ``NotImplementedError`` saying it is the port's standing rule, not a
     later slice, while the JAX engine builds with them."""
     import dataclasses
+    import warnings
+
+    from jax.sharding import Mesh
 
     jcfg, cfg, params, model = weights
-    JEngine(params, dataclasses.replace(jcfg, **cfg_kw), **ENGINE, **eng_kw)
+    if jax_kw.get("mesh") == "tp2":
+        jax_kw = {**jax_kw, "mesh": Mesh(np.array(jax.devices()[:2]),
+                                         ("tp",))}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # JAX's downgrade
+        JEngine(params, dataclasses.replace(jcfg, **cfg_kw),
+                **{**ENGINE, **jax_kw})
     with pytest.raises(NotImplementedError) as e:
         ContinuousBatcher(model, dataclasses.replace(cfg, **cfg_kw),
-                          device="cpu", **ENGINE, **eng_kw)
+                          device="cpu", **{**ENGINE, **port_kw})
     msg = str(e.value)
     assert what in msg and "standing rule" in msg
     assert "no later slice" in msg
@@ -187,16 +205,18 @@ def shared_prefix_traffic(eng, seed=5):
 
 
 def test_pool_metrics_keys_and_gauges_match_jax(weights):
-    """The paged engine reports the JAX engine's pool_metrics() keys,
-    less those of slices not ported yet; the pool's and the weights'
-    device bytes are equal, and an idle engine's step age is 0.0."""
+    """The paged engine reports the JAX engine's pool_metrics() keys; the
+    pool's and the weights' device bytes (all of them and the sliceable
+    subset) are equal, and an idle engine's step age is 0.0."""
     jeng, eng = engines(weights)
     assert shared_prefix_traffic(eng) == shared_prefix_traffic(jeng)
     want, got = jeng.pool_metrics(), eng.pool_metrics()
-    assert set(got) == set(want) - set(NOT_PORTED_KEYS)
-    assert set(NOT_PORTED_KEYS) <= set(want)
-    for key in ("kv_pool_device_bytes", "weight_device_bytes"):
+    assert set(got) == set(want)
+    for key in ("kv_pool_device_bytes", "weight_device_bytes",
+                "weight_sliced_device_bytes"):
         assert got[key] == want[key] > 0
+    assert got["tp"] == want["tp"] == 1.0
+    assert got["tp_combine"] == want["tp_combine"] == "none"
     for key in ("drain_duration_seconds", "restore_duration_seconds",
                 "requests_resumed_total", "requests_shed_total"):
         assert got[key] == want[key] == 0.0

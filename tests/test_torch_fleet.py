@@ -10,10 +10,10 @@ interpret mode, the port's engines their plain versions (CPU tensors).
 What must be equal, exactly: each request's placement, the streams,
 ``stats()``, the published ``ReplicaSummary`` JSON, the journal's
 ``to_pytree()`` bytes, the router's trace events and the Prometheus
-exposition (less the series the port does not export: the JAX router's
-``tpu_serve_decode_fallback_total`` — the port has no dense fallback —
-and the serving gauges of the multi-device slice). Streams are also held
-to a single-engine run of the port."""
+exposition (less ``tpu_serve_decode_fallback_total``, a count of the whole
+process's engine builds, which differs between the two packages' by what
+else the process built). Streams are also held to a single-engine run of
+the port."""
 import dataclasses
 import json
 import pathlib
@@ -38,16 +38,14 @@ from k8s_gpu_scheduler_tpu_torch.models import lifecycle
 from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
 from k8s_gpu_scheduler_tpu_torch.testing import faults
 from k8s_gpu_scheduler_tpu_torch.utils import retry
-from test_torch_contract import NOT_PORTED_KEYS
 from test_torch_serving import configs
 
 PAGE = 8
 BASE = dict(n_slots=4, max_len=64, chunk=4, prefill_bucket=8,
             kv_layout="paged", page_size=PAGE, prefix_cache=True)
 SCHEMAS = pathlib.Path(__file__).parent / "data" / "graftcheck" / "schemas"
-# Exposition families the port does not export, with the reason.
-NOT_EXPORTED = ({"tpu_serve_decode_fallback_total"}       # no dense path
-                | {"tpu_serve_" + k for k in NOT_PORTED_KEYS})
+# Exposition families whose values are process-wide, not the fleet's.
+NOT_EXPORTED = {"tpu_serve_decode_fallback_total"}
 FAST_QUARANTINE = dict(attempts=8, base_s=0.05, multiplier=1.0, max_s=0.1,
                        jitter=0.5)
 

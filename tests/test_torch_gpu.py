@@ -36,6 +36,8 @@ from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
 from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
     counters, flash_backward, flash_backward_reference, flash_forward,
     flash_forward_reference, reset_counters)
+from k8s_gpu_scheduler_tpu_torch.parallel import spawn
+from torch_tp_workers import card_world
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -984,3 +986,38 @@ def test_resnet_forward_and_step_on_card_match_cpu(cuda, size):
         out.append((logits, [float(step(model, batch)) for _ in range(3)]))
     torch.testing.assert_close(out[1][0], out[0][0], atol=1e-4, rtol=0)
     assert out[1][1] == pytest.approx(out[0][1], rel=1e-5)
+
+
+# -- tensor-parallel islands (chip_smoke phase 17 at tiny widths) -------------
+
+def _island_world(tmp_path, world, backend, combine):
+    return spawn(card_world, world, backend, args=(combine,),
+                 rendezvous=str(tmp_path / "rdv"), timeout=300)
+
+
+def _island_checks(outs, world):
+    """Every rank launched K1 and K2 as often as one card did and ran no
+    plain version; its pool is 1/world of one card's; the leader's f32
+    streams are one card's."""
+    streams, one_counts, one_bytes = outs[0]["one"]
+    assert outs[0]["island"][0] == streams
+    assert one_counts["paged_decode_attention"] > 0
+    for _, counts, nbytes in (o["island"] for o in outs):
+        assert counts == one_counts
+        assert nbytes * world == one_bytes
+
+
+@pytest.mark.gpu
+def test_tp1_mesh_on_an_nccl_world_of_one(cuda, tmp_path):
+    """17a at tiny widths: a tp = 1 mesh over an NCCL world of one serves
+    the single-card engine's streams with its launches."""
+    _island_checks(_island_world(tmp_path, 1, "nccl", "all_gather"), 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combine", ["all_gather", "psum"])
+def test_tp2_gloo_ranks_sharing_the_card(cuda, tmp_path, combine):
+    """17b at tiny widths: two gloo ranks on one card, each holding half
+    the pool and half the sliced weights, launch K1/K2 on their heads as
+    often as one card does; the f32 streams are one card's."""
+    _island_checks(_island_world(tmp_path, 2, "gloo", combine), 2)

@@ -40,14 +40,11 @@ from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
 from k8s_gpu_scheduler_tpu_torch.models.snapshot import ServingSnapshot
 from k8s_gpu_scheduler_tpu_torch.obs import flight
 from k8s_gpu_scheduler_tpu_torch.testing import faults
-from test_torch_contract import NOT_PORTED_KEYS
 from test_torch_serving import configs
 
 PAGE = 8
 BASE = dict(kv_layout="paged", page_size=PAGE, n_slots=2, max_len=64,
             chunk=2, prefill_bucket=8)
-# The exposition lines of the keys the port does not report yet.
-NOT_PORTED_METRICS = {"tpu_serve_" + k for k in NOT_PORTED_KEYS}
 
 
 def ticking(base):
@@ -432,24 +429,14 @@ def test_timelines_match_jax(runs):
                 assert tl["trace_id"] == label
 
 
-def metric_name(line):
-    """The metric a line of a Prometheus exposition belongs to."""
-    words = line.split()
-    if not words:
-        return None
-    return (words[2] if words[0] == "#" else words[0]).split("{")[0]
-
-
 def test_phase_durations_and_exposition_match_jax(runs):
     """The drained phase batch equals JAX's, and the exposition of one
-    pool_metrics() snapshot is JAX's line for line, less the lines of the
-    keys the port does not report yet."""
+    pool_metrics() snapshot is JAX's line for line."""
     v, (want, got) = runs
     for g, w in zip(got["pools"], want["pools"]):
         assert g.get("phase_durations") == w.get("phase_durations")
     for g, w in zip(got["expose"], want["expose"]):
-        kept = [ln for ln in w if metric_name(ln) not in NOT_PORTED_METRICS]
-        assert g == kept
+        assert g == w
     if v != "contiguous":
         assert any("tpu_serve_phase_duration_seconds_count" in ln
                    for ln in got["expose"][0])

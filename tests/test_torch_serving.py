@@ -143,11 +143,23 @@ def test_run_matches_step():
     assert set(a.pop_request_metrics()) == set(ids)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(tp_combine="psum")],
-    ids=lambda kw: next(iter(kw)))
-def test_later_slice_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="slice"):
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(mesh=object()), TypeError, "DeviceMesh"),
+    (dict(tp_combine="psum"), None, None),
+    (dict(tp_combine="allreduce"), ValueError, "tp_combine must be")],
+    ids=["mesh", "tp_combine", "tp_combine_unknown"])
+def test_later_slice_options_raise(kw, error, match):
+    """The multi-device options are ported: a mesh that is not a
+    ``DeviceMesh`` raises ``TypeError``, an unknown combine JAX's
+    ``ValueError``, and ``tp_combine="psum"`` without a mesh builds an
+    engine that serves as tp = 1."""
+    if error is None:
+        eng = _port_engine(**kw)
+        assert eng.pool_metrics()["tp_combine"] == "none"
+        eng.submit(list(range(3, 12)), max_new=3)
+        assert len(eng.run()) == 1
+        return
+    with pytest.raises(error, match=match):
         _port_engine(**kw)
 
 
@@ -182,8 +194,7 @@ def test_lifecycle_options_build_engines_as_jax_does(kw):
         eng.submit(list(range(3, 20)), max_new=4)
         eng.step()
         got.append(eng.pool_metrics())
-    assert set(got[1]) == set(got[0]) - {
-        "tp", "tp_combine", "weight_sliced_device_bytes"}
+    assert set(got[1]) == set(got[0])
     for key in ("pages_in_use", "pages_free", "tier_dram_capacity"):
         assert got[1].get(key) == got[0].get(key)
     if "fault_injector" in kw:
