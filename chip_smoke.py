@@ -218,24 +218,31 @@ imports nothing of JAX. Phases, each of which fails the run on error:
 
 17. tensor-parallel paged serving (``ContinuousBatcher(mesh=)``), the
    serve config in bf16 on phase 3's traffic, its rank worlds started by
-   ``parallel.spawn``. (a) An NCCL world of one through a tp = 1 mesh:
-   streams equal the single-card engine's, K1 2048 and K2 24, no plain
-   version. (b) A gloo world of two ranks sharing the card (NCCL refuses
+   ``parallel.spawn``. (a) An NCCL world of one through a tp = 1 mesh
+   (which serves without an island): streams equal the single-card
+   engine's, K1 2048 and K2 24, no plain version. (b) A gloo world of two ranks sharing the card (NCCL refuses
    two ranks on one device) at tp = 2, ``all_gather`` combine, Megatron
    slices: every rank launches K1 and K2 as often as one card did; each
    rank's pool and sliced weights are exactly half one card's; the bf16
    streams part from one card's only at near-ties, at most a quarter of
    them; at f32 (16 requests, and 16 speculative ones for K3) the streams
    are identical and every rank's K1/K2/K3 launches equal one card's.
-   (c) ``psum``: the f32 logits of the island's block walk within 1e-4 of
-   the largest of one card's, bf16 streams parting only at near-ties;
-   ``weight_sharding=False`` counted once on each rank, its streams held
-   as (b)'s. (d) A drain at tp = 2 restored into a single-card engine
-   (f32): the uninterrupted run's streams. (e) int8 weights and an int8
-   KV pool at tp = 2. (f) GQA at llama3_8b's widths (32/8 heads, hd 128,
-   d_ff 14336; depth cut to 4): K1 at group 4 on 16/4 local heads, as
-   many launches on each rank as on one card. The leader and the
-   followers each read their own launch counters.
+   (c) ``psum``: the engine's f32 streams (16 requests) equal one card's
+   but where two tokens tie within twice 1e-4 of the largest logit, in at
+   most 2 of 16 streams; the f32 logits of the island's block walk within
+   1e-4 of the largest of one card's; bf16 streams parting only at
+   near-ties. ``weight_sharding=False`` counted once on each rank, its
+   streams held as (b)'s. (d) A drain at tp = 2 restored into a
+   single-card engine (f32): the uninterrupted run's streams. (e) int8
+   weights and an int8 KV pool at tp = 2. (f) GQA at llama3_8b's widths
+   (32/8 heads, hd 128, d_ff 14336; depth cut to 4), 8 requests: K1 at
+   group 4 on 16/4 local heads, as many launches on each rank as on one
+   card; f32 streams equal one card's; bf16 streams, sliced and with
+   replicated weights, part only at near-ties, at most a quarter of them.
+   The leader and the followers each read their own launch counters.
+   (g) K1 and K3 at a rank's heads (serve and GQA at tp 2, llama3_8b at
+   tp 8), the split plan made for the rank's kv heads and for the
+   model's, each held to its plain version and timed beside its bound.
 
 ``--profile`` adds profiled serving runs (speculative and the contiguous
 engine) and one profiled training step: the card's busy
@@ -392,7 +399,9 @@ def _heads(kv, n_heads):
 
 
 def decode_case(name, B, H, n_kv, hd, ps, n_blocks, int8, dev, flush,
-                seed=0):
+                seed=0, plan_kv_heads=None):
+    """K1 against its plain version; ``plan_kv_heads`` as the wrapper
+    takes it (a tp rank's pool of ``n_kv`` heads planned as the model's)."""
     from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
 
     dtype = torch.bfloat16
@@ -406,12 +415,13 @@ def decode_case(name, B, H, n_kv, hd, ps, n_blocks, int8, dev, flush,
     lens = torch.randint(1, S + 1, (B,), generator=gen)
     lens[0], lens[-1] = S, 1
     lens = lens.to(torch.int32).to(dev)
-    out = da.paged_decode_attention(q, kp, vp, table, lens, **sc)
+    out = da.paged_decode_attention(q, kp, vp, table, lens,
+                                    plan_kv_heads=plan_kv_heads, **sc)
     ref = da.paged_decode_reference(q, kp, vp, table, lens, **sc)
     torch.cuda.synchronize()
     err, ok = max_err(out, ref, TOL[dtype])
     ms = time_ms(lambda: da.paged_decode_attention(
-        q, kp, vp, table, lens, **sc), flush)
+        q, kp, vp, table, lens, plan_kv_heads=plan_kv_heads, **sc), flush)
     plain_ms = time_ms(lambda: da.paged_decode_reference(
         q, kp, vp, table, lens, **sc), flush)
     # Library yardstick: SDPA over the gathered (dequantized) K/V.
@@ -501,7 +511,9 @@ def prefill_case(name, M, tb, hb, H, n_kv, hd, ps, int8, dev, flush,
 
 
 def verify_case(name, B, t, H, n_kv, hd, ps, n_blocks, int8, dev, flush,
-                seed=2):
+                seed=2, plan_kv_heads=None):
+    """K3 against its plain version; ``plan_kv_heads`` as in
+    ``decode_case``."""
     from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
 
     dtype = torch.bfloat16
@@ -516,11 +528,12 @@ def verify_case(name, B, t, H, n_kv, hd, ps, n_blocks, int8, dev, flush,
     lens[0], lens[-1] = S - t, 0
     lens = lens.to(torch.int32).to(dev)
     args = (q, kp, vp, table, lens)
-    out = da.paged_verify_attention(*args, **sc)
+    out = da.paged_verify_attention(*args, plan_kv_heads=plan_kv_heads, **sc)
     ref = da.paged_verify_reference(*args, **sc)
     torch.cuda.synchronize()
     err, ok = max_err(out, ref, TOL[dtype])
-    ms = time_ms(lambda: da.paged_verify_attention(*args, **sc), flush)
+    ms = time_ms(lambda: da.paged_verify_attention(
+        *args, plan_kv_heads=plan_kv_heads, **sc), flush)
     plain_ms = time_ms(lambda: da.paged_verify_reference(*args, **sc), flush)
     # Library yardstick: SDPA over the gathered K/V, a [B, 1, t, S] mask.
     K = _heads(_deq(da.gather_paged_kv(kp, table),
@@ -2333,10 +2346,11 @@ def check_delivered(label, router, streams, budgets, faults=False) -> None:
     check_full(label, streams, budgets)
 
 
-def parting_gaps(model, prompts, streams, ref) -> list:
-    """For each stream that parts from its reference: the int8-rounded
-    dense forward's logits after the prompt and the common prefix, and the
-    larger of the two parting tokens' gaps below their top."""
+def parting_gaps(model, prompts, streams, ref, int8=True) -> list:
+    """For each stream that parts from its reference: the dense forward's
+    logits (``int8``: its K/V rounded as an int8 pool holds them) after the
+    prompt and the common prefix, and the larger of the two parting
+    tokens' gaps below their top."""
     gaps = []
     for p, s, r in zip(prompts, streams, ref):
         if s == r:
@@ -2344,7 +2358,7 @@ def parting_gaps(model, prompts, streams, ref) -> list:
         pos = next(j for j, (a, b) in enumerate(zip(s, r)) if a != b)
         x = torch.tensor([[int(t) for t in list(p) + r[:pos]]],
                          device=model.lm_head.device)
-        lg = dense_logits(model, x, int8=True)[0, -1]
+        lg = dense_logits(model, x, int8=int8)[0, -1]
         gaps.append((lg.max() - torch.minimum(lg[s[pos]], lg[r[pos]])
                      ).item())
     return gaps
@@ -3074,7 +3088,15 @@ TP_SUB_NEW = 32                 # their budget
 TP_PART_CAP = 0.25              # bf16 streams that may part, as phase 11
                                 # (all_gather, replicated; not psum)
 TP_PSUM_TOL = 1e-4              # f32 psum logits, of the largest |logit|
+TP_PSUM_F32_CAP = 0.125         # f32 psum streams that may part (2 of 16),
+                                # each at a tie within twice that tolerance
+TP_GQA_N = 8                    # 17f: requests (the tail of phase 3's
+                                # prompts) and new tokens
 TP_TIMEOUT = 900                # seconds a rank world may take
+# 17g: (case, model heads, model kv heads, hd, tp) whose per-rank K1/K3
+# shapes are timed under both split plans.
+TP_PLAN_SHAPES = (("serve tp2", 16, 16, 64, 2), ("gqa tp2", 32, 8, 128, 2),
+                  ("llama3_8b tp8", 32, 8, 128, 8))
 
 
 def tp_rank_device():
@@ -3197,17 +3219,24 @@ def tp_world_one(rank, world):
                              **SPEC_ENGINE)
     del model, model32
     torch.cuda.empty_cache()
-    gcfg = gqa_config()
-    out["gqa"] = tp_run(card_init(gcfg, dev), gcfg,
-                        [p[256:] for p in main[:4]], 8, None,
-                        prefix_cache=False, n_slots=4)
+    for key, gcfg in gqa_configs():
+        out[key] = tp_run(card_init(gcfg, dev), gcfg, gqa_prompts(main),
+                          TP_GQA_N, None, prefix_cache=False)
+        torch.cuda.empty_cache()
     return out
 
 
-def gqa_config():
+def gqa_configs():
+    """17f's GQA config in bf16 and f32, keyed as the runs are."""
     from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig
 
-    return LlamaConfig(**TP_GQA)
+    cfg = LlamaConfig(**TP_GQA)
+    return (("gqa", cfg),
+            ("gqa_f32", dataclasses.replace(cfg, dtype=torch.float32)))
+
+
+def gqa_prompts(main):
+    return [p[256:] for p in main[:TP_GQA_N]]
 
 
 def tp_world_two(rank, world):
@@ -3242,6 +3271,8 @@ def tp_world_two(rank, world):
         out["psum_logits"] = dict(
             max_abs_diff=(got - want).abs().max().item(),
             max_abs_logit=want.abs().max().item())
+    out["psum_f32"] = tp_run(model32, cfg32, sub, TP_SUB_NEW, mesh,
+                             tp_combine="psum")
     out["psum"] = tp_run(model, cfg, sub, TP_SUB_NEW, mesh,
                          tp_combine="psum")
     serving.reset_decode_fallback_counts()
@@ -3287,11 +3318,18 @@ def tp_world_two(rank, world):
                          kv_dtype="int8")
     del qmodel, model
     torch.cuda.empty_cache()
-    # 17f: GQA at llama3_8b widths, depth 4.
-    gcfg = gqa_config()
-    out["gqa"] = tp_run(card_init(gcfg, dev), gcfg,
-                        [p[256:] for p in main[:4]], 8, mesh,
-                        prefix_cache=False, n_slots=4)
+    # 17f: GQA at llama3_8b widths, depth 4: sliced weights in bf16 and
+    # f32, and full q/k/v/gate/up products (replicated weights) in bf16.
+    for key, gcfg in gqa_configs():
+        gmodel = card_init(gcfg, dev)
+        out[key] = tp_run(gmodel, gcfg, gqa_prompts(main), TP_GQA_N, mesh,
+                          prefix_cache=False)
+        if key == "gqa":
+            out["gqa_replicated"] = tp_run(
+                gmodel, gcfg, gqa_prompts(main), TP_GQA_N, mesh,
+                prefix_cache=False, weight_sharding=False)
+        del gmodel
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3314,6 +3352,104 @@ def tp_partings(streams, ref) -> list:
     first token that differs."""
     return [next(j for j, (a, b) in enumerate(zip(s, r)) if a != b)
             for s, r in zip(streams, ref) if s != r]
+
+
+def check_psum_f32(streams, ref, prompts, model, tie) -> dict:
+    """17c: the psum engine's f32 streams against one card's. They may
+    part only where the reference's two tokens are tied within ``tie``
+    (twice the psum logits' tolerance: each side may move by one), in at
+    most ``TP_PSUM_F32_CAP`` of the streams. As in ``check_streams``, the
+    gate must catch the first 8 reference streams with a far token swapped
+    in."""
+    n_bad, where = first_divergence(streams, ref)
+    gaps = parting_gaps(model, prompts, streams, ref, int8=False)
+    faults = [r[:len(r) // 2] + [(r[len(r) // 2] + model.cfg.vocab // 2)
+                                 % model.cfg.vocab] + r[len(r) // 2 + 1:]
+              for r in ref[:8]]
+    caught = parting_gaps(model, prompts[:8], faults, ref[:8], int8=False)
+    out = dict(streams_differing=n_bad, first_divergence=where,
+               worst_gap=max(gaps, default=0.0), tie=tie,
+               smallest_fault_gap=min(caught))
+    if n_bad > TP_PSUM_F32_CAP * len(ref) or out["worst_gap"] > tie:
+        raise SystemExit(f"17c psum (f32): {n_bad} of {len(ref)} streams "
+                         f"part (cap {TP_PSUM_F32_CAP}), gaps {gaps} "
+                         f"against a tie of {tie}")
+    if min(caught) <= tie:
+        raise SystemExit(f"17c psum (f32): the tie gate misses a fault: "
+                         f"gaps {caught} against {tie}")
+    return out
+
+
+def phase_gqa_streams(card, ranks, one, main, dev) -> dict:
+    """17f's checks: every rank launches K1 as one card does; the f32
+    streams of the sliced island equal one card's; the bf16 ones, sliced
+    and with replicated weights (full q/k/v/gate/up products), part from
+    one card's only at near-ties, under ``TP_PART_CAP``."""
+    lead, out = ranks[0], {}
+    for key, gcfg in gqa_configs():
+        tp_same_launches(f"17f {key}", [r[key][1] for r in ranks],
+                         one[key][1], ("paged_decode_attention",))
+        if malformed(lead[key][0], TP_GQA_N, gcfg.vocab):
+            raise SystemExit(f"17f {key}: malformed GQA streams")
+        log(f"  [{card}] 17f {key} (llama3_8b widths, 4 layers) at tp=2: "
+            f"{json.dumps(lead[key][1])}")
+    out["17f gqa f32"] = check_streams(
+        "17f gqa", torch.float32, lead["gqa_f32"][0], one["gqa_f32"][0],
+        None, None, None, 0.0)
+    gcfg = dict(gqa_configs())["gqa"]
+    model = card_init(gcfg, dev)
+    spread = logit_spread(model, gcfg, dev)
+    for key in ("gqa", "gqa_replicated"):
+        streams, ref = lead[key][0], one["gqa"][0]
+        log(f"  [{card}] 17f {key} bf16: first differing token of each "
+            f"parting stream: {tp_partings(streams, ref)}")
+        out[f"17f {key}"] = check_streams(
+            f"17f {key}", torch.bfloat16, streams, ref, gqa_prompts(main),
+            model, spread, TP_PART_CAP)
+        log(f"  [{card}] 17f {key} bf16 against one card: "
+            f"{json.dumps(out[f'17f {key}'])}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_plan_per_rank(dev, card) -> list:
+    """17g: K1 (B 8, 32 blocks of 64 rows) and K3 (t 5) at a tp rank's
+    heads, their split plan made for the rank's kv heads and for the
+    model's (which the engine passes, so each head splits as on one
+    card), each held to its plain version, beside the bound."""
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    flush = _L2Flush(dev)
+    rows = []
+    for name, H, n_kv, hd, tp in TP_PLAN_SHAPES:
+        h, kv = H // tp, n_kv // tp
+        groups = {"K1": 8, "K3": 8 * -(-5 * (h // kv) // da.VERIFY_Q_ROWS[
+            torch.bfloat16])}
+        for kern in ("K1", "K3"):
+            got = {}
+            for plan in (kv, n_kv):
+                got[plan] = (decode_case(name, 8, h, kv, hd, 64, 32, False,
+                                         dev, flush, plan_kv_heads=plan)
+                             if kern == "K1" else
+                             verify_case(name, 8, 5, h, kv, hd, 64, 32,
+                                         False, dev, flush,
+                                         plan_kv_heads=plan))
+                if not got[plan]["ok"]:
+                    raise SystemExit(f"17g {kern} {name} (plan for {plan} "
+                                     f"heads) disagrees with its plain "
+                                     f"version")
+            row = dict(kernel=kern, case=name, heads=h, kv_heads=kv,
+                       local_splits=da.paged_plan(32, 64, groups[kern], kv),
+                       model_splits=da.paged_plan(32, 64, groups[kern],
+                                                  n_kv),
+                       local_ms=got[kv]["ms"], model_ms=got[n_kv]["ms"],
+                       bound_ms=got[kv]["bound_ms"],
+                       bound_by=got[kv]["bound_by"])
+            log(f"  [{card}] 17g {kern} {name} ({h}/{kv} heads a rank): "
+                f"{json.dumps(row)}")
+            rows.append(row)
+    return rows
 
 
 def phase_tensor_parallel(dev, card) -> dict:
@@ -3381,6 +3517,18 @@ def phase_tensor_parallel(dev, card) -> dict:
         f"{TP_PSUM_TOL} of the largest)")
     if not pl["max_abs_diff"] <= TP_PSUM_TOL * pl["max_abs_logit"]:
         raise SystemExit(f"17c: psum logits off by {pl}")
+    # 17c: the engine's psum path at f32 against one card's f32 streams.
+    tp_same_launches("17c psum f32", [r["psum_f32"][1] for r in ranks],
+                     one["f32"][1], K12)
+    model32 = init_params(dataclasses.replace(cfg, dtype=torch.float32),
+                          torch.Generator().manual_seed(0), dev)
+    out["17c psum f32"] = check_psum_f32(
+        lead["psum_f32"][0], one["f32"][0], sub, model32,
+        2 * TP_PSUM_TOL * pl["max_abs_logit"])
+    del model32
+    log(f"  [{card}] 17c psum f32 streams against one card's: "
+        f"{json.dumps(out['17c psum f32'])}; run "
+        f"{json.dumps(lead['psum_f32'][1])}")
     for r, res in enumerate(ranks):
         if res["replicated_counts"] != {"weights_replicated": 1} \
                 or res["replicated_warned"] != 1:
@@ -3405,14 +3553,9 @@ def phase_tensor_parallel(dev, card) -> dict:
         raise SystemExit("17e: malformed int8 streams")
     log(f"  [{card}] 17e int8 weights + int8 KV at tp=2: "
         f"{json.dumps(lead['int8'][1])}")
-    # 17f: GQA, K1 at group 4 on 16/4 local heads.
-    tp_same_launches("17f", [r["gqa"][1] for r in ranks], one["gqa"][1],
-                     ("paged_decode_attention",))
-    log(f"  [{card}] 17f GQA (llama3_8b widths, 4 layers) at tp=2: "
-        f"{json.dumps(lead['gqa'][1])}; first differing token of each "
-        f"parting stream: {tp_partings(lead['gqa'][0], one['gqa'][0])}")
-    if malformed(lead["gqa"][0], 8, TP_GQA["vocab"]):
-        raise SystemExit("17f: malformed GQA streams")
+    # 17f: GQA, K1 at group 4 on 16/4 local heads: f32 streams equal one
+    # card's; bf16 ones, sliced and replicated, part only at near-ties.
+    out.update(phase_gqa_streams(card, ranks, one, main, dev))
     # bf16 streams against one card's: each parting at a near-tie. The
     # all_gather and replicated islands do one card's arithmetic (K1/K3
     # split as for the model's heads), so their share is capped; psum
@@ -3441,7 +3584,8 @@ def phase_tensor_parallel(dev, card) -> dict:
                          lead[key][1], K12)
     del model
     torch.cuda.empty_cache()
-    return dict(one=st_one, tp2=st2, **out)
+    plans = phase_plan_per_rank(dev, card)
+    return dict(one=st_one, tp2=st2, plans=plans, **out)
 
 
 def main() -> int:

@@ -11,7 +11,8 @@ through four steps:
    from ``PageAllocator``, and the longest cached page-aligned prefix from
    ``PrefixCache.match`` mounted read-only;
 2. one batched paged prefill (``_prefill_multi_paged_fn``): the hb == 0
-   rung runs the dense causal forward (``forward_with_cache``); the hb > 0
+   rung runs the dense causal forward (``cached_attention`` at position
+   0, as ``forward_with_cache`` runs it); the hb > 0
    rung prefills only the uncached tail through K2
    (``ops.paged_prefill_attention``). With ``prefill_chunk_tokens`` the
    prompt is prefilled a budget of pages per step instead
@@ -741,8 +742,9 @@ def _prefill_multi_paged_fn(model: Llama, cfg: LlamaConfig, page_size: int,
     [M, tb/ps] (the entry's own pages, the bucket overshoot on the null
     page). Host inputs are numpy arrays.
 
-    hb == 0 (``prefix_tables`` [M, 0]): tokens are whole prompts, run by
-    the dense causal ``forward_with_cache`` over a zeroed mini cache.
+    hb == 0 (``prefix_tables`` [M, 0]): tokens are whole prompts, run
+    through the blocks with the dense causal attention that
+    ``forward_with_cache`` runs at position 0.
     hb > 0: tokens are the uncached tails; tail row i sits at absolute
     position hit_len + i and attends the cached prefix pages plus itself
     causally through K2. An int8 pool is read dequantized by the tail
@@ -753,18 +755,16 @@ def _prefill_multi_paged_fn(model: Llama, cfg: LlamaConfig, page_size: int,
     hit_len + tail_len and ``last`` to its first sampled token (keyed by
     slot, so a pad row re-draws its entry's token).
 
-    ``isl``: the rank's part of a tensor-parallel prefill. hb == 0 walks
-    the blocks itself on the rank's heads with the dense causal attention
-    ``forward_with_cache`` runs (the same softmax arithmetic, so the
-    all_gather combine keeps the single-device bytes); hb > 0 runs K2 on
-    the rank's heads and pool slice. Each rank scatters its kv heads."""
+    ``isl``: the rank's part of a tensor-parallel prefill: both rungs
+    run on the rank's heads (hb > 0 with K2 on its pool slice), and each
+    rank scatters its kv heads."""
     quant = k_s is not None
     dev = lens.device
     M, tb = tokens.shape
     npg = page_ids.shape[1]
     hb = prefix_tables.shape[1]
     tok_t = torch.as_tensor(tokens, dtype=torch.int64, device=dev)
-    if hb == 0 and isl is not None:
+    if hb == 0:
         x = model.embed[tok_t].to(cfg.dtype)
         angles = angles_full[:tb]
         mks, mvs = [], []
@@ -779,13 +779,6 @@ def _prefill_multi_paged_fn(model: Llama, cfg: LlamaConfig, page_size: int,
         mk, mv = torch.stack(mks), torch.stack(mvs)
         x = rms_norm(x, model.final_norm)
         logits = qdot(x, model.lm_head).float()
-    elif hb == 0:
-        shape = (cfg.n_layers, M, tb, cfg.n_kv_heads, cfg.head_dim)
-        mini = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                "len": 0}
-        logits, mini = forward_with_cache(model, tok_t, cfg, mini)
-        mk, mv = mini["k"], mini["v"]
     else:
         hits_t = torch.as_tensor(hit_lens, dtype=torch.int32, device=dev)
         ptab_t = torch.as_tensor(prefix_tables, dtype=torch.int32, device=dev)
@@ -1039,7 +1032,7 @@ class ContinuousBatcher:
 
     ``mesh`` (a ``DeviceMesh`` with a ``tp`` dim, paged layout only)
     makes this engine one rank of a tensor-parallel island
-    (``parallel.island``): each rank holds ``Hkv/tp`` kv heads of every
+    (``parallel.island``; a tp = 1 mesh serves as one card): each rank holds ``Hkv/tp`` kv heads of every
     pool page and runs K1/K2/K3 on its ``H/tp`` query heads. Every rank
     builds the engine alike; the tp rank 0 (``is_leader``) takes the
     requests and runs the host loop, sending each device step to the
@@ -1322,7 +1315,10 @@ class ContinuousBatcher:
                 f"island {'with' if want_ws else 'without'} weight sharding "
                 f"needs {want}")
         self._tp = tp
-        self._island = Island(mesh, self.device, want_ws, tp_combine)
+        # A tp = 1 mesh has nothing to split or combine: it serves through
+        # the single-device bodies.
+        self._island = (Island(mesh, self.device, want_ws, tp_combine)
+                        if tp > 1 else None)
         if tp > 1 and not want_ws:
             _note_decode_fallback(
                 "weights_replicated",
@@ -1344,7 +1340,7 @@ class ContinuousBatcher:
         the host operands, then ``lens``/``last`` go out as tensors, and
         the block table when it changed."""
         isl = self._island
-        if isl is not None and isl.followers:
+        if isl is not None:
             sent = dict(kw)
             if op in ("decode", "verify") and self._table_dirty:
                 sent["_table"] = self._table_np.copy()
@@ -1381,8 +1377,7 @@ class ContinuousBatcher:
         """Leader of a tp island: stop the followers' ``follow()`` loops
         (once; later calls do nothing). Off an island, nothing."""
         isl = self._island
-        if isl is not None and isl.is_leader and isl.followers \
-                and not self._closed:
+        if isl is not None and isl.is_leader and not self._closed:
             isl.send("stop", {})
         self._closed = True
 
@@ -2627,7 +2622,7 @@ class ContinuousBatcher:
                        .reshape(tuple(t.shape)))
             off += n
         isl = self._island
-        if isl is None or not isl.followers:
+        if isl is None:
             return out
         parts = isl.gather_to_leader(out)
         if parts is None:                                # a follower
@@ -2661,7 +2656,7 @@ class ContinuousBatcher:
 
     def _op_scatter(self, pages: list, host: list) -> None:
         isl = self._island
-        if isl is not None and isl.followers:
+        if isl is not None:
             host = [np.ascontiguousarray(np.split(a, isl.tp, axis=3)[isl.rank])
                     for a in host]
         planes = self._planes()

@@ -30,7 +30,8 @@ TP_AXIS = "tp"
 
 class Island:
     """This rank's view of the ``tp`` dim of ``mesh`` (a named
-    ``DeviceMesh``): ``tp`` ranks, this one at ``rank``; ``wsharded``
+    ``DeviceMesh``): ``tp`` > 1 ranks (a tp = 1 mesh serves without an
+    island), this one at ``rank``; ``wsharded``
     (the weights ride Megatron-sliced) and ``combine`` ("all_gather" or
     "psum") fix how the row-parallel products reassemble. Object
     messages travel on ``device`` when the backend is nccl (which moves
@@ -51,10 +52,6 @@ class Island:
         self.combine = combine
         self._obj_device: Optional[torch.device] = (
             device if "nccl" in str(dist.get_backend(self.group)) else None)
-
-    @property
-    def followers(self) -> bool:
-        return self.tp > 1
 
     # -- collectives of the dispatch bodies ---------------------------------
     def heads(self, x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -118,6 +118,15 @@ def test_tp2_streams_equal_jax_tp2(jax_side, world2, cell):
     assert world2["grid"][cell][0] == eng.run()
 
 
+def test_tp1_mesh_serves_without_an_island(world2):
+    """A mesh whose tp axis is 1 (here dp 2, ``MeshSpec.for_devices``'
+    default) runs the single-card bodies: no island, every rank its own
+    leader, the tp = 1 engine's streams."""
+    no_island, leader, tp, streams = world2["tp1_mesh"]
+    assert no_island and leader and tp == 1.0
+    assert streams == world2["grid"]["plain"][1]
+
+
 def test_psum_streams_and_tolerance(world2):
     got, ref, combine = world2["psum"]
     assert combine == "psum"

@@ -233,6 +233,13 @@ def world_two(rank, world, tree, prompts, cells, jax_snap, shed_prompts):
         lambda: ContinuousBatcher(full, cfg, mesh=mesh, kv_dtype="int8",
                                   prefix_cache=True, **BUILD), shed)
 
+    # A data-parallel mesh (``MeshSpec.for_devices``' default tp = 1):
+    # every rank leads its own engine, with no island.
+    eng = ContinuousBatcher(full, cfg, mesh=make_mesh(
+        MeshSpec.for_devices(world), "cpu"), **BUILD)
+    out["tp1_mesh"] = (eng._island is None, eng.is_leader,
+                       eng.pool_metrics()["tp"], drive(eng, prompts))
+
     # Refusals (raised while building, before any collective).
     dp_mesh = make_mesh(MeshSpec({"dp": world}), "cpu")
     odd = config(n_heads=6, n_kv_heads=3, d_model=48)
