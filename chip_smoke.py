@@ -244,6 +244,30 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    tp 8), the split plan made for the rank's kv heads and for the
    model's, each held to its plain version and timed beside its bound.
 
+18. sharded training (``make_train_step(cfg, mesh, opt)``) at phase 6's
+   cell (llama3_8b widths, 4 layers, bf16, flash, remat, AdamW 3e-4, B 8,
+   T 2048), its rank worlds started by ``parallel.spawn``. (a) An NCCL
+   world of one: three steps with ``mesh=None`` and, from the same
+   weights, through a mesh of one rank: the losses bit for bit, K5 2·L
+   and K6/K7 L launches a step in both, no plain version. (b) A gloo
+   world of two ranks sharing the card, at tp 2 and then at fsdp 2 (each
+   rank's blocks from ``init_params(..., mesh=)``): every rank launches
+   K5-K7 as one card did, holds exactly 961,581,056 parameters and
+   7,692,648,448 bytes of parameters, gradients and AdamW moments, and
+   its bf16 losses are one card's to 2e-3 relative at step 1 and to
+   2e-2 (1 + loss) after; each rank's step ms and peak memory are
+   printed. At f32 on the same widths cut to 1 layer and vocab 32000 (two
+   steps): the losses to 1e-5 relative, the first step's gradients to
+   1e-5 of each leaf's largest, and every weight after the steps to 1e-5
+   except where one card's first-step gradient is below 1e-6 (AdamW's eps
+   zone, at most 2 lr a step there). (c) sp 2: ring and Ulysses attention
+   at f32 on phase 5's small config at T 256, the losses one card's dense
+   step's to 1e-5. (d) The sharded checkpoint: ``train_loop`` stopped at
+   step 2 (each rank's file, rank 0's commit) and resumed into fresh
+   objects gives an unstopped run's four losses bit for bit. (e) K5, K6
+   and K7 at a rank's shapes (tp 2: 16/4 heads, B 8; fsdp 2: 32/8 heads,
+   B 4) against their plain versions, timed beside the bound and SDPA.
+
 ``--profile`` adds profiled serving runs (speculative and the contiguous
 engine) and one profiled training step: the card's busy
 share and its time by kernel; a profiled BERT-base call and ResNet-50
@@ -3588,9 +3612,374 @@ def phase_tensor_parallel(dev, card) -> dict:
     return dict(one=st_one, tp2=st2, plans=plans, **out)
 
 
+# -- phase 18: sharded training -------------------------------------------------
+
+SHARD_STEPS = 3                 # 18a, 18b bf16 steps (phase 6's batch)
+SHARD_F32 = dict(vocab=32000, n_layers=1)     # 18b f32: llama3_8b widths
+SHARD_F32_STEPS = 2
+# 18b: a rank's parameters and its bytes of parameters, gradients and
+# AdamW moments at tp 2 and at fsdp 2 (4 layers, bf16): half of every
+# sharded leaf, the norms whole (PERF.md's prediction).
+SHARD_RANK_PARAMS = 961_581_056
+SHARD_RANK_STATE_BYTES = 7_692_648_448
+# 18b bf16 losses against one card's, stated before the first run: step
+# 1 (the same weights, sums in another order) to 2e-3 relative; steps
+# 2-3 to 2e-2 + 2e-2 of the loss (after an update in which a weight with
+# a gradient near zero may move the other way).
+SHARD_BF16_REL1, SHARD_BF16_ABS = 2e-3, 2e-2
+# 18b f32 against one card: the losses to 1e-5 relative; the first
+# step's gradients to 1e-5 of each leaf's largest; the weights after the
+# two AdamW steps to 1e-5, except where the first step's gradient is
+# below SHARD_ADAM_ZONE on one card: there m / (sqrt(v) + 1e-8) turns
+# the gradients' rounding into a move of up to 2 lr a step (the CPU
+# tests' tolerance note), and such a weight may part by up to that.
+SHARD_F32_TOL, SHARD_ADAM_ZONE = 1e-5, 1e-6
+SHARD_SMALL = dict(vocab=256, d_model=256, n_layers=2, n_heads=4,
+                   n_kv_heads=2, d_ff=512, max_seq=256, remat=True,
+                   dtype=torch.float32)
+SHARD_SMALL_BT = (2, 256)       # 18c, 18d
+SHARD_TIMEOUT = 900
+
+
+def shard_cfgs():
+    """(18a/18b bf16: phase 6's config; 18b f32: llama3_8b widths, depth
+    1, vocab 32000; 18c/18d: phase 5's small config at T 256)."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig
+
+    full = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=4,
+                               attn_impl="flash")
+    f32 = dataclasses.replace(full, dtype=torch.float32, **SHARD_F32)
+    small = LlamaConfig(**SHARD_SMALL, attn_impl="dense")
+    return full, f32, small
+
+
+def shard_batch(cfg, B, T, dev):
+    """train_setup's batch: tokens from numpy seed 0, targets rolled."""
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, T)))
+    return {"tokens": tokens.to(dev),
+            "targets": torch.roll(tokens, -1, dims=1).to(dev)}
+
+
+def shard_run(model, cfg, mesh, batch, steps, opt=None, after_first=None):
+    """``steps`` synchronised steps of ``make_train_step(cfg, mesh, ...)``,
+    counters zeroed just before and read just after: losses, step ms,
+    K5-K7 launches, peak memory, and the rank's parameter elements and
+    bytes of parameters, gradients and AdamW moments. ``after_first()``
+    runs after the first step (its gradients are still in ``.grad``)."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        make_optimizer, make_train_step)
+    from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
+        counters, reset_counters)
+
+    opt = opt or make_optimizer(model, 3e-4)
+    step = make_train_step(cfg, mesh, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(model, batch)))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if after_first is not None and len(losses) == 1:
+            after_first()
+    c = counters()
+    params = list(model.parameters())
+    state = sum(t.numel() * t.element_size() for t in
+                params + [p.grad for p in params]
+                + [st[k] for st in opt.state.values()
+                   for k in ("exp_avg", "exp_avg_sq")])
+    return dict(losses=losses, step_ms=ms, launches=c,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                / 1e9, params=sum(p.numel() for p in params),
+                state_bytes=state)
+
+
+def shard_world_one(rank, world, ref_path):
+    """18a, an NCCL world of one: phase 6's config for SHARD_STEPS steps
+    with ``mesh=None`` and, from the same weights, through a mesh of one
+    rank; then the one-card references of 18b's f32 check (its weights
+    after the steps saved to ``ref_path``) and of 18c."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import init_params
+    from k8s_gpu_scheduler_tpu_torch.parallel import MeshSpec, make_mesh
+
+    dev = tp_rank_device()
+    full, f32, small = shard_cfgs()
+    batch = shard_batch(full, 8, 2048, dev)
+    model = init_params(full, torch.Generator().manual_seed(0), dev)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    out = {"one": shard_run(model, full, None, batch, SHARD_STEPS)}
+    with torch.no_grad():
+        model.load_state_dict(start)
+    del start
+    mesh = make_mesh(MeshSpec.for_devices(1), dev.type)
+    out["mesh"] = shard_run(model, full, mesh, batch, SHARD_STEPS)
+    del model
+    torch.cuda.empty_cache()
+    model = init_params(f32, torch.Generator().manual_seed(0), dev)
+    grads = {}
+
+    def keep_grads():
+        grads.update({n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()})
+
+    out["f32"] = shard_run(model, f32, None, shard_batch(f32, 8, 2048, dev),
+                           SHARD_F32_STEPS, after_first=keep_grads)
+    torch.save({"weights": {k: v.detach().cpu()
+                            for k, v in model.state_dict().items()},
+                "grads": grads}, ref_path)
+    del grads
+    del model
+    torch.cuda.empty_cache()
+    model = init_params(small, torch.Generator().manual_seed(0), dev)
+    out["small"] = shard_run(model, small, None,
+                             shard_batch(small, *SHARD_SMALL_BT, dev), 2)
+    return out
+
+
+def shard_world_two(rank, world, ref_path, ckpt_dir):
+    """18b-d, a gloo world of two ranks on one card: each rank's runs."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        init_params, leaf_specs, make_optimizer, train_loop)
+    from k8s_gpu_scheduler_tpu_torch.parallel import MeshSpec, make_mesh
+    from k8s_gpu_scheduler_tpu_torch.parallel.sharding import (
+        mesh_coords, rank_slice)
+    from k8s_gpu_scheduler_tpu_torch.utils.checkpoint import (
+        TrainCheckpointer)
+
+    dev = tp_rank_device()
+    full, f32, small = shard_cfgs()
+    out = {}
+
+    def mesh_of(**axes):
+        return make_mesh(MeshSpec.for_devices(world, **axes), dev.type)
+
+    def model_on(cfg, mesh):
+        return init_params(cfg, torch.Generator().manual_seed(0), dev,
+                           mesh=mesh)
+
+    for key, axes in (("tp2", {"tp": 2}), ("fsdp2", {"fsdp": 2})):
+        mesh = mesh_of(**axes)
+        t0 = time.perf_counter()
+        model = model_on(full, mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        out[key] = shard_run(model, full, mesh,
+                             shard_batch(full, 8, 2048, dev), SHARD_STEPS)
+        out[key]["init_s"] = init_s
+        del model
+        torch.cuda.empty_cache()
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    specs = leaf_specs(f32)
+    for key, axes in (("f32_tp2", {"tp": 2}), ("f32_fsdp2", {"fsdp": 2})):
+        mesh = mesh_of(**axes)
+        sizes, index = mesh_coords(mesh)
+        model = model_on(f32, mesh)
+
+        def mine(tree, name):
+            return rank_slice(tree[name], specs[name], sizes, index)
+
+        grad_err = {}
+
+        def check_grads():
+            for name, p in model.named_parameters():
+                want = mine(ref["grads"], name)
+                grad_err[name] = ((p.grad.detach().cpu() - want).abs().max()
+                                  / want.abs().max()).item()
+
+        st = shard_run(model, f32, mesh, shard_batch(f32, 8, 2048, dev),
+                       SHARD_F32_STEPS, after_first=check_grads)
+        worst, beyond, outside = 0.0, 0, 0
+        for name, p in model.named_parameters():
+            diff = (p.detach().cpu() - mine(ref["weights"], name)).abs()
+            far = diff > SHARD_F32_TOL
+            worst = max(worst, diff.max().item())
+            beyond += int(far.sum())
+            outside += int((far & (mine(ref["grads"], name).abs()
+                                   >= SHARD_ADAM_ZONE)).sum())
+        st.update(max_grad_err=max(grad_err.values()),
+                  worst_grad_leaf=max(grad_err, key=grad_err.get),
+                  max_abs_weight_diff=worst, weights_beyond_tol=beyond,
+                  beyond_outside_adam_zone=outside,
+                  elements=sum(p.numel() for p in model.parameters()))
+        out[key] = st
+        del model
+        torch.cuda.empty_cache()
+    del ref
+    for impl in ("ring", "ulysses"):
+        cfg = dataclasses.replace(small, attn_impl=impl)
+        mesh = mesh_of(sp=2)
+        out[impl] = shard_run(model_on(cfg, mesh), cfg, mesh,
+                              shard_batch(cfg, *SHARD_SMALL_BT, dev), 2)
+    # 18d: stopped at step 2, saved by every rank, resumed (flash, tp 2).
+    cfg = dataclasses.replace(small, attn_impl="flash")
+    mesh = mesh_of(tp=2)
+    batch = shard_batch(cfg, *SHARD_SMALL_BT, dev)
+
+    def fresh():
+        model = model_on(cfg, mesh)
+        return model, make_optimizer(model, 3e-4)
+
+    ref_losses = train_loop(*fresh(), batch, mesh=mesh, max_steps=4,
+                            worker=rank)
+    t0 = time.perf_counter()
+    first = train_loop(*fresh(), batch, TrainCheckpointer(ckpt_dir,
+                                                          mesh=mesh),
+                       every=2, max_steps=2, mesh=mesh, worker=rank)
+    ck = TrainCheckpointer(ckpt_dir, mesh=mesh)
+    step_no, (model, opt) = ck.restore_or(fresh)
+    rest = train_loop(model, opt, batch, ck, step_no=step_no, every=2,
+                      max_steps=4, mesh=mesh, worker=rank)
+    out["resume"] = dict(ref=[x.item() for x in ref_losses],
+                         resumed=[x.item() for x in first + rest],
+                         step_no=step_no, seconds=time.perf_counter() - t0)
+    return out
+
+
+def check_bf16_losses(label, got, want) -> float:
+    """18b's bf16 tolerance (SHARD_BF16_REL1, SHARD_BF16_ABS); returns
+    the largest difference."""
+    diffs = [abs(a - b) for a, b in zip(got, want)]
+    ok = diffs[0] <= SHARD_BF16_REL1 * abs(want[0]) and all(
+        d <= SHARD_BF16_ABS * (1 + abs(b))
+        for d, b in zip(diffs[1:], want[1:]))
+    if not ok or len(got) != len(want):
+        raise SystemExit(f"{label}: bf16 losses {got} against one card's "
+                         f"{want}")
+    return max(diffs)
+
+
+def phase_sharded_training(dev, card) -> dict:
+    """Phase 18 (see the module docstring)."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        rank_leaf_shapes, train_state_bytes)
+    from k8s_gpu_scheduler_tpu_torch.parallel import spawn
+
+    full, f32, small = shard_cfgs()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "f32_ref.pt")
+        t0 = time.perf_counter()
+        (one,) = spawn(shard_world_one, 1, "nccl", args=(ref_path,),
+                       timeout=SHARD_TIMEOUT, group_timeout=SHARD_TIMEOUT)
+        log(f"  [{card}] 18a NCCL world of one: "
+            f"{time.perf_counter() - t0:.1f} s")
+        for key in ("one", "mesh"):
+            log(f"  [{card}] 18a {key}: {json.dumps(one[key])}")
+        want = (2 * full.n_layers * SHARD_STEPS, full.n_layers * SHARD_STEPS,
+                full.n_layers * SHARD_STEPS)
+        if one["mesh"]["losses"] != one["one"]["losses"]:
+            raise SystemExit("18a: the size-1 mesh's losses are not "
+                             "mesh=None's bit for bit")
+        for key in ("one", "mesh"):
+            c = one[key]["launches"]
+            if tuple(c[k] for k in FLASH) != want or any(
+                    c[k] for k in FLASH_PLAIN):
+                raise SystemExit(f"18a {key}: launched {c}, want {want}")
+        t0 = time.perf_counter()
+        ranks = spawn(shard_world_two, 2, "gloo",
+                      args=(ref_path, os.path.join(tmp, "ckpt")),
+                      timeout=SHARD_TIMEOUT, group_timeout=SHARD_TIMEOUT)
+        log(f"  [{card}] 18b-d gloo world of two on one card: "
+            f"{time.perf_counter() - t0:.1f} s")
+    out = {"18a": one}
+    ref = one["one"]
+    for key, axes in (("tp2", {"tp": 2}), ("fsdp2", {"fsdp": 2})):
+        sizes = {"dp": 1, "fsdp": 1, "sp": 1, "ep": 1, "tp": 1, **axes}
+        predicted = train_state_bytes(full, sizes)
+        n_pred = sum(int(np.prod(s)) for s, _ in
+                     rank_leaf_shapes(full, sizes).values())
+        for r, res in enumerate(ranks):
+            st = res[key]
+            log(f"  [{card}] 18b {key} bf16, rank {r}: {json.dumps(st)}")
+            if (st["params"], st["state_bytes"]) != (
+                    SHARD_RANK_PARAMS, SHARD_RANK_STATE_BYTES) or (
+                    n_pred, predicted) != (SHARD_RANK_PARAMS,
+                                           SHARD_RANK_STATE_BYTES):
+                raise SystemExit(
+                    f"18b {key}: rank {r} holds {st['params']} parameters "
+                    f"and {st['state_bytes']} bytes of state; predicted "
+                    f"{SHARD_RANK_PARAMS} and {SHARD_RANK_STATE_BYTES} "
+                    f"(train_state_bytes: {n_pred}, {predicted})")
+            if st["launches"] != ref["launches"]:
+                raise SystemExit(f"18b {key}: rank {r} launched "
+                                 f"{st['launches']}, one card "
+                                 f"{ref['launches']}")
+            st["max_loss_diff"] = check_bf16_losses(
+                f"18b {key} rank {r}", st["losses"], ref["losses"])
+        out[key] = [res[key] for res in ranks]
+    for key in ("f32_tp2", "f32_fsdp2"):
+        for r, res in enumerate(ranks):
+            st = res[key]
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(st["losses"], one["f32"]["losses"]))
+            st["max_rel_loss_diff"] = rel
+            log(f"  [{card}] 18b {key}, rank {r}: {json.dumps(st)}")
+            move = 2 * 3e-4 * SHARD_F32_STEPS      # 2 lr a step at most
+            if rel > SHARD_F32_TOL or st["max_grad_err"] > SHARD_F32_TOL \
+                    or st["beyond_outside_adam_zone"] \
+                    or st["max_abs_weight_diff"] > move:
+                raise SystemExit(
+                    f"18b {key}: rank {r} parts from one card at f32: "
+                    f"losses {st['losses']} (one card "
+                    f"{one['f32']['losses']}), first-step gradients "
+                    f"{st['max_grad_err']:.2e} of the leaf's largest, "
+                    f"{st['beyond_outside_adam_zone']} weights beyond "
+                    f"{SHARD_F32_TOL} where the gradient is not below "
+                    f"{SHARD_ADAM_ZONE}, largest weight difference "
+                    f"{st['max_abs_weight_diff']:.2e}")
+        out[key] = [res[key] for res in ranks]
+    for impl in ("ring", "ulysses"):
+        for r, res in enumerate(ranks):
+            st = res[impl]
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(st["losses"], one["small"]["losses"]))
+            log(f"  [{card}] 18c {impl} sp 2, rank {r}: losses "
+                f"{st['losses']} (one card's dense {one['small']['losses']},"
+                f" rel {rel:.2e}), step ms {st['step_ms']}")
+            if rel > 1e-5:
+                raise SystemExit(f"18c {impl}: f32 losses part from one "
+                                 f"card's dense step by {rel:.2e}")
+        out[impl] = [res[impl] for res in ranks]
+    for r, res in enumerate(ranks):
+        rs = res["resume"]
+        log(f"  [{card}] 18d rank {r}: {json.dumps(rs)}")
+        if rs["resumed"] != rs["ref"] or rs["step_no"] != 2:
+            raise SystemExit(f"18d: rank {r} resumed {rs['resumed']}, the "
+                             f"unstopped run {rs['ref']}")
+    return out
+
+
+def phase_rank_flash_kernels(dev, card) -> list:
+    """18e: K5, K6 and K7 at a rank's shapes (tp 2: 16/4 heads, B 8;
+    fsdp 2: 32/8 heads, B 4), held to their plain versions and timed
+    beside the bound and SDPA, as phase 1's train-8b row."""
+    flush = _L2Flush(dev)
+    cases = (flash_cases("train-8b tp2", 8, 2048, 16, 4, 128, dev, flush)
+             + flash_cases("train-8b fsdp2", 4, 2048, 32, 8, 128, dev,
+                           flush))
+    for c in cases:
+        log(f"  [{card}] 18e {c['kernel']:20s} {c['case']:15s} "
+            f"max_abs_err {c['max_abs_err']:.3e} (tol {c['tol']}) ms "
+            f"{c['ms']:.4f} plain {c['plain_ms']:.4f} sdpa "
+            f"{c['library_ms']:.4f} bound {c['bound_ms']:.4f} "
+            f"({c['bound_by']}) {c['bound_ms'] / c['ms']:.1%} of bound "
+            f"{'ok' if c['ok'] else 'MISMATCH'}")
+    bad = [c["kernel"] + ":" + c["case"] for c in cases if not c["ok"]]
+    if bad:
+        raise SystemExit(f"18e: kernel disagrees with its plain version: "
+                         f"{bad}")
+    return cases
+
+
 def main() -> int:
     t_start = time.perf_counter()
     args = sys.argv[1:]
+
+    def phase(text):
+        log(f"[{time.perf_counter() - t_start:.0f} s] {text}")
 
     def value(flag, default=None):
         return args[args.index(flag) + 1] if flag in args else default
@@ -3620,7 +4009,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     _build.load_library()
-    log(f"phase 0: built {_build.library_path().name} in "
+    phase(f"phase 0: built {_build.library_path().name} in "
         f"{time.perf_counter() - t0:.1f} s on {card}")
     for r in _build.ptxas_report():
         log(f"  ptxas {r['registers']} regs, {r['smem_bytes']} B smem, "
@@ -3633,21 +4022,21 @@ def main() -> int:
         for words in TENSOR_CORE_KERNELS:     # must use the tensor cores
             if not any(all(w in name for w in words) for name in hmma):
                 raise SystemExit(f"no HMMA instruction in {words}")
-    log("phase 1: kernels against their plain versions "
+    phase("phase 1: kernels against their plain versions "
         "(atol = rtol = 2e-2 in bf16, 2e-5 for K5's f32 lse)")
     cases = phase_kernels(dev, this_tree)
     if "--kernels-only" in args:
         log(json.dumps({"card": card, "kernel_cases": cases}))
         return 0
-    log("phase 2: engines on the card against the engines on the CPU "
+    phase("phase 2: engines on the card against the engines on the CPU "
         "(f32, TF32 off)")
     e2 = phase_engine_vs_cpu(dev)
     log(f"  identical greedy streams: {json.dumps(e2)}")
     log(f"  contiguous path, identical greedy streams: "
         f"{json.dumps(phase_contiguous_vs_cpu(dev))}")
-    log("phase 3: full-width serve config, bf16")
+    phase("phase 3: full-width serve config, bf16")
     full = phase_full_width(dev, card)
-    log("phase 4: full-width speculative path, bf16")
+    phase("phase 4: full-width speculative path, bf16")
     spec = phase_speculative(dev, card)
     if profile_too:
         log("profile: where a serving run's device time goes")
@@ -3655,15 +4044,15 @@ def main() -> int:
         log("profile: CUDA kernels a paged dispatch launches per layer per "
             "decode tick and per verify")
         phase_dispatch_launches(dev, value("--parent"))
-    log("phase 5: training on the card against training on the CPU "
+    phase("phase 5: training on the card against training on the CPU "
         "(f32, TF32 off)")
     log(f"  {json.dumps(phase_train_vs_cpu(dev))}")
-    log(f"phase 6: full-width training path (llama3_8b widths, "
+    phase(f"phase 6: full-width training path (llama3_8b widths, "
         f"{train_layers} layers), bf16")
     train = phase_train_full_width(dev, card, profile_too, train_layers)
-    log("phase 7: full-width contiguous path, bf16")
+    phase("phase 7: full-width contiguous path, bf16")
     contig = phase_contiguous_full_width(dev, card, profile_too)
-    log("phase 8: the serving lifecycle and the KV tier")
+    phase("phase 8: the serving lifecycle and the KV tier")
     log("  (a) drain, persist and resume on the card against the CPU's "
         "undrained run (f32, TF32 off)")
     log(f"  {json.dumps(phase_lifecycle_vs_cpu(dev))}")
@@ -3671,14 +4060,24 @@ def main() -> int:
     phase_drain_restore_full_width(dev, card)
     log("  (c) full-width tiering: waves A, B, C, bf16")
     phase_tiering_full_width(dev, card)
-    log("phase 9: observability at full width: traced against untraced, "
+    phase("phase 9: observability at full width: traced against untraced, "
         "bf16")
     phase_observability(dev, card)
+    phase("phases 10-12: the entry point, the fleet, crash and "
+          "disaggregation")
     phases_10_to_12(dev, card)
+    phase("phases 13-16: MoE, BERT-base, ResNet-50")
     phases_13_to_16(dev, card, profile_too)
-    log("phase 17: tensor-parallel paged serving, tp=1 on an NCCL world "
+    phase("phase 17: tensor-parallel paged serving, tp=1 on an NCCL world "
         "of one, tp=2 on a gloo world of two ranks sharing the card")
     phase_tensor_parallel(dev, card)
+    phase("phase 18: sharded training at llama3_8b's widths (4 layers): "
+          "18a a size-1 mesh on an NCCL world of one, 18b-d tp 2, fsdp 2, "
+          "sp 2 and the sharded checkpoint on a gloo world of two ranks "
+          "sharing the card")
+    phase_sharded_training(dev, card)
+    phase("phase 18e: K5-K7 at a rank's shapes")
+    phase_rank_flash_kernels(dev, card)
     # Each kernel's launches come from the run of the path that runs it:
     # K1 and K2 from phase 3's main path, K3 from phase 4's, K4 from phase
     # 7's serve-loop run, K5-K7 from phase 6's timed steps.

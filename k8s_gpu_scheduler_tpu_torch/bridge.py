@@ -50,29 +50,43 @@ def _layer(v, i: int):
 
 
 def params_from_numpy(tree: Dict, cfg: LlamaConfig, device="cuda",
-                      trainable: bool = False, mesh=None) -> Llama:
+                      trainable: bool = False, mesh=None,
+                      specs: str = "serving") -> Llama:
     """The JAX-layout tree ``tree`` (numpy leaves) as a ``Llama`` on
     ``device``; ``trainable`` parameters take gradients.
 
-    ``mesh`` (a ``DeviceMesh`` with a ``tp`` dim) keeps only this rank's
-    slice of each leaf ``models.llama.serving_weight_specs`` slices, cut
-    from the numpy array before the upload, so the rank never holds the
-    whole model on ``device``: the weights of one rank of a
-    ``ContinuousBatcher(mesh=mesh, weight_sharding=True)``. int8 leaves
-    are cut after quantisation: a column slice takes its scale columns,
-    a row slice keeps the scale whole."""
+    ``mesh`` (a ``DeviceMesh`` with named dims) keeps only this rank's
+    slice of each leaf, cut from the numpy array before the upload, so
+    the rank never holds the whole model on ``device``. ``specs`` says
+    which slices: ``"serving"``, those ``models.llama.serving_weight_specs``
+    cuts (the weights of one rank of a ``ContinuousBatcher(mesh=mesh,
+    weight_sharding=True)``; int8 leaves are cut after quantisation: a
+    column slice takes its scale columns, a row slice keeps the scale
+    whole); ``"training"``, every leaf by ``models.llama.param_specs`` (a
+    rank of ``make_train_step(cfg, mesh, ...)``), each rank's block the
+    same slice of the unsharded tree."""
     device = resolve_device(device)
+    if specs not in ("serving", "training"):
+        raise ValueError(f"specs must be 'serving' or 'training', got "
+                         f"{specs!r}")
     if mesh is not None:
-        from .models.llama import map_weight_tree, serving_weight_specs
+        from .models.llama import (
+            map_weight_tree, param_specs, serving_weight_specs)
         from .parallel.sharding import mesh_coords, rank_slice
 
         sizes, index = mesh_coords(mesh)
-        tree = {**tree, "blocks": map_weight_tree(
-            tree["blocks"], serving_weight_specs(tree)["blocks"],
-            lambda a, spec: rank_slice(np.asarray(a), spec, sizes, index))}
+
+        def cut(a, spec):
+            return rank_slice(np.asarray(a), spec, sizes, index)
+
+        if specs == "training":
+            tree = map_weight_tree(tree, param_specs(cfg), cut)
+        else:
+            tree = {**tree, "blocks": map_weight_tree(
+                tree["blocks"], serving_weight_specs(tree)["blocks"], cut)}
     # The full-size zeros of the module's construction stay on the host
     # when the leaves are slices.
-    model = Llama(cfg, "cpu" if mesh is not None else device)
+    model = Llama(cfg, "meta" if mesh is not None else device)
     for name in ("embed", "final_norm", "lm_head"):
         delattr(model, name)
         setattr(model, name, _leaf(tree[name], device, trainable))

@@ -1,5 +1,6 @@
 """Llama-family decoder (port of the JAX package's ``models/llama.py``:
-config, forward, and the single-device training step).
+config, forward, the training step on one device and on a mesh, and the
+pod's entry point).
 
 ``Llama`` is an ``nn.Module`` whose ``blocks`` ``ModuleList`` replaces the
 JAX package's layer-stacked pytree and ``lax.scan``; weights keep JAX's
@@ -20,6 +21,20 @@ block becomes ``torch.utils.checkpoint`` per block, and optax's
 ``adamw(lr)`` becomes ``torch.optim.AdamW`` with optax's defaults
 (``make_optimizer``). ``attn_impl="flash"`` runs the flash kernels K5-K7
 (``ops/flash_attention.py``).
+
+Sharded training (``mesh=``, a ``DeviceMesh`` with named dp/fsdp/sp/tp
+dims, one process a rank) is rank-local SPMD: each rank holds its block
+of every leaf by ``param_specs`` and writes out the collectives GSPMD
+inserted for the JAX step (``parallel/collectives.py``). A block
+all-gathers its fsdp-sharded weights, runs the column-parallel products
+on the rank's heads and ffn columns, attention on its local heads (the
+flash kernels at ``sp == 1``; ring or Ulysses attention over ``sp``) and
+sums the row-parallel ``wo``/``w_down`` products over tp. The embedding
+and the loss are vocab-parallel, so no rank holds the [B, T, vocab]
+logits. Gradients are summed over every axis that splits the tokens
+(dp, fsdp, sp), so the loss is the mean over the global batch, and
+``torch.optim.AdamW`` over the local blocks is the unsharded update. A
+mesh of one rank runs the single-device code.
 """
 from __future__ import annotations
 
@@ -33,11 +48,12 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.attention import dense_attention
+from ..ops.attention import dense_attention, ring_attention, ulysses_attention
 from ..ops.flash_attention import flash_attention_diff
 from ..ops.layers import apply_rope, rms_norm, rope_freqs, swiglu
 from ..ops.moe import moe_ffn, moe_ffn_dropless
 from ..ops.quant import qdot
+from ..parallel.collectives import all_gather, all_reduce, all_reduce_, copy_to
 
 
 @dataclass(frozen=True)
@@ -147,7 +163,9 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device="cuda") -> None:
         super().__init__()
-        device = resolve_device(device)
+        # "meta": shapes only, for a rank that fills in its own blocks.
+        device = (torch.device("meta") if str(device) == "meta"
+                  else resolve_device(device))
         self.cfg = cfg
         self.embed = _param(torch.zeros(cfg.vocab, cfg.d_model,
                                         dtype=cfg.dtype, device=device))
@@ -203,9 +221,10 @@ def param_axes(cfg: LlamaConfig) -> Dict:
 
 
 def param_specs(cfg: LlamaConfig, rules: Optional[Dict] = None) -> Dict:
-    """Specs (tuples of mesh-axis names) of the training tree. Sharded
-    training is not ported yet (``make_train_step`` refuses a mesh), so
-    nothing in the port places weights by these specs."""
+    """Specs (tuples of mesh-axis names) of the training tree, in the JAX
+    layer-stacked layout: what each rank holds of every leaf in sharded
+    training (``init_params(..., mesh=)``, ``bridge.params_from_numpy(...,
+    mesh=, specs="training")``, ``make_train_step(cfg, mesh, ...)``)."""
     from ..parallel.sharding import logical_axis_rules, shard_params_spec
 
     return shard_params_spec(param_axes(cfg),
@@ -350,21 +369,85 @@ def sliced_weight_bytes(model: Llama) -> int:
     return total
 
 
+def _mesh_axes(mesh):
+    """``parallel.mesh.MeshAxes`` of ``mesh``; None for no mesh or a mesh
+    of one rank, which run the single-device code."""
+    if mesh is None:
+        return None
+    from ..parallel.mesh import MeshAxes
+
+    ax = MeshAxes.of(mesh)
+    return ax if ax.size() > 1 else None
+
+
+def leaf_specs(cfg: LlamaConfig) -> Dict[str, tuple]:
+    """``param_specs`` by the name of each of ``Llama``'s parameters
+    (``blocks.<i>.<leaf>`` takes the stacked spec without its layer
+    axis)."""
+    specs = param_specs(cfg)
+    out = {}
+    for name, _ in Llama(cfg, "meta").named_parameters():
+        parts = name.split(".")
+        out[name] = (specs["blocks"][parts[2]][1:] if parts[0] == "blocks"
+                     else specs[parts[0]])
+    return out
+
+
+def _spec_axes(spec: tuple) -> set:
+    return {a for dim in spec if dim
+            for a in (dim if isinstance(dim, tuple) else (dim,))}
+
+
+def _set_leaf(model: nn.Module, name: str, value) -> None:
+    mod, _, leaf = name.rpartition(".")
+    setattr(model.get_submodule(mod) if mod else model, leaf, value)
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device="cuda") -> Llama:
+                device="cuda", mesh=None) -> Llama:
     """Random weights: normal(0, 0.02) matrices (drawn in f32, cast to the
     model dtype; an MoE router stays f32) and unit norms, from
-    ``generator`` alone. The draws are made on the CPU so a seed gives the
-    same weights on every device."""
-    model = Llama(cfg, device)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith("norm"):
-                continue
+    ``generator`` alone. The draws are made on the CPU, one leaf at a
+    time, so a seed gives the same weights on every device.
+
+    ``mesh`` (a mesh of more than one rank): each leaf is drawn whole and
+    only the rank's training block of it (``leaf_specs``) is uploaded, so
+    every rank holds exactly its slice of the unsharded init and never
+    the whole model."""
+    from ..parallel.sharding import rank_slice
+
+    device = resolve_device(device)
+    ax = _mesh_axes(mesh)
+    sizes, index = (ax.sizes, ax.index) if ax is not None else ({}, {})
+    specs = leaf_specs(cfg)
+    model = Llama(cfg, "meta")
+    for name, p in list(model.named_parameters()):
+        if name.endswith("norm"):
+            w = torch.ones(p.shape, dtype=p.dtype)
+        else:
             w = torch.randn(p.shape, generator=generator,
                             dtype=torch.float32) * 0.02
-            p.copy_(w.to(p.dtype))
+        block = rank_slice(w, specs[name], sizes, index)
+        # A copy: a view would keep the whole leaf alive on the host.
+        _set_leaf(model, name, _param(block.to(device, p.dtype, copy=True)))
     return model
+
+
+def rank_leaf_shapes(cfg: LlamaConfig, sizes: Mapping[str, int]
+                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of each of a rank's leaves on a mesh of axis
+    ``sizes``: the whole shape with each dim divided by the sizes of the
+    axes its spec names."""
+    specs = leaf_specs(cfg)
+    out = {}
+    for name, p in Llama(cfg, "meta").named_parameters():
+        shape = list(p.shape)
+        for d, dim in enumerate(specs[name]):
+            for a in (() if not dim else
+                      dim if isinstance(dim, tuple) else (dim,)):
+                shape[d] //= sizes.get(a, 1)
+        out[name] = (tuple(shape), p.dtype)
+    return out
 
 
 def attn_sublayer(cfg: LlamaConfig, x: torch.Tensor, blk: Block,
@@ -400,32 +483,56 @@ def mlp_sublayer(cfg: LlamaConfig, x: torch.Tensor, blk: Block,
     return x + swiglu(h, blk.w_gate, blk.w_up, blk.w_down), 0.0
 
 
-def forward(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, T] → logits [B, T, vocab] f32."""
-    logits, _ = forward_with_aux(model, tokens)
+ATTN_IMPLS = ("dense", "flash", "ring", "ulysses")
+# Mesh axes that split the tokens: the batch over (dp, fsdp), the
+# sequence over sp (JAX's ``_constrain`` points). A gradient is summed
+# over each of them that does not shard its leaf.
+BATCH_AXES, TOKEN_AXES = ("dp", "fsdp"), ("dp", "fsdp", "sp")
+
+
+def forward(model: Llama, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """tokens [B, T] → logits [B, T, vocab] f32 (on a mesh: this rank's
+    block of both, ``forward_with_aux``)."""
+    logits, _ = forward_with_aux(model, tokens, mesh)
     return logits
 
 
 def _attention(cfg: LlamaConfig, q: torch.Tensor, k: torch.Tensor,
-               v: torch.Tensor) -> torch.Tensor:
-    """Causal attention by ``cfg.attn_impl``: "flash" runs the flash
-    kernels (K5 forward, K6/K7 backward), "dense" the dense reference."""
-    if cfg.attn_impl == "flash":
-        return flash_attention_diff(q, k, v, True)
-    if cfg.attn_impl == "dense":
+               v: torch.Tensor, ax=None) -> torch.Tensor:
+    """Causal attention by ``cfg.attn_impl`` over this rank's q/k/v (the
+    JAX package's dispatch, ``llama.py:225-262``). With the sequence whole
+    (no ``sp`` axis): "flash" runs the flash kernels (K5 forward, K6/K7
+    backward) on the local batch and heads, every other impl the dense
+    reference. Over ``sp``: ring or Ulysses attention, flash falling back
+    to the ring as in JAX; dense gathers K/V over ``sp``."""
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {cfg.attn_impl!r} not in {ATTN_IMPLS}")
+    sp = None if ax is None else ax.group("sp")
+    if sp is None:
+        if cfg.attn_impl == "flash":
+            return flash_attention_diff(q, k, v, True)
         return dense_attention(q, k, v, causal=True)
-    raise NotImplementedError(
-        f"attn_impl={cfg.attn_impl!r}: sequence-parallel attention comes "
-        f"with the multi-device slice of ring and Ulysses attention "
-        f"(ROADMAP queue 1, 'Multi-device', remainder item 3)")
+    if cfg.attn_impl == "dense":
+        return dense_attention(q, all_gather(k, 1, sp), all_gather(v, 1, sp),
+                               causal=True, q_offset=ax.index["sp"]
+                               * q.shape[1])
+    if cfg.attn_impl == "ulysses":
+        return ulysses_attention(q, k, v, sp)
+    return ring_attention(q, k, v, sp)
 
 
-def forward_with_aux(model: Llama, tokens: torch.Tensor
+def forward_with_aux(model: Llama, tokens: torch.Tensor, mesh=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logits [B, T, vocab] f32, the mean over layers of the MoE balance
     aux — 0.0 for dense-MLP configs). With ``cfg.remat`` and autograd
     recording, each block is checkpointed: its activations are recomputed
-    in the backward, as ``jax.checkpoint`` does in the JAX package."""
+    in the backward, as ``jax.checkpoint`` does in the JAX package.
+
+    ``mesh`` (more than one rank): ``tokens`` are this rank's block
+    [B / (dp·fsdp), T / sp] and the logits its block [.., vocab / tp]."""
+    ax = _mesh_axes(mesh)
+    if ax is not None:
+        return _forward_sharded(model, tokens, ax)
     cfg = model.cfg
     B, T = tokens.shape
     angles = rope_freqs(cfg.head_dim, T, cfg.rope_theta, device=model.device)
@@ -452,11 +559,131 @@ def forward_with_aux(model: Llama, tokens: torch.Tensor
     return logits, torch.zeros((), dtype=torch.float32, device=model.device)
 
 
-def loss_fn(model: Llama, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def _refuse_moe_on_a_mesh(cfg: LlamaConfig) -> None:
+    if cfg.n_experts > 1:
+        raise NotImplementedError(
+            "a mixture-of-experts model on a mesh of more than one rank: "
+            "its expert stacks shard over the ep axis, which comes with the "
+            "multi-device slice of MoE's ep axis (ROADMAP queue 1, "
+            "'Multi-device', remainder item 2); train it with mesh=None")
+
+
+def _sharded_block(cfg: LlamaConfig, ax, x: torch.Tensor, blk: Block,
+                   angles: torch.Tensor) -> torch.Tensor:
+    """One decoder block on this rank: the fsdp blocks of each weight
+    gathered at its use, q/k/v/gate/up on the rank's tp columns (local
+    heads and ffn columns), ``wo``/``w_down`` on its rows, each followed
+    by the sum over tp. ``copy_to`` before the column products sums their
+    input gradients over tp in the backward."""
+    fsdp, tp = ax.group("fsdp"), ax.group("tp")
+    n_tp, hd = ax.size("tp"), cfg.head_dim
+    heads, kv_heads = cfg.n_heads // n_tp, cfg.n_kv_heads // n_tp
+    B, T, _ = x.shape
+    h = copy_to(rms_norm(x, blk.attn_norm), tp)
+    q = (h @ all_gather(blk.wq, 0, fsdp)).reshape(B, T, heads, hd)
+    k = (h @ all_gather(blk.wk, 0, fsdp)).reshape(B, T, kv_heads, hd)
+    v = (h @ all_gather(blk.wv, 0, fsdp)).reshape(B, T, kv_heads, hd)
+    q, k = apply_rope(q, angles), apply_rope(k, angles)
+    attn = _attention(cfg, q, k, v, ax).reshape(B, T, heads * hd)
+    x = x + all_reduce(attn @ all_gather(blk.wo, 1, fsdp), tp)
+    h = copy_to(rms_norm(x, blk.mlp_norm), tp)
+    return x + all_reduce(swiglu(h, all_gather(blk.w_gate, 0, fsdp),
+                                 all_gather(blk.w_up, 0, fsdp),
+                                 all_gather(blk.w_down, 1, fsdp)), tp)
+
+
+def _forward_sharded(model: Llama, tokens: torch.Tensor, ax
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's logits block [B_l, T_l, vocab / tp] f32 from its
+    tokens [B_l, T_l]. The embedding is vocab-parallel: each tp rank
+    looks up the tokens in its rows (zero elsewhere) and the sum over tp
+    assembles every row."""
+    cfg = model.cfg
+    _refuse_moe_on_a_mesh(cfg)
+    fsdp, tp = ax.group("fsdp"), ax.group("tp")
+    B, T = tokens.shape
+    t0 = ax.index.get("sp", 0) * T
+    angles = rope_freqs(cfg.head_dim, t0 + T, cfg.rope_theta,
+                        device=model.device)[t0:]
+    table = all_gather(model.embed, 1, fsdp)            # [V / tp, D]
+    if tp is None:
+        x = table[tokens]
+    else:
+        rows = table.shape[0]
+        local = tokens - ax.index["tp"] * rows
+        hit = (local >= 0) & (local < rows)
+        x = all_reduce(torch.where(hit[..., None],
+                                   table[local.clamp(0, rows - 1)], 0), tp)
+    x = x.to(cfg.dtype)
+
+    def block(x, blk):
+        return _sharded_block(cfg, ax, x, blk, angles)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for blk in model.blocks:
+        x = (torch.utils.checkpoint.checkpoint(block, x, blk,
+                                               use_reentrant=False)
+             if remat else block(x, blk))
+    h = copy_to(rms_norm(x, model.final_norm), tp)
+    logits = (h @ all_gather(model.lm_head, 0, fsdp)).float()
+    return logits, torch.zeros((), dtype=torch.float32, device=model.device)
+
+
+def _nll_sharded(logits: torch.Tensor, targets: torch.Tensor, ax
+                 ) -> torch.Tensor:
+    """logsumexp(logits) - logits[target] per token from this rank's
+    vocab block: the max, the sum of exp and the target's logit are each
+    combined over tp, so the whole-vocab logits never exist on a rank."""
+    tp = ax.group("tp")
+    if tp is None:
+        return (torch.logsumexp(logits, dim=-1)
+                - logits.gather(-1, targets[..., None])[..., 0])
+    import torch.distributed as dist
+
+    rows = logits.shape[-1]
+    m = all_reduce_(logits.detach().amax(dim=-1), tp, dist.ReduceOp.MAX)
+    lse = m + torch.log(all_reduce(
+        torch.exp(logits - m[..., None]).sum(dim=-1), tp))
+    local = targets - ax.index["tp"] * rows
+    hit = (local >= 0) & (local < rows)
+    tgt = logits.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    return lse - all_reduce(torch.where(hit, tgt, 0.0), tp)
+
+
+def local_batch(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of a global [B, T] batch tensor: the batch split
+    over (dp, fsdp), the sequence over sp."""
+    from ..parallel.sharding import rank_slice
+
+    ax = _mesh_axes(mesh)
+    if ax is None:
+        return x
+    return rank_slice(x, (BATCH_AXES, "sp"), ax.sizes, ax.index)
+
+
+def loss_fn(model: Llama, batch: Dict[str, torch.Tensor], mesh=None
+            ) -> torch.Tensor:
     """Causal-LM cross entropy; batch = {tokens [B, T], targets [B, T]}:
     the mean of logsumexp(logits) - logits[target], the JAX package's
     form (one reduction and a gather, no [B, T, vocab] log-softmax). MoE
-    configs add ``moe_aux_coef`` times the balance aux."""
+    configs add ``moe_aux_coef`` times the balance aux.
+
+    ``mesh`` (more than one rank): ``batch`` is the global batch, the
+    same on every rank; each rank takes its block, and the mean over the
+    global batch comes back on every rank. Its gradient on a rank is that
+    of the rank's own tokens' share (the sum over the token axes passes
+    gradients unchanged): summing the ranks' gradients over those axes
+    (``make_train_step``) gives the global one."""
+    ax = _mesh_axes(mesh)
+    if ax is not None:
+        tokens = local_batch(batch["tokens"], mesh)
+        targets = local_batch(batch["targets"], mesh).long()
+        logits, _ = forward_with_aux(model, tokens, ax)
+        loss = _nll_sharded(logits, targets, ax).sum() / batch[
+            "tokens"].numel()
+        for a in TOKEN_AXES:
+            loss = all_reduce(loss, ax.group(a))
+        return loss
     logits, aux = forward_with_aux(model, batch["tokens"])
     lse = torch.logsumexp(logits, dim=-1)
     tgt = logits.gather(-1, batch["targets"][..., None].long())[..., 0]
@@ -477,25 +704,57 @@ def make_optimizer(model: Llama, lr: float = 3e-4) -> torch.optim.AdamW:
                              eps=1e-8, weight_decay=1e-4)
 
 
+def _refuse_pipeline(ax) -> None:
+    if ax.sizes.get("pp", 1) > 1:
+        raise NotImplementedError(
+            "a 'pp' mesh axis: pipeline parallelism (the JAX package's "
+            "models/pipeline.py, GPipe and 1F1B) comes with the "
+            "multi-device slice of the pipeline (ROADMAP queue 1, "
+            "'Multi-device', remainder item 1)")
+
+
 def make_train_step(cfg: LlamaConfig, mesh: Optional[object],
                     optimizer: torch.optim.Optimizer):
-    """The single-device train step: ``step(model, batch) -> loss`` runs
-    the forward and backward of ``loss_fn`` and one optimizer update in
-    place (the JAX step returned new params and optimizer state; here the
-    model and ``optimizer`` hold them). The loss comes back as a detached
-    f32 scalar on the model's device, unsynchronised."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...): sharded training comes with the "
-            "multi-device slice of sharded training (ROADMAP queue 1, "
-            "'Multi-device', remainder item 1); pass mesh=None")
+    """The train step: ``step(model, batch) -> loss`` runs the forward and
+    backward of ``loss_fn`` and one optimizer update in place (the JAX
+    step returned new params and optimizer state; here the model and
+    ``optimizer`` hold them). The loss comes back as a detached f32
+    scalar on the model's device, unsynchronised.
+
+    ``mesh`` (more than one rank; run the step on every rank, in the same
+    order): the model holds the rank's blocks, ``batch`` is the global
+    batch; after the backward each gradient is summed over the token axes
+    (dp, fsdp, sp) that do not shard its leaf (fsdp's sum is the
+    reduce-scatter of the weight gathers), so every rank of an axis that
+    replicates a leaf holds the same gradient, and the returned loss is
+    the global mean. A mixture-of-experts config, or a ``pp`` axis, is
+    refused."""
+    ax = _mesh_axes(mesh)
+    if ax is not None:
+        _refuse_moe_on_a_mesh(cfg)
+        _refuse_pipeline(ax)
+        reduce_over = {name: [a for a in TOKEN_AXES
+                              if a not in _spec_axes(spec)
+                              and ax.group(a) is not None]
+                       for name, spec in leaf_specs(cfg).items()}
+        wq_block = rank_leaf_shapes(cfg, ax.sizes)["blocks.0.wq"][0]
 
     def step(model: Llama, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         if model.cfg != cfg:
             raise ValueError("the model's config differs from the step's")
+        if ax is not None and tuple(model.blocks[0].wq.shape) != wq_block:
+            raise ValueError(
+                f"the model's wq is {tuple(model.blocks[0].wq.shape)}, this "
+                f"rank's block of it {wq_block}: build the model with "
+                f"init_params(..., mesh=) or params_from_numpy(..., mesh=, "
+                f"specs='training')")
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch)
+        loss = loss_fn(model, batch, ax)
         loss.backward()
+        if ax is not None:
+            for name, p in model.named_parameters():
+                for a in reduce_over[name]:
+                    all_reduce_(p.grad, ax.group(a))
         optimizer.step()
         return loss.detach()
 
@@ -519,13 +778,19 @@ def n_params(cfg: LlamaConfig) -> int:
             + 2 * cfg.vocab * D + D)
 
 
-def train_state_bytes(cfg: LlamaConfig) -> int:
+def train_state_bytes(cfg: LlamaConfig,
+                      sizes: Optional[Mapping[str, int]] = None) -> int:
     """Bytes of the training state before any activation: the weights,
     their gradients and AdamW's two moments, each in its parameter's
-    dtype (the model's; an MoE router's f32)."""
-    size = torch.empty((), dtype=cfg.dtype).element_size()
-    router = _router_params(cfg)
-    return 4 * ((n_params(cfg) - router) * size + router * 4)
+    dtype (the model's; an MoE router's f32). ``sizes`` (a mesh's axis
+    sizes): one rank's, from its blocks (``rank_leaf_shapes``)."""
+    if sizes is None:
+        size = torch.empty((), dtype=cfg.dtype).element_size()
+        router = _router_params(cfg)
+        return 4 * ((n_params(cfg) - router) * size + router * 4)
+    return 4 * sum(int(np.prod(shape)) * torch.empty(
+        (), dtype=dt).element_size()
+        for shape, dt in rank_leaf_shapes(cfg, sizes).values())
 
 
 def wave_p99_ms(metrics: Dict[int, Dict[str, float]]) -> float:
@@ -595,17 +860,18 @@ def serve_loop(eng, cfg: LlamaConfig, prompt_len: int, max_new: int, guard,
 
 def train_loop(model: Llama, opt: torch.optim.Optimizer,
                batch: Dict[str, torch.Tensor], ckpt=None, step_no: int = 0,
-               every: int = 100, max_steps: Optional[int] = None) -> list:
+               every: int = 100, max_steps: Optional[int] = None, mesh=None,
+               throttle=None, publish=None, worker: int = 0) -> list:
     """The training loop of ``main()``: one ``make_train_step`` update a
-    step, a ``llama pretrain worker=0 step=… tok/s=… loss=…`` line each
-    and ``ckpt.maybe_save(step, (model, opt), every)``. ``main()``'s
-    training branch refuses its 32-layer step on one card, so the JAX
-    loop's pacing and publishing come back with the multi-device slice
-    that runs it. ``step_no`` is the step the state has reached
-    (a restored checkpoint's); the loop stops after step ``max_steps``
-    when that is given. Returns the losses of the steps it ran (detached
+    step (on ``mesh`` when given: every rank runs the loop), a ``llama
+    pretrain worker=<worker> step=… tok/s=… loss=…`` line each,
+    ``ckpt.maybe_save(step, (model, opt), every)``, pacing through
+    ``throttle`` and ``publish(tok/s)`` when given (the gang publishes
+    from rank 0 only). ``step_no`` is the step the state has reached (a
+    restored checkpoint's); the loop stops after step ``max_steps`` when
+    that is given. Returns the losses of the steps it ran (detached
     device scalars); ``ckpt`` is closed on the way out."""
-    step = make_train_step(model.cfg, None, opt)
+    step = make_train_step(model.cfg, mesh, opt)
     B, T = batch["tokens"].shape
     losses = []
     try:
@@ -616,34 +882,78 @@ def train_loop(model: Llama, opt: torch.optim.Optimizer,
             step_dt = time.perf_counter() - t0
             step_no += 1
             losses.append(loss)
-            print(f"llama pretrain worker=0 step={step_no} "
-                  f"tok/s={B * T / step_dt:.0f} loss={loss_f:.3f}",
-                  flush=True)
+            tok_s = B * T / step_dt
+            print(f"llama pretrain worker={worker} step={step_no} "
+                  f"tok/s={tok_s:.0f} loss={loss_f:.3f}", flush=True)
+            if throttle is not None:
+                throttle.pace(step_dt)
             if ckpt is not None:
                 ckpt.maybe_save(step_no, (model, opt), every=every)
+            if publish is not None:
+                publish(tok_s)
     finally:
         if ckpt is not None:
             ckpt.close()
     return losses
 
 
-def single_process(env=None) -> None:
-    """Refuse a gang of more than one worker (``TPU_WORKER_HOSTNAMES``
-    naming several addresses): the JAX entry point joins
-    ``jax.distributed`` there; the port's gang path comes with ROADMAP
-    queue 1, "Multi-device", remainder item 2 (``parallel.distributed``
-    already holds ``distributed_init_from_env``)."""
-    import os
+# main()'s training batch (the JAX entry point's B and T).
+TRAIN_BATCH = (8, 2048)
 
-    src = os.environ if env is None else env
-    workers = [h for h in src.get("TPU_WORKER_HOSTNAMES", "").split(",")
-               if h]
-    if len(workers) > 1:
-        raise NotImplementedError(
-            f"a gang of {len(workers)} workers needs a multi-process "
-            f"rendezvous, which the port brings with main()'s gang path "
-            f"(ROADMAP queue 1, 'Multi-device', remainder item 2); run one "
-            f"worker")
+
+def _gang_rank(local_rank: int, local_size: int, ckpt_dir, ckpt_every: int,
+               device, backend: str) -> None:
+    """One rank of ``main()``'s gang training: join the world (global rank
+    worker id × local size + ``local_rank``), build the dp × tp mesh over
+    every rank (``tp = min(4, n)``, as JAX's ``main()``), refuse when the
+    rank's training state does not fit its card, and train llama3_8b's
+    blocks of this rank (``init_params(..., mesh=)``), resumed from and
+    checkpointed to ``ckpt_dir`` by rank."""
+    import torch.distributed as dist
+
+    from ..parallel import MeshSpec, distributed_init_from_env, make_mesh
+    from ..recommender.collector import make_workload_publisher
+    from ..utils.enforcement import apply_env_limits
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local_rank)
+        torch.cuda.set_device(dev)
+    throttle = apply_env_limits(device=dev)
+    distributed_init_from_env(backend=backend, local_rank=local_rank,
+                              local_size=local_size)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh(MeshSpec.for_devices(n, tp=min(4, n)), dev.type)
+    from ..parallel.sharding import mesh_coords
+
+    cfg, (B, T) = LlamaConfig.llama3_8b(), TRAIN_BATCH
+    need = train_state_bytes(cfg, mesh_coords(mesh)[0])
+    if dev.type == "cuda" and need > torch.cuda.get_device_properties(
+            dev).total_memory:
+        raise SystemExit(
+            f"llama pretrain: a rank of this {n}-rank mesh holds {need} "
+            f"bytes of llama3_8b's weights, gradients and AdamW moments, "
+            f"more than its card's "
+            f"{torch.cuda.get_device_properties(dev).total_memory}")
+    model = init_params(cfg, torch.Generator().manual_seed(0), dev,
+                        mesh=mesh)
+    opt = make_optimizer(model, 3e-4)
+    tokens = torch.randint(0, cfg.vocab, (B, T),
+                           generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tokens.to(dev),
+             "targets": torch.roll(tokens, -1, dims=1).to(dev)}
+    ckpt, step_no = None, 0
+    if ckpt_dir:
+        from ..utils.checkpoint import TrainCheckpointer
+
+        ckpt = TrainCheckpointer(ckpt_dir, mesh=mesh)
+        step_no, (model, opt) = ckpt.restore_or(lambda: (model, opt))
+        if step_no:
+            print(f"llama pretrain worker={rank} resumed at step "
+                  f"{step_no} from {ckpt_dir}", flush=True)
+    publish = make_workload_publisher(n_devices=n) if rank == 0 else None
+    train_loop(model, opt, batch, ckpt, step_no, ckpt_every, mesh=mesh,
+               throttle=throttle, publish=publish, worker=rank)
 
 
 SERVE_HELP = (
@@ -653,7 +963,7 @@ SERVE_HELP = (
     "entry point serves this config with decode_attn='dense'")
 
 
-def main(argv=None, *, device="cuda") -> None:
+def main(argv=None, *, device="cuda", backend: str = "nccl") -> None:
     """The pod's entry point (``python -m
     k8s_gpu_scheduler_tpu_torch.models.llama``), with the JAX entry
     point's flags: ``--serve`` runs the paged engine's serve loop
@@ -662,7 +972,17 @@ def main(argv=None, *, device="cuda") -> None:
     the training branch (``train_loop`` at llama3_8b, B 8, T 2048, AdamW
     3e-4, resumed from ``--ckpt-dir``). The scheduler-injected limits
     (``utils/enforcement.py``) are applied and the recommender publisher
-    built before anything is allocated on ``device``."""
+    built before anything is allocated on ``device``.
+
+    Training runs on a gang: one rank for each visible card (one rank on
+    ``"cpu"``) of each worker that ``TPU_WORKER_HOSTNAMES`` names, global
+    rank ``worker id × cards + local rank``, joined through worker 0's
+    address with ``backend``
+    (``parallel.distributed.distributed_init_from_env``). A worker of one
+    rank trains in this process; with more it starts them
+    (``parallel.spawn``). A world of one rank cannot hold llama3_8b's step
+    and is refused with its state's bytes; ``--serve`` on a gang of
+    workers is refused."""
     import argparse
     import dataclasses
     import os
@@ -681,19 +1001,26 @@ def main(argv=None, *, device="cuda") -> None:
     parser.add_argument("--ckpt-every", type=int, default=100)
     args = parser.parse_args(argv)
 
-    from ..recommender.collector import make_workload_publisher
-    from ..utils.enforcement import apply_env_limits
+    from ..parallel.distributed import worker_addresses
 
     dev = resolve_device(device)
-    single_process()
-    throttle = apply_env_limits(device=dev)
-    slo = float(os.environ.get("SLO", "0") or 0)
-    publish = make_workload_publisher(n_devices=1)
-
+    workers = max(1, len(worker_addresses()))
+    if args.serve and workers > 1:
+        raise NotImplementedError(
+            f"--serve on a gang of {workers} workers: serving on a gang "
+            f"(make_server_step(mesh=), generate(mesh=) and the multi-host "
+            f"serve loop) comes with the multi-device slice of gang "
+            f"serving (ROADMAP queue 1, 'Multi-device', remainder item 3); "
+            f"serve from one worker")
     if args.serve:
+        from ..recommender.collector import make_workload_publisher
+        from ..utils.enforcement import apply_env_limits
         from .lifecycle import PreemptionGuard, resume_or_fresh
         from .serving import ContinuousBatcher
 
+        throttle = apply_env_limits(device=dev)
+        slo = float(os.environ.get("SLO", "0") or 0)
+        publish = make_workload_publisher(n_devices=1)
         cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
         model = init_params(cfg, torch.Generator().manual_seed(0), dev)
         if args.int8:
@@ -720,14 +1047,25 @@ def main(argv=None, *, device="cuda") -> None:
                    publish=publish, throttle=throttle, slo=slo)
         return
 
-    cfg, B, T = LlamaConfig.llama3_8b(), 8, 2048
-    raise SystemExit(
-        f"llama pretrain: llama3_8b's weights, gradients and AdamW moments "
-        f"take {train_state_bytes(cfg)} bytes before any activation, and "
-        f"its B {B}, T {T} step does not fit one card (14 of its 32 "
-        f"layers is the deepest that fits an 80 GB H100); sharded training "
-        f"comes with the multi-device slice of sharded training (ROADMAP "
-        f"queue 1, 'Multi-device', remainder item 1)")
+    local_ranks = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if workers * local_ranks == 1:
+        cfg, (B, T) = LlamaConfig.llama3_8b(), TRAIN_BATCH
+        raise SystemExit(
+            f"llama pretrain: llama3_8b's weights, gradients and AdamW "
+            f"moments take {train_state_bytes(cfg)} bytes before any "
+            f"activation, and its B {B}, T {T} step does not fit one card "
+            f"(14 of its 32 layers is the deepest that fits an 80 GB H100); "
+            f"train it on a gang of workers or of cards (ROADMAP queue 1, "
+            f"'Multi-device')")
+    rank_args = (local_ranks, args.ckpt_dir, args.ckpt_every, dev.type,
+                 backend)
+    if local_ranks == 1:
+        _gang_rank(0, *rank_args)
+        return
+    from ..parallel import spawn
+
+    spawn(_gang_rank, local_ranks, None, args=rank_args[1:],
+          timeout=float("inf"))
 
 
 if __name__ == "__main__":

@@ -234,8 +234,8 @@ def generate(model: Llama, prompt, cfg: LlamaConfig, max_new: int,
     if mesh is not None:
         raise NotImplementedError(
             "generate(mesh=...) is not ported yet: it comes with the "
-            "multi-device slice of main()'s gang path (ROADMAP queue 1, "
-            "'Multi-device', remainder item 2); the paged "
+            "multi-device slice of gang serving (ROADMAP queue 1, "
+            "'Multi-device', remainder item 3); the paged "
             "ContinuousBatcher serves on a mesh")
     prompt = torch.as_tensor(prompt, device=model.device)
     B, t_prompt = prompt.shape
@@ -260,8 +260,8 @@ def make_server_step(cfg: LlamaConfig, mesh, max_new: int,
     if mesh is not None:
         raise NotImplementedError(
             "make_server_step(mesh=...) is not ported yet: it comes with "
-            "the multi-device slice of main()'s gang path (ROADMAP queue 1, "
-            "'Multi-device', remainder item 2)")
+            "the multi-device slice of gang serving (ROADMAP queue 1, "
+            "'Multi-device', remainder item 3)")
     return partial(generate, cfg=cfg, max_new=max_new, max_len=max_len)
 
 

@@ -62,30 +62,41 @@ def self_worker_id(
 
 def distributed_init_from_env(
     env: Optional[Mapping[str, str]] = None, *, backend: str,
-    coordinator_port: int = COORDINATOR_PORT, **init_kwargs,
+    coordinator_port: Optional[int] = None, local_rank: int = 0,
+    local_size: int = 1, **init_kwargs,
 ) -> bool:
     """Initialize the default ``torch.distributed`` process group of
-    ``backend`` from the gang env. Returns True iff a multi-worker
-    rendezvous was performed (single-worker / un-injected pods return
-    False and stay single-process). Extra kwargs pass through to
+    ``backend`` from the gang env. Returns True iff a multi-rank
+    rendezvous was performed (a single-worker pod of one rank returns
+    False and stays single-process). Extra kwargs pass through to
     ``init_process_group`` (``timeout``, ``device_id``).
 
-    Rank preference: self-derived from $HOSTNAME vs the address list
+    Each worker runs ``local_size`` ranks (one a card, where JAX ran one
+    process over every local chip); this one is its ``local_rank``, so
+    the world is workers × ``local_size`` ranks and this rank's global
+    rank ``worker id × local_size + local_rank``. The store is worker 0's
+    address (``localhost`` for a worker alone) at ``coordinator_port``
+    (default ``COORDINATOR_PORT``).
+
+    Worker id preference: self-derived from $HOSTNAME vs the address list
     (shared-ConfigMap-safe — see self_worker_id), then the injected
     TPU_WORKER_ID scalar (per-pod-ConfigMap gangs, hostNetwork gangs)."""
     src = os.environ if env is None else env
     addresses = worker_addresses(src)
-    if len(addresses) <= 1:
+    if len(addresses) <= 1 and local_size == 1:
         return False
-    worker_id = self_worker_id(addresses, src)
+    worker_id = self_worker_id(addresses, src) if addresses else 0
     if worker_id is None:
         worker_id = int(src.get("TPU_WORKER_ID", "0") or 0)
-    count = int(src.get("TPU_WORKER_COUNT", "") or len(addresses))
+    count = int(src.get("TPU_WORKER_COUNT", "") or max(1, len(addresses)))
+    host = addresses[0] if addresses else "localhost"
+    port = COORDINATOR_PORT if coordinator_port is None else coordinator_port
     import torch.distributed as dist
 
     dist.init_process_group(
-        backend, init_method=f"tcp://{addresses[0]}:{coordinator_port}",
-        world_size=count, rank=worker_id, **init_kwargs)
+        backend, init_method=f"tcp://{host}:{port}",
+        world_size=count * local_size,
+        rank=worker_id * local_size + local_rank, **init_kwargs)
     return True
 
 
@@ -106,10 +117,11 @@ def _rank_main(fn, rank: int, world: int, backend: str, path: str,
 
     ok, out = False, None
     try:
-        dist.init_process_group(
-            backend, init_method=f"file://{path}", rank=rank,
-            world_size=world,
-            timeout=datetime.timedelta(seconds=group_timeout))
+        if backend is not None:
+            dist.init_process_group(
+                backend, init_method=f"file://{path}", rank=rank,
+                world_size=world,
+                timeout=datetime.timedelta(seconds=group_timeout))
         out = fn(rank, world, *args)
         ok = True
     except BaseException:  # noqa: BLE001 — reported to the parent, re-raised as WorldError
@@ -117,7 +129,7 @@ def _rank_main(fn, rank: int, world: int, backend: str, path: str,
     results.put((rank, ok, out))
     results.close()
     results.join_thread()
-    if ok:
+    if ok and dist.is_initialized():
         dist.destroy_process_group()
     else:
         # A failed rank leaves at once: its closed connections make the
@@ -125,13 +137,15 @@ def _rank_main(fn, rank: int, world: int, backend: str, path: str,
         os._exit(1)
 
 
-def spawn(fn: Callable, world_size: int, backend: str,
+def spawn(fn: Callable, world_size: int, backend: Optional[str],
           args: Sequence = (), rendezvous: Optional[str] = None,
           timeout: float = 300.0, group_timeout: float = 120.0) -> list:
     """Run ``fn(rank, world_size, *args)`` in ``world_size`` fresh
     processes (``spawn`` start method), each a rank of a ``backend``
     process group that meets through the file ``rendezvous`` (a path that
-    must not exist yet; default: one in a new temporary directory).
+    must not exist yet; default: one in a new temporary directory);
+    with ``backend`` None the ranks start with no group and ``fn`` joins
+    one itself.
     ``fn`` and ``args`` are pickled, so ``fn`` is a module-level function
     of a module every rank can import. Returns the ranks' return values
     in rank order.

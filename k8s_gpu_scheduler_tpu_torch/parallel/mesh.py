@@ -101,3 +101,38 @@ def make_mesh(spec: MeshSpec, device_type: str = "cuda"):
             f"mesh {spec.axes} needs {spec.size} ranks, have {have}")
     grid = np.arange(spec.size).reshape(spec.shape or (1,))
     return _device_mesh(device_type, grid, spec.names or ("dp",))
+
+
+class MeshAxes:
+    """One rank's view of a mesh with named dims (a ``DeviceMesh``, or
+    anything ``parallel.sharding.mesh_coords`` reads): the size of every
+    axis (1 for an axis the mesh lacks), this rank's coordinate on each
+    and, for an axis of size > 1, its process group (the ranks that
+    differ from this one on that axis only). The training code
+    (``models/llama.py``) runs its collectives on these groups; JAX named
+    the same axes inside ``shard_map`` and GSPMD."""
+
+    def __init__(self, mesh) -> None:
+        from .sharding import mesh_coords
+
+        self.mesh = mesh
+        self.sizes, self.index = mesh_coords(mesh)
+        self._groups: Dict[str, object] = {}
+
+    @staticmethod
+    def of(mesh) -> "MeshAxes":
+        return mesh if isinstance(mesh, MeshAxes) else MeshAxes(mesh)
+
+    def size(self, *axes: str) -> int:
+        """The product of the named axes' sizes (every axis: the world)."""
+        names = axes or tuple(self.sizes)
+        return int(np.prod([self.sizes.get(a, 1) for a in names]))
+
+    def group(self, axis: str):
+        """The process group of ``axis``; None for an axis of size 1, on
+        which every collective is the identity."""
+        if self.sizes.get(axis, 1) == 1:
+            return None
+        if axis not in self._groups:
+            self._groups[axis] = self.mesh.get_group(axis)
+        return self._groups[axis]

@@ -38,6 +38,7 @@ from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
     flash_forward_reference, reset_counters)
 from k8s_gpu_scheduler_tpu_torch.parallel import spawn
 from torch_tp_workers import card_world
+from torch_train_workers import card_train_world
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1021,3 +1022,33 @@ def test_tp2_gloo_ranks_sharing_the_card(cuda, tmp_path, combine):
     the pool and half the sliced weights, launch K1/K2 on their heads as
     often as one card does; the f32 streams are one card's."""
     _island_checks(_island_world(tmp_path, 2, "gloo", combine), 2)
+
+
+# -- sharded training (chip_smoke phase 18 at small widths) --------------------
+
+@pytest.mark.gpu
+def test_size1_mesh_training_on_an_nccl_world_of_one(cuda, tmp_path):
+    """18a at small widths: a mesh of one rank over an NCCL world of one
+    trains with the single-card step: the same losses bit for bit and the
+    same K5-K7 launches."""
+    (out,) = spawn(card_train_world, 1, "nccl", args=({},),
+                   rendezvous=str(tmp_path / "rdv"), timeout=300)
+    assert out["mesh"]["losses"] == out["one"]["losses"]
+    assert out["mesh"]["launches"] == out["one"]["launches"]
+    assert out["one"]["launches"]["flash_forward"] > 0
+
+
+@pytest.mark.gpu
+def test_tp2_training_on_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """18b at small widths: two gloo ranks on one card at tp 2 give one
+    card's f32 losses (1e-5 relative), each launching K5-K7 on its heads
+    as often as one card does and running no plain version."""
+    outs = spawn(card_train_world, 2, "gloo", args=({"tp": 2},),
+                 rendezvous=str(tmp_path / "rdv"), timeout=300)
+    one = outs[0]["one"]
+    for out in outs:
+        assert out["mesh"]["losses"] == pytest.approx(one["losses"],
+                                                      rel=1e-5)
+        assert out["mesh"]["launches"] == one["launches"]
+    assert one["launches"]["flash_forward"] > 0
+    assert not one["launches"]["flash_forward_reference"]

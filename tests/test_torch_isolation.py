@@ -11,9 +11,12 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "k8s_gpu_scheduler_tpu_torch"
-# chip_smoke.py and the card tests run where JAX is not installed.
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "tests" / "test_torch_gpu.py"]
+# chip_smoke.py and the card tests run where JAX is not installed; the
+# rank workers are re-imported by every spawned rank.
+SOURCES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
+    ROOT / "tests" / "torch_tp_workers.py",
+    ROOT / "tests" / "torch_train_workers.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
         ".__init__", "")
@@ -50,6 +53,7 @@ def test_every_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
     assert "k8s_gpu_scheduler_tpu_torch.models.proposers" in MODULES
     assert "k8s_gpu_scheduler_tpu_torch.ops.flash_attention" in MODULES
+    assert "k8s_gpu_scheduler_tpu_torch.parallel.collectives" in MODULES
     assert set(FLEET_SLICE) <= set(MODULES)
     assert len(MODULES) >= 14 + len(FLEET_SLICE)
 

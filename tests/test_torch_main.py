@@ -155,10 +155,14 @@ def test_training_branch_refuses_before_allocating(monkeypatch):
 
 
 def test_a_gang_of_workers_is_refused(monkeypatch):
+    """A gang of workers trains (``tests/test_torch_shard_train.py``);
+    ``--serve`` on a gang stays refused, naming its item of ROADMAP queue
+    1's multi-device remainder, before anything is allocated."""
     monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "w0.gang,w1.gang")
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    monkeypatch.setattr(llama, "init_params", lambda *a, **k: pytest.fail(
+        "allocated"))
+    with pytest.raises(NotImplementedError, match="remainder item 3"):
         main(["--serve"], device="cpu")
-    llama.single_process({"TPU_WORKER_HOSTNAMES": "w0.gang"})
 
 
 def test_parameter_count_is_the_modules():

@@ -254,6 +254,32 @@ def test_gang_env_is_read_as_jax_reads_it(env, monkeypatch):
         assert seen == {}
 
 
+@pytest.mark.parametrize("env,local,want", [
+    ({"TPU_WORKER_HOSTNAMES": "w0,w1", "HOSTNAME": "w1"}, (3, 4),
+     ("tcp://w0:1234", 8, 7)),
+    ({}, (1, 2), ("tcp://localhost:1234", 2, 1)),
+    ({"TPU_WORKER_HOSTNAMES": "10.0.0.1,10.0.0.2,10.0.0.3",
+      "TPU_WORKER_ID": "2"}, (0, 2), ("tcp://10.0.0.1:1234", 6, 4)),
+    ({}, (0, 1), None),
+], ids=["two-workers-of-4", "one-worker-of-2", "three-workers-of-2",
+        "alone"])
+def test_a_worker_runs_a_rank_a_card(env, local, want, monkeypatch):
+    """A worker of ``local_size`` cards joins ``local_size`` ranks: the
+    world is workers x cards, a rank's global rank worker id x cards +
+    its card, the store worker 0's address (localhost for a worker
+    alone); one rank alone joins nothing."""
+    seen = {}
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: seen.update(kw))
+    ran = distributed.distributed_init_from_env(
+        env, backend="gloo", coordinator_port=1234, local_rank=local[0],
+        local_size=local[1])
+    assert ran == (want is not None)
+    if want:
+        assert (seen["init_method"], seen["world_size"], seen["rank"]) == \
+            want
+
+
 def test_make_mesh_needs_a_process_group():
     with pytest.raises(RuntimeError, match="init_process_group"):
         make_mesh(MeshSpec({"tp": 2}), "cpu")

@@ -148,22 +148,57 @@ def test_serving_params_stay_frozen():
     assert all(p.requires_grad for p in model.parameters())
 
 
+class FakeMesh:
+    """What ``parallel.sharding.mesh_coords`` reads of a ``DeviceMesh``:
+    enough for the refusals, which come before any collective."""
+
+    def __init__(self, **sizes):
+        self.mesh_dim_names = tuple(sizes)
+        self._sizes = sizes
+
+    def size(self, i):
+        return self._sizes[self.mesh_dim_names[i]]
+
+    def get_local_rank(self, name):
+        return 0
+
+
 def test_not_ported_options_raise():
+    """What sharded training still refuses, each naming its item of
+    ROADMAP queue 1's multi-device remainder: a mixture-of-experts model
+    on a mesh (the ep axis) and a pipeline axis. Ring and Ulysses
+    attention with the sequence whole are dense attention, as in JAX."""
     _, cfg = configs()
     model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     opt = make_optimizer(model)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        make_train_step(cfg, object(), opt)
+    with pytest.raises(NotImplementedError, match="remainder item 1"):
+        make_train_step(cfg, FakeMesh(pp=2, tp=2), opt)
+    moe = dataclasses.replace(cfg, n_experts=4)
+    with pytest.raises(NotImplementedError, match="remainder item 2"):
+        make_train_step(moe, FakeMesh(dp=2), opt)
+    step = make_train_step(moe, FakeMesh(dp=1), make_optimizer(init_params(
+        moe, torch.Generator().manual_seed(0), "cpu")))   # one rank: trains
+    assert callable(step)
     _, tb = batches(cfg.vocab)
+    dense = loss_fn(model, tb)
     for impl in ("ring", "ulysses"):
         m = init_params(dataclasses.replace(cfg, attn_impl=impl),
                         torch.Generator().manual_seed(0), "cpu")
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            loss_fn(m, tb)
-    moe = dataclasses.replace(cfg, n_experts=4)      # MoE trains now
-    step = make_train_step(moe, None, make_optimizer(init_params(
-        moe, torch.Generator().manual_seed(0), "cpu")))
-    assert callable(step)
+        assert torch.equal(loss_fn(m, tb), dense)
+    with pytest.raises(ValueError, match="attn_impl"):
+        loss_fn(init_params(dataclasses.replace(cfg, attn_impl="sparse"),
+                            torch.Generator().manual_seed(0), "cpu"), tb)
+
+
+def test_a_sharded_step_refuses_a_whole_model():
+    """On a mesh of more than one rank the step takes the rank's blocks;
+    a whole model is refused before any collective."""
+    _, cfg = configs()
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    step = make_train_step(cfg, FakeMesh(tp=2), make_optimizer(model))
+    _, tb = batches(cfg.vocab)
+    with pytest.raises(ValueError, match="this rank's block"):
+        step(model, tb)
 
 
 def test_flops_per_token_matches_jax():
