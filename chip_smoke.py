@@ -87,7 +87,7 @@ imports nothing of JAX. Phases, each of which fails the run on error:
 6. the training path at full width: the llama3_8b widths (vocab 128256,
    d_model 4096, 32 heads, 8 kv heads, d_ff 14336) with depth cut to 4
    layers, bf16, remat, flash attention, AdamW 3e-4, B 8, T 2048, one
-   fixed batch: one warm-up step, then 5 timed steps (counters zeroed just
+   fixed batch, weights drawn on the card (``card_init``): one warm-up step, then 5 timed steps (counters zeroed just
    before and read just after). Prints each loss, step ms, tokens/s, MFU
    (against 989 TFLOP/s) and peak memory. Every loss must be finite, the
    last below the first, K5 launch 2·L (8) and K6 and K7 L (4) times per
@@ -251,7 +251,8 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    weights, through a mesh of one rank: the losses bit for bit, K5 2·L
    and K6/K7 L launches a step in both, no plain version. (b) A gloo
    world of two ranks sharing the card, at tp 2 and then at fsdp 2 (each
-   rank's blocks from ``init_params(..., mesh=)``): every rank launches
+   rank's blocks of (a)'s weights, drawn on the card by ``card_init(...,
+   mesh=)``): every rank launches
    K5-K7 as one card did, holds exactly 961,581,056 parameters and
    7,692,648,448 bytes of parameters, gradients and AdamW moments, and
    its bf16 losses are one card's to 2e-3 relative at step 1 and to
@@ -267,6 +268,35 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    objects gives an unstopped run's four losses bit for bit. (e) K5, K6
    and K7 at a rank's shapes (tp 2: 16/4 heads, B 8; fsdp 2: 32/8 heads,
    B 4) against their plain versions, timed beside the bound and SDPA.
+
+19. pipeline stages, MoE over ep and training checkpoints restored across
+   meshes, their rank worlds started by ``parallel.spawn``. (a) An NCCL
+   world of one: phase 5's small f32 config (dense) through a pp 1 GPipe
+   step (``make_pp_train_step``, 2 microbatches) within 1e-6 relative of
+   ``mesh=None``, and a small MoE config on a size-1 mesh bit for bit
+   ``mesh=None``'s; there too the one-card references of (b) and (d). (b)
+   A gloo world of two ranks sharing the card as pipeline stages (pp 2):
+   llama3_8b's widths at 4 layers (2 a stage), dense attention (the
+   pipeline's, as in JAX), remat, bf16, B 8, T 2048, 4 microbatches,
+   three steps of GPipe and of 1F1B: every stage holds exactly
+   1,486,901,248 parameters and 11,895,209,984 bytes of state, and its
+   losses are one card's dense step's within phase 18b's bf16 gates; at
+   f32 on 2 layers and vocab 32000 (two steps) the losses to 1e-5, the
+   first step's gradients to 1e-5 of each leaf's largest and the weights
+   by 18b's rule. (c) The stash: microbatch 1, M 4 and M 8, each stage's
+   peak above its state: GPipe's must grow with M, 1F1B's move by at
+   most 5 %. (d) An ep 2 world: Mixtral's widths at 2 layers (phase 14's
+   4 cut to 2: two ranks at 4 would need about 76 GB), flash, remat,
+   bf16, B 8, T 2048, three steps: each rank launches K5 twice a layer a
+   step and K6 and K7 once, runs no plain version, holds exactly
+   1,755,369,472 parameters and 14,043,217,920 bytes, and its losses are
+   one card's within 18b's gates; the capacity's dropped (token, choice)
+   pairs of each layer are printed beside one card's. (e) Two steps at
+   tp 2 (phase 18b's widths, dense, B 2) saved at step 2, then restored
+   onto fsdp 2, onto pp 2 and (rank 0) onto one card: every weight, AdamW
+   moment and step count bit for bit the saved files' blocks (assembled
+   by concatenation along tp), the next step's loss within 2e-3 of the
+   tp 2 run's; prints the save and restore seconds.
 
 ``--profile`` adds profiled serving runs (speculative and the contiguous
 engine) and one profiled training step: the card's busy
@@ -1906,13 +1936,17 @@ def phase_dispatch_launches(dev, parent) -> None:
 TRAIN_STEPS = 5                 # timed full-width steps, after one warm-up
 
 
-def train_setup(dev, cfg, B, T, seed=0):
+def train_setup(dev, cfg, B, T, seed=0, on_card=False):
     """A model from ``seed``, its AdamW(3e-4) train step, and one fixed
-    batch {tokens, targets = tokens rolled by one} on ``dev``."""
+    batch {tokens, targets = tokens rolled by one} on ``dev``. The
+    weights come from ``init_params`` (the same on the CPU and the card),
+    or with ``on_card`` from ``card_init`` (drawn on the card: 0.1 s
+    where ``init_params`` takes 16.5 s at phase 6's 1.9 B parameters)."""
     from k8s_gpu_scheduler_tpu_torch.models.llama import (
         init_params, make_optimizer, make_train_step)
 
-    model = init_params(cfg, torch.Generator().manual_seed(seed), dev)
+    model = (card_init(cfg, dev, seed) if on_card else
+             init_params(cfg, torch.Generator().manual_seed(seed), dev))
     step = make_train_step(cfg, None, make_optimizer(model, 3e-4))
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (B, T)))
@@ -1974,7 +2008,7 @@ def phase_train_full_width(dev, card, profile_too, n_layers) -> dict:
         f"deepest that fits); widths, B {B} and T {T} as main()")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    model, step, batch = train_setup(dev, cfg, B, T)
+    model, step, batch = train_setup(dev, cfg, B, T, on_card=True)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  [{card}] {n_params} parameters, set up in "
@@ -2181,7 +2215,7 @@ def phase_train_resume(dev, card) -> dict:
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=layers,
                               attn_impl="flash")
     torch.cuda.empty_cache()
-    model, _, batch = train_setup(dev, cfg, B, T)
+    model, _, batch = train_setup(dev, cfg, B, T, on_card=True)
     state0 = {k: v.detach().cpu().clone()
               for k, v in model.state_dict().items()}
     ref = train_loop(model, make_optimizer(model, 3e-4), batch, max_steps=4)
@@ -2786,18 +2820,40 @@ SMALL_MOE = dict(vocab=256, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
                  decode_attn="fused", remat=False, n_experts=4, moe_top_k=2)
 
 
-def card_init(cfg, dev, seed=0):
+def card_init(cfg, dev, seed=0, mesh=None):
     """A ``Llama`` of ``cfg`` on ``dev``: normal(0, 0.02) matrices (an MoE
     router in f32) and unit norms, drawn on the card from ``seed``
-    (``init_params`` draws on the CPU, about 90 s at 11.9 B parameters)."""
-    from k8s_gpu_scheduler_tpu_torch.models.llama import Llama
+    (``init_params`` draws on the CPU, about 90 s at 11.9 B parameters).
+    ``mesh``: this rank's blocks (``llama.rank_layout``) of the same
+    draws, each leaf drawn whole on the card and cut."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        Llama, rank_layout, rank_model)
+    from k8s_gpu_scheduler_tpu_torch.parallel.mesh import MeshAxes
 
-    model = Llama(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if not name.endswith("norm"):
-                p.normal_(0.0, 0.02, generator=gen)
+    if mesh is None:
+        model = Llama(cfg, dev)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if not name.endswith("norm"):
+                    p.normal_(0.0, 0.02, generator=gen)
+        return model
+    ax = MeshAxes.of(mesh)
+    mine = {whole: (name, region) for name, (whole, region)
+            in rank_layout(cfg, ax.sizes, ax.index).items()}
+    model = rank_model(cfg, ax.sizes)
+    for whole, p in Llama(cfg, "meta").named_parameters():
+        w = (torch.ones(p.shape, dtype=p.dtype, device=dev)
+             if whole.endswith("norm") else
+             torch.empty(p.shape, dtype=p.dtype, device=dev).normal_(
+                 0.0, 0.02, generator=gen))
+        if whole in mine:
+            name, region = mine[whole]
+            mod, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(mod) if mod else model, leaf,
+                    torch.nn.Parameter(w[region].clone(),
+                                       requires_grad=False))
+        del w
     return model
 
 
@@ -3661,19 +3717,21 @@ def shard_batch(cfg, B, T, dev):
             "targets": torch.roll(tokens, -1, dims=1).to(dev)}
 
 
-def shard_run(model, cfg, mesh, batch, steps, opt=None, after_first=None):
-    """``steps`` synchronised steps of ``make_train_step(cfg, mesh, ...)``,
-    counters zeroed just before and read just after: losses, step ms,
-    K5-K7 launches, peak memory, and the rank's parameter elements and
-    bytes of parameters, gradients and AdamW moments. ``after_first()``
-    runs after the first step (its gradients are still in ``.grad``)."""
+def shard_run(model, cfg, mesh, batch, steps, opt=None, after_first=None,
+              make_step=None):
+    """``steps`` synchronised steps of ``make_train_step(cfg, mesh, ...)``
+    (or of ``make_step(cfg, mesh, opt)``), counters zeroed just before
+    and read just after: losses, step ms, K5-K7 launches, peak memory,
+    and the rank's parameter elements and bytes of parameters, gradients
+    and AdamW moments. ``after_first()`` runs after the first step (its
+    gradients are still in ``.grad``)."""
     from k8s_gpu_scheduler_tpu_torch.models.llama import (
         make_optimizer, make_train_step)
     from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
         counters, reset_counters)
 
     opt = opt or make_optimizer(model, 3e-4)
-    step = make_train_step(cfg, mesh, opt)
+    step = (make_step or make_train_step)(cfg, mesh, opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
@@ -3708,7 +3766,7 @@ def shard_world_one(rank, world, ref_path):
     dev = tp_rank_device()
     full, f32, small = shard_cfgs()
     batch = shard_batch(full, 8, 2048, dev)
-    model = init_params(full, torch.Generator().manual_seed(0), dev)
+    model = card_init(full, dev)
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
     out = {"one": shard_run(model, full, None, batch, SHARD_STEPS)}
     with torch.no_grad():
@@ -3718,7 +3776,7 @@ def shard_world_one(rank, world, ref_path):
     out["mesh"] = shard_run(model, full, mesh, batch, SHARD_STEPS)
     del model
     torch.cuda.empty_cache()
-    model = init_params(f32, torch.Generator().manual_seed(0), dev)
+    model = card_init(f32, dev)
     grads = {}
 
     def keep_grads():
@@ -3757,8 +3815,12 @@ def shard_world_two(rank, world, ref_path, ckpt_dir):
         return make_mesh(MeshSpec.for_devices(world, **axes), dev.type)
 
     def model_on(cfg, mesh):
-        return init_params(cfg, torch.Generator().manual_seed(0), dev,
-                           mesh=mesh)
+        """This rank's blocks of 18a's weights: drawn on the card at
+        phase 6's widths, by ``init_params`` for the small config."""
+        if cfg.d_model == small.d_model:
+            return init_params(cfg, torch.Generator().manual_seed(0), dev,
+                               mesh=mesh)
+        return card_init(cfg, dev, mesh=mesh)
 
     for key, axes in (("tp2", {"tp": 2}), ("fsdp2", {"fsdp": 2})):
         mesh = mesh_of(**axes)
@@ -3974,6 +4036,477 @@ def phase_rank_flash_kernels(dev, card) -> list:
     return cases
 
 
+# -- phase 19: pipeline stages, MoE over ep, restore across meshes ----------
+
+PP_LAYERS, PP_BT, PP_M, PP_STEPS = 4, (8, 2048), 4, 3     # 19b bf16
+PP_F32 = dict(vocab=32000, n_layers=2)                    # 19b f32
+PP_F32_STEPS = 2
+PP_STASH_M = (4, 8)             # 19c: microbatch 1, so B = M
+PP_STASH_GATE = 0.05            # 1F1B's peak above its state, M 4 -> 8
+# 19b: a stage at pp 2 holds 2 layers whole and the embedding, the head
+# and the final norm (PERF.md's prediction).
+PP_RANK_PARAMS, PP_RANK_STATE_BYTES = 1_486_901_248, 11_895_209_984
+EP_LAYERS, EP_BT, EP_STEPS = 2, (8, 2048), 3              # 19d
+# 19d: an ep 2 rank at Mixtral's widths, 2 layers: half the experts and
+# half the router's columns (the router's state is f32: 16 bytes a
+# parameter, 8 for the bf16 rest).
+EP_RANK_PARAMS, EP_RANK_STATE_BYTES = 1_755_369_472, 14_043_217_920
+RESTORE_BT = (2, 2048)          # 19e: the steps around the checkpoint
+SCHEDULES = ("gpipe", "1f1b")
+
+
+def pp_cfgs():
+    """(19b/19c/19e: llama3_8b widths at 4 layers, dense attention as the
+    pipeline runs it, remat, bf16; 19b f32: 2 layers, vocab 32000; 19a:
+    phase 5's small config, dense)."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig
+
+    full = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=PP_LAYERS)
+    f32 = dataclasses.replace(full, dtype=torch.float32, **PP_F32)
+    small = LlamaConfig(**SHARD_SMALL, attn_impl="dense")
+    return full, f32, small
+
+
+def ep_cfg():
+    """19d: Mixtral's widths (phase 14's) at 2 layers, flash, remat."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(**MOE_CFG, n_layers=EP_LAYERS, attn_impl="flash",
+                       remat=True)
+
+
+def pp_step(M, schedule):
+    """A ``shard_run`` step maker for the pipeline."""
+    from k8s_gpu_scheduler_tpu_torch.models.pipeline import (
+        make_pp_train_step)
+
+    return lambda cfg, mesh, opt: make_pp_train_step(cfg, mesh, opt, M,
+                                                     schedule)
+
+
+def moe_drops(model, batch, mesh):
+    """The (token, choice) pairs each layer's capacity dropped in a
+    forward of ``batch`` (this rank's tokens on a mesh)."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import loss_fn
+    from k8s_gpu_scheduler_tpu_torch.ops.moe import recording_drops
+
+    with torch.no_grad(), recording_drops() as drops:
+        loss_fn(model, batch, mesh)
+    return [int(d) for d in drops]
+
+
+def world19_one(rank, world, ref_path):
+    """19a on an NCCL world of one, and the one-card references of 19b
+    (bf16 losses; f32 weights and first-step gradients, saved to
+    ``ref_path``) and of 19d (losses, drops)."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+    from k8s_gpu_scheduler_tpu_torch.parallel import MeshSpec, make_mesh
+
+    dev = tp_rank_device()
+    full, f32, small = pp_cfgs()
+    out = {}
+    batch = shard_batch(small, *SHARD_SMALL_BT, dev)
+    pp1 = make_mesh(MeshSpec({"pp": 1}), dev.type)
+    for key, mesh, make_step in (("one", None, None),
+                                 ("pp1", pp1, pp_step(2, "gpipe"))):
+        model = init_params(small, torch.Generator().manual_seed(0), dev)
+        out[f"19a_{key}"] = shard_run(model, small, mesh, batch, 2,
+                                      make_step=make_step)
+    moe = LlamaConfig(**{**SMALL_MOE, "remat": True})
+    one = make_mesh(MeshSpec.for_devices(1), dev.type)
+    for key, mesh in (("moe_one", None), ("moe_mesh", one)):
+        model = init_params(moe, torch.Generator().manual_seed(0), dev)
+        out[f"19a_{key}"] = shard_run(model, moe, mesh,
+                                      shard_batch(moe, *SHARD_SMALL_BT, dev),
+                                      2)
+    del model
+    model = card_init(full, dev)
+    out["19b_one"] = shard_run(model, full, None,
+                               shard_batch(full, *PP_BT, dev), PP_STEPS)
+    del model
+    torch.cuda.empty_cache()
+    model = card_init(f32, dev)
+    grads = {}
+
+    def keep_grads():
+        grads.update({n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()})
+
+    out["19b_f32_one"] = shard_run(model, f32, None,
+                                   shard_batch(f32, *PP_BT, dev),
+                                   PP_F32_STEPS, after_first=keep_grads)
+    torch.save({"weights": {k: v.detach().cpu()
+                            for k, v in model.state_dict().items()},
+                "grads": grads}, ref_path)
+    del grads, model
+    torch.cuda.empty_cache()
+    cfg = ep_cfg()
+    model = card_init(cfg, dev)
+    batch = shard_batch(cfg, *EP_BT, dev)
+    out["19d_drops"] = moe_drops(model, batch, None)
+    out["19d_one"] = shard_run(model, cfg, None, batch, EP_STEPS)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def saved_tp2_leaf(docs, specs, whole, get, dev):
+    """Leaf ``whole`` (or its moment, ``get``) of a step saved at tp 2,
+    assembled on ``dev`` by concatenating the two ranks' blocks along
+    the dim its spec gives tp: an assembly independent of the
+    checkpointer's."""
+    spec = specs[whole]
+    parts = [get(d).to(dev) for d in docs]
+    return parts[0] if "tp" not in spec else torch.cat(
+        parts, dim=spec.index("tp"))
+
+
+def restored_mismatches(model, opt, cfg, sizes, index, docs, dev) -> list:
+    """The (parameter, part) pairs of a restored rank that are not, bit
+    for bit, its block of the saved tp 2 step (the weight, both AdamW
+    moments and the step count 2)."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        leaf_specs, rank_layout)
+
+    specs = leaf_specs(cfg)
+    layout = rank_layout(cfg, sizes, index)
+    order = {name: i for i, name in enumerate(docs[0]["model"])}
+    bad = []
+    for name, p in model.named_parameters():
+        whole, region = layout[name]
+        st = opt.state[p]
+        for part, mine in (("weight", p), ("exp_avg", st["exp_avg"]),
+                           ("exp_avg_sq", st["exp_avg_sq"])):
+            get = ((lambda d: d["model"][whole]) if part == "weight" else
+                   (lambda d, k=part: d["opt"]["state"][order[whole]][k]))
+            want = saved_tp2_leaf(docs, specs, whole, get, dev)[region]
+            if not torch.equal(mine.detach(), want):
+                bad.append((name, part))
+        if float(st["step"]) != 2:
+            bad.append((name, "step"))
+    return bad
+
+
+def restore_on_card(rank, world, cfg, ckpt_dir, dev) -> dict:
+    """19e: two steps at tp 2 saved at step 2 (and the tp 2 run's third
+    step), then the step restored onto fsdp 2, onto pp 2 (a 1F1B step
+    over 2 microbatches) and, on rank 0 alone, onto one card; each
+    restored state checked bit for bit against the saved files
+    (``restored_mismatches``) and its next step's loss taken."""
+    import torch.distributed as dist
+
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        make_optimizer, make_train_step)
+    from k8s_gpu_scheduler_tpu_torch.models.pipeline import (
+        make_pp_train_step)
+    from k8s_gpu_scheduler_tpu_torch.parallel import MeshSpec, make_mesh
+    from k8s_gpu_scheduler_tpu_torch.parallel.mesh import MeshAxes
+    from k8s_gpu_scheduler_tpu_torch.utils.checkpoint import (
+        TrainCheckpointer)
+
+    batch = shard_batch(cfg, *RESTORE_BT, dev)
+    tp2 = make_mesh(MeshSpec.for_devices(world, tp=2), dev.type)
+    model = card_init(cfg, dev, mesh=tp2)
+    opt = make_optimizer(model, 3e-4)
+    step = make_train_step(cfg, tp2, opt)
+    for _ in range(2):
+        step(model, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TrainCheckpointer(ckpt_dir, mesh=tp2).save(2, (model, opt))
+    out = {"save_s": time.perf_counter() - t0,
+           "tp2_next_loss": float(step(model, batch))}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    files = sorted(f for f in os.listdir(os.path.join(ckpt_dir, "2"))
+                   if f.startswith("rank-"))
+    docs = [torch.load(os.path.join(ckpt_dir, "2", f), mmap=True,
+                       weights_only=True) for f in files]
+    pp2 = make_mesh(MeshSpec({"pp": 2}), dev.type)
+    targets = [("fsdp2", make_mesh(MeshSpec.for_devices(world, fsdp=2),
+                                   dev.type),
+                lambda m, o: make_train_step(cfg, m, o)),
+               ("pp2", pp2,
+                lambda m, o: make_pp_train_step(cfg, m, o, 2, "1f1b"))]
+    if rank == 0:
+        targets.append(("one", None,
+                        lambda m, o: make_train_step(cfg, None, o)))
+    for key, mesh, make in targets:
+        model = card_init(cfg, dev, seed=1, mesh=mesh)     # other weights
+        opt = make_optimizer(model, 3e-4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        at, (model, opt) = TrainCheckpointer(ckpt_dir, mesh=mesh).restore_or(
+            lambda: (model, opt))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        sizes, index = ((MeshAxes(mesh).sizes, MeshAxes(mesh).index)
+                        if mesh is not None else ({}, {}))
+        bad = restored_mismatches(model, opt, cfg, sizes, index, docs, dev)
+        out[key] = dict(step_no=at, restore_s=restore_s, mismatches=bad,
+                        loss=float(make(mesh, opt)(model, batch)),
+                        state_bytes=sum(
+                            t.numel() * t.element_size()
+                            for t in list(model.parameters())
+                            + [st[k] for st in opt.state.values()
+                               for k in ("exp_avg", "exp_avg_sq")]))
+        del model, opt
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def world19_two(rank, world, ref_path, ckpt_dir):
+    """19b-e on a gloo world of two ranks sharing the card."""
+    import torch.distributed as dist
+
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        make_optimizer, rank_layout)
+    from k8s_gpu_scheduler_tpu_torch.models.pipeline import (
+        make_pp_train_step)
+    from k8s_gpu_scheduler_tpu_torch.parallel import MeshSpec, make_mesh
+    from k8s_gpu_scheduler_tpu_torch.parallel.mesh import MeshAxes
+
+    dev = tp_rank_device()
+    full, f32, _ = pp_cfgs()
+    pp2 = make_mesh(MeshSpec({"pp": 2}), dev.type)
+    ax = MeshAxes(pp2)
+    out = {"stage": ax.index["pp"]}
+    for sched in SCHEDULES:
+        model = card_init(full, dev, mesh=pp2)
+        out[f"19b_{sched}"] = shard_run(
+            model, full, pp2, shard_batch(full, *PP_BT, dev), PP_STEPS,
+            make_step=pp_step(PP_M, sched))
+        del model
+        torch.cuda.empty_cache()
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    whole = {n: w for n, (w, _) in rank_layout(f32, ax.sizes,
+                                               ax.index).items()}
+    for sched in SCHEDULES:
+        model = card_init(f32, dev, mesh=pp2)
+        grad_err = {}
+
+        def check_grads():
+            for name, p in model.named_parameters():
+                want = ref["grads"][whole[name]]
+                grad_err[name] = ((p.grad.detach().cpu() - want).abs().max()
+                                  / want.abs().max()).item()
+
+        st = shard_run(model, f32, pp2, shard_batch(f32, *PP_BT, dev),
+                       PP_F32_STEPS, after_first=check_grads,
+                       make_step=pp_step(PP_M, sched))
+        worst, beyond, outside = 0.0, 0, 0
+        for name, p in model.named_parameters():
+            diff = (p.detach().cpu() - ref["weights"][whole[name]]).abs()
+            far = diff > SHARD_F32_TOL
+            worst = max(worst, diff.max().item())
+            beyond += int(far.sum())
+            outside += int((far & (ref["grads"][whole[name]].abs()
+                                   >= SHARD_ADAM_ZONE)).sum())
+        st.update(max_grad_err=max(grad_err.values()),
+                  worst_grad_leaf=max(grad_err, key=grad_err.get),
+                  max_abs_weight_diff=worst, weights_beyond_tol=beyond,
+                  beyond_outside_adam_zone=outside)
+        out[f"19b_f32_{sched}"] = st
+        del model
+        torch.cuda.empty_cache()
+    del ref
+    dist.barrier()
+    if rank == 0:
+        os.remove(ref_path)          # room for 19e's checkpoint
+    for M in PP_STASH_M:
+        for sched in SCHEDULES:
+            model = card_init(full, dev, mesh=pp2)
+            opt = make_optimizer(model, 3e-4)
+            step = make_pp_train_step(full, pp2, opt, M, sched)
+            batch = shard_batch(full, M, PP_BT[1], dev)
+            step(model, batch)     # the state: gradients and moments
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step(model, batch)
+            torch.cuda.synchronize()
+            out[f"19c_{sched}_{M}"] = dict(
+                state_gb=before / 1e9,
+                peak_above_state_gb=(torch.cuda.max_memory_allocated()
+                                     - before) / 1e9)
+            del model, opt, step
+            torch.cuda.empty_cache()
+    cfg = ep_cfg()
+    ep2 = make_mesh(MeshSpec.for_devices(world, ep=2), dev.type)
+    model = card_init(cfg, dev, mesh=ep2)
+    batch = shard_batch(cfg, *EP_BT, dev)
+    out["19d_drops"] = moe_drops(model, batch, ep2)
+    out["19d"] = shard_run(model, cfg, ep2, batch, EP_STEPS)
+    del model
+    torch.cuda.empty_cache()
+    out["19e"] = restore_on_card(rank, world, full, ckpt_dir, dev)
+    return out
+
+
+def phase_pipeline_ep_restore(dev, card) -> dict:
+    """Phase 19 (see the module docstring)."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        rank_leaf_shapes, train_state_bytes)
+    from k8s_gpu_scheduler_tpu_torch.parallel import spawn
+
+    full, f32, small = pp_cfgs()
+    log(f"  cuts: 19b/19c/19e llama3_8b widths at {PP_LAYERS} layers "
+        f"(2 a stage), 19b f32 at {PP_F32['n_layers']} layers and vocab "
+        f"{PP_F32['vocab']}, 19d Mixtral widths at {EP_LAYERS} layers "
+        f"(two ranks at 4 would need about 76 GB of the card); no width "
+        f"cut")
+    for key, cfg, sizes in (("19b", full, {"pp": 2}),
+                            ("19d", ep_cfg(), {"ep": 2})):
+        n = sum(int(np.prod(s))
+                for s, _ in rank_leaf_shapes(cfg, sizes).values())
+        log(f"  {key} predicted a rank: {n} parameters, "
+            f"{train_state_bytes(cfg, sizes)} bytes of state (one card "
+            f"{train_state_bytes(cfg)})")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "f32_ref.pt")
+        t0 = time.perf_counter()
+        (one,) = spawn(world19_one, 1, "nccl", args=(ref_path,),
+                       timeout=SHARD_TIMEOUT, group_timeout=SHARD_TIMEOUT)
+        log(f"  [{card}] 19a and the one-card references, NCCL world of "
+            f"one: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ranks = spawn(world19_two, 2, "gloo",
+                      args=(ref_path, os.path.join(tmp, "ckpt")),
+                      timeout=SHARD_TIMEOUT, group_timeout=SHARD_TIMEOUT)
+        log(f"  [{card}] 19b-e, gloo world of two on one card: "
+            f"{time.perf_counter() - t0:.1f} s")
+    check_19a(card, one)
+    check_19b(card, one, ranks)
+    check_19c(card, ranks)
+    check_19d(card, one, ranks)
+    check_19e(card, ranks)
+    return {"one": one, "ranks": ranks}
+
+
+def check_19a(card, one) -> None:
+    a, b = one["19a_one"]["losses"], one["19a_pp1"]["losses"]
+    rel = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+    log(f"  [{card}] 19a pp 1 GPipe (M 2) losses {b} against mesh=None "
+        f"{a}: rel {rel:.2e}; MoE on a size-1 mesh "
+        f"{one['19a_moe_mesh']['losses']}, mesh=None "
+        f"{one['19a_moe_one']['losses']}")
+    if rel > 1e-6:
+        raise SystemExit(f"19a: the pp 1 GPipe step parts from mesh=None "
+                         f"by {rel:.2e}")
+    if one["19a_moe_mesh"]["losses"] != one["19a_moe_one"]["losses"]:
+        raise SystemExit("19a: MoE on a size-1 mesh is not mesh=None's "
+                         "bit for bit")
+
+
+def check_19b(card, one, ranks) -> None:
+    for key in ("19b_one", "19b_f32_one"):
+        log(f"  [{card}] {key} (one card, dense): "
+            f"{json.dumps(one[key])}")
+    for r, res in enumerate(ranks):
+        for sched in SCHEDULES:
+            st = res[f"19b_{sched}"]
+            st["max_loss_diff"] = check_bf16_losses(
+                f"19b {sched} rank {r}", st["losses"],
+                one["19b_one"]["losses"])
+            log(f"  [{card}] 19b {sched} bf16, stage {res['stage']}: "
+                f"{json.dumps(st)} (step ms through gloo on one card: not "
+                f"scaling)")
+            if (st["params"], st["state_bytes"]) != (PP_RANK_PARAMS,
+                                                     PP_RANK_STATE_BYTES):
+                raise SystemExit(
+                    f"19b {sched}: rank {r} holds {st['params']} "
+                    f"parameters, {st['state_bytes']} bytes of state; "
+                    f"predicted {PP_RANK_PARAMS}, {PP_RANK_STATE_BYTES}")
+            st = res[f"19b_f32_{sched}"]
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(st["losses"], one["19b_f32_one"]["losses"]))
+            st["max_rel_loss_diff"] = rel
+            log(f"  [{card}] 19b {sched} f32, stage {res['stage']}: "
+                f"{json.dumps(st)}")
+            move = 2 * 3e-4 * PP_F32_STEPS
+            if rel > SHARD_F32_TOL or st["max_grad_err"] > SHARD_F32_TOL \
+                    or st["beyond_outside_adam_zone"] \
+                    or st["max_abs_weight_diff"] > move:
+                raise SystemExit(
+                    f"19b {sched} f32: rank {r} parts from one card: "
+                    f"losses {st['losses']} (one card "
+                    f"{one['19b_f32_one']['losses']}), gradients "
+                    f"{st['max_grad_err']:.2e} of the leaf's largest, "
+                    f"{st['beyond_outside_adam_zone']} weights beyond "
+                    f"{SHARD_F32_TOL} outside AdamW's eps zone")
+
+
+def check_19c(card, ranks) -> None:
+    for res in ranks:
+        s = res["stage"]
+        peaks = {(sched, M): res[f"19c_{sched}_{M}"]["peak_above_state_gb"]
+                 for sched in SCHEDULES for M in PP_STASH_M}
+        log(f"  [{card}] 19c stage {s}, microbatch 1, peak above the state "
+            f"(GB): " + ", ".join(f"{k[0]} M {k[1]} {v:.3f}"
+                                  for k, v in peaks.items()))
+        g4, g8 = peaks["gpipe", 4], peaks["gpipe", 8]
+        f4, f8 = peaks["1f1b", 4], peaks["1f1b", 8]
+        if not g8 > g4:
+            raise SystemExit(f"19c: GPipe's peak on stage {s} did not grow "
+                             f"with M ({g4:.3f} -> {g8:.3f} GB)")
+        if abs(f8 - f4) > PP_STASH_GATE * f4:
+            raise SystemExit(f"19c: 1F1B's peak on stage {s} moved by more "
+                             f"than {PP_STASH_GATE:.0%} from M 4 to M 8 "
+                             f"({f4:.3f} -> {f8:.3f} GB)")
+
+
+def check_19d(card, one, ranks) -> None:
+    ref = one["19d_one"]
+    log(f"  [{card}] 19d one card: {json.dumps(ref)}")
+    want = (2 * EP_LAYERS * EP_STEPS, EP_LAYERS * EP_STEPS,
+            EP_LAYERS * EP_STEPS)
+    for r, res in enumerate(ranks):
+        st = res["19d"]
+        st["max_loss_diff"] = check_bf16_losses(
+            f"19d rank {r}", st["losses"], ref["losses"])
+        log(f"  [{card}] 19d ep 2 rank {r}: {json.dumps(st)}; dropped "
+            f"(token, choice) pairs by layer, step 1: {res['19d_drops']} "
+            f"(one card {one['19d_drops']}) (step ms through gloo on one "
+            f"card: not scaling)")
+        c = st["launches"]
+        if tuple(c[k] for k in FLASH) != want or any(c[k] for k in
+                                                     FLASH_PLAIN):
+            raise SystemExit(f"19d: rank {r} launched {c}, want {want} and "
+                             f"no plain version")
+        if (st["params"], st["state_bytes"]) != (EP_RANK_PARAMS,
+                                                 EP_RANK_STATE_BYTES):
+            raise SystemExit(
+                f"19d: rank {r} holds {st['params']} parameters, "
+                f"{st['state_bytes']} bytes of state; predicted "
+                f"{EP_RANK_PARAMS}, {EP_RANK_STATE_BYTES}")
+
+
+def check_19e(card, ranks) -> None:
+    for r, res in enumerate(ranks):
+        e = res["19e"]
+        log(f"  [{card}] 19e rank {r}: save {e['save_s']:.2f} s; "
+            + "; ".join(f"{k}: restore {e[k]['restore_s']:.2f} s, step "
+                        f"{e[k]['step_no']}, next loss {e[k]['loss']:.6f} "
+                        f"(tp 2 {e['tp2_next_loss']:.6f}), "
+                        f"{len(e[k]['mismatches'])} mismatches, "
+                        f"{e[k]['state_bytes']} bytes"
+                        for k in ("fsdp2", "pp2", "one") if k in e))
+        for k in ("fsdp2", "pp2", "one"):
+            if k not in e:
+                continue
+            if e[k]["mismatches"] or e[k]["step_no"] != 2:
+                raise SystemExit(f"19e {k}: rank {r} restored step "
+                                 f"{e[k]['step_no']}, parts from the saved "
+                                 f"state at {e[k]['mismatches'][:8]}")
+            check_bf16_losses(f"19e {k} rank {r}", [e[k]["loss"]],
+                              [e["tp2_next_loss"]])
+    if "one" not in ranks[0]["19e"]:
+        raise SystemExit("19e: rank 0 did not restore onto one card")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     args = sys.argv[1:]
@@ -4078,6 +4611,11 @@ def main() -> int:
     phase_sharded_training(dev, card)
     phase("phase 18e: K5-K7 at a rank's shapes")
     phase_rank_flash_kernels(dev, card)
+    phase("phase 19: pipeline stages (GPipe, 1F1B) and MoE over ep at "
+          "llama3_8b's and Mixtral's widths, and training checkpoints "
+          "restored across meshes: 19a an NCCL world of one, 19b-e a gloo "
+          "world of two ranks sharing the card")
+    phase_pipeline_ep_restore(dev, card)
     # Each kernel's launches come from the run of the path that runs it:
     # K1 and K2 from phase 3's main path, K3 from phase 4's, K4 from phase
     # 7's serve-loop run, K5-K7 from phase 6's timed steps.

@@ -22,7 +22,7 @@ import torch
 
 from .device import resolve_device
 from .models.bert import Bert, BertConfig
-from .models.llama import Llama, LlamaConfig
+from .models.llama import Llama, LlamaConfig, rank_model
 from .models.resnet import ResNet, ResNetConfig
 from .ops.quant import Int8Weight
 
@@ -63,12 +63,16 @@ def params_from_numpy(tree: Dict, cfg: LlamaConfig, device="cuda",
     weight_sharding=True)``; int8 leaves are cut after quantisation: a
     column slice takes its scale columns, a row slice keeps the scale
     whole); ``"training"``, every leaf by ``models.llama.param_specs`` (a
-    rank of ``make_train_step(cfg, mesh, ...)``), each rank's block the
-    same slice of the unsharded tree."""
+    rank of ``make_train_step(cfg, mesh, ...)``; an MoE model's router
+    columns and expert stacks over ep), each rank's block the same slice
+    of the unsharded tree; ``"pipeline"``, a stage's layers of every
+    block leaf and every other leaf whole (a rank of a mesh with a ``pp``
+    axis, ``models.pipeline``)."""
     device = resolve_device(device)
-    if specs not in ("serving", "training"):
-        raise ValueError(f"specs must be 'serving' or 'training', got "
-                         f"{specs!r}")
+    if specs not in ("serving", "training", "pipeline"):
+        raise ValueError(f"specs must be 'serving', 'training' or "
+                         f"'pipeline', got {specs!r}")
+    sizes = None
     if mesh is not None:
         from .models.llama import (
             map_weight_tree, param_specs, serving_weight_specs)
@@ -81,12 +85,16 @@ def params_from_numpy(tree: Dict, cfg: LlamaConfig, device="cuda",
 
         if specs == "training":
             tree = map_weight_tree(tree, param_specs(cfg), cut)
+        elif specs == "pipeline":        # the layer stack over pp
+            tree = {**tree, "blocks": {k: cut(v, ("pp",))
+                                       for k, v in tree["blocks"].items()}}
         else:
             tree = {**tree, "blocks": map_weight_tree(
                 tree["blocks"], serving_weight_specs(tree)["blocks"], cut)}
     # The full-size zeros of the module's construction stay on the host
     # when the leaves are slices.
-    model = Llama(cfg, "meta" if mesh is not None else device)
+    model = (rank_model(cfg, sizes if specs == "pipeline" else None)
+             if mesh is not None else Llama(cfg, device))
     for name in ("embed", "final_norm", "lm_head"):
         delattr(model, name)
         setattr(model, name, _leaf(tree[name], device, trainable))

@@ -22,14 +22,17 @@ block becomes ``torch.utils.checkpoint`` per block, and optax's
 (``make_optimizer``). ``attn_impl="flash"`` runs the flash kernels K5-K7
 (``ops/flash_attention.py``).
 
-Sharded training (``mesh=``, a ``DeviceMesh`` with named dp/fsdp/sp/tp
+Sharded training (``mesh=``, a ``DeviceMesh`` with named dp/fsdp/sp/ep/tp
 dims, one process a rank) is rank-local SPMD: each rank holds its block
 of every leaf by ``param_specs`` and writes out the collectives GSPMD
 inserted for the JAX step (``parallel/collectives.py``). A block
 all-gathers its fsdp-sharded weights, runs the column-parallel products
 on the rank's heads and ffn columns, attention on its local heads (the
 flash kernels at ``sp == 1``; ring or Ulysses attention over ``sp``) and
-sums the row-parallel ``wo``/``w_down`` products over tp. The embedding
+sums the row-parallel ``wo``/``w_down`` products over tp; an MoE block
+runs the rank's E/ep experts (``ops/moe.py``). A ``pp`` axis holds
+pipeline stages instead (``rank_layout``; ``models/pipeline.py`` trains
+them). The embedding
 and the loss are vocab-parallel, so no rank holds the [B, T, vocab]
 logits. Gradients are summed over every axis that splits the tokens
 (dp, fsdp, sp), so the loss is the mean over the global batch, and
@@ -403,6 +406,68 @@ def _set_leaf(model: nn.Module, name: str, value) -> None:
     setattr(model.get_submodule(mod) if mod else model, leaf, value)
 
 
+def rank_model(cfg: LlamaConfig, sizes: Optional[Mapping[str, int]] = None
+               ) -> Llama:
+    """A ``Llama`` on the meta device with a rank's blocks: all
+    ``cfg.n_layers`` of them, or a stage's L/P on a mesh with a ``pp``
+    axis (the pipeline layout, ``models/pipeline.py``)."""
+    model = Llama(cfg, "meta")
+    n = len(model.blocks) // _stages(sizes)
+    model.blocks = nn.ModuleList(list(model.blocks)[:n])
+    return model
+
+
+def _stages(sizes: Optional[Mapping[str, int]]) -> int:
+    return (sizes or {}).get("pp", 1)
+
+
+def rank_layout(cfg: LlamaConfig, sizes: Optional[Mapping[str, int]] = None,
+                index: Optional[Mapping[str, int]] = None
+                ) -> Dict[str, Tuple[str, tuple]]:
+    """Where each parameter of a rank's model (``rank_model``, by its name
+    there) lies in the whole model: the name of the whole model's
+    parameter it is a block of, and the slices of it. On a mesh with a
+    ``pp`` axis of P > 1, stage s holds layers [s·L/P, (s+1)·L/P) whole
+    (its ``blocks.<i>`` is layer s·L/P + i: the layer stack split over
+    pp) and every other leaf whole (the JAX package's
+    ``pp_param_shardings``); on any other mesh each leaf's training block
+    (``leaf_specs``); with no mesh, every leaf whole. A leaf the mesh
+    cannot tile raises ``ValueError`` naming it."""
+    from ..parallel.sharding import block_region
+
+    sizes, index = sizes or {}, index or {}
+    P = _stages(sizes)
+    try:
+        first = block_region((cfg.n_layers,), ("pp",), sizes,
+                             index)[0].start if P > 1 else 0
+    except ValueError as e:
+        raise ValueError(f"the layer stack: {e}") from None
+    specs = leaf_specs(cfg)
+    axes = param_axes(cfg)["blocks"]
+    heads = {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads}
+    out = {}
+    for name, p in rank_model(cfg, sizes).named_parameters():
+        parts = name.split(".")
+        whole = name
+        if parts[0] == "blocks":
+            whole = ".".join(["blocks", str(first + int(parts[1]))]
+                             + parts[2:])
+        spec = (None,) * p.dim() if P > 1 else specs[name]
+        # A head is never split: its columns go to one rank.
+        logical = axes[parts[2]][1:] if parts[0] == "blocks" else ()
+        for unit, ax in zip(logical, spec):
+            count = int(np.prod([sizes.get(a, 1) for a in _spec_axes((ax,))]))
+            if unit in heads and heads[unit] % count:
+                raise ValueError(f"leaf {whole}: its {heads[unit]} {unit} "
+                                 f"do not split into {count} ranks")
+        try:
+            region = block_region(p.shape, spec, sizes, index)
+        except ValueError as e:
+            raise ValueError(f"leaf {whole}: {e}") from None
+        out[name] = (whole, region)
+    return out
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device="cuda", mesh=None) -> Llama:
     """Random weights: normal(0, 0.02) matrices (drawn in f32, cast to the
@@ -411,43 +476,39 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     time, so a seed gives the same weights on every device.
 
     ``mesh`` (a mesh of more than one rank): each leaf is drawn whole and
-    only the rank's training block of it (``leaf_specs``) is uploaded, so
+    only the rank's block of it (``rank_layout``: its training block, or
+    its stage's layers on a mesh with a ``pp`` axis) is uploaded, so
     every rank holds exactly its slice of the unsharded init and never
     the whole model."""
-    from ..parallel.sharding import rank_slice
-
     device = resolve_device(device)
     ax = _mesh_axes(mesh)
     sizes, index = (ax.sizes, ax.index) if ax is not None else ({}, {})
-    specs = leaf_specs(cfg)
-    model = Llama(cfg, "meta")
-    for name, p in list(model.named_parameters()):
-        if name.endswith("norm"):
+    mine = {whole: (name, region) for name, (whole, region)
+            in rank_layout(cfg, sizes, index).items()}
+    model = rank_model(cfg, sizes)
+    for whole, p in list(Llama(cfg, "meta").named_parameters()):
+        if whole.endswith("norm"):
             w = torch.ones(p.shape, dtype=p.dtype)
         else:
             w = torch.randn(p.shape, generator=generator,
                             dtype=torch.float32) * 0.02
-        block = rank_slice(w, specs[name], sizes, index)
-        # A copy: a view would keep the whole leaf alive on the host.
-        _set_leaf(model, name, _param(block.to(device, p.dtype, copy=True)))
+        if whole in mine:
+            name, region = mine[whole]
+            # A copy: a view would keep the whole leaf alive on the host.
+            _set_leaf(model, name, _param(w[region].to(device, p.dtype,
+                                                       copy=True)))
     return model
 
 
 def rank_leaf_shapes(cfg: LlamaConfig, sizes: Mapping[str, int]
                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of each of a rank's leaves on a mesh of axis
-    ``sizes``: the whole shape with each dim divided by the sizes of the
-    axes its spec names."""
-    specs = leaf_specs(cfg)
-    out = {}
-    for name, p in Llama(cfg, "meta").named_parameters():
-        shape = list(p.shape)
-        for d, dim in enumerate(specs[name]):
-            for a in (() if not dim else
-                      dim if isinstance(dim, tuple) else (dim,)):
-                shape[d] //= sizes.get(a, 1)
-        out[name] = (tuple(shape), p.dtype)
-    return out
+    ``sizes`` (``rank_layout``): the whole shape with each dim divided by
+    the sizes of the axes its spec names, or a stage's layers whole."""
+    dtypes = dict((n, p.dtype) for n, p in
+                  rank_model(cfg, sizes).named_parameters())
+    return {name: (tuple(s.stop - s.start for s in region), dtypes[name])
+            for name, (_, region) in rank_layout(cfg, sizes).items()}
 
 
 def attn_sublayer(cfg: LlamaConfig, x: torch.Tensor, blk: Block,
@@ -559,22 +620,16 @@ def forward_with_aux(model: Llama, tokens: torch.Tensor, mesh=None
     return logits, torch.zeros((), dtype=torch.float32, device=model.device)
 
 
-def _refuse_moe_on_a_mesh(cfg: LlamaConfig) -> None:
-    if cfg.n_experts > 1:
-        raise NotImplementedError(
-            "a mixture-of-experts model on a mesh of more than one rank: "
-            "its expert stacks shard over the ep axis, which comes with the "
-            "multi-device slice of MoE's ep axis (ROADMAP queue 1, "
-            "'Multi-device', remainder item 2); train it with mesh=None")
-
-
 def _sharded_block(cfg: LlamaConfig, ax, x: torch.Tensor, blk: Block,
-                   angles: torch.Tensor) -> torch.Tensor:
+                   angles: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder block on this rank: the fsdp blocks of each weight
     gathered at its use, q/k/v/gate/up on the rank's tp columns (local
     heads and ffn columns), ``wo``/``w_down`` on its rows, each followed
     by the sum over tp. ``copy_to`` before the column products sums their
-    input gradients over tp in the backward."""
+    input gradients over tp in the backward. An MoE block runs its
+    rank's experts (``moe_ffn(..., ax=)``). Returns (x, the block's
+    balance aux: the global batch's for MoE, else 0)."""
     fsdp, tp = ax.group("fsdp"), ax.group("tp")
     n_tp, hd = ax.size("tp"), cfg.head_dim
     heads, kv_heads = cfg.n_heads // n_tp, cfg.n_kv_heads // n_tp
@@ -586,20 +641,29 @@ def _sharded_block(cfg: LlamaConfig, ax, x: torch.Tensor, blk: Block,
     q, k = apply_rope(q, angles), apply_rope(k, angles)
     attn = _attention(cfg, q, k, v, ax).reshape(B, T, heads * hd)
     x = x + all_reduce(attn @ all_gather(blk.wo, 1, fsdp), tp)
+    if cfg.n_experts > 1:
+        out, aux = moe_ffn(
+            rms_norm(x, blk.mlp_norm), all_gather(blk.router, 0, fsdp),
+            all_gather(blk.w_gate, 1, fsdp), all_gather(blk.w_up, 1, fsdp),
+            all_gather(blk.w_down, 2, fsdp), top_k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor, ax=ax)
+        return x + out, aux
     h = copy_to(rms_norm(x, blk.mlp_norm), tp)
     return x + all_reduce(swiglu(h, all_gather(blk.w_gate, 0, fsdp),
                                  all_gather(blk.w_up, 0, fsdp),
-                                 all_gather(blk.w_down, 1, fsdp)), tp)
+                                 all_gather(blk.w_down, 1, fsdp)), tp), \
+        torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _forward_sharded(model: Llama, tokens: torch.Tensor, ax
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """This rank's logits block [B_l, T_l, vocab / tp] f32 from its
-    tokens [B_l, T_l]. The embedding is vocab-parallel: each tp rank
-    looks up the tokens in its rows (zero elsewhere) and the sum over tp
-    assembles every row."""
+    tokens [B_l, T_l], and the mean over layers of the global batch's
+    balance aux. The embedding is vocab-parallel: each tp rank looks up
+    the tokens in its rows (zero elsewhere) and the sum over tp assembles
+    every row."""
     cfg = model.cfg
-    _refuse_moe_on_a_mesh(cfg)
+    _refuse_pipeline(ax)
     fsdp, tp = ax.group("fsdp"), ax.group("tp")
     B, T = tokens.shape
     t0 = ax.index.get("sp", 0) * T
@@ -620,13 +684,15 @@ def _forward_sharded(model: Llama, tokens: torch.Tensor, ax
         return _sharded_block(cfg, ax, x, blk, angles)
 
     remat = cfg.remat and torch.is_grad_enabled()
+    auxes = []
     for blk in model.blocks:
-        x = (torch.utils.checkpoint.checkpoint(block, x, blk,
-                                               use_reentrant=False)
-             if remat else block(x, blk))
+        x, aux = (torch.utils.checkpoint.checkpoint(block, x, blk,
+                                                    use_reentrant=False)
+                  if remat else block(x, blk))
+        auxes.append(aux)
     h = copy_to(rms_norm(x, model.final_norm), tp)
     logits = (h @ all_gather(model.lm_head, 0, fsdp)).float()
-    return logits, torch.zeros((), dtype=torch.float32, device=model.device)
+    return logits, torch.stack(auxes).mean()
 
 
 def _nll_sharded(logits: torch.Tensor, targets: torch.Tensor, ax
@@ -678,11 +744,14 @@ def loss_fn(model: Llama, batch: Dict[str, torch.Tensor], mesh=None
     if ax is not None:
         tokens = local_batch(batch["tokens"], mesh)
         targets = local_batch(batch["targets"], mesh).long()
-        logits, _ = forward_with_aux(model, tokens, ax)
+        logits, aux = forward_with_aux(model, tokens, ax)
         loss = _nll_sharded(logits, targets, ax).sum() / batch[
             "tokens"].numel()
         for a in TOKEN_AXES:
             loss = all_reduce(loss, ax.group(a))
+        if model.cfg.n_experts > 1:
+            # The aux is the global batch's on every rank already.
+            loss = loss + model.cfg.moe_aux_coef * aux
         return loss
     logits, aux = forward_with_aux(model, batch["tokens"])
     lse = torch.logsumexp(logits, dim=-1)
@@ -706,11 +775,9 @@ def make_optimizer(model: Llama, lr: float = 3e-4) -> torch.optim.AdamW:
 
 def _refuse_pipeline(ax) -> None:
     if ax.sizes.get("pp", 1) > 1:
-        raise NotImplementedError(
-            "a 'pp' mesh axis: pipeline parallelism (the JAX package's "
-            "models/pipeline.py, GPipe and 1F1B) comes with the "
-            "multi-device slice of the pipeline (ROADMAP queue 1, "
-            "'Multi-device', remainder item 1)")
+        raise ValueError(
+            "a 'pp' mesh axis holds pipeline stages: train them with "
+            "models.pipeline.make_pp_train_step (GPipe or 1F1B)")
 
 
 def make_train_step(cfg: LlamaConfig, mesh: Optional[object],
@@ -727,11 +794,11 @@ def make_train_step(cfg: LlamaConfig, mesh: Optional[object],
     (dp, fsdp, sp) that do not shard its leaf (fsdp's sum is the
     reduce-scatter of the weight gathers), so every rank of an axis that
     replicates a leaf holds the same gradient, and the returned loss is
-    the global mean. A mixture-of-experts config, or a ``pp`` axis, is
-    refused."""
+    the global mean. An MoE leaf is not summed over ep, which splits the
+    experts, not the tokens. A ``pp`` axis is refused: its stages train
+    through ``models.pipeline.make_pp_train_step``."""
     ax = _mesh_axes(mesh)
     if ax is not None:
-        _refuse_moe_on_a_mesh(cfg)
         _refuse_pipeline(ax)
         reduce_over = {name: [a for a in TOKEN_AXES
                               if a not in _spec_axes(spec)
@@ -1010,7 +1077,7 @@ def main(argv=None, *, device="cuda", backend: str = "nccl") -> None:
             f"--serve on a gang of {workers} workers: serving on a gang "
             f"(make_server_step(mesh=), generate(mesh=) and the multi-host "
             f"serve loop) comes with the multi-device slice of gang "
-            f"serving (ROADMAP queue 1, 'Multi-device', remainder item 3); "
+            f"serving (ROADMAP queue 1, 'Multi-device', remainder item 1); "
             f"serve from one worker")
     if args.serve:
         from ..recommender.collector import make_workload_publisher

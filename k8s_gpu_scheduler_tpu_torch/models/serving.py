@@ -235,7 +235,7 @@ def generate(model: Llama, prompt, cfg: LlamaConfig, max_new: int,
         raise NotImplementedError(
             "generate(mesh=...) is not ported yet: it comes with the "
             "multi-device slice of gang serving (ROADMAP queue 1, "
-            "'Multi-device', remainder item 3); the paged "
+            "'Multi-device', remainder item 1); the paged "
             "ContinuousBatcher serves on a mesh")
     prompt = torch.as_tensor(prompt, device=model.device)
     B, t_prompt = prompt.shape
@@ -261,7 +261,7 @@ def make_server_step(cfg: LlamaConfig, mesh, max_new: int,
         raise NotImplementedError(
             "make_server_step(mesh=...) is not ported yet: it comes with "
             "the multi-device slice of gang serving (ROADMAP queue 1, "
-            "'Multi-device', remainder item 3)")
+            "'Multi-device', remainder item 1)")
     return partial(generate, cfg=cfg, max_new=max_new, max_len=max_len)
 
 

@@ -14,10 +14,18 @@ backward:
   column-parallel products, whose input gradients are partial sums;
 - ``all_gather``: gather forward, reduce-scatter backward — a weight's
   fsdp blocks before use, K/V over ``sp`` for dense attention;
+- ``gather_from``: gather forward, this rank's block of the gradient
+  backward — an MoE router's logits over ``ep``, whose softmax and top-k
+  every rank of the group then runs alike (so each holds the whole
+  gradient already);
 - ``all_to_all``: re-split forward, the inverse re-split backward
   (Ulysses attention);
 - ``ring_shift``: send to the next rank and receive from the previous
   one forward, the reverse backward (ring attention).
+
+- ``shift`` (outside autograd): the pipeline's stage-to-stage exchange,
+  activations forward and cotangents backward, each posted explicitly
+  by every stage in the same order (``models/pipeline.py``).
 
 A group of ``None`` (an axis of size 1) makes each of them the identity.
 On CUDA tensors ``nccl`` moves the data between cards. ``gloo``, the
@@ -63,7 +71,7 @@ def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM
 
 
 def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    n = _n(group)
+    n, dim = _n(group), dim % x.dim()
     x = x.contiguous()
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
@@ -76,7 +84,7 @@ def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 def _reduce_scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The sum over the group of ``g``'s ``dim``, this rank's block of
     it."""
-    n = _n(group)
+    n, dim = _n(group), dim % g.dim()
     shape = list(g.shape)
     shape[dim:dim + 1] = [n, shape[dim] // n]
     blocks = g.reshape(shape).movedim(dim, 0).contiguous()
@@ -149,6 +157,18 @@ class _AllGather(torch.autograd.Function):
         return _reduce_scatter(g, ctx.dim, ctx.group), None, None
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, r = _n(ctx.group), _rank(ctx.group)
+        return g.chunk(n, dim=ctx.dim)[r].contiguous(), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, split, concat, group):
@@ -187,6 +207,22 @@ def all_gather(x: torch.Tensor, dim: int, group: Optional[object]
     """The group's blocks of ``x`` concatenated on ``dim`` in rank order;
     the gradient is reduce-scattered back to the blocks."""
     return x if group is None else _AllGather.apply(x, dim, group)
+
+
+def gather_from(x: torch.Tensor, dim: int, group: Optional[object]
+                ) -> torch.Tensor:
+    """The group's blocks of ``x`` concatenated on ``dim`` in rank order,
+    for a consumer every rank of the group computes alike; the gradient,
+    whole and equal on every rank, is cut back to this rank's block."""
+    return x if group is None else _GatherFrom.apply(x, dim, group)
+
+
+def shift(x: torch.Tensor, offset: int, group: Optional[object]
+          ) -> torch.Tensor:
+    """Outside autograd: the ``x`` of the rank ``offset`` places before
+    this one in the group, ``x`` itself sent ``offset`` places on; every
+    rank of the group calls it at once (the pipeline's exchange)."""
+    return x if group is None else _shift(x, offset, group)
 
 
 def all_to_all(x: torch.Tensor, split: int, concat: int,

@@ -106,18 +106,18 @@ def shard_params_spec(param_axes, rules: Dict[str, object] = None):
     return {k: shard_params_spec(v, rules) for k, v in param_axes.items()}
 
 
-def rank_slice(x, spec: tuple, sizes: Mapping[str, int],
-               index: Mapping[str, int]):
-    """This rank's block of ``x`` (a numpy array or a tensor) under
+def block_region(shape, spec: tuple, sizes: Mapping[str, int],
+                 index: Mapping[str, int]) -> tuple:
+    """The slices of a rank's block of an array of ``shape`` under
     ``spec``: each dim named by a mesh axis (or a tuple of axes,
     row-major) is cut into that axis's size of equal contiguous blocks
     and the block at the rank's coordinate kept. ``sizes`` and ``index``
     are the mesh's axis sizes and this rank's coordinate on each
     (``mesh_coords``); an axis the mesh lacks counts as size 1. A dim
     the axis size does not divide raises ``ValueError``."""
-    if len(spec) > x.ndim:
+    if len(spec) > len(shape):
         raise ValueError(f"spec {spec} has more dims than shape "
-                         f"{tuple(x.shape)}")
+                         f"{tuple(shape)}")
     cut = []
     for dim, ax in enumerate(spec):
         names = () if ax is None else (ax if isinstance(ax, tuple)
@@ -125,13 +125,20 @@ def rank_slice(x, spec: tuple, sizes: Mapping[str, int],
         n, i = 1, 0
         for a in names:
             n, i = n * sizes.get(a, 1), i * sizes.get(a, 1) + index.get(a, 0)
-        if x.shape[dim] % n:
+        if shape[dim] % n:
             raise ValueError(
-                f"dim {dim} of {tuple(x.shape)} not divisible by the "
+                f"dim {dim} of {tuple(shape)} not divisible by the "
                 f"{names} axis size {n}")
-        step = x.shape[dim] // n
+        step = shape[dim] // n
         cut.append(slice(i * step, (i + 1) * step))
-    return x[tuple(cut)]
+    return tuple(cut)
+
+
+def rank_slice(x, spec: tuple, sizes: Mapping[str, int],
+               index: Mapping[str, int]):
+    """This rank's block of ``x`` (a numpy array or a tensor) under
+    ``spec`` (``block_region``)."""
+    return x[block_region(x.shape, spec, sizes, index)]
 
 
 def mesh_coords(mesh) -> Tuple[Dict[str, int], Dict[str, int]]:

@@ -27,15 +27,27 @@ coordinates, all ranks meet at a barrier, and rank 0 commits the step by
 writing ``<dir>/<step>/commit.json`` (the mesh's shape); only committed
 steps count. A step restores onto the mesh that saved it, each rank
 reading its own file, bit for bit (orbax restores onto the shardings of
-its template the same way); another mesh is refused.
+its template the same way).
+
+Onto another mesh or layout (another shape, a ``pp`` axis's stages, or
+no mesh; and a one-card step onto a mesh), a Llama ``(model, optimizer)``
+pair is restored block by block: the coordinates in each saved file say
+which block of each leaf that rank held (``models.llama.rank_layout``),
+and the new rank copies, from the files whose blocks overlap its own,
+the parts of every parameter and of its AdamW moments that it holds,
+keyed by the parameter's name in the whole model (a stage's optimizer
+lists fewer parameters than a whole model's). The copies are exact, so
+the restored state is the saved one bit for bit. The optimizer must list
+the model's parameters in their order, as ``make_optimizer`` does.
 """
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import shutil
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -96,8 +108,11 @@ class TrainCheckpointer:
         return os.path.join(self._dir, str(step),
                             f"rank-{dist.get_rank()}.pt")
 
-    def _marker(self) -> str:
-        return _FILE if self._mesh is None else _COMMIT
+    def _committed(self, step: int) -> bool:
+        """A one-card state file or a sharded step's commit is there."""
+        d = os.path.join(self._dir, str(step))
+        return any(os.path.isfile(os.path.join(d, m))
+                   for m in (_FILE, _COMMIT))
 
     # -- save --------------------------------------------------------------
     def save(self, step: int, state: Any, force: bool = False) -> bool:
@@ -106,8 +121,7 @@ class TrainCheckpointer:
         Sharded: every rank returns once rank 0 has committed the step."""
         step = int(step)
         step_dir = os.path.join(self._dir, str(step))
-        if os.path.isfile(os.path.join(step_dir, self._marker())) \
-                and not force:
+        if self._committed(step) and not force:
             return False
         doc = {name: obj.state_dict() for name, obj in _named(state).items()}
         os.makedirs(step_dir, exist_ok=True)
@@ -147,8 +161,7 @@ class TrainCheckpointer:
         if not os.path.isdir(self._dir):
             return []
         return sorted(int(d) for d in os.listdir(self._dir)
-                      if d.isdigit() and os.path.isfile(
-                          os.path.join(self._dir, d, self._marker())))
+                      if d.isdigit() and self._committed(int(d)))
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -157,24 +170,28 @@ class TrainCheckpointer:
     def restore(self, step: Optional[int] = None, like: Any = None) -> Any:
         """The state saved at ``step`` (default: latest), loaded into the
         objects of ``like`` when given (and returned), else the saved
-        state dicts by name, on the CPU."""
+        state dicts by name, on the CPU. A step saved on another mesh or
+        layout is restored into ``like``'s Llama ``(model, optimizer)``
+        block by block (see the module's docstring); a leaf this mesh
+        cannot tile raises ``ValueError`` naming it."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self._dir}")
+        step = int(step)
         objs = None if like is None else _named(like)
-        path = os.path.join(self._dir, str(int(step)), _FILE)
-        if self._mesh is not None:
-            with open(os.path.join(self._dir, str(int(step)), _COMMIT)) as fh:
-                saved = json.load(fh)["mesh"]
-            if saved != self._mesh.sizes:
-                raise NotImplementedError(
+        saved = self._saved_mesh(step)
+        here = None if self._mesh is None else self._mesh.sizes
+        if saved != here:
+            if objs is None:
+                raise ValueError(
                     f"step {step} was saved on a mesh of {saved}, this one "
-                    f"is {self._mesh.sizes}: restoring onto another mesh "
-                    f"comes with the multi-device slice of restore across "
-                    f"meshes (ROADMAP queue 1, 'Multi-device', remainder "
-                    f"item 4)")
-            path = self._rank_file(int(step))
+                    f"is {here}: restoring it onto another mesh needs "
+                    f"like=(model, optimizer)")
+            _restore_across(self._files(step), objs, self._mesh)
+            return like
+        path = (os.path.join(self._dir, str(step), _FILE)
+                if self._mesh is None else self._rank_file(step))
         doc = torch.load(path,
                          map_location=(torch.device("cpu") if objs is None
                                        else _device_of(objs)),
@@ -190,6 +207,24 @@ class TrainCheckpointer:
         for name, obj in objs.items():
             obj.load_state_dict(doc[name])
         return like
+
+    def _saved_mesh(self, step: int) -> Optional[Dict[str, int]]:
+        """The axis sizes of the mesh that saved ``step``; None for one
+        card."""
+        commit = os.path.join(self._dir, str(step), _COMMIT)
+        if not os.path.isfile(commit):
+            return None
+        with open(commit) as fh:
+            return json.load(fh)["mesh"]
+
+    def _files(self, step: int) -> List[str]:
+        d = os.path.join(self._dir, str(step))
+        commit = os.path.join(d, _COMMIT)
+        if not os.path.isfile(commit):
+            return [os.path.join(d, _FILE)]
+        with open(commit) as fh:
+            ranks = json.load(fh)["ranks"]
+        return [os.path.join(d, f"rank-{r}.pt") for r in range(ranks)]
 
     def restore_or(self, init_fn: Callable[[], Any]) -> Tuple[int, Any]:
         """(step, state): the latest checkpoint loaded into ``init_fn()``'s
@@ -213,3 +248,96 @@ class TrainCheckpointer:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def _restore_across(paths: List[str], objs: Dict[str, Any], mesh) -> None:
+    """Restore the step whose files are ``paths`` into ``objs``' Llama
+    model and optimizer on ``mesh`` (a ``MeshAxes``, or None for one
+    card): each parameter and its AdamW moments assembled from the saved
+    blocks that overlap this rank's block of the leaf."""
+    from ..models.llama import rank_layout
+
+    if set(objs) != set(_PAIR):
+        raise ValueError(f"restoring onto another mesh takes a (model, "
+                         f"optimizer) pair, got {sorted(objs)}")
+    model, opt = objs["model"], objs["opt"]
+    params = list(model.parameters())
+    if len(opt.param_groups) != 1 or len(opt.param_groups[0]["params"]) \
+            != len(params) or any(a is not b for a, b in zip(
+                opt.param_groups[0]["params"], params)):
+        raise ValueError("the optimizer must hold one group of the model's "
+                         "parameters in their order (make_optimizer)")
+    sizes, index = (mesh.sizes, mesh.index) if mesh is not None else ({}, {})
+    mine = rank_layout(model.cfg, sizes, index)
+    held = []                      # (doc, whole name -> (name, region, i))
+    for path in paths:
+        doc = torch.load(path, map_location="cpu", mmap=True,
+                         weights_only=True)
+        meta = doc.get("mesh", {"sizes": {}, "index": {}})
+        order = {name: i for i, name in enumerate(doc["model"])}
+        held.append((doc, {whole: (name, region, order[name])
+                           for name, (whole, region) in rank_layout(
+                               model.cfg, meta["sizes"],
+                               meta["index"]).items()}))
+
+    def assemble(whole, region, get):
+        """The ``region`` of leaf ``whole``, from every saved block that
+        overlaps it (each distinct block once: replicas are equal)."""
+        out, seen, covered = None, set(), 0
+        for doc, table in held:
+            if whole not in table:
+                continue
+            name, theirs, i = table[whole]
+            key = tuple((r.start, r.stop) for r in theirs)
+            cut = [(max(a.start, b.start), min(a.stop, b.stop))
+                   for a, b in zip(region, theirs)]
+            if key in seen or any(lo >= hi for lo, hi in cut):
+                continue
+            seen.add(key)
+            src = get(doc, name, i)
+            if src is None:
+                return None
+            if out is None:
+                out = torch.empty([r.stop - r.start for r in region],
+                                  dtype=src.dtype)
+            out[tuple(slice(lo - a.start, hi - a.start)
+                      for (lo, hi), a in zip(cut, region))] = src[tuple(
+                          slice(lo - b.start, hi - b.start)
+                          for (lo, hi), b in zip(cut, theirs))]
+            covered += math.prod(hi - lo for lo, hi in cut)
+        if out is None or covered != out.numel():
+            raise ValueError(f"leaf {whole}: the saved blocks cover "
+                             f"{covered} of this rank's elements")
+        return out
+
+    def moment(key):
+        def get(doc, name, i):
+            st = doc["opt"]["state"].get(i)
+            return None if st is None else st[key]
+        return get
+
+    def step_of(whole):
+        """The step count of the first saved rank holding ``whole``."""
+        doc, (_, _, i) = next((d, t[whole]) for d, t in held if whole in t)
+        return doc["opt"]["state"][i]["step"].clone()
+
+    weights, state = {}, {}
+    order = {name: j for j, (name, _) in enumerate(model.named_parameters())}
+    for name, (whole, region) in mine.items():
+        j = order[name]
+        weights[name] = assemble(whole, region,
+                                 lambda doc, n, i: doc["model"][n])
+        avg = assemble(whole, region, moment("exp_avg"))
+        if avg is not None:
+            state[j] = {"step": step_of(whole),
+                        "exp_avg": avg,
+                        "exp_avg_sq": assemble(whole, region,
+                                               moment("exp_avg_sq"))}
+    template = opt.state_dict()
+    saved_group = held[0][0]["opt"]["param_groups"][0]
+    template["param_groups"][0].update(
+        {k: v for k, v in saved_group.items() if k != "params"})
+    template["state"] = state
+    with torch.no_grad():
+        model.load_state_dict(weights)
+    opt.load_state_dict(template)

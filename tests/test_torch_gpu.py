@@ -38,7 +38,8 @@ from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
     flash_forward_reference, reset_counters)
 from k8s_gpu_scheduler_tpu_torch.parallel import spawn
 from torch_tp_workers import card_world
-from torch_train_workers import card_train_world
+from torch_train_workers import (
+    card_ep_world, card_pp_world, card_restore_world, card_train_world)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1052,3 +1053,45 @@ def test_tp2_training_on_gloo_ranks_sharing_the_card(cuda, tmp_path):
         assert out["mesh"]["launches"] == one["launches"]
     assert one["launches"]["flash_forward"] > 0
     assert not one["launches"]["flash_forward_reference"]
+
+
+# -- pipeline stages, MoE over ep, restore across meshes (phase 19) ----------
+
+@pytest.mark.gpu
+def test_pp2_steps_on_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """19b at small widths: two gloo ranks on one card as pipeline stages
+    give one card's f32 losses (1e-5 relative) for GPipe and 1F1B."""
+    outs = spawn(card_pp_world, 2, "gloo",
+                 rendezvous=str(tmp_path / "rdv"), timeout=300)
+    one = outs[0]["one"]
+    for out in outs:
+        for sched in ("gpipe", "1f1b"):
+            assert out[sched] == pytest.approx(one, rel=1e-5)
+
+
+@pytest.mark.gpu
+def test_ep2_moe_steps_on_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """19d at small widths: an ep 2 MoE step on two gloo ranks gives one
+    card's f32 losses, each rank launching K5-K7 as one card does and
+    running no plain version."""
+    outs = spawn(card_ep_world, 2, "gloo",
+                 rendezvous=str(tmp_path / "rdv"), timeout=300)
+    one = outs[0]["one"]
+    for out in outs:
+        assert out["mesh"]["losses"] == pytest.approx(one["losses"],
+                                                      rel=1e-5)
+        assert out["mesh"]["launches"] == one["launches"]
+    assert one["launches"]["flash_forward"] > 0
+    assert not one["launches"]["flash_forward_reference"]
+
+
+@pytest.mark.gpu
+def test_tp2_checkpoint_restores_onto_one_card(cuda, tmp_path):
+    """19e at small widths: a step saved by two gloo ranks at tp 2
+    restores onto one card, every rank's saved blocks its slices of the
+    restored weights and AdamW moments bit for bit."""
+    outs = spawn(card_restore_world, 2, "gloo",
+                 args=(str(tmp_path / "ck"),),
+                 rendezvous=str(tmp_path / "rdv"), timeout=300)
+    for out in outs:
+        assert out["step_no"] == 2 and out["equal"]

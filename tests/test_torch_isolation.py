@@ -54,6 +54,7 @@ def test_every_module_imports_with_jax_blocked():
     assert "k8s_gpu_scheduler_tpu_torch.models.proposers" in MODULES
     assert "k8s_gpu_scheduler_tpu_torch.ops.flash_attention" in MODULES
     assert "k8s_gpu_scheduler_tpu_torch.parallel.collectives" in MODULES
+    assert "k8s_gpu_scheduler_tpu_torch.models.pipeline" in MODULES
     assert set(FLEET_SLICE) <= set(MODULES)
     assert len(MODULES) >= 14 + len(FLEET_SLICE)
 

@@ -161,7 +161,7 @@ def test_a_gang_of_workers_is_refused(monkeypatch):
     monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "w0.gang,w1.gang")
     monkeypatch.setattr(llama, "init_params", lambda *a, **k: pytest.fail(
         "allocated"))
-    with pytest.raises(NotImplementedError, match="remainder item 3"):
+    with pytest.raises(NotImplementedError, match="remainder item 1"):
         main(["--serve"], device="cpu")
 
 

@@ -39,8 +39,8 @@ from k8s_gpu_scheduler_tpu_torch.models import llama
 from k8s_gpu_scheduler_tpu_torch.parallel import spawn
 from k8s_gpu_scheduler_tpu_torch.parallel.sharding import rank_slice
 from torch_train_workers import (
-    LR, STEPS, batch_of, config, world_attention, world_cells, world_init,
-    world_main, world_resume)
+    LR, STEPS, batch_of, config, moe_config, world_attention, world_cells,
+    world_init, world_main, world_restore, world_resume)
 
 # (name, attn_impl, MeshSpec.for_devices axes, GQA), by world size.
 CELLS = {
@@ -87,28 +87,32 @@ def attn_inputs():
 def world_all(rank, world, trees, tokens, cells, attn, ckpt_dir, init_axes):
     """One spawn per world: the training cells, ring and Ulysses alone
     over every rank as sp, init_params on a mesh, and (world of 2) the
-    sharded checkpoint."""
+    sharded checkpoint, on its mesh and across meshes."""
     out = {"cells": world_cells(rank, world, trees[False], trees[True],
                                 tokens, cells),
            "attn": world_attention(rank, world, *attn, {"sp": world}),
            "init": world_init(rank, world, init_axes)}
     if ckpt_dir is not None:
         out["resume"] = world_resume(rank, world, ckpt_dir, tokens)
+        out["restore"] = world_restore(rank, world, ckpt_dir + "-across")
     return out
 
 
 @pytest.fixture(scope="module")
 def worlds(trees, tokens, tmp_path_factory):
-    """Both worlds, started together."""
+    """Both worlds, started together (their directories made first:
+    ``mktemp`` from two threads races on pytest's base temporary directory)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    dirs = {w: tmp_path_factory.mktemp(f"world{w}") for w in (2, 4)}
+
     def run(world, init_axes):
-        d = tmp_path_factory.mktemp(f"world{world}")
+        d = dirs[world]
         return spawn(
             world_all, world, "gloo",
             args=(trees, tokens, CELLS[world], attn_inputs(),
                   str(d / "ckpt") if world == 2 else None, init_axes),
-            rendezvous=str(d / "rdv"), timeout=240)
+            rendezvous=str(d / "rdv"), timeout=480)
 
     with ThreadPoolExecutor(2) as pool:
         futs = {w: pool.submit(run, w, axes) for w, axes in
@@ -310,13 +314,110 @@ def test_sharded_checkpoint_resumes_bit_for_bit(worlds):
     """Two steps, a save at step 2 by every rank, a restore into fresh
     objects and steps 3-4 give the unstopped run's losses bit for bit;
     each rank wrote its own file and rank 0 the commit; a mesh of
-    another shape is refused naming its ROADMAP item."""
+    another shape (fsdp 2) restores step 4 and takes step 5 as the tp 2
+    run does."""
     for res in worlds[2]:
         got = res["resume"]
         assert got["resumed"] == got["ref"]
         assert got["step_no"] == 2 and got["steps"] == [2, 4]
         assert got["files"] == ["commit.json", "rank-0.pt", "rank-1.pt"]
-        assert "remainder item 4" in got["refusal"]
+        across = got["across"]
+        assert across["step_no"] == 4
+        np.testing.assert_allclose(across["loss"], across["fifth"],
+                                   rtol=1e-5)
+
+
+def assert_state_slices(state, full, specs, sizes, index, stage=None):
+    """A rank's ``state_numpy`` state is, bit for bit, its block of the
+    whole state ``full`` (by ``specs`` at the mesh's ``sizes`` and its
+    ``index``; or, for pipeline ``stage`` s of n-layer stages, its
+    layers whole)."""
+    for name, parts in state.items():
+        whole = name
+        if stage is not None and name.startswith("blocks."):
+            s, n = stage
+            i = name.split(".")
+            whole = ".".join(["blocks", str(s * n + int(i[1]))] + i[2:])
+        want = full[whole]
+        for k in range(3):
+            block = (want[k] if stage is not None else
+                     rank_slice(want[k], specs[whole], sizes, index))
+            assert np.array_equal(parts[k], block), (name, k)
+        assert parts[3] == want[3] == float(STEPS), name
+
+
+ACROSS = [("tp2->fsdp2", "fsdp2"), ("tp2->pp2", "pp2"),
+          ("tp2->one", "one"), ("one->tp2", "one_to_tp2"),
+          ("ep2->one", "ep2_to_one")]
+
+
+@pytest.mark.parametrize("case", ACROSS, ids=[c[0] for c in ACROSS])
+def test_restore_across_meshes_is_bit_for_bit(worlds, case):
+    """A step saved at step 2 on one mesh or layout and restored onto
+    another: every parameter and both AdamW moments of every rank are,
+    bit for bit, its block of the saved state, and the step count too.
+    The whole state is the one-card restore of the saved step, itself
+    held to each saving rank's blocks."""
+    name, key = case
+    ranks = [res["restore"] for res in worlds[2]]
+    cfg = moe_config() if name.startswith("ep2") else config("dense", 2)
+    specs = llama.leaf_specs(cfg)
+    tp = {"dp": 1, "fsdp": 1, "sp": 1, "ep": 1, "tp": 2}
+    if name == "ep2->one":
+        full = ranks[0]["ep2_to_one"]["state"]
+        saved = [(r["saved_ep2"][0], r["ep2_coords"]) for r in ranks]
+        sizes = dict(tp, tp=1, ep=2)
+    elif name == "one->tp2":
+        full = ranks[0]["saved_one"][0]
+        saved = [(r["one_to_tp2"]["state"], r["tp2_coords"]) for r in ranks]
+        sizes = tp
+    else:
+        full = ranks[0]["one"]["state"]
+        saved = [(r["saved_tp2"][0], r["tp2_coords"]) for r in ranks]
+        sizes = tp
+    for state, coords in saved:
+        assert_state_slices(state, full, specs, sizes, coords)
+    for r in ranks:
+        assert r[key]["step_no"] == STEPS
+        if key == "fsdp2":
+            assert_state_slices(r[key]["state"], full, specs,
+                                dict(tp, tp=1, fsdp=2), r["fsdp2_coords"])
+        elif key == "pp2":
+            assert_state_slices(r[key]["state"], full, specs, {}, {},
+                                stage=(r["pp2_coords"]["pp"], 1))
+        elif key in ("one", "ep2_to_one"):
+            assert_state_slices(r[key]["state"], full, specs, {}, {})
+
+
+@pytest.mark.parametrize("case", ACROSS, ids=[c[0] for c in ACROSS])
+def test_next_step_after_a_restore_across_meshes(worlds, case):
+    """The step after a restore onto another mesh (a pipeline step on
+    pp 2) has the loss of the saving mesh's next step, to 1e-5."""
+    _, key = case
+    for res in worlds[2]:
+        r = res["restore"]
+        saved = (r["saved_ep2"] if key == "ep2_to_one" else
+                 worlds[2][0]["restore"]["saved_one"] if key == "one_to_tp2"
+                 else r["saved_tp2"])
+        np.testing.assert_allclose(r[key]["loss"], saved[1], rtol=1e-5)
+
+
+def test_restore_refuses_a_mesh_its_leaves_cannot_tile(tmp_path):
+    """Restoring onto tp 4 a step of a model with 2 kv heads raises
+    ``ValueError`` naming the first leaf tp 4 cannot cut."""
+    from k8s_gpu_scheduler_tpu_torch.utils.checkpoint import (
+        TrainCheckpointer)
+    from test_torch_pipeline import FakeMesh
+
+    cfg = config("dense", 2)
+    model = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt = llama.make_optimizer(model, LR)
+    TrainCheckpointer(str(tmp_path)).save(1, (model, opt))
+    ck = TrainCheckpointer(str(tmp_path), mesh=FakeMesh(tp=4))
+    with pytest.raises(ValueError, match="leaf blocks.0.wk"):
+        ck.restore(like=(model, opt))
+    with pytest.raises(ValueError, match="needs like="):
+        ck.restore()
 
 
 def _free_port() -> int:
@@ -348,3 +449,24 @@ def test_main_trains_a_gang_of_two(tmp_path):
                                  f"step 2 from {ck}")
         assert rank_lines[1].startswith(f"llama pretrain worker={r} step=3 ")
         assert len(rank_lines) == 2
+
+
+def test_main_resumes_a_gang_that_comes_back_at_another_size(tmp_path):
+    """A gang of two (tp 2) checkpoints steps 1-2; the gang rescheduled
+    as four workers (tp 4; 8 kv heads) resumes at step 2 from the
+    two-rank files and runs step 3 on every rank with one loss."""
+    ck = str(tmp_path / "ck")
+    argv = ["--ckpt-dir", ck, "--ckpt-every", "1"]
+    first = spawn(world_main, 2, None,
+                  args=(_free_port(), argv, (4, 32), 2, 8),
+                  rendezvous=str(tmp_path / "rdv"), timeout=240)
+    assert [len(x) for x in first] == [2, 2]
+    again = spawn(world_main, 4, None,
+                  args=(_free_port(), argv, (4, 32), 3, 8),
+                  rendezvous=str(tmp_path / "rdv2"), timeout=240)
+    for r, rank_lines in enumerate(again):
+        assert rank_lines[0] == (f"llama pretrain worker={r} resumed at "
+                                 f"step 2 from {ck}")
+        assert rank_lines[1].startswith(f"llama pretrain worker={r} step=3 ")
+        assert len(rank_lines) == 2
+    assert len({ln[1].split("loss=")[1] for ln in again}) == 1

@@ -162,23 +162,26 @@ class FakeMesh:
     def get_local_rank(self, name):
         return 0
 
+    def get_group(self, name):
+        return name            # never used: no step runs on a fake mesh
+
 
 def test_not_ported_options_raise():
-    """What sharded training still refuses, each naming its item of
-    ROADMAP queue 1's multi-device remainder: a mixture-of-experts model
-    on a mesh (the ep axis) and a pipeline axis. Ring and Ulysses
-    attention with the sequence whole are dense attention, as in JAX."""
+    """A pipeline axis is refused by the plain step, naming the
+    pipeline's (``models.pipeline.make_pp_train_step``); a
+    mixture-of-experts model on a mesh (the ep axis) now builds a step,
+    as on one rank. Ring and Ulysses attention with the sequence whole
+    are dense attention, as in JAX."""
     _, cfg = configs()
     model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     opt = make_optimizer(model)
-    with pytest.raises(NotImplementedError, match="remainder item 1"):
+    with pytest.raises(ValueError, match="make_pp_train_step"):
         make_train_step(cfg, FakeMesh(pp=2, tp=2), opt)
     moe = dataclasses.replace(cfg, n_experts=4)
-    with pytest.raises(NotImplementedError, match="remainder item 2"):
-        make_train_step(moe, FakeMesh(dp=2), opt)
-    step = make_train_step(moe, FakeMesh(dp=1), make_optimizer(init_params(
-        moe, torch.Generator().manual_seed(0), "cpu")))   # one rank: trains
-    assert callable(step)
+    moe_opt = make_optimizer(init_params(
+        moe, torch.Generator().manual_seed(0), "cpu"))
+    for mesh in (FakeMesh(dp=2, ep=2), FakeMesh(dp=1)):
+        assert callable(make_train_step(moe, mesh, moe_opt))
     _, tb = batches(cfg.vocab)
     dense = loss_fn(model, tb)
     for impl in ("ring", "ulysses"):
