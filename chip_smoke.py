@@ -2,6 +2,7 @@
 """On-card smoke test of the PyTorch/CUDA port (k8s_gpu_scheduler_tpu_torch).
 
     python3 chip_smoke.py [--profile [--parent DIR]] [--train-layers N]
+                          [--phases N[,N...]]
     python3 chip_smoke.py --kernels-only [--package-root DIR]
 
 Needs one CUDA card and the CUDA toolkit; exits non-zero without them. It
@@ -140,7 +141,7 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    expose ``tpu_serve_phase_duration_seconds`` for every phase that ran.
    Prints each phase's span count, total host ms and mean ms a span (a
    dispatch span ends when its kernels are enqueued), then decode tokens/s
-   and wall for untraced (flight 0), the defaults and traced, three runs
+   and wall for untraced (flight 0), the defaults and traced, two runs
    of each in turn (no gate: the host's spread is wider than the
    instrumentation).
 10. the entry point. (a) ``main(["--serve", "--ckpt-dir", tmp])`` in
@@ -217,10 +218,10 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    ``resnet50 img/s=`` lines with img/s > 0 and a finite loss.
 
 17. tensor-parallel paged serving (``ContinuousBatcher(mesh=)``), the
-   serve config in bf16 on phase 3's traffic, its rank worlds started by
-   ``parallel.spawn``. (a) An NCCL world of one through a tp = 1 mesh
-   (which serves without an island): streams equal the single-card
-   engine's, K1 2048 and K2 24, no plain version. (b) A gloo world of two ranks sharing the card (NCCL refuses
+   serve config cut to 4 layers, in bf16 on phase 3's traffic, its rank
+   worlds started by ``parallel.spawn``. (a) An NCCL world of one through
+   a tp = 1 mesh (which serves without an island): streams equal the
+   single-card engine's, K1 1024 and K2 12, no plain version. (b) A gloo world of two ranks sharing the card (NCCL refuses
    two ranks on one device) at tp = 2, ``all_gather`` combine, Megatron
    slices: every rank launches K1 and K2 as often as one card did; each
    rank's pool and sliced weights are exactly half one card's; the bf16
@@ -247,7 +248,7 @@ imports nothing of JAX. Phases, each of which fails the run on error:
 18. sharded training (``make_train_step(cfg, mesh, opt)``) at phase 6's
    cell (llama3_8b widths, 4 layers, bf16, flash, remat, AdamW 3e-4, B 8,
    T 2048), its rank worlds started by ``parallel.spawn``. (a) An NCCL
-   world of one: three steps with ``mesh=None`` and, from the same
+   world of one: two steps with ``mesh=None`` and, from the same
    weights, through a mesh of one rank: the losses bit for bit, K5 2·L
    and K6/K7 L launches a step in both, no plain version. (b) A gloo
    world of two ranks sharing the card, at tp 2 and then at fsdp 2 (each
@@ -278,7 +279,7 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    A gloo world of two ranks sharing the card as pipeline stages (pp 2):
    llama3_8b's widths at 4 layers (2 a stage), dense attention (the
    pipeline's, as in JAX), remat, bf16, B 8, T 2048, 4 microbatches,
-   three steps of GPipe and of 1F1B: every stage holds exactly
+   two steps of GPipe and of 1F1B: every stage holds exactly
    1,486,901,248 parameters and 11,895,209,984 bytes of state, and its
    losses are one card's dense step's within phase 18b's bf16 gates; at
    f32 on 2 layers and vocab 32000 (two steps) the losses to 1e-5, the
@@ -287,7 +288,7 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    peak above its state: GPipe's must grow with M, 1F1B's move by at
    most 5 %. (d) An ep 2 world: Mixtral's widths at 2 layers (phase 14's
    4 cut to 2: two ranks at 4 would need about 76 GB), flash, remat,
-   bf16, B 8, T 2048, three steps: each rank launches K5 twice a layer a
+   bf16, B 8, T 2048, two steps: each rank launches K5 twice a layer a
    step and K6 and K7 once, runs no plain version, holds exactly
    1,755,369,472 parameters and 14,043,217,920 bytes, and its losses are
    one card's within 18b's gates; the capacity's dropped (token, choice)
@@ -297,6 +298,31 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    moment and step count bit for bit the saved files' blocks (assembled
    by concatenation along tp), the next step's loss within 2e-3 of the
    tp 2 run's; prints the save and restore seconds.
+
+20. gang serving: ``generate``/``make_server_step`` on a mesh (a rank
+   holds its training blocks, its rows of the batch and a cache [L,
+   B/(dp·fsdp), S, Hkv/tp, hd]; K4 runs on its heads, planned for one
+   card's batch and heads) and ``main --serve`` on a gang, the rank worlds
+   started by ``parallel.spawn``. (a) An NCCL world of one: the serve
+   config (B 8, phase 3's first 8 prompts of 512 tokens, max_new 64)
+   through a size-1 mesh equals ``mesh=None`` bit for bit in bf16 and f32
+   (f32 cut to 2 layers here and in (b) and (c)), with equal K4 launches
+   (layers x 63). (b) A gloo world of two ranks
+   sharing the card at tp 2 and at dp 2 on the same cell: every rank
+   launches K4 (max_new - 1) x layers times under one card's split counts
+   and runs no plain version, its K and V caches take exactly half of one
+   card's bytes (268,435,456 against 536,870,912 in bf16); f32 streams
+   equal one card's, bf16 streams part only at near-ties, at most a
+   quarter of them (phase 17's rule). (c) GQA at llama3_8b's widths cut
+   to 4 layers (32/8 heads, hd 128; f32 2) at tp 2, 8 prompts of 256 tokens,
+   8 new tokens: streams as (b); then K4 at a rank's shape (B 8, 16/4
+   heads, hd 128, S 2048, one int length at row 1024) under the rank's
+   and the model's split plan, each held to its plain version, timed
+   beside its bound and one SDPA call. (d) ``main --serve --max-new 16``
+   as the two workers of a gloo gang on the card: each prints JAX's
+   multi-process wave line twice; ``--int8``, ``--temperature``, ``--top-k`` and
+   ``--eos-id`` on a gang exit with JAX's message before anything is
+   allocated.
 
 ``--profile`` adds profiled serving runs (speculative and the contiguous
 engine) and one profiled training step: the card's busy
@@ -309,7 +335,11 @@ process of its own). ``--train-layers N`` runs phase 6 at depth N instead
 of 4, to measure how step time and peak memory grow with depth.
 ``--kernels-only`` runs phases 0 and 1 alone and prints their cases, not
 the contract's last lines (``--package-root DIR``: the package in DIR, to
-time another tree's kernels).
+time another tree's kernels). ``--phases 17,20`` runs phases 0 and 1 and
+the named ones (10-12, 13-16 and 18 with its 18e run as groups; any
+number of a group runs it) and prints the kernel cases and the last
+line, not the kernels line, whose launches come from phases 3, 4, 6 and
+7.
 
 The line before the last is a JSON object listing every kernel with its
 launches on the main path, error and times; the last line is
@@ -617,10 +647,12 @@ def verify_case(name, B, t, H, n_kv, hd, ps, n_blocks, int8, dev, flush,
 
 
 def flash_decode_case(name, B, H, n_kv, hd, S, int8, bitmap, dev, flush,
-                      cursor=1024, window=576, seed=4):
+                      cursor=1024, window=576, seed=4, plan=None):
     """K4 over a contiguous cache. ``bitmap``: the engine's call, a scalar
-    cursor and each slot's last ``window`` rows under it set; else the
-    ``cached_attention`` call, ragged [B] lengths and no bitmap."""
+    cursor and each slot's last ``window`` rows under it set; False: the
+    ``cached_attention`` call, ragged [B] lengths and no bitmap; None:
+    ``generate``'s call, one int length (``cursor``) and no bitmap.
+    ``plan``: the wrapper's ``plan_batch``/``plan_kv_heads``."""
     from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
 
     dtype = torch.bfloat16
@@ -634,6 +666,11 @@ def flash_decode_case(name, B, H, n_kv, hd, S, int8, bitmap, dev, flush,
             .contiguous()
         kw = dict(bitmap=mask, **sc)
         under = B * cursor
+    elif bitmap is None:
+        lengths = cursor
+        mask = (cols < cursor).expand(B, S)
+        kw = dict(sc)
+        under = B * cursor
     else:
         lens = torch.randint(1, S + 1, (B,), generator=gen)
         lens[0], lens[-1] = S, 1
@@ -641,19 +678,21 @@ def flash_decode_case(name, B, H, n_kv, hd, S, int8, bitmap, dev, flush,
         mask = cols < lengths[:, None].long()
         kw = dict(sc)
         under = int(lens.sum())
-    out = da.flash_decode_attention(q, k, v, lengths, **kw)
+    kern_kw = {**kw, **(plan or {})}
+    out = da.flash_decode_attention(q, k, v, lengths, **kern_kw)
+    splits = da.flash_decode_attention.last_splits
     ref = da.flash_decode_reference(q, k, v, lengths, **kw)
     torch.cuda.synchronize()
     err, ok = max_err(out, ref, TOL[dtype])
     # The wrapper's cost beside the kernel: one call must launch one CUDA
     # kernel and allocate only its output.
     allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
-    da.flash_decode_attention(q, k, v, lengths, **kw)
+    da.flash_decode_attention(q, k, v, lengths, **kern_kw)
     allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"] - allocs
     kernels = device_kernels(
-        lambda: da.flash_decode_attention(q, k, v, lengths, **kw))
-    ms = time_ms(lambda: da.flash_decode_attention(q, k, v, lengths, **kw),
-                 flush)
+        lambda: da.flash_decode_attention(q, k, v, lengths, **kern_kw))
+    ms = time_ms(lambda: da.flash_decode_attention(q, k, v, lengths,
+                                                   **kern_kw), flush)
     plain_ms = time_ms(lambda: da.flash_decode_reference(
         q, k, v, lengths, **kw), flush)
     # Library yardstick: SDPA over the K/V dequantized and repeated to H
@@ -673,10 +712,12 @@ def flash_decode_case(name, B, H, n_kv, hd, S, int8, bitmap, dev, flush,
         return rows * n_kv * hd * eb * 2 + (rows * n_kv * 4 * 2 if int8
                                             else 0)
 
-    # q and the output, the lengths, the bitmap's bytes under the cursor.
-    fixed = B * H * hd * 2 * 2 + B * 4 + (under if bitmap else 0)
+    # q and the output, the lengths (none for generate's int length), the
+    # bitmap's bytes under the cursor.
+    fixed = B * H * hd * 2 * 2 + (0 if bitmap is None else B * 4) + (
+        under if bitmap else 0)
     return dict(case=name, kernel="flash_decode_attention", int8=int8,
-                max_abs_err=err, tol=TOL[dtype], ok=ok, ms=ms,
+                splits=splits, max_abs_err=err, tol=TOL[dtype], ok=ok, ms=ms,
                 kernels_per_call=kernels, allocations_per_call=allocs,
                 plain_ms=plain_ms, library_ms=lib_ms, library_err=lib_err,
                 bound_under_cursor_ms=(fixed + kv_bytes(under))
@@ -1758,10 +1799,13 @@ def check_traced(card, label, model, cfg, prompts, max_new, spans,
     return st
 
 
+OBS_ROUNDS = 2                  # phase 9: runs of each setting, in turn
+
+
 def phase_observability(dev, card) -> dict:
     """Phase 9: phase 3's and phase 4's traffic traced against untraced
     (``check_traced``), then the instrumentation's cost on decode tokens/s
-    and wall, three runs of each setting in turn."""
+    and wall, ``OBS_ROUNDS`` runs of each setting in turn."""
     from k8s_gpu_scheduler_tpu_torch.models.llama import (
         LlamaConfig, init_params)
     from k8s_gpu_scheduler_tpu_torch.obs import Tracer
@@ -1786,7 +1830,7 @@ def phase_observability(dev, card) -> dict:
                 "defaults (flight 256)": dict,
                 "traced": lambda: dict(tracer=Tracer())}
     runs: dict = {name: [] for name in settings}
-    for _ in range(3):
+    for _ in range(OBS_ROUNDS):
         for name, kw in settings.items():
             _, st = serve_run(model, cfg, prompts, 64, **kw())
             runs[name].append((st["decode_tokens_per_s"], st["wall_s"]))
@@ -3173,6 +3217,8 @@ TP_PSUM_F32_CAP = 0.125         # f32 psum streams that may part (2 of 16),
 TP_GQA_N = 8                    # 17f: requests (the tail of phase 3's
                                 # prompts) and new tokens
 TP_TIMEOUT = 900                # seconds a rank world may take
+TP_LAYERS = 4                   # the serve config's 8 layers cut to 4:
+                                # a tp 2 tick is the gloo combines
 # 17g: (case, model heads, model kv heads, hd, tp) whose per-rank K1/K3
 # shapes are timed under both split plans.
 TP_PLAN_SHAPES = (("serve tp2", 16, 16, 64, 2), ("gqa tp2", 32, 8, 128, 2),
@@ -3246,12 +3292,19 @@ def tp_traffic(vocab):
     return warm, main, repeated_phrases(rng, vocab, TP_SUBSET)
 
 
-def tp_models(dev):
-    """The serve config in bf16 and f32, their weights from seed 0."""
-    from k8s_gpu_scheduler_tpu_torch.models.llama import (
-        LlamaConfig, init_params)
+def tp_config():
+    """Phase 17's config: the serve config at ``TP_LAYERS`` layers."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig
 
-    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    return dataclasses.replace(LlamaConfig.serve(), decode_attn="fused",
+                               n_layers=TP_LAYERS)
+
+
+def tp_models(dev):
+    """Phase 17's config in bf16 and f32, their weights from seed 0."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import init_params
+
+    cfg = tp_config()
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     return ((cfg, init_params(cfg, torch.Generator().manual_seed(0), dev)),
             (cfg32, init_params(cfg32, torch.Generator().manual_seed(0),
@@ -3534,11 +3587,12 @@ def phase_plan_per_rank(dev, card) -> list:
 
 def phase_tensor_parallel(dev, card) -> dict:
     """Phase 17 (see the module docstring)."""
-    from k8s_gpu_scheduler_tpu_torch.models.llama import (
-        LlamaConfig, init_params)
+    from k8s_gpu_scheduler_tpu_torch.models.llama import init_params
     from k8s_gpu_scheduler_tpu_torch.parallel import spawn
 
     K12 = ("paged_decode_attention", "paged_prefill_attention")
+    log(f"  cuts: the serve config at {TP_LAYERS} layers (17a-e), GQA at "
+        f"llama3_8b's widths at 4 (17f); no width cut")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     (one,) = spawn(tp_world_one, 1, "nccl", timeout=TP_TIMEOUT,
@@ -3557,7 +3611,7 @@ def phase_tensor_parallel(dev, card) -> dict:
     log(f"  [{card}] 17b-f gloo world of two on one card: "
         f"{time.perf_counter() - t0:.1f} s")
     lead = ranks[0]
-    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    cfg = tp_config()
     _, main, _ = tp_traffic(cfg.vocab)
     sub = main[:TP_SUBSET]
     out = {}
@@ -3670,7 +3724,7 @@ def phase_tensor_parallel(dev, card) -> dict:
 
 # -- phase 18: sharded training -------------------------------------------------
 
-SHARD_STEPS = 3                 # 18a, 18b bf16 steps (phase 6's batch)
+SHARD_STEPS = 2                 # 18a, 18b bf16 steps (phase 6's batch)
 SHARD_F32 = dict(vocab=32000, n_layers=1)     # 18b f32: llama3_8b widths
 SHARD_F32_STEPS = 2
 # 18b: a rank's parameters and its bytes of parameters, gradients and
@@ -4038,7 +4092,7 @@ def phase_rank_flash_kernels(dev, card) -> list:
 
 # -- phase 19: pipeline stages, MoE over ep, restore across meshes ----------
 
-PP_LAYERS, PP_BT, PP_M, PP_STEPS = 4, (8, 2048), 4, 3     # 19b bf16
+PP_LAYERS, PP_BT, PP_M, PP_STEPS = 4, (8, 2048), 4, 2     # 19b bf16
 PP_F32 = dict(vocab=32000, n_layers=2)                    # 19b f32
 PP_F32_STEPS = 2
 PP_STASH_M = (4, 8)             # 19c: microbatch 1, so B = M
@@ -4046,7 +4100,7 @@ PP_STASH_GATE = 0.05            # 1F1B's peak above its state, M 4 -> 8
 # 19b: a stage at pp 2 holds 2 layers whole and the embedding, the head
 # and the final norm (PERF.md's prediction).
 PP_RANK_PARAMS, PP_RANK_STATE_BYTES = 1_486_901_248, 11_895_209_984
-EP_LAYERS, EP_BT, EP_STEPS = 2, (8, 2048), 3              # 19d
+EP_LAYERS, EP_BT, EP_STEPS = 2, (8, 2048), 2              # 19d
 # 19d: an ep 2 rank at Mixtral's widths, 2 layers: half the experts and
 # half the router's columns (the router's state is f32: 16 bytes a
 # parameter, 8 for the bf16 rest).
@@ -4507,6 +4561,385 @@ def check_19e(card, ranks) -> None:
         raise SystemExit("19e: rank 0 did not restore onto one card")
 
 
+# -- phase 20: gang serving ------------------------------------------------------
+
+GANG_NEW = 64                   # 20a/20b: the serve loop's max_new
+GANG_B = 8                      # 20b/20c: phase 3's first 8 prompts (512)
+GANG_GQA_NEW = 8                # 20c: new tokens (each decode step gathers
+                                # a rank's o/down blocks through gloo)
+GANG_GQA_LAYERS = 4             # 20c: llama3_8b's 32 layers cut to 4
+GANG_F32_LAYERS = 2             # 20a-c f32: cut to 2 layers (an identity
+                                # check; a tp 2 token is ~30 ms a layer)
+GANG_TIMEOUT = 600              # seconds a rank world may take
+# 20b: one card's K and V caches at the serve config (L 8, B 8, S 2048,
+# 16 kv heads, hd 64, bf16) and a rank's at tp 2 or dp 2 (PERF.md §4).
+GANG_CACHE_BYTES = 536_870_912
+GANG_RANK_CACHE_BYTES = 268_435_456
+GANG_MAIN_WAVES = 2             # 20d: wave lines read from each worker
+GANG_MAIN_ARGV = ["--serve", "--max-new", "16"]   # 20d: JAX's defaults but
+                                # max_new (64): each token at tp 2 gathers
+                                # the o/down blocks through gloo
+GANG_REFUSED = (["--int8"], ["--temperature", "0.7"], ["--top-k", "5"],
+                ["--eos-id", "3"])
+GANG_REFUSAL = ("--int8/--temperature/--top-k/--eos-id need the continuous "
+                "batcher, which is single-process only; this gang has 2 "
+                "processes")
+
+
+def gang_configs():
+    """20a-c's configs, keyed as the runs are: the serve config and
+    llama3_8b's widths at 4 layers (GQA, 32/8 heads, hd 128) in bf16, and
+    each at 2 layers in f32."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig
+
+    serve = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    gqa = dataclasses.replace(LlamaConfig(**TP_GQA),
+                              n_layers=GANG_GQA_LAYERS)
+
+    def f32(cfg):
+        return dataclasses.replace(cfg, dtype=torch.float32,
+                                   n_layers=GANG_F32_LAYERS)
+
+    return {"bf16": serve, "f32": f32(serve), "gqa": gqa,
+            "gqa_f32": f32(gqa)}
+
+
+def gang_prompts(key, vocab):
+    """20b's prompts (phase 3's first 8, 512 tokens) or 20c's (17f's, 256
+    tokens), as an int64 array [8, T]."""
+    _, main, _ = tp_traffic(vocab)
+    rows = gqa_prompts(main) if key.startswith("gqa") else main[:GANG_B]
+    return np.array([list(p) for p in rows], np.int64)
+
+
+def gang_generate(model, cfg, prompts, max_new, mesh):
+    """``make_server_step(cfg, mesh, max_new)`` on this rank (``mesh``
+    None: one card) for ``prompts``. Counters are zeroed just before and
+    read just after. Returns the streams, the launches, the bytes of the
+    K and V caches the call allocated, the split counts K4's wrapper
+    planned and the wall time."""
+    from k8s_gpu_scheduler_tpu_torch.models import serving
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    caches, splits = [], set()
+    init, k4 = serving.init_cache, serving.flash_decode_attention
+
+    def init_cache(*a, **kw):
+        c = init(*a, **kw)
+        caches.append(sum(c[x].numel() * c[x].element_size()
+                          for x in ("k", "v")))
+        return c
+
+    def launch(*a, **kw):
+        out = k4(*a, **kw)
+        splits.add(k4.last_splits)
+        return out
+
+    step = serving.make_server_step(cfg, mesh, max_new, max_len=cfg.max_seq)
+    x = torch.from_numpy(prompts).to(model.device)
+    serving.init_cache, serving.flash_decode_attention = init_cache, launch
+    try:
+        torch.cuda.synchronize()
+        da.reset_counters()
+        t0 = time.perf_counter()
+        out = step(model, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        serving.init_cache, serving.flash_decode_attention = init, k4
+    return dict(streams=out.cpu().tolist(), launches=da.counters(),
+                cache_bytes=caches, splits=sorted(splits), wall_s=wall,
+                dtype=str(out.dtype))
+
+
+def gang_world_one(rank, world):
+    """20a, an NCCL world of one: the serve config's ``generate`` through
+    a size-1 mesh and with ``mesh=None`` (bf16 and f32), and the one-card
+    references of 20b and 20c."""
+    from k8s_gpu_scheduler_tpu_torch.parallel import MeshSpec, make_mesh
+
+    dev = tp_rank_device()
+    mesh = make_mesh(MeshSpec.for_devices(1), dev.type)
+    out = {}
+    for key, cfg in gang_configs().items():
+        model = card_init(cfg, dev)
+        prompts = gang_prompts(key, cfg.vocab)
+        new = GANG_GQA_NEW if key.startswith("gqa") else GANG_NEW
+        out[key] = gang_generate(model, cfg, prompts, new, None)
+        if not key.startswith("gqa"):
+            out[key + " mesh"] = gang_generate(model, cfg, prompts, new,
+                                               mesh)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def gang_world_two(rank, world):
+    """20b-c, a gloo world of two ranks sharing the card: the serve config
+    at tp 2 and at dp 2, and the GQA config at tp 2, each rank's blocks
+    (``card_init(..., mesh=)``) of 20a's weights."""
+    from k8s_gpu_scheduler_tpu_torch.parallel import MeshSpec, make_mesh
+
+    dev = tp_rank_device()
+    cfgs = gang_configs()
+    out = {}
+    for name, axes, keys in (("tp2", {"tp": 2}, ("bf16", "f32", "gqa",
+                                                 "gqa_f32")),
+                             ("dp2", {}, ("bf16", "f32"))):
+        mesh = make_mesh(MeshSpec.for_devices(world, **axes), dev.type)
+        for key in keys:
+            cfg = cfgs[key]
+            model = card_init(cfg, dev, mesh=mesh)
+            new = GANG_GQA_NEW if key.startswith("gqa") else GANG_NEW
+            out[f"{name} {key}"] = gang_generate(
+                model, cfg, gang_prompts(key, cfg.vocab), new, mesh)
+            del model
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_gang_launches(label, st, cfg, max_new) -> None:
+    """A run launched K4 once a layer a token after the prefill and ran
+    no plain version."""
+    c = st["launches"]
+    want = cfg.n_layers * (max_new - 1)
+    if c["flash_decode_attention"] != want or any(c[k] for k in PLAIN):
+        raise SystemExit(f"{label}: K4 launched "
+                         f"{c['flash_decode_attention']} times (want "
+                         f"{want}), counters {c}")
+
+
+def phase_gang_streams(card, one, ranks, dev) -> dict:
+    """20b/20c's checks: every rank's launches and its cache bytes (half
+    of one card's at tp 2 and at dp 2, and 268,435,456 at the serve
+    config in bf16); f32 streams identical to one card's, bf16 parting
+    only at near-ties, under ``TP_PART_CAP``."""
+    cfgs = gang_configs()
+    out = {}
+    for run in ("tp2 bf16", "tp2 f32", "dp2 bf16", "dp2 f32", "tp2 gqa",
+                "tp2 gqa_f32"):
+        key = run.split()[1]
+        cfg = cfgs[key]
+        new = GANG_GQA_NEW if key.startswith("gqa") else GANG_NEW
+        ref = one[key]
+        for r, res in enumerate(ranks):
+            st = res[run]
+            check_gang_launches(f"20 {run} rank {r}", st, cfg, new)
+            if st["cache_bytes"] != [ref["cache_bytes"][0] // 2] or \
+                    st["streams"] != ranks[0][run]["streams"]:
+                raise SystemExit(f"20 {run} rank {r}: cache bytes "
+                                 f"{st['cache_bytes']} (one card "
+                                 f"{ref['cache_bytes']}), or its streams "
+                                 f"differ from rank 0's")
+            if st["splits"] != ref["splits"]:
+                raise SystemExit(f"20 {run} rank {r}: K4 planned "
+                                 f"{st['splits']} splits, one card "
+                                 f"{ref['splits']}")
+        log(f"  [{card}] 20 {run}: rank 0 "
+            f"{json.dumps({k: v for k, v in ranks[0][run].items() if k != 'streams'})}; "
+            f"one card wall {ref['wall_s']:.3f} s, cache {ref['cache_bytes']}")
+    if one["bf16"]["cache_bytes"] != [GANG_CACHE_BYTES] or \
+            ranks[0]["tp2 bf16"]["cache_bytes"] != [GANG_RANK_CACHE_BYTES]:
+        raise SystemExit(f"20b: cache bytes {one['bf16']['cache_bytes']} "
+                         f"and {ranks[0]['tp2 bf16']['cache_bytes']}, "
+                         f"predicted {GANG_CACHE_BYTES} and "
+                         f"{GANG_RANK_CACHE_BYTES}")
+    for key, runs in (("f32", ("tp2 f32", "dp2 f32")),
+                      ("gqa_f32", ("tp2 gqa_f32",))):
+        for run in runs:
+            out[f"20 {run}"] = check_streams(
+                f"20 {run}", torch.float32, ranks[0][run]["streams"],
+                one[key]["streams"], None, None, None, 0.0)
+    for key, runs in (("bf16", ("tp2 bf16", "dp2 bf16")),
+                      ("gqa", ("tp2 gqa",))):
+        cfg = cfgs[key]
+        model = card_init(cfg, dev)
+        spread = logit_spread(model, cfg, dev)
+        prompts = gang_prompts(key, cfg.vocab)
+        for run in runs:
+            streams, ref = ranks[0][run]["streams"], one[key]["streams"]
+            log(f"  [{card}] 20 {run}: first differing token of each "
+                f"parting stream: {tp_partings(streams, ref)}")
+            out[f"20 {run}"] = check_streams(
+                f"20 {run}", torch.bfloat16, streams, ref, prompts, model,
+                spread, TP_PART_CAP)
+            log(f"  [{card}] 20 {run} against one card: "
+                f"{json.dumps(out[f'20 {run}'])}")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_gang_k4(dev, card) -> list:
+    """20c: K4 at a tp 2 rank's shape of the GQA config (B 8, 16/4 heads,
+    hd 128, S 2048, generate's int length at row 1024, no bitmap), its
+    split plan made for the rank's kv heads and for the model's (which
+    the gang path passes), each held to its plain version, beside the
+    bound and one SDPA call."""
+    flush = _L2Flush(dev)
+    rows = []
+    for plan in ({}, {"plan_batch": GANG_B, "plan_kv_heads": 8}):
+        c = flash_decode_case("gqa128 tp2 rank", GANG_B, 16, 4, 128, 2048,
+                              False, None, dev, flush, plan=plan)
+        if not c["ok"]:
+            raise SystemExit(f"20c: K4 at a rank's shape (plan {plan}) "
+                             f"disagrees with its plain version: {c}")
+        c["plan"] = "model" if plan else "rank"
+        log(f"  [{card}] 20c K4 at a rank's shape, the {c['plan']}'s "
+            f"plan: {json.dumps(c)}")
+        rows.append(c)
+    return rows
+
+
+def _gang_lines(argv, n, timeout=600.0):
+    """``main(argv, backend="gloo")`` as the two workers of a gang (the
+    gang env, both on card 0), until each prints ``n`` wave lines; then
+    SIGTERM to both: ([lines, exit code, standard error] per worker).
+    Every process is killed on any way out."""
+    import queue
+    import signal
+    import threading
+
+    import k8s_gpu_scheduler_tpu_torch as pkg
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__)))
+    code = ("import sys; from k8s_gpu_scheduler_tpu_torch.models.llama "
+            "import main; main(sys.argv[1:], backend='gloo')")
+    procs, errs, outs = [], [], []
+    for w in range(2):
+        env = {**os.environ, "PYTHONPATH": root, "TPU_WORKER_ID": str(w),
+               "TPU_WORKER_HOSTNAMES": "localhost,localhost"}
+        env.pop("HOSTNAME", None)
+        errs.append(tempfile.TemporaryFile(mode="w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, *argv], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=errs[-1], text=True))
+        q: "queue.Queue" = queue.Queue()
+        threading.Thread(target=lambda p=procs[-1], q=q: [
+            q.put(ln) for ln in p.stdout] + [q.put(None)],
+            daemon=True).start()
+        outs.append(q)
+    lines = [[], []]
+    deadline = time.monotonic() + timeout
+    try:
+        for w in range(2):
+            while sum(ln.startswith("llama serve qps=")
+                      for ln in lines[w]) < n:
+                try:
+                    line = outs[w].get(timeout=max(
+                        0.0, deadline - time.monotonic()))
+                except queue.Empty:
+                    break
+                if line is None:
+                    break
+                log(f"    worker {w}: {line.rstrip()}")
+                lines[w].append(line.strip())
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+        codes = [p.wait(timeout=60) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = []
+    for w in range(2):
+        errs[w].seek(0)
+        res.append((lines[w], codes[w], errs[w].read()))
+        errs[w].close()
+    return res
+
+
+def phase_gang_main(dev, card) -> dict:
+    """20d: ``main --serve`` (``GANG_MAIN_ARGV``) as a gang of two workers
+    on the card, each printing JAX's multi-process wave line; the four
+    flags its handler cannot honour refused before anything is
+    allocated."""
+    import re
+
+    from k8s_gpu_scheduler_tpu_torch.models import llama
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    prev = os.environ.get("TPU_WORKER_HOSTNAMES")
+    os.environ["TPU_WORKER_HOSTNAMES"] = "localhost,localhost"
+    try:
+        for flags in GANG_REFUSED:
+            try:
+                llama.main(["--serve", *flags], device=dev)
+            except SystemExit as e:
+                if e.code != GANG_REFUSAL:
+                    raise SystemExit(f"20d {flags}: refused with "
+                                     f"{e.code!r}") from None
+            else:
+                raise SystemExit(f"20d {flags}: not refused")
+    finally:
+        if prev is None:
+            os.environ.pop("TPU_WORKER_HOSTNAMES")
+        else:
+            os.environ["TPU_WORKER_HOSTNAMES"] = prev
+    if torch.cuda.memory_allocated(dev) != before:
+        raise SystemExit("20d: a refused flag allocated on the card")
+    log(f"  [{card}] 20d {len(GANG_REFUSED)} refused flags exit before "
+        f"allocating: {GANG_REFUSAL!r}")
+    t0 = time.perf_counter()
+    res = _gang_lines(GANG_MAIN_ARGV, GANG_MAIN_WAVES)
+    line = re.compile(r"^llama serve qps=([\d.]+) decode_tok_s=([\d.]+) "
+                      r"prefill_tok=512 slo=[\d.]+$")
+    out = {}
+    for w, (lines, code, err) in enumerate(res):
+        waves = [line.match(ln) for ln in lines
+                 if ln.startswith("llama serve qps=")]
+        # The SIGTERM reaches the two workers one after the other, so the
+        # second may first see its peer's connection close: the exit code
+        # is printed, not gated.
+        if len(waves) != GANG_MAIN_WAVES or not all(
+                m and float(m.group(1)) > 0 for m in waves):
+            raise SystemExit(f"20d worker {w}: lines {lines}, exit {code}, "
+                             f"stderr {err[-3000:]}")
+        out[w] = [float(m.group(2)) for m in waves]
+        log(f"  [{card}] 20d worker {w} exit {code} after SIGTERM")
+    log(f"  [{card}] 20d main --serve, two workers of a gloo gang on the "
+        f"card: decode tokens/s by worker {json.dumps(out)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_gang_serving(dev, card) -> dict:
+    """Phase 20 (see the module docstring)."""
+    from k8s_gpu_scheduler_tpu_torch.parallel import spawn
+
+    log(f"  cuts: 20c llama3_8b widths at {GANG_GQA_LAYERS} layers and "
+        f"{GANG_GQA_NEW} new tokens; f32 runs at {GANG_F32_LAYERS} layers; "
+        f"no width cut")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (one,) = spawn(gang_world_one, 1, "nccl", timeout=GANG_TIMEOUT,
+                   group_timeout=GANG_TIMEOUT)
+    log(f"  [{card}] 20a and the one-card references, NCCL world of one: "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfgs = gang_configs()
+    for key in ("bf16", "f32"):
+        a, b = one[key + " mesh"], one[key]
+        check_gang_launches(f"20a {key}", a, cfgs[key], GANG_NEW)
+        if a["streams"] != b["streams"] or a["launches"] != b["launches"]:
+            raise SystemExit(f"20a {key}: the size-1 mesh's generate "
+                             f"differs from mesh=None's")
+        log(f"  [{card}] 20a {key}: size-1 mesh == mesh=None, "
+            f"{len(b['streams'])} streams, launches "
+            f"{b['launches']['flash_decode_attention']}, wall "
+            f"{a['wall_s']:.3f} / {b['wall_s']:.3f} s")
+    t0 = time.perf_counter()
+    ranks = spawn(gang_world_two, 2, "gloo", timeout=GANG_TIMEOUT,
+                  group_timeout=GANG_TIMEOUT)
+    log(f"  [{card}] 20b-c gloo world of two on one card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = phase_gang_streams(card, one, ranks, dev)
+    out["20c k4"] = phase_gang_k4(dev, card)
+    out["20d"] = phase_gang_main(dev, card)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     args = sys.argv[1:]
@@ -4519,6 +4952,14 @@ def main() -> int:
 
     profile_too = "--profile" in args
     train_layers = int(value("--train-layers", 4))
+    chosen = value("--phases")
+    chosen = None if chosen is None else {int(p) for p in chosen.split(",")}
+
+    def run(*numbers):
+        """Whether a phase (or a group, by its numbers) runs: every one
+        without ``--phases``."""
+        return chosen is None or bool(chosen.intersection(numbers))
+
     if "--package-root" in args:        # another tree's package (--parent)
         sys.path.insert(0, value("--package-root"))
     if not torch.cuda.is_available():
@@ -4561,61 +5002,89 @@ def main() -> int:
     if "--kernels-only" in args:
         log(json.dumps({"card": card, "kernel_cases": cases}))
         return 0
-    phase("phase 2: engines on the card against the engines on the CPU "
-        "(f32, TF32 off)")
-    e2 = phase_engine_vs_cpu(dev)
-    log(f"  identical greedy streams: {json.dumps(e2)}")
-    log(f"  contiguous path, identical greedy streams: "
-        f"{json.dumps(phase_contiguous_vs_cpu(dev))}")
-    phase("phase 3: full-width serve config, bf16")
-    full = phase_full_width(dev, card)
-    phase("phase 4: full-width speculative path, bf16")
-    spec = phase_speculative(dev, card)
+    if run(2):
+        phase("phase 2: engines on the card against the engines on the "
+              "CPU (f32, TF32 off)")
+        e2 = phase_engine_vs_cpu(dev)
+        log(f"  identical greedy streams: {json.dumps(e2)}")
+        log(f"  contiguous path, identical greedy streams: "
+            f"{json.dumps(phase_contiguous_vs_cpu(dev))}")
+    if run(3):
+        phase("phase 3: full-width serve config, bf16")
+        full = phase_full_width(dev, card)
+    if run(4):
+        phase("phase 4: full-width speculative path, bf16")
+        spec = phase_speculative(dev, card)
     if profile_too:
         log("profile: where a serving run's device time goes")
         phase_profile(dev, card)
         log("profile: CUDA kernels a paged dispatch launches per layer per "
             "decode tick and per verify")
         phase_dispatch_launches(dev, value("--parent"))
-    phase("phase 5: training on the card against training on the CPU "
-        "(f32, TF32 off)")
-    log(f"  {json.dumps(phase_train_vs_cpu(dev))}")
-    phase(f"phase 6: full-width training path (llama3_8b widths, "
-        f"{train_layers} layers), bf16")
-    train = phase_train_full_width(dev, card, profile_too, train_layers)
-    phase("phase 7: full-width contiguous path, bf16")
-    contig = phase_contiguous_full_width(dev, card, profile_too)
-    phase("phase 8: the serving lifecycle and the KV tier")
-    log("  (a) drain, persist and resume on the card against the CPU's "
-        "undrained run (f32, TF32 off)")
-    log(f"  {json.dumps(phase_lifecycle_vs_cpu(dev))}")
-    log("  (b) full-width drain and restore into another pool, bf16")
-    phase_drain_restore_full_width(dev, card)
-    log("  (c) full-width tiering: waves A, B, C, bf16")
-    phase_tiering_full_width(dev, card)
-    phase("phase 9: observability at full width: traced against untraced, "
-        "bf16")
-    phase_observability(dev, card)
-    phase("phases 10-12: the entry point, the fleet, crash and "
-          "disaggregation")
-    phases_10_to_12(dev, card)
-    phase("phases 13-16: MoE, BERT-base, ResNet-50")
-    phases_13_to_16(dev, card, profile_too)
-    phase("phase 17: tensor-parallel paged serving, tp=1 on an NCCL world "
-        "of one, tp=2 on a gloo world of two ranks sharing the card")
-    phase_tensor_parallel(dev, card)
-    phase("phase 18: sharded training at llama3_8b's widths (4 layers): "
-          "18a a size-1 mesh on an NCCL world of one, 18b-d tp 2, fsdp 2, "
-          "sp 2 and the sharded checkpoint on a gloo world of two ranks "
-          "sharing the card")
-    phase_sharded_training(dev, card)
-    phase("phase 18e: K5-K7 at a rank's shapes")
-    phase_rank_flash_kernels(dev, card)
-    phase("phase 19: pipeline stages (GPipe, 1F1B) and MoE over ep at "
-          "llama3_8b's and Mixtral's widths, and training checkpoints "
-          "restored across meshes: 19a an NCCL world of one, 19b-e a gloo "
-          "world of two ranks sharing the card")
-    phase_pipeline_ep_restore(dev, card)
+    if run(5):
+        phase("phase 5: training on the card against training on the CPU "
+              "(f32, TF32 off)")
+        log(f"  {json.dumps(phase_train_vs_cpu(dev))}")
+    if run(6):
+        phase(f"phase 6: full-width training path (llama3_8b widths, "
+              f"{train_layers} layers), bf16")
+        train = phase_train_full_width(dev, card, profile_too, train_layers)
+    if run(7):
+        phase("phase 7: full-width contiguous path, bf16")
+        contig = phase_contiguous_full_width(dev, card, profile_too)
+    if run(8):
+        phase("phase 8: the serving lifecycle and the KV tier")
+        log("  (a) drain, persist and resume on the card against the CPU's "
+            "undrained run (f32, TF32 off)")
+        log(f"  {json.dumps(phase_lifecycle_vs_cpu(dev))}")
+        log("  (b) full-width drain and restore into another pool, bf16")
+        phase_drain_restore_full_width(dev, card)
+        log("  (c) full-width tiering: waves A, B, C, bf16")
+        phase_tiering_full_width(dev, card)
+    if run(9):
+        phase("phase 9: observability at full width: traced against "
+              "untraced, bf16")
+        phase_observability(dev, card)
+    if run(10, 11, 12):
+        phase("phases 10-12: the entry point, the fleet, crash and "
+              "disaggregation")
+        phases_10_to_12(dev, card)
+    if run(13, 14, 15, 16):
+        phase("phases 13-16: MoE, BERT-base, ResNet-50")
+        phases_13_to_16(dev, card, profile_too)
+    if run(17):
+        phase("phase 17: tensor-parallel paged serving, tp=1 on an NCCL "
+              "world of one, tp=2 on a gloo world of two ranks sharing the "
+              "card")
+        phase_tensor_parallel(dev, card)
+    if run(18):
+        phase("phase 18: sharded training at llama3_8b's widths (4 layers): "
+              "18a a size-1 mesh on an NCCL world of one, 18b-d tp 2, fsdp "
+              "2, sp 2 and the sharded checkpoint on a gloo world of two "
+              "ranks sharing the card")
+        phase_sharded_training(dev, card)
+        phase("phase 18e: K5-K7 at a rank's shapes")
+        phase_rank_flash_kernels(dev, card)
+    if run(19):
+        phase("phase 19: pipeline stages (GPipe, 1F1B) and MoE over ep at "
+              "llama3_8b's and Mixtral's widths, and training checkpoints "
+              "restored across meshes: 19a an NCCL world of one, 19b-e a "
+              "gloo world of two ranks sharing the card")
+        phase_pipeline_ep_restore(dev, card)
+    if run(20):
+        phase("phase 20: gang serving (generate on a mesh, main --serve on "
+              "a gang): 20a an NCCL world of one, 20b-c a gloo world of two "
+              "ranks sharing the card, 20d two gang workers on the card")
+        phase_gang_serving(dev, card)
+    if chosen is not None:
+        log(json.dumps({"card": card, "kernel_cases": cases}))
+        log(f"chip_smoke: phases {sorted(chosen)} in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        log(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     # Each kernel's launches come from the run of the path that runs it:
     # K1 and K2 from phase 3's main path, K3 from phase 4's, K4 from phase
     # 7's serve-loop run, K5-K7 from phase 6's timed steps.

@@ -773,6 +773,20 @@ def make_optimizer(model: Llama, lr: float = 3e-4) -> torch.optim.AdamW:
                              eps=1e-8, weight_decay=1e-4)
 
 
+def require_rank_blocks(model: Llama, want: Tuple[int, ...]) -> None:
+    """Refuse a model on a mesh that is not a rank's training blocks:
+    its first ``wq`` must be the rank's block of it, shaped ``want``
+    (``rank_leaf_shapes``)."""
+    wq = model.blocks[0].wq
+    got = tuple(wq.shape) if isinstance(wq, torch.Tensor) else \
+        type(wq).__name__
+    if got != tuple(want):
+        raise ValueError(
+            f"the model's wq is {got}, this rank's block of it "
+            f"{tuple(want)}: build the model with init_params(..., mesh=) "
+            f"or params_from_numpy(..., mesh=, specs='training')")
+
+
 def _refuse_pipeline(ax) -> None:
     if ax.sizes.get("pp", 1) > 1:
         raise ValueError(
@@ -809,12 +823,8 @@ def make_train_step(cfg: LlamaConfig, mesh: Optional[object],
     def step(model: Llama, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         if model.cfg != cfg:
             raise ValueError("the model's config differs from the step's")
-        if ax is not None and tuple(model.blocks[0].wq.shape) != wq_block:
-            raise ValueError(
-                f"the model's wq is {tuple(model.blocks[0].wq.shape)}, this "
-                f"rank's block of it {wq_block}: build the model with "
-                f"init_params(..., mesh=) or params_from_numpy(..., mesh=, "
-                f"specs='training')")
+        if ax is not None:
+            require_rank_blocks(model, wq_block)
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(model, batch, ax)
         loss.backward()
@@ -982,10 +992,7 @@ def _gang_rank(local_rank: int, local_size: int, ckpt_dir, ckpt_every: int,
     from ..recommender.collector import make_workload_publisher
     from ..utils.enforcement import apply_env_limits
 
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", local_rank)
-        torch.cuda.set_device(dev)
+    dev = _rank_device(device, local_rank)
     throttle = apply_env_limits(device=dev)
     distributed_init_from_env(backend=backend, local_rank=local_rank,
                               local_size=local_size)
@@ -1023,14 +1030,139 @@ def _gang_rank(local_rank: int, local_size: int, ckpt_dir, ckpt_every: int,
                throttle=throttle, publish=publish, worker=rank)
 
 
+def _rank_device(device, local_rank: int) -> torch.device:
+    """A local rank's device: card ``local_rank`` (made current), or the
+    CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local_rank)
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def gang_serve_loop(handler, model: Llama, prompt: torch.Tensor,
+                    max_new: int, publish=None, throttle=None,
+                    slo: float = 0.0, report: bool = True,
+                    max_waves: Optional[int] = None, sleep=None) -> int:
+    """The ``--serve`` loop of a gang of workers (the JAX ``main()``'s
+    multi-process loop): one warm-up call of ``handler`` (a
+    ``make_server_step`` on the gang's mesh), then one call a wave, each
+    printing ``llama serve qps=… decode_tok_s=… prefill_tok=… slo=…``
+    (no p99: a static batch has one latency) where ``report`` (a
+    worker's first rank: one line a worker, as JAX's one process a
+    worker), publishing the qps through ``publish``, pacing through
+    ``throttle`` and to about 1 Hz. Every rank runs it; the handler's
+    collectives keep the ranks in step. Returns after ``max_waves`` waves
+    when that is given (else it never returns)."""
+    sleep = time.sleep if sleep is None else sleep
+    b, Tp = prompt.shape
+
+    def call():
+        out = handler(model, prompt)
+        out.cpu()                  # the wave's one host read: a sync
+        return out
+
+    call()                                      # warm up
+    waves = 0
+    while max_waves is None or waves < max_waves:
+        t0 = time.perf_counter()
+        call()
+        dt = time.perf_counter() - t0
+        if report:
+            print(f"llama serve qps={b / dt:.2f} "
+                  f"decode_tok_s={b * max_new / dt:.1f} "
+                  f"prefill_tok={b * Tp} slo={slo}", flush=True)
+        waves += 1
+        if publish is not None:
+            publish(b / dt)
+        if throttle is not None:
+            throttle.pace(dt)
+        sleep(max(0.0, 1.0 - dt))
+    return waves
+
+
+def _serve_rank(local_rank: int, local_size: int, workers: int,
+                cfg: LlamaConfig, opts: Dict[str, object], guard_cls,
+                port: int, device, backend: str) -> None:
+    """One rank of ``main()``'s ``--serve`` on more than one rank: join
+    the world (global rank worker id × local size + ``local_rank``) and
+    build the ``tp = min(4, n)`` mesh over every rank, as JAX's
+    ``main()``. A gang of workers serves ``make_server_step`` on it
+    (``gang_serve_loop``, B = 1, the prompt from one seeded generator,
+    the same on every rank; the model is each rank's training blocks).
+    One worker with several cards serves the paged engine on the mesh
+    (``ContinuousBatcher(mesh=)``, whose tp rank 0 runs ``serve_loop``
+    while the others follow; a dp axis makes replicas, each its own
+    island), with no snapshot lifecycle, as JAX keeps none off its
+    paged layout. Every worker publishes, with ``n_devices`` the world's
+    size."""
+    import os
+
+    import torch.distributed as dist
+
+    from ..parallel import (
+        MeshSpec, distributed_init_from_env, make_mesh, mesh_coords)
+    from ..recommender.collector import make_workload_publisher
+    from ..utils.enforcement import apply_env_limits
+    from .serving import ContinuousBatcher, make_server_step
+
+    dev = _rank_device(device, local_rank)
+    throttle = apply_env_limits(device=dev)
+    slo = float(os.environ.get("SLO", "0") or 0)
+    distributed_init_from_env(backend=backend, local_rank=local_rank,
+                              local_size=local_size, coordinator_port=port)
+    rank, n = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh(MeshSpec.for_devices(n, tp=min(4, n)), dev.type)
+    publish = (make_workload_publisher(n_devices=n) if local_rank == 0
+               else None)
+    Tp, max_new = opts["prompt_len"], opts["max_new"]
+    gen = torch.Generator().manual_seed(0)
+    if workers > 1:
+        model = init_params(cfg, gen, dev, mesh=mesh)
+        prompt = torch.randint(0, cfg.vocab, (1, Tp), generator=torch.
+                               Generator().manual_seed(1)).to(dev)
+        handler = make_server_step(cfg, mesh, max_new, max_len=cfg.max_seq)
+        gang_serve_loop(handler, model, prompt, max_new, publish=publish,
+                        throttle=throttle, slo=slo,
+                        report=local_rank == 0)
+        return
+    model = init_params(cfg, gen, dev)
+    if opts["int8"]:
+        from ..ops.quant import quantize_llama_params
+
+        model = quantize_llama_params(model)
+    eng = ContinuousBatcher(
+        model, cfg, n_slots=8, max_len=cfg.max_seq, chunk=max_new,
+        prefill_bucket=max(Tp, 16), eos_id=opts["eos_id"],
+        temperature=opts["temperature"], top_k=opts["top_k"],
+        kv_layout="paged", mesh=mesh, device=dev)
+    del model                       # the engine keeps this rank's slices
+    if not eng.is_leader:
+        eng.follow()
+        return
+    print(f"llama serve worker=0 rank={rank} mesh={mesh_coords(mesh)[0]} "
+          f"kv_layout=paged", flush=True)
+    try:
+        serve_loop(eng, cfg, Tp, max_new, guard_cls().install(),
+                   publish=publish if rank == 0 else None,
+                   throttle=throttle, slo=slo)
+    except SystemExit as e:           # a drain request: the followers stop
+        if e.code not in (0, None):
+            raise
+    finally:
+        eng.close()
+
+
 SERVE_HELP = (
     "serve the paged ContinuousBatcher at the JAX serve config (d_model "
     "1024, 8 layers, 16 heads, vocab 32000, bf16) with decode_attn='fused'"
     ": the port decodes through its attention kernels, where the JAX "
-    "entry point serves this config with decode_attn='dense'")
+    "entry point serves this config with decode_attn='dense'; a gang of "
+    "workers serves make_server_step on its mesh instead")
 
 
-def main(argv=None, *, device="cuda", backend: str = "nccl") -> None:
+def main(argv=None, *, device="cuda", backend: str = "nccl",
+         local_ranks: Optional[int] = None) -> None:
     """The pod's entry point (``python -m
     k8s_gpu_scheduler_tpu_torch.models.llama``), with the JAX entry
     point's flags: ``--serve`` runs the paged engine's serve loop
@@ -1041,15 +1173,20 @@ def main(argv=None, *, device="cuda", backend: str = "nccl") -> None:
     (``utils/enforcement.py``) are applied and the recommender publisher
     built before anything is allocated on ``device``.
 
-    Training runs on a gang: one rank for each visible card (one rank on
-    ``"cpu"``) of each worker that ``TPU_WORKER_HOSTNAMES`` names, global
-    rank ``worker id × cards + local rank``, joined through worker 0's
-    address with ``backend``
-    (``parallel.distributed.distributed_init_from_env``). A worker of one
-    rank trains in this process; with more it starts them
-    (``parallel.spawn``). A world of one rank cannot hold llama3_8b's step
-    and is refused with its state's bytes; ``--serve`` on a gang of
-    workers is refused."""
+    A worker runs ``local_ranks`` ranks (default: one for each visible
+    card, one on ``"cpu"``), and the world is every rank of each worker
+    that ``TPU_WORKER_HOSTNAMES`` names: global rank ``worker id ×
+    local_ranks + local rank``, joined through worker 0's address with
+    ``backend`` (``parallel.distributed.distributed_init_from_env``). A
+    worker of one rank runs it in this process; with more it starts them
+    (``parallel.spawn``). Training runs on such a gang
+    (``_gang_rank``); a world of one rank cannot hold llama3_8b's step
+    and is refused with its state's bytes. ``--serve`` on one rank serves
+    the paged engine on its card; on more (``_serve_rank``), a gang of
+    workers serves ``make_server_step`` on the ``tp = min(4, n)`` mesh
+    and refuses ``--int8``, ``--temperature``, ``--top-k`` and
+    ``--eos-id`` with JAX's message before anything is allocated, and one
+    worker with several cards serves the paged engine on that mesh."""
     import argparse
     import dataclasses
     import os
@@ -1068,18 +1205,23 @@ def main(argv=None, *, device="cuda", backend: str = "nccl") -> None:
     parser.add_argument("--ckpt-every", type=int, default=100)
     args = parser.parse_args(argv)
 
-    from ..parallel.distributed import worker_addresses
+    from ..parallel import distributed
 
     dev = resolve_device(device)
-    workers = max(1, len(worker_addresses()))
-    if args.serve and workers > 1:
-        raise NotImplementedError(
-            f"--serve on a gang of {workers} workers: serving on a gang "
-            f"(make_server_step(mesh=), generate(mesh=) and the multi-host "
-            f"serve loop) comes with the multi-device slice of gang "
-            f"serving (ROADMAP queue 1, 'Multi-device', remainder item 1); "
-            f"serve from one worker")
-    if args.serve:
+    workers = max(1, len(distributed.worker_addresses()))
+    if local_ranks is None:
+        local_ranks = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n = workers * local_ranks
+    if args.serve and workers > 1 and (
+            args.int8 or args.temperature > 0 or args.top_k > 0
+            or args.eos_id is not None):
+        # JAX's refusal: the static gang handler is full-precision greedy
+        # with a fixed budget.
+        raise SystemExit(
+            "--int8/--temperature/--top-k/--eos-id need the continuous "
+            "batcher, which is single-process only; this gang has "
+            f"{n} processes")
+    if args.serve and n == 1:
         from ..recommender.collector import make_workload_publisher
         from ..utils.enforcement import apply_env_limits
         from .lifecycle import PreemptionGuard, resume_or_fresh
@@ -1113,9 +1255,20 @@ def main(argv=None, *, device="cuda", backend: str = "nccl") -> None:
         serve_loop(eng, cfg, Tp, max_new, guard, snap_dir=snap_dir,
                    publish=publish, throttle=throttle, slo=slo)
         return
+    if args.serve:
+        from . import lifecycle
 
-    local_ranks = torch.cuda.device_count() if dev.type == "cuda" else 1
-    if workers * local_ranks == 1:
+        opts = dict(prompt_len=args.prompt_len, max_new=args.max_new,
+                    int8=args.int8, temperature=args.temperature,
+                    top_k=args.top_k, eos_id=args.eos_id)
+        # The config and the guard are resolved here and handed to the
+        # ranks, which a worker of several cards starts as new processes.
+        rank_fn, rank_args = _serve_rank, (
+            local_ranks, workers,
+            dataclasses.replace(LlamaConfig.serve(), decode_attn="fused"),
+            opts, lifecycle.PreemptionGuard, distributed.COORDINATOR_PORT,
+            dev.type, backend)
+    elif n == 1:
         cfg, (B, T) = LlamaConfig.llama3_8b(), TRAIN_BATCH
         raise SystemExit(
             f"llama pretrain: llama3_8b's weights, gradients and AdamW "
@@ -1124,14 +1277,15 @@ def main(argv=None, *, device="cuda", backend: str = "nccl") -> None:
             f"(14 of its 32 layers is the deepest that fits an 80 GB H100); "
             f"train it on a gang of workers or of cards (ROADMAP queue 1, "
             f"'Multi-device')")
-    rank_args = (local_ranks, args.ckpt_dir, args.ckpt_every, dev.type,
-                 backend)
+    else:
+        rank_fn, rank_args = _gang_rank, (local_ranks, args.ckpt_dir,
+                                          args.ckpt_every, dev.type, backend)
     if local_ranks == 1:
-        _gang_rank(0, *rank_args)
+        rank_fn(0, *rank_args)
         return
     from ..parallel import spawn
 
-    spawn(_gang_rank, local_ranks, None, args=rank_args[1:],
+    spawn(rank_fn, local_ranks, None, args=rank_args[1:],
           timeout=float("inf"))
 
 

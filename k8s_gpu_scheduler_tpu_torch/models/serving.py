@@ -1,7 +1,7 @@
 """Serving for the Llama decoder (port of the JAX package's
-``models/serving.py``, single device): the single-sequence functions
-(``generate``, ``generate_speculative`` and their server steps) and
-continuous batching over two cache layouts.
+``models/serving.py``): the single-sequence functions (``generate``,
+``generate_speculative`` and their server steps) and continuous batching
+over two cache layouts.
 
 **Paged, prefix-cached** (``kv_layout="paged"``, the production serving
 path; the default is the JAX engine's, ``"contiguous"``). A request goes
@@ -62,7 +62,12 @@ reads a device value.
 
 **Single sequence.** ``generate`` prefills a ``[B, T]`` prompt batch and
 decodes greedily through ``forward_with_cache`` (K4 per layer per token
-with ``cfg.decode_attn="fused"``); ``generate_speculative`` (B = 1)
+with ``cfg.decode_attn="fused"``). On a ``mesh`` (gang serving) every
+rank holds its training blocks of the weights and its block of the cache
+(batch over dp·fsdp, kv heads over tp, as the JAX package's
+``CACHE_SPEC``) and runs K4 on its heads; where JAX turns fused decode on
+a mesh into its dense path (``mesh_constrained_cache``), the port keeps
+K4. ``generate_speculative`` (B = 1)
 proposes by bigram lookup and verifies each 1 + gamma window in one
 forward, K3 over the contiguous cache viewed as pages
 (``ops.contiguous_as_paged``).
@@ -102,11 +107,14 @@ from ..ops.decode_attention import (
     paged_prefill_attention, paged_verify_attention,
 )
 from ..ops.layers import apply_rope, rms_norm, rope_freqs
+from ..ops.moe import moe_ffn_dropless
 from ..ops.quant import Int8Weight, qdot
+from ..parallel.collectives import all_gather
+from ..parallel.sharding import rank_slice
 from ..testing.faults import Preempted
 from .llama import (
-    Block, Llama, LlamaConfig, mlp_sublayer, sliced_for_serving,
-    sliced_weight_bytes,
+    Block, Llama, LlamaConfig, mlp_sublayer, rank_leaf_shapes,
+    require_rank_blocks, sliced_for_serving, sliced_weight_bytes,
 )
 from .paging import NULL_PAGE, HostTierStore, PageAllocator
 from .prefix_cache import PrefixCache
@@ -136,11 +144,20 @@ def _generator(device: torch.device, *key: int) -> torch.Generator:
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
-               device="cuda") -> Dict[str, object]:
-    """Zeros cache [L, B, S, Hkv, hd]; ``len`` is the filled prefix."""
+               device="cuda", mesh=None) -> Dict[str, object]:
+    """Zeros cache [L, B, S, Hkv, hd]; ``len`` is the filled prefix.
+    ``mesh`` (more than one rank): this rank's block of it (the JAX
+    package's ``CACHE_SPEC``), [L, B/(dp·fsdp), S, Hkv/tp, hd]; ``batch``
+    must divide by dp·fsdp."""
     S = max_len or cfg.max_seq
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
+    ax = _serving_axes(mesh)
+    if ax is not None:
+        from ..parallel.sharding import block_region
+
+        shape = tuple(r.stop - r.start for r in block_region(
+            shape, CACHE_SPEC, ax.sizes, ax.index))
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "len": 0}
@@ -148,9 +165,12 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: Optional[int] = None,
 
 def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: int, impl: str = "dense",
-                     verify: bool = False) -> torch.Tensor:
+                     verify: bool = False, plan_batch: Optional[int] = None,
+                     plan_kv_heads: Optional[int] = None) -> torch.Tensor:
     """q [B, t, H, hd] at absolute positions pos..pos+t-1 against the cache
-    [B, S, Hkv, hd], masked to entries <= each query's position.
+    [B, S, Hkv, hd], masked to entries <= each query's position. ``plan_batch``/``plan_kv_heads``: the counts the
+    kernels' split plan is made for (a rank of a mesh passes the model's,
+    as ``flash_decode_attention`` says).
 
     ``impl="fused"`` routes the decode shape (t == 1) through K4
     (``flash_decode_attention`` at ``pos + 1``) and, with ``verify=True``,
@@ -164,7 +184,8 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
     s, h_kv = k_cache.shape[1], k_cache.shape[2]
     if impl == "fused" and t == 1:
         return flash_decode_attention(q[:, 0], k_cache, v_cache,
-                                      int(pos) + 1)[:, None]
+                                      int(pos) + 1, plan_batch=plan_batch,
+                                      plan_kv_heads=plan_kv_heads)[:, None]
     if impl == "fused" and verify and t > 1:
         plan = decode_plan(s)
         if plan is None:
@@ -174,7 +195,8 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
                 f"S={s}")
         kp, table = contiguous_as_paged(k_cache, plan[0])
         vp, _ = contiguous_as_paged(v_cache, plan[0])
-        return paged_verify_attention(q, kp, vp, table, int(pos))
+        return paged_verify_attention(q, kp, vp, table, int(pos),
+                                      plan_kv_heads=plan_kv_heads)
     g = n_heads // h_kv
     qg = q.reshape(b, t, h_kv, g, d)
     scale = 1.0 / (d ** 0.5)
@@ -198,13 +220,25 @@ def _qkv(cfg: LlamaConfig, h: torch.Tensor, blk: Block, angles: torch.Tensor,
 
 
 def forward_with_cache(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
-                       cache: Dict[str, object], verify: bool = False):
+                       cache: Dict[str, object], verify: bool = False,
+                       mesh=None, plan_batch: Optional[int] = None):
     """tokens [B, t] starting at absolute position ``cache["len"]`` →
     (logits [B, t, vocab] f32, cache). The cache's K/V are written in
     place; the returned dict carries the advanced length. Attention
     follows ``cfg.decode_attn`` (``cached_attention``); ``verify=True``
     marks a speculative 1 + gamma window, which is how the fused route
-    tells it from a prefill."""
+    tells it from a prefill.
+
+    ``mesh`` (more than one rank): ``model`` is this rank's training
+    blocks (``init_params(..., mesh=)``), ``tokens`` its rows of the
+    batch and ``cache`` its block (``init_cache(..., mesh=)``); the logits
+    are its rows' [B_l, t, vocab/tp] (``_forward_cache_sharded``).
+    ``plan_batch`` is the batch one card would hold, for K4's split plan
+    (default: ``tokens``' rows)."""
+    ax = _serving_axes(mesh)
+    if ax is not None:
+        return _forward_cache_sharded(model, tokens, cfg, cache, ax, verify,
+                                      plan_batch)
     B, t = tokens.shape
     pos = int(cache["len"])
     angles = rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
@@ -217,7 +251,8 @@ def forward_with_cache(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
         k_all[layer, :, pos:pos + t] = k
         v_all[layer, :, pos:pos + t] = v
         attn = cached_attention(q, k_all[layer], v_all[layer], pos,
-                                impl=cfg.decode_attn, verify=verify)
+                                impl=cfg.decode_attn, verify=verify,
+                                plan_batch=plan_batch)
         x = x + qdot(attn.reshape(B, t, cfg.n_heads * cfg.head_dim), blk.wo)
         x, _ = mlp_sublayer(cfg, x, blk, dropless=True)
     x = rms_norm(x, model.final_norm)
@@ -230,13 +265,21 @@ def generate(model: Llama, prompt, cfg: LlamaConfig, max_new: int,
              mesh=None, max_len: Optional[int] = None) -> torch.Tensor:
     """Greedy decode on the model's device: prefill the prompt [B, Tp],
     then one single-token forward per new token. Returns [B, max_new]
-    token ids in the prompt's dtype."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "generate(mesh=...) is not ported yet: it comes with the "
-            "multi-device slice of gang serving (ROADMAP queue 1, "
-            "'Multi-device', remainder item 1); the paged "
-            "ContinuousBatcher serves on a mesh")
+    token ids in the prompt's dtype.
+
+    ``mesh`` (a ``DeviceMesh`` of more than one rank; call on every rank
+    with the same prompt): ``model`` holds this rank's blocks of the
+    training layout (``init_params(..., mesh=)`` or
+    ``bridge.params_from_numpy(..., mesh=, specs="training")``), the
+    batch splits over (dp, fsdp) and the kv heads over tp, as the JAX
+    package's ``CACHE_SPEC`` lays out its cache. A rank decodes its rows
+    through K4 on its heads, planned for one card's batch and heads, and
+    every rank returns the whole [B, max_new]. When dp·fsdp does not
+    divide B, rows of token 0 pad the batch after the last prompt row and
+    are dropped from the output. A ``pp`` axis raises ``ValueError``:
+    there is no pipelined serving path (nor in JAX); sp and ep replicate
+    the work."""
+    ax = _serving_axes(mesh)
     prompt = torch.as_tensor(prompt, device=model.device)
     B, t_prompt = prompt.shape
     S = min(max_len or cfg.max_seq, cfg.max_seq)
@@ -244,6 +287,8 @@ def generate(model: Llama, prompt, cfg: LlamaConfig, max_new: int,
         raise ValueError(
             f"prompt ({t_prompt}) + max_new ({max_new}) exceeds cache/rope "
             f"capacity ({S})")
+    if ax is not None:
+        return _generate_sharded(model, prompt, cfg, max_new, S, ax)
     cache = init_cache(cfg, B, S, device=model.device)
     logits, cache = forward_with_cache(model, prompt, cfg, cache)
     toks = [torch.argmax(logits[:, -1], dim=-1)]
@@ -256,13 +301,180 @@ def generate(model: Llama, prompt, cfg: LlamaConfig, max_new: int,
 
 def make_server_step(cfg: LlamaConfig, mesh, max_new: int,
                      max_len: Optional[int] = None):
-    """Request handler: (model, prompt [B, Tp]) → [B, max_new]."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_server_step(mesh=...) is not ported yet: it comes with "
-            "the multi-device slice of gang serving (ROADMAP queue 1, "
-            "'Multi-device', remainder item 1)")
-    return partial(generate, cfg=cfg, max_new=max_new, max_len=max_len)
+    """Request handler: (model, prompt [B, Tp]) → [B, max_new]
+    (``generate``; on a ``mesh``, every rank calls it)."""
+    _serving_axes(mesh)
+    return partial(generate, cfg=cfg, max_new=max_new, mesh=mesh,
+                   max_len=max_len)
+
+
+# -- gang serving: generate on a mesh -------------------------------------------
+#
+# A rank of ``generate(mesh=)`` holds the training layout's blocks
+# (``models.llama.param_specs``: q/k/v/gate/up columns and o/down rows over
+# tp, the other weight dim over fsdp, the vocab of the embedding and the
+# head over tp) and the cache block [L, B/(dp·fsdp), S, Hkv/tp, hd]. Each
+# fsdp block is gathered where it is used, as the training step gathers
+# it; q/k/v are the rank's heads and K4 runs on them, planned for one
+# card's batch and kv heads (``flash_decode_attention(plan_batch=,
+# plan_kv_heads=)``), so each (row, head) splits and merges as on one
+# card. The combines over tp move data only: the heads and the ffn columns
+# are gathered and multiply the gathered o/down weights, and the greedy
+# pick over the split vocab takes the largest logit, the lowest index
+# among equals, as one card's ``argmax`` does. A rank's rows stay its own
+# from the prefill on; the tokens are gathered over (dp, fsdp) once, at
+# the end. An MoE block gathers its router and expert stacks whole and
+# routes dropless, as every serving path does.
+
+# The cache's layout, the JAX package's ``CACHE_SPEC``: the batch over
+# (dp, fsdp), the kv heads over tp.
+_BATCH_AXES = ("dp", "fsdp")
+CACHE_SPEC = (None, _BATCH_AXES, None, "tp", None)
+
+
+def _serving_axes(mesh):
+    """``parallel.mesh.MeshAxes`` of a serving ``mesh``, or None for no
+    mesh or a mesh of one rank (the single-device path). A mesh that is
+    not a ``DeviceMesh`` raises ``TypeError``, one with a ``pp`` axis
+    ``ValueError``."""
+    if mesh is None:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..parallel.mesh import MeshAxes
+
+    if not isinstance(mesh, (DeviceMesh, MeshAxes)):
+        raise TypeError(
+            f"mesh must be a torch.distributed DeviceMesh with named dims "
+            f"(parallel.make_mesh), got {type(mesh).__name__}")
+    ax = MeshAxes.of(mesh)
+    if ax.sizes.get("pp", 1) > 1:
+        raise ValueError(
+            "a 'pp' mesh axis holds pipeline stages, and serving has no "
+            "pipelined path (nor has the JAX package's): serve on a mesh "
+            "of dp/fsdp/sp/ep/tp")
+    return ax if ax.size() > 1 else None
+
+
+def _whole(w: torch.Tensor, spec: tuple, ax) -> torch.Tensor:
+    """The whole weight from this rank's block of it under ``spec`` (one
+    mesh axis or None a dim): gathered over each named axis in turn,
+    movement only."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            w = all_gather(w, dim, ax.group(axis))
+    return w
+
+
+def _embed_sharded(table: torch.Tensor, tokens: torch.Tensor, ax
+                   ) -> torch.Tensor:
+    """The embedding rows of ``tokens`` from the vocab-parallel table
+    block [V/tp, D/fsdp]: each tp rank looks up the tokens in its rows,
+    the lookups are gathered over tp and each token takes its owner's
+    (movement only: one card's rows, bit for bit)."""
+    table = all_gather(table, 1, ax.group("fsdp"))          # [V / tp, D]
+    tp = ax.group("tp")
+    if tp is None:
+        return table[tokens]
+    rows = table.shape[0]
+    local = (tokens - ax.index["tp"] * rows).clamp(0, rows - 1)
+    got = all_gather(table[local][None], 0, tp)        # [tp, B, t, D]
+    owner = (tokens // rows).clamp(max=ax.size("tp") - 1)
+    return torch.gather(got, 0, owner[None, ..., None].expand(
+        1, *got.shape[1:]))[0]
+
+
+def vocab_parallel_argmax(logits: torch.Tensor, ax) -> torch.Tensor:
+    """``argmax`` over the last axis of logits whose vocab is split over
+    tp (this rank's block [..., V/tp]): each rank's largest logit and its
+    first index are gathered over tp, and the lowest rank holding the
+    largest wins, so a tie goes to the lowest vocab index, as one card's
+    ``torch.argmax`` breaks it. With no tp split (``ax`` None or tp 1):
+    ``torch.argmax``."""
+    tp = None if ax is None else ax.group("tp")
+    idx = torch.argmax(logits, dim=-1)
+    if tp is None:
+        return idx
+    best = logits.gather(-1, idx[..., None])[..., 0]
+    idx = idx + ax.index["tp"] * logits.shape[-1]
+    pairs = all_gather(torch.stack([best.double(), idx.double()])[None], 0,
+                       tp)                               # [tp, 2, ...]
+    win = torch.argmax(pairs[:, 0], dim=0)
+    return pairs[:, 1].gather(0, win[None])[0].long()
+
+
+def _forward_cache_sharded(model: Llama, tokens: torch.Tensor,
+                           cfg: LlamaConfig, cache: Dict[str, object], ax,
+                           verify: bool, plan_batch: Optional[int]):
+    """``forward_with_cache`` on a rank of a mesh (the comment above
+    ``CACHE_SPEC``): tokens [B_l, t] of this rank's rows → (logits
+    [B_l, t, vocab/tp] f32, cache)."""
+    fsdp, tp = ax.group("fsdp"), ax.group("tp")
+    n_tp, hd = ax.size("tp"), cfg.head_dim
+    heads, kv_heads = cfg.n_heads // n_tp, cfg.n_kv_heads // n_tp
+    B, t = tokens.shape
+    pos = int(cache["len"])
+    angles = rope_freqs(hd, cfg.max_seq, cfg.rope_theta,
+                        device=tokens.device)[pos:pos + t]
+    x = _embed_sharded(model.embed, tokens, ax).to(cfg.dtype)
+    k_all, v_all = cache["k"], cache["v"]
+    for layer, blk in enumerate(model.blocks):
+        h = rms_norm(x, blk.attn_norm)
+        q = (h @ all_gather(blk.wq, 0, fsdp)).reshape(B, t, heads, hd)
+        k = (h @ all_gather(blk.wk, 0, fsdp)).reshape(B, t, kv_heads, hd)
+        v = (h @ all_gather(blk.wv, 0, fsdp)).reshape(B, t, kv_heads, hd)
+        q, k = apply_rope(q, angles), apply_rope(k, angles)
+        k_all[layer, :, pos:pos + t] = k
+        v_all[layer, :, pos:pos + t] = v
+        attn = cached_attention(q, k_all[layer], v_all[layer], pos,
+                                impl=cfg.decode_attn, verify=verify,
+                                plan_batch=plan_batch,
+                                plan_kv_heads=cfg.n_kv_heads)
+        attn = all_gather(attn, 2, tp).reshape(B, t, cfg.n_heads * hd)
+        x = x + attn @ _whole(blk.wo, ("tp", "fsdp"), ax)
+        h = rms_norm(x, blk.mlp_norm)
+        if cfg.n_experts > 1:
+            x = x + moe_ffn_dropless(
+                h, _whole(blk.router, ("fsdp", "ep"), ax),
+                _whole(blk.w_gate, ("ep", "fsdp", "tp"), ax),
+                _whole(blk.w_up, ("ep", "fsdp", "tp"), ax),
+                _whole(blk.w_down, ("ep", "tp", "fsdp"), ax),
+                top_k=cfg.moe_top_k)
+        else:
+            act = torch.nn.functional.silu(
+                h @ all_gather(blk.w_gate, 0, fsdp)) * (
+                h @ all_gather(blk.w_up, 0, fsdp))
+            x = x + all_gather(act, 2, tp) @ _whole(blk.w_down,
+                                                    ("tp", "fsdp"), ax)
+    x = rms_norm(x, model.final_norm)
+    logits = (x @ all_gather(model.lm_head, 0, fsdp)).float()
+    return logits, {"k": k_all, "v": v_all, "len": pos + t}
+
+
+def _generate_sharded(model: Llama, prompt: torch.Tensor, cfg: LlamaConfig,
+                      max_new: int, S: int, ax) -> torch.Tensor:
+    """``generate`` on a rank of a mesh. Every host decision here depends
+    only on shapes and ``max_new``, the same on every rank, so the ranks
+    meet in every collective in the same order."""
+    require_rank_blocks(model, rank_leaf_shapes(cfg, ax.sizes)[
+        "blocks.0.wq"][0])
+    B, t_prompt = prompt.shape
+    pad = -B % ax.size(*_BATCH_AXES)
+    rows = torch.cat([prompt, prompt.new_zeros((pad, t_prompt))]) \
+        if pad else prompt
+    mine = rank_slice(rows, (_BATCH_AXES,), ax.sizes, ax.index)
+    cache = init_cache(cfg, B + pad, S, device=model.device, mesh=ax)
+    logits, cache = forward_with_cache(model, mine, cfg, cache, mesh=ax,
+                                       plan_batch=B)
+    toks = [vocab_parallel_argmax(logits[:, -1], ax)]
+    for _ in range(max_new - 1):
+        logits, cache = forward_with_cache(model, toks[-1][:, None], cfg,
+                                           cache, mesh=ax, plan_batch=B)
+        toks.append(vocab_parallel_argmax(logits[:, -1], ax))
+    out = torch.stack(toks, dim=1)
+    for axis in reversed(_BATCH_AXES):          # fsdp's blocks, then dp's
+        out = all_gather(out, 0, ax.group(axis))
+    return out[:B].to(prompt.dtype)
 
 
 def _kv_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -627,7 +627,9 @@ paged_verify_attention.launches = 0
 def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths, k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
-                           bitmap: Optional[torch.Tensor] = None
+                           bitmap: Optional[torch.Tensor] = None,
+                           plan_batch: Optional[int] = None,
+                           plan_kv_heads: Optional[int] = None
                            ) -> torch.Tensor:
     """Decode attention over a contiguous KV cache: q [B, H, hd] (one
     decode step) against k/v [B, S, Hkv, hd], any S → [B, H, hd] in q's
@@ -637,7 +639,13 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``bitmap`` [B, S] bool refines the length mask to exactly the valid
     rows (the shared-cursor engine's slot windows); unset rows get exactly
     zero weight and their K/V are not read. A fully masked row yields
-    zeros."""
+    zeros.
+
+    ``plan_batch`` and ``plan_kv_heads`` (default B and Hkv) are the batch
+    and kv-head counts the split plan is made for: a rank of a mesh holds
+    B/(dp·fsdp) rows and Hkv/tp heads and passes the model's, so each
+    (row, head) is split and merged as on one card. The split count of the
+    last call, on either route, is ``flash_decode_attention.last_splits``."""
     if q.ndim != 3 or k.ndim != 4:
         raise ValueError(f"q must be [B, H, hd] and k/v [B, S, Hkv, hd], got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -671,6 +679,8 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         lengths = int(lengths)
         live_rows = min(max(lengths, 0), s)
+    ns = flash_decode_plan(live_rows, plan_batch or b, plan_kv_heads or n_kv)
+    flash_decode_attention.last_splits = ns
     if not _route(q):
         return flash_decode_reference(q, k, v, lengths, k_scale, v_scale,
                                       bitmap)
@@ -684,7 +694,6 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # fill, so the output is the wrapper's one allocation.
     lens = None if isinstance(lengths, int) else _lengths_vector(
         lengths, b, q.device)
-    ns = flash_decode_plan(live_rows, b, n_kv)
     out = torch.empty_like(q)
     from ._build import load_library
 
@@ -701,6 +710,7 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_decode_attention.launches = 0
+flash_decode_attention.last_splits = None
 
 _KERNELS = (paged_decode_attention, paged_prefill_attention,
             paged_verify_attention, flash_decode_attention)

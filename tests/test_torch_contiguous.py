@@ -28,6 +28,7 @@ from k8s_gpu_scheduler_tpu_torch.models.serving import (
     ContinuousBatcher, cached_attention, generate, generate_speculative,
     make_server_step, make_speculative_server_step)
 from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+from k8s_gpu_scheduler_tpu_torch.parallel.mesh import MeshAxes
 from test_torch_serving import configs, step_all
 
 ENGINE = dict(kv_layout="contiguous", n_slots=2, max_len=32, chunk=4,
@@ -119,10 +120,36 @@ def test_generate_errors():
     prompt = torch.zeros((1, 30), dtype=torch.int64)
     with pytest.raises(ValueError, match="exceeds cache/rope capacity"):
         generate(model, prompt, cfg, max_new=3, max_len=32)
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    # A mesh is a DeviceMesh (gang serving: tests/test_torch_gang_serve.py);
+    # a pp axis is refused, as JAX has no pipelined serving either, and a
+    # rank must hold its training blocks.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         generate(model, prompt, cfg, max_new=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_server_step(cfg, object(), 4)
+    pp = MeshAxes(_NamedMesh(pp=2))
+    with pytest.raises(ValueError, match="'pp' mesh axis"):
+        generate(model, prompt[:, :8], cfg, max_new=1, mesh=pp)
+    with pytest.raises(ValueError, match="'pp' mesh axis"):
+        make_server_step(cfg, pp, 4)
+    with pytest.raises(ValueError, match="this rank's block of it"):
+        generate(model, prompt[:, :8], cfg, max_new=1,
+                 mesh=MeshAxes(_NamedMesh(tp=2)))
+
+
+class _NamedMesh:
+    """A named mesh as ``mesh_coords`` reads one, at coordinate 0 on every
+    axis (no process group: these calls raise before any collective)."""
+
+    def __init__(self, **axes):
+        self.mesh_dim_names = tuple(axes)
+        self._sizes = tuple(axes.values())
+
+    def size(self, i):
+        return self._sizes[i]
+
+    def get_local_rank(self, name):
+        return 0
 
 
 # -- generate_speculative -------------------------------------------------------

@@ -37,6 +37,8 @@ from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
     counters, flash_backward, flash_backward_reference, flash_forward,
     flash_forward_reference, reset_counters)
 from k8s_gpu_scheduler_tpu_torch.parallel import spawn
+from torch_gang_workers import (
+    CARD_CELL, PLAN_CELL, card_gang_world, serve_config)
 from torch_tp_workers import card_world
 from torch_train_workers import (
     card_ep_world, card_pp_world, card_restore_world, card_train_world)
@@ -1023,6 +1025,30 @@ def test_tp2_gloo_ranks_sharing_the_card(cuda, tmp_path, combine):
     the pool and half the sliced weights, launch K1/K2 on their heads as
     often as one card does; the f32 streams are one card's."""
     _island_checks(_island_world(tmp_path, 2, "gloo", combine), 2)
+
+
+# -- gang serving (chip_smoke phase 20 at tiny widths) --------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world,backend,axes", [
+    (1, "nccl", {}), (2, "gloo", {"tp": 2}), (2, "gloo", {})],
+    ids=["nccl-one", "gloo-tp2", "gloo-dp2"])
+def test_gang_generate_on_the_card(cuda, tmp_path, world, backend, axes):
+    """20a/20b at small widths (f32, hd 64, a 400-token prompt, B 8): every
+    rank's streams are one card's; each launches K4 once a layer a token
+    after the prefill under one card's split counts and runs no plain
+    version."""
+    outs = spawn(card_gang_world, world, backend, args=(axes,),
+                 rendezvous=str(tmp_path / "rdv"), timeout=300)
+    one = outs[0]["one"]
+    n = serve_config(**CARD_CELL).n_layers * (PLAN_CELL["max_new"] - 1)
+    assert one["counters"]["flash_decode_attention"] == n
+    for out in outs:
+        got = out["mesh"]
+        np.testing.assert_array_equal(got["streams"], one["streams"])
+        assert got["splits"] == one["splits"]
+        assert got["counters"]["flash_decode_attention"] == n
+        assert not got["counters"]["flash_decode_reference"]
 
 
 # -- sharded training (chip_smoke phase 18 at small widths) --------------------

@@ -155,14 +155,25 @@ def test_training_branch_refuses_before_allocating(monkeypatch):
 
 
 def test_a_gang_of_workers_is_refused(monkeypatch):
-    """A gang of workers trains (``tests/test_torch_shard_train.py``);
-    ``--serve`` on a gang stays refused, naming its item of ROADMAP queue
-    1's multi-device remainder, before anything is allocated."""
+    """A gang of workers trains (``tests/test_torch_shard_train.py``) and
+    serves ``make_server_step`` (``tests/test_torch_gang_serve.py``);
+    ``--serve`` on a gang refuses the four flags that handler cannot
+    honour (full precision, greedy, a fixed budget) with JAX's message,
+    which names the gang's process count, before anything is allocated
+    or any rank joins."""
     monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "w0.gang,w1.gang")
     monkeypatch.setattr(llama, "init_params", lambda *a, **k: pytest.fail(
         "allocated"))
-    with pytest.raises(NotImplementedError, match="remainder item 1"):
-        main(["--serve"], device="cpu")
+    monkeypatch.setattr(llama, "_serve_rank", lambda *a, **k: pytest.fail(
+        "joined"))
+    for flags in (["--int8"], ["--temperature", "0.7"], ["--top-k", "5"],
+                  ["--eos-id", "3"]):
+        with pytest.raises(SystemExit) as e:
+            main(["--serve", *flags], device="cpu")
+        assert e.value.code == (
+            "--int8/--temperature/--top-k/--eos-id need the continuous "
+            "batcher, which is single-process only; this gang has 2 "
+            "processes"), flags
 
 
 def test_parameter_count_is_the_modules():
