@@ -194,7 +194,7 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    equal greedy streams and skipped prefill tokens, the card launching K1
    and K2 and no plain version. (b) Mixtral-8x7B's published widths
    (hidden 4096, 32 heads, 8 kv heads, intermediate 14336, 8 experts, top
-   2, vocab 32000, rope_theta 1e6; depth cut to 8 layers, max_seq to
+   2, vocab 32000, rope_theta 1e6; depth cut to 4 layers, max_seq to
    2048), bf16, dropless experts, weights drawn on the card from a seed,
    phase 3's engine, traffic (8 slots, page 64, chunk 64, bucket 512,
    the prefix cache; 32 requests of a 384-token system prompt plus 128
@@ -277,10 +277,10 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    ``mesh=None``, and a small MoE config on a size-1 mesh bit for bit
    ``mesh=None``'s; there too the one-card references of (b) and (d). (b)
    A gloo world of two ranks sharing the card as pipeline stages (pp 2):
-   llama3_8b's widths at 4 layers (2 a stage), dense attention (the
+   llama3_8b's widths at 2 layers (1 a stage), dense attention (the
    pipeline's, as in JAX), remat, bf16, B 8, T 2048, 4 microbatches,
    two steps of GPipe and of 1F1B: every stage holds exactly
-   1,486,901,248 parameters and 11,895,209,984 bytes of state, and its
+   1,268,789,248 parameters and 10,150,313,984 bytes of state, and its
    losses are one card's dense step's within phase 18b's bf16 gates; at
    f32 on 2 layers and vocab 32000 (two steps) the losses to 1e-5, the
    first step's gradients to 1e-5 of each leaf's largest and the weights
@@ -323,6 +323,26 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    multi-process wave line twice; ``--int8``, ``--temperature``, ``--top-k`` and
    ``--eos-id`` on a gang exit with JAX's message before anything is
    allocated.
+21. graftcheck for the port (``k8s_gpu_scheduler_tpu_torch/analysis/``).
+   (a) ``python -m k8s_gpu_scheduler_tpu_torch.analysis`` in a process
+   of its own: over the port's tree (every pass, the dynamic ones on the
+   card at the tiny config) it exits 0, over
+   ``tests/data/graftcheck_torch/`` it exits 1 with every seeded rule;
+   each pass's seconds are printed. (b) For every kernel instantiation
+   the presets reach (46), the ``.cu`` query of the bytes its launcher
+   requests equals ``analysis/smem.py``'s mirror; with ptxas's static
+   shared memory, registers and spills, each fits a block (232,448 B,
+   65,536 registers); one line each with its blocks per SM. (c) Every
+   shared-page scenario at the serve config's full width (page 64,
+   phase 3's 384-token system prompt, gamma 4), bf16 and int8 KV: the
+   shared pages stay byte-identical, K1, K2 and K3 launch and no plain
+   version runs; the seeded writer is caught on the card's tensors. (d)
+   Three steady dispatches after warm-up of paged, speculative and
+   contiguous decode, ``generate`` (K4) and a 2-layer train step at the
+   serve widths, T 512 (K5-K7): storage kept, ``memory_allocated`` not
+   growing, no rebuild and no first-use configuration; each dispatch's
+   host syncs and their sites (``torch.cuda.set_sync_debug_mode``) are
+   printed, not gated.
 
 ``--profile`` adds profiled serving runs (speculative and the contiguous
 engine) and one profiled training step: the card's busy
@@ -850,10 +870,11 @@ def _device_kernels(prof) -> int:
                and not e.key.startswith(("Memcpy", "Memset")))
 
 
-def device_kernels(fn, calls: int = 10, attempts: int = 3) -> float:
+def device_kernels(fn, calls: int = 10, attempts: int = 6) -> float:
     """The CUDA kernels one call of ``fn`` launches (after a warm-up): the
-    most that ``attempts`` traces of ``calls`` calls each record, over
-    ``calls``. A trace may drop some of a short kernel's device records
+    most that up to ``attempts`` traces of ``calls`` calls each record,
+    over ``calls``; a trace with at least one kernel a call ends the
+    search. A trace may drop some of a short kernel's device records
     (seen on the card), never add any, so the most is the count."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -867,6 +888,8 @@ def device_kernels(fn, calls: int = 10, attempts: int = 3) -> float:
                 fn()
             torch.cuda.synchronize()
         most = max(most, _device_kernels(prof))
+        if most >= calls:
+            break
     return most / calls
 
 
@@ -1799,7 +1822,7 @@ def check_traced(card, label, model, cfg, prompts, max_new, spans,
     return st
 
 
-OBS_ROUNDS = 2                  # phase 9: runs of each setting, in turn
+OBS_ROUNDS = 1                  # phase 9: runs of each setting, in turn
 
 
 def phase_observability(dev, card) -> dict:
@@ -4092,14 +4115,15 @@ def phase_rank_flash_kernels(dev, card) -> list:
 
 # -- phase 19: pipeline stages, MoE over ep, restore across meshes ----------
 
-PP_LAYERS, PP_BT, PP_M, PP_STEPS = 4, (8, 2048), 4, 2     # 19b bf16
+PP_LAYERS, PP_BT, PP_M, PP_STEPS = 2, (8, 2048), 4, 2     # 19b bf16
 PP_F32 = dict(vocab=32000, n_layers=2)                    # 19b f32
 PP_F32_STEPS = 2
 PP_STASH_M = (4, 8)             # 19c: microbatch 1, so B = M
 PP_STASH_GATE = 0.05            # 1F1B's peak above its state, M 4 -> 8
-# 19b: a stage at pp 2 holds 2 layers whole and the embedding, the head
-# and the final norm (PERF.md's prediction).
-PP_RANK_PARAMS, PP_RANK_STATE_BYTES = 1_486_901_248, 11_895_209_984
+# 19b: a stage at pp 2 holds 1 layer whole and the embedding, the head
+# and the final norm (llama.rank_leaf_shapes and train_state_bytes at
+# {"pp": 2}).
+PP_RANK_PARAMS, PP_RANK_STATE_BYTES = 1_268_789_248, 10_150_313_984
 EP_LAYERS, EP_BT, EP_STEPS = 2, (8, 2048), 2              # 19d
 # 19d: an ep 2 rank at Mixtral's widths, 2 layers: half the experts and
 # half the router's columns (the router's state is f32: 16 bytes a
@@ -4110,7 +4134,7 @@ SCHEDULES = ("gpipe", "1f1b")
 
 
 def pp_cfgs():
-    """(19b/19c/19e: llama3_8b widths at 4 layers, dense attention as the
+    """(19b/19c/19e: llama3_8b widths at 2 layers, dense attention as the
     pipeline runs it, remat, bf16; 19b f32: 2 layers, vocab 32000; 19a:
     phase 5's small config, dense)."""
     from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig
@@ -4407,7 +4431,8 @@ def phase_pipeline_ep_restore(dev, card) -> dict:
 
     full, f32, small = pp_cfgs()
     log(f"  cuts: 19b/19c/19e llama3_8b widths at {PP_LAYERS} layers "
-        f"(2 a stage), 19b f32 at {PP_F32['n_layers']} layers and vocab "
+        f"({PP_LAYERS // 2} a stage), 19b f32 at {PP_F32['n_layers']} "
+        f"layers and vocab "
         f"{PP_F32['vocab']}, 19d Mixtral widths at {EP_LAYERS} layers "
         f"(two ranks at 4 would need about 76 GB of the card); no width "
         f"cut")
@@ -4939,6 +4964,252 @@ def phase_gang_serving(dev, card) -> dict:
     out["20d"] = phase_gang_main(dev, card)
     return out
 
+# -- phase 21: graftcheck for the port on the card ----------------------------
+
+# 21a: the rules the seeded fixtures of tests/data/graftcheck_torch/ carry.
+GRAFT_FIXTURE_RULES = {
+    "host-sync-in-dispatch", "host-time-in-dispatch", "numpy-in-dispatch",
+    "trace-in-dispatch", "host-sync", "read-of-inplace-buffer",
+    "smem-budget", "kernel-shape-unsupported", "shared-page-write",
+    "storage-not-kept"}
+GRAFT_FIXTURES = "tests/data/graftcheck_torch"
+GRAFT_SYS = 384                 # 21c/21d: phase 3's system prompt
+GRAFT_TRAIN_BT = (2, 512)       # 21d: the 2-layer train step's B, T
+# 21d: the steady states at full width, each with the kernels its steady
+# dispatches must launch (paged and speculative decode's K1 and K3, the
+# contiguous engine's and generate's K4, the train step's K5-K7).
+GRAFT_STEADY = {
+    "batcher_steady_decode_paged": ("paged_decode_attention",),
+    "batcher_steady_decode_paged_spec": ("paged_verify_attention",),
+    "batcher_steady_decode": ("flash_decode_attention",),
+    "generate_steady_state": ("flash_decode_attention",),
+    "train_steady_state": FLASH}
+
+
+def graft_cli(runs, timeout=600):
+    """The port's graftcheck CLI (its ``main``) on each argument list in
+    ``runs``, one after another in one process of its own from the tree's
+    root: [(exit code, its JSON line, stderr)]."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = (
+        "import contextlib, io, json\n"
+        "from k8s_gpu_scheduler_tpu_torch.analysis.__main__ import main\n"
+        f"for args in {[list(r) for r in runs]!r}:\n"
+        "    out, err = io.StringIO(), io.StringIO()\n"
+        "    with contextlib.redirect_stdout(out), "
+        "contextlib.redirect_stderr(err):\n"
+        "        rc = main(['--json', *args])\n"
+        "    print(json.dumps([rc, out.getvalue(), err.getvalue()]), "
+        "flush=True)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=timeout)
+    done = [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("[")]
+    if len(done) != len(runs):
+        raise SystemExit(f"21a: the CLI's process failed ({proc.returncode})"
+                         f":\n{proc.stderr[-4000:]}")
+    return [(rc, json.loads(out.splitlines()[0]) if out else {}, err)
+            for rc, out, err in done]
+
+
+def graft_size(dev, kv_dtype):
+    """21c/21d's scenario size: the serve config at full width, weights
+    drawn on the card once per config."""
+    from k8s_gpu_scheduler_tpu_torch.analysis.entrypoints import ScenarioSize
+    from k8s_gpu_scheduler_tpu_torch.models.llama import LlamaConfig
+
+    cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+    models = {}
+
+    def make_model(c, device):
+        if c not in models:
+            models.clear()           # one full-width model on the card
+            models[c] = card_init(c, device)
+        return models[c]
+
+    return ScenarioSize(cfg=cfg, make_model=make_model, page_size=64,
+                        sys_len=GRAFT_SYS, kv_dtype=kv_dtype, max_len=2048,
+                        chunk=8, gamma=4, train_bt=GRAFT_TRAIN_BT)
+
+
+def phase_graft_cli() -> None:
+    """21a: the CLI over the tree (every pass, the dynamic ones on the
+    card) exits 0; over the seeded fixtures it exits 1 with every rule."""
+    t0 = time.perf_counter()
+    (code, doc, err), (bad, bad_doc, bad_err) = graft_cli(
+        [[], [GRAFT_FIXTURES]])
+    log(f"  21a tree: exit {code}, pass seconds "
+        f"{json.dumps(doc.get('pass_seconds'))}")
+    if code != 0:
+        raise SystemExit(f"21a: graftcheck over the tree exited {code}:\n"
+                         f"{err[-4000:]}")
+    rules = set(bad_doc.get("rules", ()))
+    log(f"  21a fixtures: exit {bad}, {bad_doc.get('n_findings')} findings, "
+        f"rules {sorted(rules)}, pass seconds "
+        f"{json.dumps(bad_doc.get('pass_seconds'))}; both in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad != 1 or rules != GRAFT_FIXTURE_RULES:
+        raise SystemExit(f"21a: the fixtures gave exit {bad}, rules "
+                         f"{sorted(rules)}; want exit 1 and "
+                         f"{sorted(GRAFT_FIXTURE_RULES)}:\n"
+                         f"{bad_err[-4000:]}")
+
+
+def phase_graft_smem(card) -> list:
+    """21b: every instantiation the presets reach — the .cu query equals
+    the mirror, and with ptxas's static bytes and registers it fits a
+    block; one line per instantiation."""
+    from k8s_gpu_scheduler_tpu_torch.analysis import smem
+    from k8s_gpu_scheduler_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    report = _build.ptxas_report()
+    rows = []
+    for e, how in smem.reached_entries().items():
+        got = smem.lib_query(lib, e)
+        res = smem.entry_resources(e, report)
+        if got != e.dynamic_bytes:
+            raise SystemExit(f"21b: {e.label}: the .cu query says {got} "
+                             f"bytes, the mirror {e.dynamic_bytes}")
+        if res.notes or res.registers is None:
+            raise SystemExit(f"21b: {e.label}: no ptxas record")
+        bad = smem.check_resources(e.label, res)
+        if bad:
+            raise SystemExit("21b: " + "; ".join(f.render() for f in bad))
+        blocks = res.blocks_per_sm()
+        rows.append(dict(
+            kernel=e.kernel, instantiation=e.label, source=CSRC + e.source,
+            dynamic_bytes=e.dynamic_bytes, static_bytes=res.static_bytes,
+            registers=res.registers, spill_bytes=res.spill_bytes,
+            threads=e.threads, blocks_per_sm=blocks,
+            reached_by=sorted(set(how))))
+    if smem.audit_smem(report):
+        raise SystemExit("21b: audit_smem(report) found budget breaches")
+    for r in sorted(rows, key=lambda r: (r["kernel"], r["instantiation"])):
+        b = r["blocks_per_sm"]
+        log(f"  21b {r['kernel']} {r['instantiation']}: dyn "
+            f"{r['dynamic_bytes']} + static {r['static_bytes']} B, "
+            f"{r['registers']} regs x {r['threads']}, spill "
+            f"{r['spill_bytes']} B; blocks/SM smem {b['smem']} regs "
+            f"{b['registers']} threads {b['threads']}; "
+            f"{len(r['reached_by'])} paths ({card})")
+    log(f"  21b: {len(rows)} instantiations, mirror == query, all within "
+        f"232,448 B and 65,536 registers a block")
+    return rows
+
+
+def phase_graft_alias(dev, card) -> dict:
+    """21c: every alias scenario at the serve config's full width, bf16
+    and int8 KV, on phase 3's system prompt: shared pages byte-identical,
+    K1/K2/K3 launched and no plain version; the seeded writer is caught on
+    the card's tensors."""
+    import importlib.util
+
+    from k8s_gpu_scheduler_tpu_torch.analysis import entrypoints as eps
+    from k8s_gpu_scheduler_tpu_torch.analysis.alias import (
+        audit_shared_pages)
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+
+    out = {}
+    for kv in (None, "int8"):
+        size = graft_size(dev, kv)
+        for name, build in eps.alias_scenarios():
+            da.reset_counters()
+            t0 = time.perf_counter()
+            found = audit_shared_pages(build, name, dev, size)
+            torch.cuda.synchronize()
+            c = da.counters()
+            label = f"{name} ({kv or 'bf16'} KV)"
+            out[label] = {k: c[k] for k in KERNELS if k in c}
+            log(f"  21c {label}: {len(found)} findings, launches "
+                f"{json.dumps(out[label])} in "
+                f"{time.perf_counter() - t0:.1f} s")
+            if found or any(c[p] for p in PLAIN):
+                raise SystemExit(f"21c {label}: {[f.render() for f in found]}"
+                                 f" plain calls {c}")
+        total = {k: sum(v.get(k, 0) for lab, v in out.items()
+                        if lab.endswith(f"({kv or 'bf16'} KV)"))
+                 for k in ("paged_decode_attention",
+                           "paged_prefill_attention",
+                           "paged_verify_attention")}
+        if not all(total.values()):
+            raise SystemExit(f"21c ({kv or 'bf16'} KV): a kernel never "
+                             f"launched: {total}")
+    spec = importlib.util.spec_from_file_location(
+        "bad_alias", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), GRAFT_FIXTURES, "bad_alias.py"))
+    bad = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bad)
+    (name, build), = bad.GRAFTCHECK_TORCH_ALIAS_AUDIT
+    caught = audit_shared_pages(build, name, dev, graft_size(dev, "int8"))
+    log(f"  21c seeded writer on the card: "
+        f"{sorted({f.rule for f in caught})} ({card})")
+    if "shared-page-write" not in {f.rule for f in caught}:
+        raise SystemExit(f"21c: the seeded writer was not caught: "
+                         f"{[f.render() for f in caught]}")
+    return out
+
+
+def phase_graft_steady(dev, card) -> dict:
+    """21d: three steady dispatches after warm-up per full-width steady
+    state: storage kept, memory_allocated not growing, no rebuild and no
+    first-use configuration, the state's kernels launched by its steady
+    dispatches and no plain version called (gated); the host syncs of
+    each dispatch and where they happen (printed)."""
+    from collections import Counter
+
+    from k8s_gpu_scheduler_tpu_torch.analysis import entrypoints as eps
+    from k8s_gpu_scheduler_tpu_torch.analysis.steady import run_steady
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+    from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
+        counters as flash_counters, reset_counters as reset_flash)
+
+    scenarios = dict(eps.steady_scenarios())
+    size = graft_size(dev, None)
+    out = {}
+    for name, kernels in GRAFT_STEADY.items():
+        t0 = time.perf_counter()
+        da.reset_counters()
+        reset_flash()
+        found, st = run_steady(scenarios[name], name, dev, size,
+                               count_syncs=True)
+        torch.cuda.synchronize()
+        calls = {**da.counters(), **flash_counters()}
+        plain = {k: calls[k] for k in PLAIN + FLASH_PLAIN if calls[k]}
+        sites = Counter(st["sync_sites"])
+        out[name] = dict(syncs=st["syncs"], allocated=st["allocated"],
+                         tracked=len(st["tracked"]),
+                         launches=st["launches"],
+                         sites=dict(sites.most_common()))
+        log(f"  21d {name}: {len(found)} findings; tracked "
+            f"{len(st['tracked'])} tensors {st['tracked'][:6]}; allocated "
+            f"{st['allocated']} B; steady launches "
+            f"{json.dumps(st['launches'])}; host syncs a dispatch "
+            f"{st['syncs']} at {json.dumps(dict(sites.most_common()))} in "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
+        if found or not st["tracked"]:
+            raise SystemExit(f"21d {name}: {[f.render() for f in found]}")
+        if plain or not all(st["launches"].get(k) for k in kernels):
+            raise SystemExit(f"21d {name}: steady launches "
+                             f"{st['launches']}, want {list(kernels)} "
+                             f"above 0; plain calls {plain}")
+    return out
+
+
+def phase_graftcheck(dev, card) -> dict:
+    t0 = time.perf_counter()
+    phase_graft_cli()
+    t1 = time.perf_counter()
+    rows = phase_graft_smem(card)
+    t2 = time.perf_counter()
+    alias = phase_graft_alias(dev, card)
+    t3 = time.perf_counter()
+    steady = phase_graft_steady(dev, card)
+    t4 = time.perf_counter()
+    log(f"  phase 21: 21a {t1 - t0:.1f} s, 21b {t2 - t1:.1f} s, 21c "
+        f"{t3 - t2:.1f} s, 21d {t4 - t3:.1f} s")
+    return dict(smem=rows, alias=alias, steady=steady)
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -5076,6 +5347,12 @@ def main() -> int:
               "a gang): 20a an NCCL world of one, 20b-c a gloo world of two "
               "ranks sharing the card, 20d two gang workers on the card")
         phase_gang_serving(dev, card)
+    if run(21):
+        phase("phase 21: graftcheck for the port on the card: 21a the CLI "
+              "(tree and seeded fixtures), 21b shared memory and registers "
+              "of every instantiation, 21c shared pages at full width, 21d "
+              "steady state at full width")
+        phase_graftcheck(dev, card)
     if chosen is not None:
         log(json.dumps({"card": card, "kernel_cases": cases}))
         log(f"chip_smoke: phases {sorted(chosen)} in "

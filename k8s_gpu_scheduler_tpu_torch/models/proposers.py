@@ -214,6 +214,8 @@ class DraftModelProposer:
         dev = self.model.device
         props, q = self.draft(torch.as_tensor(tokens, device=dev),
                               torch.as_tensor(lens, device=dev), gamma, seed)
+        # The draft's proposals feed the host's verify window, as in JAX:
+        # graftcheck: ignore[host-sync]
         return props.cpu().numpy(), q.cpu().numpy()
 
     def drop(self, slot: int) -> None:  # stateless per slot

@@ -135,6 +135,8 @@ def _generator(device: torch.device, *key: int) -> torch.Generator:
     stream per (engine seed, stream, dispatch, tick or slot)."""
     h = 0x9E3779B97F4A7C15
     for k in key:
+        # Key parts are host ints (seed, stream, slot):
+        # graftcheck: ignore[host-sync-in-dispatch]
         h = (h ^ (int(k) & _MASK64)) * 0xBF58476D1CE4E5B9 & _MASK64
         h = (h ^ (h >> 31)) * 0x94D049BB133111EB & _MASK64
         h ^= h >> 29
@@ -184,6 +186,8 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
     s, h_kv = k_cache.shape[1], k_cache.shape[2]
     if impl == "fused" and t == 1:
         return flash_decode_attention(q[:, 0], k_cache, v_cache,
+                                      # pos is the cache's host int length:
+                                      # graftcheck: ignore[host-sync-in-dispatch]
                                       int(pos) + 1, plan_batch=plan_batch,
                                       plan_kv_heads=plan_kv_heads)[:, None]
     if impl == "fused" and verify and t > 1:
@@ -195,6 +199,8 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
                 f"S={s}")
         kp, table = contiguous_as_paged(k_cache, plan[0])
         vp, _ = contiguous_as_paged(v_cache, plan[0])
+        # pos is the cache's host int length:
+        # graftcheck: ignore[host-sync-in-dispatch]
         return paged_verify_attention(q, kp, vp, table, int(pos),
                                       plan_kv_heads=plan_kv_heads)
     g = n_heads // h_kv
@@ -240,6 +246,8 @@ def forward_with_cache(model: Llama, tokens: torch.Tensor, cfg: LlamaConfig,
         return _forward_cache_sharded(model, tokens, cfg, cache, ax, verify,
                                       plan_batch)
     B, t = tokens.shape
+    # cache['len'] is a host int the loop advances:
+    # graftcheck: ignore[host-sync-in-dispatch]
     pos = int(cache["len"])
     angles = rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                         device=tokens.device)[pos:pos + t]
@@ -413,6 +421,8 @@ def _forward_cache_sharded(model: Llama, tokens: torch.Tensor,
     n_tp, hd = ax.size("tp"), cfg.head_dim
     heads, kv_heads = cfg.n_heads // n_tp, cfg.n_kv_heads // n_tp
     B, t = tokens.shape
+    # cache['len'] is a host int the loop advances:
+    # graftcheck: ignore[host-sync-in-dispatch]
     pos = int(cache["len"])
     angles = rope_freqs(hd, cfg.max_seq, cfg.rope_theta,
                         device=tokens.device)[pos:pos + t]
@@ -569,6 +579,8 @@ def generate_speculative(model: Llama, prompt, cfg: LlamaConfig, max_new: int,
             f"divisible by a power of two from 8 to 256, got S={S}")
     sampled = temperature > 0.0
     seq = np.zeros(t_prompt + max_new + gamma + 1, np.int64)
+    # The prompt's one read into the host's draft sequence:
+    # graftcheck: ignore[host-sync]
     seq[:t_prompt] = prompt[0].cpu().numpy()
     cache = init_cache(cfg, 1, S, device=dev)
     logits, cache = forward_with_cache(model, prompt, cfg, cache)
@@ -601,6 +613,8 @@ def generate_speculative(model: Llama, prompt, cfg: LlamaConfig, max_new: int,
         else:
             toks = torch.argmax(logits[0], dim=-1)
             accept = torch.cumprod((prop == toks[:-1]).long(), dim=0).sum()
+        # B = 1 speculation's per-window read-back, as in JAX:
+        # graftcheck: ignore[host-sync]
         got = torch.cat([toks, accept[None]]).cpu().numpy()  # the read-back
         accept = int(got[-1])
         # The whole window is written and n advances by accept + 1 only:
@@ -1037,6 +1051,8 @@ def _prefill_multi_paged_fn(model: Llama, cfg: LlamaConfig, page_size: int,
     sel = logits[rows, tl - 1]                                   # [M, vocab]
     if temperature > 0:
         firsts = torch.stack([
+            # slots is a host numpy operand:
+            # graftcheck: ignore[host-sync-in-dispatch]
             _sample_tokens(sel[i], _generator(dev, *seed, int(slots[i])),
                            temperature, top_k) for i in range(M)])
     else:
@@ -1046,11 +1062,14 @@ def _prefill_multi_paged_fn(model: Llama, cfg: LlamaConfig, page_size: int,
     # updates (a slot freed by a max_new == 1 entry can be reused later
     # in the same run); resolved on the host so the device scatter has
     # unique indices.
+    # graftcheck: ignore[host-sync-in-dispatch] — slots is a host numpy operand
     last_row = {int(s): i for i, s in enumerate(slots)}
     uniq = torch.as_tensor(list(last_row.values()), dtype=torch.int64,
                            device=dev)
     dst = torch.as_tensor(list(last_row.keys()), dtype=torch.int64,
                           device=dev)
+    # Hit and tail lengths are host numpy operands:
+    # graftcheck: ignore[numpy-in-dispatch]
     new_len = torch.as_tensor(np.asarray(hit_lens) + np.asarray(tail_lens),
                               dtype=lens.dtype, device=dev)
     lens = lens.clone()
@@ -1168,6 +1187,8 @@ def _prefill_multi_fn(model: Llama, cfg: LlamaConfig, k, v, k_s, v_s,
                                  device=dev) - 1]               # [M, vocab]
     if temperature > 0:
         firsts = torch.stack([
+            # slots is a host numpy operand:
+            # graftcheck: ignore[host-sync-in-dispatch]
             _sample_tokens(sel[i], _generator(dev, *seed, int(slots[i])),
                            temperature, top_k) for i in range(M)])
     else:
@@ -1176,6 +1197,8 @@ def _prefill_multi_fn(model: Llama, cfg: LlamaConfig, k, v, k_s, v_s,
     col = torch.arange(S, device=dev)
     for i, (slot, cursor, real_len) in enumerate(
             zip(slots, cursors, real_lens)):
+        # Slot, cursor, length are host ints:
+        # graftcheck: ignore[host-sync-in-dispatch]
         slot, cursor, start = int(slot), int(cursor), int(cursor - real_len)
         k[:, slot, start:start + tb] = mk[:, i]
         v[:, slot, start:start + tb] = mv[:, i]
@@ -1183,6 +1206,7 @@ def _prefill_multi_fn(model: Llama, cfg: LlamaConfig, k, v, k_s, v_s,
             k_s[:, slot, start:start + tb] = mks[:, i]
             v_s[:, slot, start:start + tb] = mvs[:, i]
         bitmap[slot] = (col >= start) & (col < cursor)
+        # graftcheck: ignore[host-sync-in-dispatch] — real_len is a host int
         rope_pos[slot] = int(real_len)
         last[slot] = firsts[i]
     return firsts
@@ -1559,6 +1583,8 @@ class ContinuousBatcher:
             isl.send(op, sent)
             if op in _STATE_OPS:
                 isl.broadcast_(self._lens)
+                # Step path: the leader's dispatch comes next:
+                # graftcheck: ignore[read-of-inplace-buffer]
                 isl.broadcast_(self._last)
         return getattr(self, "_op_" + op)(**kw)
 
@@ -1582,6 +1608,8 @@ class ContinuousBatcher:
                 self._table_dirty = True
             if op in _STATE_OPS:
                 isl.broadcast_(self._lens)
+                # Step path: this follower's dispatch comes next:
+                # graftcheck: ignore[read-of-inplace-buffer]
                 isl.broadcast_(self._last)
             getattr(self, "_op_" + op)(**kw)
 
@@ -1645,7 +1673,8 @@ class ContinuousBatcher:
         # Host mirror of the block table; the device copy is re-uploaded
         # only on steps whose admissions or frees changed it.
         self._table_np = np.zeros((n_slots, self.n_blocks), np.int32)
-        self._table = torch.as_tensor(self._table_np, device=dev)
+        # (a copy: on the CPU ``as_tensor`` would alias the host mirror)
+        self._table = torch.tensor(self._table_np, device=dev)
         self._table_dirty = False
         self._lens = torch.zeros(n_slots, dtype=torch.int32, device=dev)
         self._slot_pages: Dict[int, list] = {}   # slot -> owned page ids
@@ -1665,9 +1694,13 @@ class ContinuousBatcher:
         self._skipped_tokens = 0
         # Per-admission prefix hit lengths (tokens, a miss is 0), drained by
         # pool_metrics() as ``prefix_hit_token_batch``; oldest dropped.
+        # Inside __init__: the engine is not yet published to a scraper:
+        # graftcheck: ignore[lock-guard]
         self._hit_tok_buf: deque = deque(maxlen=4096)
         # The promoted subset of those hit lengths (tokens whose pages
         # came back from the host tier), drained the same way.
+        # Inside __init__: the engine is not yet published to a scraper:
+        # graftcheck: ignore[lock-guard]
         self._promoted_hit_buf: deque = deque(maxlen=4096)
         # Device bytes of this rank's pool and weights, fixed at build:
         # numel x element size, never a read of the live tensors. The
@@ -2160,9 +2193,12 @@ class ContinuousBatcher:
         return toks, accepts
 
     def _device_table(self) -> torch.Tensor:
+        """The device block table, brought up to the host mirror in place:
+        the tensor keeps its storage across dispatches (the steady-state
+        audit holds it to that), and the copy is stream-ordered after the
+        dispatches already queued on the old contents."""
         if self._table_dirty:
-            self._table = torch.as_tensor(self._table_np.copy(),
-                                          device=self.device)
+            self._table.copy_(torch.from_numpy(self._table_np))
             self._table_dirty = False
         return self._table
 
@@ -2578,6 +2614,8 @@ class ContinuousBatcher:
                                   active=self._active(ready),
                                   seed=(self.seed, 2, self._dispatch_no),
                                   eff=eff, q=q)
+        # The verify step's one batched readback, as JAX's:
+        # graftcheck: ignore[host-sync]
         toks, accepts = toks.cpu().numpy(), accepts.cpu().numpy()
         t_ver1 = self._clock.monotonic()
         step_used = step_emitted = step_eff = 0
@@ -2651,6 +2689,8 @@ class ContinuousBatcher:
         dispatch order, into ``self._out``."""
         if not self._reads:
             return
+        # The engine's one batched readback, as JAX's:
+        # graftcheck: ignore[host-sync]
         vals = [arr.cpu().numpy() for _, arr, _ in self._reads]
         now = self._clock.monotonic()
         for (kind, _, meta), got in zip(self._reads, vals):
@@ -2807,6 +2847,8 @@ class ContinuousBatcher:
 
     def _planes(self) -> list:
         """The pool's planes: k, v and, int8, the two scale planes."""
+        # Called at step boundaries only (drain, demotion, restore):
+        # graftcheck: ignore[read-of-inplace-buffer]
         return [t for t in (self._k, self._v, self._ks, self._vs)
                 if t is not None]
 
@@ -3008,7 +3050,11 @@ class ContinuousBatcher:
             planes = [np.zeros(empty, _host_dtype(self._k.dtype))] * 2
             if self._ks is not None:
                 planes += [np.zeros(empty[:-1] + (1,), np.float32)] * 2
+        # Drain gathers at a step boundary, as JAX's drain:
+        # graftcheck: ignore[host-sync]
         lens = self._lens.cpu().numpy().astype(np.int32)
+        # Drain gathers at a step boundary, as JAX's drain:
+        # graftcheck: ignore[host-sync,read-of-inplace-buffer]
         last = self._last.cpu().numpy().astype(np.int32)
         if self._flight is not None and not partial:
             # Recorded before the ring is shipped, so the drain marker
@@ -3311,7 +3357,11 @@ class ContinuousBatcher:
         now_m, now_w = self._clock.monotonic(), self._clock.wall()
         arrival = snap.rebased_clock(snap.arrival, now_m, now_w)
         first = snap.rebased_clock(snap.first_tok, now_m, now_w)
+        # Absorb reads at a step boundary, as JAX's absorb:
+        # graftcheck: ignore[host-sync]
         lens = self._lens.cpu().numpy().copy()
+        # Absorb reads at a step boundary, as JAX's absorb:
+        # graftcheck: ignore[host-sync]
         last = self._last.cpu().numpy().copy()
         mapping: Dict[int, int] = {}
         claimed: set = set()

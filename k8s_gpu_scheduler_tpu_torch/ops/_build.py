@@ -36,6 +36,9 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 
 _lib: Optional[ctypes.CDLL] = None
 _report: str = ""
+# Compiles and library loads in this process: the steady-state audit
+# (analysis/steady.py) shows no dispatch after warm-up does either.
+COUNTS = {"builds": 0, "loads": 0}
 
 
 def _nvcc() -> str:
@@ -71,6 +74,7 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    COUNTS["builds"] += 1
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / (src.stem + ".o")) for src in SOURCES]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
@@ -103,6 +107,7 @@ def load_library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
+    COUNTS["loads"] += 1
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.paged_decode_attention_launch.argtypes = (
         [vp] * 8 + [i] * 9 + [vp])
@@ -124,8 +129,17 @@ def load_library() -> ctypes.CDLL:
     lib.flash_backward_dkv_launch.restype = i
     lib.paged_attention_error_string.argtypes = [i]
     lib.paged_attention_error_string.restype = ctypes.c_char_p
+    lib.port_first_use_configs.argtypes = []
+    lib.port_first_use_configs.restype = i
     _lib = lib
     return lib
+
+
+def first_use_configs() -> int:
+    """First-use configurations the loaded library has run (a kernel's
+    shared memory raise, a cluster's fit check: once per instantiation);
+    0 while no library is loaded."""
+    return 0 if _lib is None else int(_lib.port_first_use_configs())
 
 
 def error_string(err: int) -> str:

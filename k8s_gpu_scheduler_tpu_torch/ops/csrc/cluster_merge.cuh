@@ -110,6 +110,7 @@ template <typename... Params>
 cudaError_t check_cluster_fits(void (*kernel)(Params...), int threads,
                                size_t smem, bool& checked) {
   if (checked) return cudaSuccess;
+  note_first_use();
   ClusterLaunch launch(dim3(kMaxSplits), threads, smem, nullptr);
   int clusters = 0;
   const cudaError_t err =

@@ -64,11 +64,18 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+// Counts the library's first-use configurations (a kernel's shared memory
+// raise, a cluster's fit check: once per instantiation, defined in
+// paged_attention.cu); port_first_use_configs() reads it, so the
+// steady-state audit can show that none runs again after warm-up.
+void note_first_use();
+
 // Raises the kernel's dynamic shared memory limit once per instantiation
 // (needed above 48 KB).
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& configured) {
   if (configured) return cudaSuccess;
+  note_first_use();
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));

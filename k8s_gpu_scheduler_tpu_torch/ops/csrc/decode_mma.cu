@@ -500,3 +500,26 @@ cudaError_t flash_decode_bf16(const void* q, const void* k, const void* v,
 }
 
 }  // namespace port_kernels
+
+// The dynamic shared memory launch_decode_mma requests for int8 or bf16
+// pages, PagedRows (K1, K3) or ContiguousRows (K4); -1 for a head dim that
+// is not instantiated. Read-only: the smem audit (analysis/smem.py) holds
+// its mirror to it.
+extern "C" long long decode_mma_smem_bytes(int kv_int8, int hd,
+                                           int contiguous) {
+  using namespace port_kernels;
+#define DECODE_SMEM(PT, HD)                                                  \
+  return static_cast<long long>(                                             \
+      contiguous ? decode_smem_bytes<PT, HD, ContiguousRows>()               \
+                 : decode_smem_bytes<PT, HD, PagedRows>())
+  if (hd == 64) {
+    if (kv_int8) DECODE_SMEM(int8_t, 64);
+    DECODE_SMEM(bf16, 64);
+  }
+  if (hd == 128) {
+    if (kv_int8) DECODE_SMEM(int8_t, 128);
+    DECODE_SMEM(bf16, 128);
+  }
+#undef DECODE_SMEM
+  return -1;
+}

@@ -638,4 +638,20 @@ int flash_backward_dkv_launch(const void* q, const void* k, const void* v,
                causal, st);
 }
 
+// The dynamic shared memory the f32 launch_fwd (kernel 5), launch_dq (6) or
+// launch_dkv (7) requests; -1 for a head dim that is not instantiated.
+// Read-only: the smem audit (analysis/smem.py) holds its mirror to it.
+long long flash_attention_smem_bytes(int kernel, int hd) {
+  if (hd != 64 && hd != 128) return -1;
+  const bool h64 = hd == 64;
+  long long floats = -1;
+  if (kernel == 5)
+    floats = h64 ? fwd_smem_floats<64>() : fwd_smem_floats<128>();
+  if (kernel == 6)
+    floats = h64 ? dq_smem_floats<64>() : dq_smem_floats<128>();
+  if (kernel == 7)
+    floats = h64 ? dkv_smem_floats<64>() : dkv_smem_floats<128>();
+  return floats < 0 ? -1 : static_cast<long long>(sizeof(float)) * floats;
+}
+
 }  // extern "C"

@@ -432,3 +432,16 @@ cudaError_t flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
 }
 
 }  // namespace port_kernels
+
+// The dynamic shared memory launch_dq_mma (kernel 6) or launch_dkv_mma
+// (kernel 7) requests; -1 for a head dim that is not instantiated.
+// Read-only: the smem audit (analysis/smem.py) holds its mirror to it.
+extern "C" long long flash_backward_mma_smem_bytes(int kernel, int hd) {
+  using namespace port_kernels;
+  if (hd != 64 && hd != 128) return -1;
+  if (kernel == 6)
+    return hd == 64 ? dq_smem_bytes<64>() : dq_smem_bytes<128>();
+  if (kernel == 7)
+    return hd == 64 ? dkv_smem_bytes<64>() : dkv_smem_bytes<128>();
+  return -1;
+}

@@ -290,4 +290,12 @@ int flash_decode_attention_launch(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// The dynamic shared memory the f32 launcher requests: none (its merge
+// arrays are static); -1 for a head dim that is not instantiated.
+// Read-only: the smem audit (analysis/smem.py) holds its mirror to it.
+long long flash_decode_smem_bytes(int kv_int8, int hd) {
+  (void)kv_int8;
+  return hd == 64 || hd == 128 ? 0 : -1;
+}
+
 }  // extern "C"

@@ -217,3 +217,12 @@ cudaError_t flash_fwd_bf16(const void* q, const void* k, const void* v,
 }
 
 }  // namespace port_kernels
+
+// The dynamic shared memory launch_fwd_mma requests; -1 for a head dim
+// that is not instantiated. Read-only: the smem audit (analysis/smem.py)
+// holds its mirror to it.
+extern "C" long long flash_forward_mma_smem_bytes(int hd) {
+  if (hd == 64) return port_kernels::fwd_smem_bytes<64>();
+  if (hd == 128) return port_kernels::fwd_smem_bytes<128>();
+  return -1;
+}

@@ -66,12 +66,16 @@
 //        library (ops/_build.py). Plain C interface for ctypes; each launch
 //        function returns cudaGetLastError().
 
+#include <atomic>
 #include <math.h>
 
 #include "cluster_merge.cuh"
 #include "common.cuh"
 
 namespace port_kernels {
+
+std::atomic<int> g_first_use{0};
+void note_first_use() { g_first_use.fetch_add(1, std::memory_order_relaxed); }
 
 // K2 for bf16 q, on the tensor cores (paged_prefill_mma.cu).
 cudaError_t paged_prefill_bf16(const void* q, const void* k, const void* v,
@@ -633,6 +637,7 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
   const size_t smem = sizeof(float) * prefill_smem_floats<HD>();
   static bool configured = false;         // once per instantiation
   if (!configured) {
+    note_first_use();
     const cudaError_t err = cudaFuncSetAttribute(
         paged_prefill_kernel<PT, HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -767,6 +772,24 @@ int paged_verify_attention_launch(const void* q, const void* k, const void* v,
 
 const char* paged_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// First-use configurations run so far (note_first_use), library-wide.
+int port_first_use_configs(void) {
+  return port_kernels::g_first_use.load(std::memory_order_relaxed);
+}
+
+// The dynamic shared memory the f32 launchers request: kernel 1 (K1, none:
+// its merge arrays are static), 2 (K2) or 3 (K3); -1 for a head dim that is
+// not instantiated. Read-only: the smem audit (analysis/smem.py) holds its
+// mirror to it.
+long long paged_attention_smem_bytes(int kernel, int kv_int8, int hd) {
+  (void)kv_int8;                        // the f32 tiles hold no pool rows
+  if (hd != 64 && hd != 128) return -1;
+  if (kernel == 1) return 0;
+  if (kernel != 2 && kernel != 3) return -1;
+  return static_cast<long long>(sizeof(float)) *
+         (hd == 64 ? prefill_smem_floats<64>() : prefill_smem_floats<128>());
 }
 
 }  // extern "C"

@@ -262,3 +262,13 @@ cudaError_t paged_prefill_bf16(const void* q, const void* k, const void* v,
 }
 
 }  // namespace port_kernels
+
+// The dynamic shared memory launch_prefill_mma requests (the same for bf16
+// and int8 pages); -1 for a head dim that is not instantiated. Read-only:
+// the smem audit (analysis/smem.py) holds its mirror to it.
+extern "C" long long paged_prefill_mma_smem_bytes(int kv_int8, int hd) {
+  (void)kv_int8;
+  if (hd == 64) return port_kernels::prefill_smem_bytes<64>();
+  if (hd == 128) return port_kernels::prefill_smem_bytes<128>();
+  return -1;
+}

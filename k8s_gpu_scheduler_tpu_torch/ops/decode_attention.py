@@ -482,6 +482,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
         _ptr(table), _ptr(lens), _ptr(out),
         b, n_heads, n_kv, hd, ps, n_blocks, ns,
+        # The dtype and int8 flags are host bools:
+        # graftcheck: ignore[host-sync-in-dispatch]
         int(q.dtype == torch.bfloat16), int(quant),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _raise_on(err, "paged_decode_attention")
@@ -551,6 +553,8 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
         _ptr(table), _ptr(hits), _ptr(tail_k), _ptr(tail_v), _ptr(out),
         m, tb, n_heads, n_kv, hd, ps, hb,
+        # The dtype and int8 flags are host bools:
+        # graftcheck: ignore[host-sync-in-dispatch]
         int(q.dtype == torch.bfloat16), int(quant),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _raise_on(err, "paged_prefill_attention")
@@ -614,6 +618,8 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
         _ptr(table), _ptr(lens), _ptr(out),
         b, t, n_heads, n_kv, hd, ps, n_blocks, ns,
+        # The dtype and int8 flags are host bools:
+        # graftcheck: ignore[host-sync-in-dispatch]
         int(q.dtype == torch.bfloat16), int(quant),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _raise_on(err, "paged_verify_attention")
@@ -677,6 +683,8 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(lengths.shape)}")
         live_rows = s                    # not read back: plan for the most
     else:
+        # A non-tensor length is the host's cursor:
+        # graftcheck: ignore[host-sync-in-dispatch]
         lengths = int(lengths)
         live_rows = min(max(lengths, 0), s)
     ns = flash_decode_plan(live_rows, plan_batch or b, plan_kv_heads or n_kv)
@@ -702,6 +710,8 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _ptr(q), _ptr(k), _ptr(v), _ptr(k_scale), _ptr(v_scale),
         _ptr(bitmap), _ptr(lens), live_rows if lens is None else 0, _ptr(out),
         b, n_heads, n_kv, hd, s, ns,
+        # The dtype and int8 flags are host bools:
+        # graftcheck: ignore[host-sync-in-dispatch]
         int(q.dtype == torch.bfloat16), int(quant),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _raise_on(err, "flash_decode_attention")

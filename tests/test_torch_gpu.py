@@ -1121,3 +1121,55 @@ def test_tp2_checkpoint_restores_onto_one_card(cuda, tmp_path):
                  rendezvous=str(tmp_path / "rdv"), timeout=300)
     for out in outs:
         assert out["step_no"] == 2 and out["equal"]
+
+
+# -- graftcheck for the port (chip_smoke phase 21 at tiny widths) -------------
+
+@pytest.mark.gpu
+def test_smem_query_equals_the_mirror(cuda):
+    """21b for one instantiation of each kernel on each route: the bytes
+    its launcher requests (the .cu query) equal analysis/smem.py's
+    mirror, which only the card's compiler can hold to the constexprs."""
+    from k8s_gpu_scheduler_tpu_torch.analysis import smem
+    from k8s_gpu_scheduler_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    first = {}
+    for e in smem.reached_entries():
+        first.setdefault((e.kernel, e.source), e)
+    assert {k for k, _ in first} == {f"K{i}" for i in range(1, 8)}
+    for e in first.values():
+        assert smem.lib_query(lib, e) == e.dynamic_bytes, e.label
+
+
+@pytest.mark.gpu
+def test_alias_scenario_on_card(cuda):
+    """21c at the tiny config: a decode chunk over mounted shared pages
+    leaves them byte-identical on the card, through K1."""
+    from k8s_gpu_scheduler_tpu_torch.analysis.alias import (
+        audit_shared_pages)
+    from k8s_gpu_scheduler_tpu_torch.analysis.entrypoints import (
+        alias_scenarios)
+
+    build = dict(alias_scenarios())["batcher_decode_paged_prefix"]
+    da.reset_counters()
+    assert audit_shared_pages(build, "decode", cuda) == []
+    c = da.counters()
+    assert c["paged_decode_attention"] > 0, c
+    assert not c["paged_decode_reference"], c
+
+
+@pytest.mark.gpu
+def test_steady_scenario_on_card(cuda):
+    """21d at the tiny config: three steady paged decode dispatches keep
+    the pool's and table's storage, allocate nothing more, and rebuild
+    and configure nothing."""
+    from k8s_gpu_scheduler_tpu_torch.analysis.entrypoints import (
+        steady_scenarios)
+    from k8s_gpu_scheduler_tpu_torch.analysis.steady import run_steady
+
+    build = dict(steady_scenarios())["batcher_steady_decode_paged"]
+    found, st = run_steady(build, "paged", cuda, count_syncs=True)
+    assert found == []
+    assert {"k", "v", "table"} <= set(st["tracked"])
+    assert len(st["allocated"]) == len(st["syncs"]) == 3

@@ -12,11 +12,13 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "k8s_gpu_scheduler_tpu_torch"
 # chip_smoke.py and the card tests run where JAX is not installed; the
-# rank workers are re-imported by every spawned rank.
+# rank workers are re-imported by every spawned rank; the port's graftcheck
+# executes its seeded fixtures there.
 SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
     ROOT / "tests" / "torch_tp_workers.py",
-    ROOT / "tests" / "torch_train_workers.py"]
+    ROOT / "tests" / "torch_train_workers.py"] + sorted(
+    (ROOT / "tests" / "data" / "graftcheck_torch").glob("*.py"))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
         ".__init__", "")
@@ -55,6 +57,10 @@ def test_every_module_imports_with_jax_blocked():
     assert "k8s_gpu_scheduler_tpu_torch.ops.flash_attention" in MODULES
     assert "k8s_gpu_scheduler_tpu_torch.parallel.collectives" in MODULES
     assert "k8s_gpu_scheduler_tpu_torch.models.pipeline" in MODULES
+    assert {"k8s_gpu_scheduler_tpu_torch.analysis." + m for m in (
+        "findings", "retrylint", "astlint", "tracelint", "lockorder",
+        "determinism", "smem", "wirecompat", "alias", "steady",
+        "entrypoints", "__main__")} <= set(MODULES)
     assert set(FLEET_SLICE) <= set(MODULES)
     assert len(MODULES) >= 14 + len(FLEET_SLICE)
 
