@@ -34,14 +34,28 @@ Dynamic passes (``run_dynamic_passes``; the device is explicit):
    dispatches (the recompile guard's and donation audit's counterpart).
 9. **Wire-format audit** (``wirecompat``): the port's snapshot, replica
    summary and journal against the JAX package's goldens.
+10. **Op audit** (``opaudit``, over the op recorder ``oprecord``): the
+    jaxpr audit's counterpart — ``f32-upcast``, ``host-transfer``,
+    ``dead-output``, and ``per-call-upload`` for ``captured-const``.
+11. **Traffic audit** (``traffic``): each serving dispatch's allocations,
+    costed symbolically in the pool geometry, against its contract —
+    ``traffic-contract``, ``dense-materialization``, ``peak-residency``.
+12. **Sharding audit** (``gspmd``): each rank's real tensors against
+    ``parallel/sharding.py`` — ``cache-spec-mismatch``/``-missing``,
+    ``island-pool-spec``, ``island-missing``, ``island-weight-spec``,
+    ``oversized-replicated``, ``unknown-mesh-axis``.
 
-Not ported yet (ROADMAP queue 1 item 5b): the op audit (``jaxpr_audit``),
-the traffic audit (``traffic``) and the GSPMD audit (``gspmd``).
+The multi-rank entries (the sharding audit, the tp traffic rows and
+steady states, the pipeline's op audit, and a hook's sharding entries
+and ``world=2`` op and traffic entries) run on one spawned world of two
+gloo ranks (``world``).
 
 Hooks: a module under the analysed paths that assigns
-``GRAFTCHECK_TORCH_SMEM_AUDIT``, ``GRAFTCHECK_TORCH_ALIAS_AUDIT`` or
-``GRAFTCHECK_TORCH_STEADY_AUDIT`` at top level is imported and its
-entries audited (the seeded fixtures in tests/data/graftcheck_torch/).
+``GRAFTCHECK_TORCH_SMEM_AUDIT``, ``GRAFTCHECK_TORCH_ALIAS_AUDIT``,
+``GRAFTCHECK_TORCH_STEADY_AUDIT``, ``GRAFTCHECK_TORCH_OP_AUDIT``,
+``GRAFTCHECK_TORCH_TRAFFIC_AUDIT`` or ``GRAFTCHECK_TORCH_GSPMD_AUDIT`` at
+top level is imported and its entries audited (the seeded fixtures in
+tests/data/graftcheck_torch/).
 A module that imports ``jax`` or the JAX
 package is never executed: its hook is a ``hook-error`` finding.
 
@@ -168,16 +182,21 @@ def run_wirecompat_pass(paths=None) -> Report:
 
 
 def run_dynamic_passes(paths=None, device="cuda") -> Report:
-    """Shared-page audit + steady-state audit + wire-format audit on
-    ``device`` (explicit: ``"cuda"`` raises without a card). The
-    registries' scenarios run at the tiny config when the port's package
-    is among ``paths`` (the default); ``GRAFTCHECK_TORCH_ALIAS_AUDIT`` /
-    ``GRAFTCHECK_TORCH_STEADY_AUDIT`` hooks under ``paths`` run too."""
+    """Shared-page, steady-state, op, traffic, sharding and wire-format
+    audits on ``device`` (explicit: ``"cuda"`` raises without a card).
+    The registries' entries run when the port's package is among
+    ``paths`` (the default); the ``GRAFTCHECK_TORCH_*_AUDIT`` hooks under
+    ``paths`` run too. Every multi-rank entry, a hook's too, runs on one
+    spawned world of two ranks (``world.py``)."""
     import torch
 
     from . import entrypoints as eps
     from .alias import audit_shared_pages
+    from .gspmd import GspmdEntry
+    from .opaudit import OpEntry, audit_entry
     from .steady import audit_steady_state
+    from .traffic import TrafficEntry, run_traffic_entry
+    from .world import run_world, world_jobs
 
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -188,8 +207,21 @@ def run_dynamic_passes(paths=None, device="cuda") -> Report:
     report = Report()
     paths = [package_root()] if paths is None else list(paths)
     ours = _covers_package(paths)
-    hooks = list(_discover_hooks(paths, ("GRAFTCHECK_TORCH_ALIAS_AUDIT",
-                                         "GRAFTCHECK_TORCH_STEADY_AUDIT")))
+    hooks = list(_discover_hooks(paths, _DYNAMIC_HOOKS))
+
+    def hook_entries(attr, kind):
+        for src, hook, entries in hooks:
+            if hook != attr:
+                continue
+            for name, item in _safe_entries(report, src, hook, entries):
+                if kind is not None and not isinstance(item, kind):
+                    report.extend([Finding(
+                        "hook-error", src, 0,
+                        f"{attr}[{name!r}]: expected a {kind.__name__}, got "
+                        f"{type(item).__name__}")])
+                    continue
+                yield src, name, item
+
     for attr, registry, audit, key in (
             ("GRAFTCHECK_TORCH_ALIAS_AUDIT", eps.alias_scenarios,
              audit_shared_pages, "alias"),
@@ -198,16 +230,63 @@ def run_dynamic_passes(paths=None, device="cuda") -> Report:
         t0 = time.perf_counter()
         for name, build in registry() if ours else ():
             report.extend(audit(build, name, dev))
-        for src, hook, entries in hooks:
-            if hook != attr:
-                continue
-            for name, build in _safe_entries(report, src, hook, entries):
-                report.extend(audit(build, name, dev))
+        for _, name, build in hook_entries(attr, None):
+            report.extend(audit(build, name, dev))
         report.pass_seconds[key] = time.perf_counter() - t0
+
+    # The multi-rank entries, the registry's and the hooks', go to the
+    # world (world.py); the rest run here.
+    jobs = world_jobs() if ours else []
+    t0 = time.perf_counter()
+    ops = [("", n, e) for n, e in eps.op_entrypoints()] if ours else []
+    for src, name, entry in ops + list(hook_entries(
+            "GRAFTCHECK_TORCH_OP_AUDIT", OpEntry)):
+        if entry.world == 1:
+            report.extend(audit_entry(entry, name, dev)[0])
+        elif src:
+            jobs.append(("ops", name, src))
+    report.pass_seconds["opaudit"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rows = [("", n, e) for n, e in eps.traffic_entrypoints()] if ours else []
+    for src, name, entry in rows + list(hook_entries(
+            "GRAFTCHECK_TORCH_TRAFFIC_AUDIT", TrafficEntry)):
+        if entry.world > 1:
+            if src:
+                jobs.append(("traffic", name, src))
+            continue
+        found, stats = run_traffic_entry(entry, name, dev)
+        report.extend(found)
+        if "refused" in stats:
+            report.notes.append(f"{name}: refused by the port — "
+                                f"{stats['refused'][:120]}")
+    report.pass_seconds["traffic"] = time.perf_counter() - t0
+
+    report.pass_seconds["gspmd"] = 0.0
+    jobs += [("gspmd", name, src) for src, name, _ in hook_entries(
+        "GRAFTCHECK_TORCH_GSPMD_AUDIT", GspmdEntry)]
+    if jobs:
+        results, wall = run_world(dev.type, jobs)
+        keys = {"ops": "opaudit", "traffic": "traffic", "gspmd": "gspmd",
+                "steady": "steady"}
+        for (kind, name), (found, stats, secs) in results.items():
+            report.extend(found)
+            report.pass_seconds[keys[kind]] += secs
+            report.stats[f"{kind}:{name}"] = stats
+            if "refused" in stats.get(0, {}):
+                report.notes.append(f"{name}: refused by the port — "
+                                    f"{stats[0]['refused'][:120]}")
+        report.pass_seconds["world"] = wall
     wire = run_wirecompat_pass(paths)
     report.findings.extend(wire.findings)
     report.pass_seconds.update(wire.pass_seconds)
     return report
+
+
+_DYNAMIC_HOOKS = ("GRAFTCHECK_TORCH_ALIAS_AUDIT",
+                  "GRAFTCHECK_TORCH_STEADY_AUDIT", "GRAFTCHECK_TORCH_OP_AUDIT",
+                  "GRAFTCHECK_TORCH_TRAFFIC_AUDIT",
+                  "GRAFTCHECK_TORCH_GSPMD_AUDIT")
 
 
 def _safe_entries(report: Report, src: str, attr: str, entries):

@@ -11,7 +11,8 @@ them). Exit code 0 iff no error-severity finding; findings print as
 ``--fast`` runs only the fast passes (AST only, no card). ``--device cuda|cpu``
 is where the dynamic passes run: ``cuda`` (the default) raises without a
 card, ``cpu`` runs the kernels' plain versions. ``--json`` emits one
-machine-readable line (findings, per-pass seconds). ``--suppressions``
+machine-readable line (findings, per-pass seconds, notes, the
+multi-rank entries' stats by rank). ``--suppressions``
 prints the suppression catalogue (the README block regenerates from it).
 ``--update-schemas`` refuses (exit 2): the goldens under
 tests/data/graftcheck/schemas/ are the JAX package's, which the port only
@@ -70,6 +71,8 @@ def main(argv=None) -> int:
         dyn = run_dynamic_passes(paths, device=args.device)
         report.findings.extend(dyn.findings)
         report.pass_seconds.update(dyn.pass_seconds)
+        report.notes.extend(dyn.notes)
+        report.stats.update(dyn.stats)
     failing = report.findings if args.warnings_as_errors else report.errors
     if args.json:
         print(json.dumps({
@@ -83,11 +86,15 @@ def main(argv=None) -> int:
             "pass_seconds": {k: round(v, 3)
                              for k, v in report.pass_seconds.items()},
             "rules": sorted({f.rule for f in report.findings}),
-        }))
+            "notes": report.notes,
+            "stats": report.stats,
+        }, default=str))
     timing = ", ".join(f"{k} {v:.3f} s"
                        for k, v in report.pass_seconds.items())
     if report.findings:
         print(report.render(header="graftcheck findings:"), file=sys.stderr)
+    for note in report.notes:
+        print(f"graftcheck: {note}", file=sys.stderr)
     print(f"graftcheck: {'clean' if not failing else 'FAILED'} "
           f"({timing})", file=sys.stderr)
     return 1 if failing else 0

@@ -211,6 +211,10 @@ class Report:
     bench leg can track lint latency."""
     findings: List[Finding] = field(default_factory=list)
     pass_seconds: Dict[str, float] = field(default_factory=dict)
+    # What a pass reports that is no finding (an entry the port refuses).
+    notes: List[str] = field(default_factory=list)
+    # The multi-rank entries' stats, by "pass:name", then by rank.
+    stats: Dict[str, dict] = field(default_factory=dict)
 
     def extend(self, findings: Iterable[Finding]) -> None:
         self.findings.extend(findings)

@@ -40,7 +40,8 @@ device raises, and a CUDA tensor never reaches the plain version.
 ``dense_decode_reference`` with fully masked rows zeroed, as the kernel
 yields them) are those plain versions, ported op for op from the JAX
 package's references. Each wrapper counts its kernel launches
-(``.launches``) and each plain version its calls (``.calls``).
+(``.launches``) and each plain version its calls (``.calls``), and is one
+leaf op of an op record on either route (``_leaf.py``).
 """
 from __future__ import annotations
 
@@ -49,6 +50,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from ._leaf import leaf_op
 
 DEFAULT_PAGE_SIZE = 64
 NEG_INF = -1e30
@@ -437,6 +440,7 @@ def _raise_on(err: int, name: str) -> None:
                            f"{error_string(err)} ({err})")
 
 
+@leaf_op
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_table: torch.Tensor,
                            lengths, k_scale: Optional[torch.Tensor] = None,
@@ -494,6 +498,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 paged_decode_attention.launches = 0
 
 
+@leaf_op
 def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor,
                             prefix_table: torch.Tensor, hit_lens,
@@ -565,6 +570,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor,
 paged_prefill_attention.launches = 0
 
 
+@leaf_op
 def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_table: torch.Tensor,
                            lengths, k_scale: Optional[torch.Tensor] = None,
@@ -630,6 +636,7 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
 paged_verify_attention.launches = 0
 
 
+@leaf_op
 def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths, k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,

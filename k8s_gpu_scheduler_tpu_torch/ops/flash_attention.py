@@ -31,7 +31,9 @@ in f32, whatever the input dtype. ``flash_attention`` (forward only) and
 ``flash_attention_diff`` (an autograd function: forward K5 saving
 ``q, k, v, out, lse``; backward K6 then K7) are the entry points the
 model calls. ``counters()`` reports each kernel's launches and each plain
-version's calls.
+version's calls. ``flash_forward`` (K5) and ``flash_backward`` (K6 + K7:
+their plain version is one function) are leaf ops of an op record
+(``_leaf.py``).
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from ._leaf import leaf_op
 
 NEG_INF = -1e30
 
@@ -277,6 +281,7 @@ def launch_backward_dkv(q, k, v, lse, delta, dout, causal: bool):
     return dk, dv
 
 
+@leaf_op
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, with_lse: bool = True):
     """(out [B, T, H, d] in q's dtype, lse [B*H, T] f32 or None): K5 on
@@ -289,6 +294,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, (lse if with_lse else None)
 
 
+@leaf_op
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                    causal: bool = True):

@@ -1173,3 +1173,59 @@ def test_steady_scenario_on_card(cuda):
     assert found == []
     assert {"k", "v", "table"} <= set(st["tracked"])
     assert len(st["allocated"]) == len(st["syncs"]) == 3
+
+
+# -- the rest of graftcheck (chip_smoke phase 22 at the audit widths) ----------
+
+@pytest.mark.gpu
+def test_op_record_matches_cpu_on_card(cuda):
+    """22a: every single-card op-audit entry records on the card, with the
+    kernels launched inside its leaves and no plain version, op for op as
+    the same entry's CPU record; none has a finding."""
+    from k8s_gpu_scheduler_tpu_torch.analysis.entrypoints import (
+        op_entrypoints)
+    from k8s_gpu_scheduler_tpu_torch.analysis.opaudit import audit_entry
+    from k8s_gpu_scheduler_tpu_torch.analysis.oprecord import (
+        first_difference)
+
+    for name, entry in op_entrypoints():
+        if entry.world > 1:
+            continue
+        found, recs = audit_entry(entry, name, cuda)
+        _, cpu_recs = audit_entry(entry, name, torch.device("cpu"))
+        assert found == [], [f.render() for f in found]
+        for card_rec, cpu_rec in zip(recs, cpu_recs):
+            assert first_difference(card_rec, cpu_rec) is None, name
+        launched = recs[0].launched()
+        assert not any(k.endswith("_reference") for k in launched), launched
+        if cpu_recs[0].leaves():
+            assert launched, name
+
+
+@pytest.mark.gpu
+def test_traffic_contracts_on_card(cuda):
+    """22b at the audit geometry: every single-card row meets its
+    contract on the card (the gather rungs refused), with K1, K2 and K3
+    launched inside the decode, verify and prefix-prefill records and the
+    dispatch's max_memory_allocated growth inside the residency bound."""
+    from k8s_gpu_scheduler_tpu_torch.analysis.entrypoints import (
+        traffic_entrypoints)
+    from k8s_gpu_scheduler_tpu_torch.analysis.traffic import (
+        run_traffic_entry)
+
+    want = {"traffic_decode_chunk": "paged_decode_attention",
+            "traffic_verify_window": "paged_verify_attention",
+            "traffic_verify_window_sampled": "paged_verify_attention",
+            "traffic_prefill_tb16_hb4_kernel": "paged_prefill_attention"}
+    for name, entry in traffic_entrypoints():
+        if entry.world > 1:
+            continue
+        found, st = run_traffic_entry(entry, name, cuda)
+        assert found == [], [f.render() for f in found]
+        if "gather" in name:
+            assert "refused" in st
+            continue
+        assert st["growth"] is not None and st["peak_pool"] == 0
+        if name in want:
+            assert st["launched"].get(want[name]), (name, st["launched"])
+        assert not any(k.endswith("_reference") for k in st["launched"])
