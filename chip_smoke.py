@@ -367,6 +367,30 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    plain version. (d) The CLI's run of 21a (made here when phase 21 did
    not run): the seeded fixtures give exactly ``GRAFT_FIXTURE_RULES``, the
    new rules included, and the tree exits 0.
+23. the scheduler's control plane (``api/``, ``cluster/``, ``sched/``,
+   ``plugins/``, ``cmd/``; host code, timed on the host's clock, printed
+   beside the card, its power limit and the host's CPU model). (a)
+   ``python -m k8s_gpu_scheduler_tpu_torch.cmd.scheduler --demo 8 --once
+   --metrics-port 0`` exits 0 with one ``scheduled`` line a pod. (b)
+   bench.py's ``bench_mixed`` shape against the in-memory API server:
+   1,024 v5e nodes in slice groups of 4, an in-memory registry at
+   utilization (i % 10) / 10, two hot-zone fillers, 560 singletons of
+   1-8 chips and 30 four-member gangs arriving Poisson at 150 pods/s
+   from a seeded generator, two priority-100 preemptors, one node
+   mid-reshape throughout: all 684 pods bound, zero-sum chip
+   accounting, the cache agreeing with the API server, the fillers
+   evicted, nothing on the reshaping node, every gang on one slice
+   group; p50/p99 of the e2e and cycle latencies and pods/s printed. (c)
+   ``build_scheduler`` places a 4-chip pod on one of two 2x2 partitions
+   of a v5e host, so PostBind injects TPU_HBM_LIMIT_BYTES and
+   TPU_DUTY_CYCLE_PERCENTAGE, and a StatefulSet gang of four: each
+   member's TPU_WORKER_ID/TPU_WORKER_HOSTNAMES parse to its rank of 4
+   (``parallel/distributed.py``); the pod's ConfigMap is the environment
+   of one wave of ``main --serve`` (its line, K1 launched, the memory
+   cap equal to ``enforcement.hbm_fraction``'s to the byte, the throttle
+   slept) and then of one wave of 32 shared-prefix requests on the
+   production engine options (K1 and K2 launched, same fraction, the
+   throttle slept).
 
 ``--profile`` adds profiled serving runs (speculative and the contiguous
 engine) and one profiled training step: the card's busy
@@ -5467,6 +5491,461 @@ def phase_graft_rest(dev, card) -> dict:
     return dict(ops=ops, traffic=tr, world=wd)
 
 
+# -- phase 23: the scheduler's control plane ------------------------------
+# The control plane (api/, cluster/, sched/, plugins/, cmd/) is host code:
+# 23a runs its entry point, 23b schedules bench.py's bench_mixed shape
+# (bench.py:149) against the in-memory API server, and 23c hands a pod it
+# placed on a shared partition to the serving entry point on the card.
+SCHED_NODES = 1024              # 23b: bench_mixed's cluster and traffic
+SCHED_SINGLES = 560
+SCHED_GANGS = 30
+SCHED_RATE = 150.0              # pods/s, Poisson, from a seeded generator
+SCHED_SLICE = 4                 # hosts per slice group
+SCHED_HOT = 2                   # hot-zone nodes, filled by the fillers
+SCHED_RESHAPING = "v5e-37"      # mid-reshape the whole run
+SCHED_TIMEOUT = 120.0           # seconds 23b may take to bind everything
+SCHED_CHIP_MIX = (1, 2, 4, 8)
+HANDOFF_SYS = 384               # 23c: the production engine's shared prefix
+
+
+def host_cpu() -> str:
+    """The host's CPU model and logical CPU count, for the host-clock
+    numbers of phase 23: ``lscpu``'s model name, else the first model
+    field of ``/proc/cpuinfo``, else the vendor and family numbers."""
+    import platform
+
+    fields = {}
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=10).stdout
+        fields.update(ln.split(":", 1) for ln in out.splitlines()
+                      if ":" in ln)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if ":" in ln:
+                    k, v = ln.split(":", 1)
+                    fields.setdefault(k.strip(), v)
+    except OSError:
+        pass
+    fields = {k.strip(): v.strip() for k, v in fields.items()
+              if v.strip() and v.strip().lower() not in ("unknown", "-")}
+    name = next((fields[k] for k in ("Model name", "model name", "cpu model",
+                                     "Hardware") if k in fields), None)
+    if name is None:        # a host that hides the model name: its numbers
+        name = " ".join(f"{k} {fields[k]}" for k in (
+            "vendor_id", "cpu family", "model") if k in fields) \
+            or platform.processor() or platform.machine()
+    mhz = f", {fields['cpu MHz']} MHz" if "cpu MHz" in fields else ""
+    return f"{name}{mhz}, {os.cpu_count()} logical CPUs"
+
+
+def allocator_cap_matches(got: float, want: float, total: int) -> bool:
+    """Whether the allocator's fraction ``got`` is the one ``want`` sets:
+    the caching allocator keeps its cap as whole bytes,
+    ``int(want * total)``, and reports that over ``total``, so the two
+    fractions agree to the byte, not to the last bit."""
+    return want is not None and round(got * total) == int(want * total)
+
+
+def phase_sched_cli(card, cpu) -> dict:
+    """23a: ``python -m k8s_gpu_scheduler_tpu_torch.cmd.scheduler --demo 8
+    --once --metrics-port 0`` exits 0 with one ``scheduled`` line a pod
+    (the CPU test holds the lines to the JAX module's)."""
+    import re
+
+    import k8s_gpu_scheduler_tpu_torch as pkg
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_gpu_scheduler_tpu_torch.cmd.scheduler",
+         "--demo", "8", "--once", "--metrics-port", "0"], cwd=root,
+        env={**os.environ, "PYTHONPATH": root}, capture_output=True,
+        text=True, timeout=120)
+    wall = time.perf_counter() - t0
+    lines = [m.group(0) for m in (re.search(r"scheduled \S+ -> \S+$", ln)
+                                  for ln in proc.stderr.splitlines()) if m]
+    want = [f"scheduled demo-{i} -> v5e-0" for i in range(8)]
+    log(f"  23a exit {proc.returncode} in {wall:.2f} s ({card}; host "
+        f"{cpu}): {json.dumps(lines)}")
+    if proc.returncode != 0 or lines != want:
+        raise SystemExit(f"23a: exit {proc.returncode}, lines {lines}\n"
+                         f"{proc.stderr[-3000:]}")
+    return dict(exit=proc.returncode, lines=lines, wall_s=wall)
+
+
+class SchedRegistry:
+    """In-memory registry: the node inventories the scheduler reads."""
+
+    def __init__(self):
+        self.data = {}
+
+    def ping(self):
+        return True
+
+    def get(self, key):
+        return self.data.get(key)
+
+    def set(self, key, value):
+        self.data[key] = value
+
+    def get_keys(self, pattern="*"):
+        return [k for k in self.data if k.startswith(pattern.rstrip("*"))]
+
+
+def sched_node(o, name, index, chips=8, labels=None, annotations=None):
+    return o.Node(
+        metadata=o.ObjectMeta(name=name, labels={
+            o.LABEL_TPU_ACCELERATOR: "tpu-v5-lite-podslice",
+            o.LABEL_TPU_TOPOLOGY: "2x4", **(labels or {})},
+            annotations=dict(annotations or {})),
+        status=o.NodeStatus(capacity={o.TPU_RESOURCE: chips},
+                            allocatable={o.TPU_RESOURCE: chips},
+                            addresses=[f"10.0.{index // 250}.{index % 250}"]))
+
+
+def sched_submit(o, server, name, chips, selector=None, priority=None,
+                 group=None, owner=None, dns=None):
+    """A pod and the ConfigMap its PostBind writes into (bench_mixed's
+    ``submit``)."""
+    server.create(o.ConfigMap(metadata=o.ObjectMeta(name=f"cm-{name}")))
+    server.create(o.Pod(
+        metadata=o.ObjectMeta(
+            name=name, labels={o.LABEL_POD_GROUP: group} if group else {},
+            annotations={"tpu.sched/priority": str(priority)}
+            if priority else {},
+            owner_references=[owner] if owner else []),
+        spec=o.PodSpec(
+            node_selector=selector or {},
+            hostname=name if dns else "", subdomain=dns or "",
+            containers=[o.Container(
+                env_from=[o.ConfigMapRef(f"cm-{name}")],
+                resources=o.ResourceRequirements(
+                    requests={o.TPU_RESOURCE: chips}))])))
+
+
+def phase_sched_mixed(card, cpu, n_nodes=SCHED_NODES,
+                      n_single=SCHED_SINGLES, n_gangs=SCHED_GANGS,
+                      rate=SCHED_RATE) -> dict:
+    """23b: bench_mixed's run against the in-memory API server: fillers
+    saturate the hot zone, a Poisson storm of singletons and four-member
+    gangs, then two higher-priority preemptors evict the fillers. Gates:
+    every pod bound, zero-sum chip accounting, the cache agreeing with the
+    API server, the fillers gone, nothing on the reshaping node, every
+    gang on one slice group."""
+    from k8s_gpu_scheduler_tpu_torch.api import objects as o
+    from k8s_gpu_scheduler_tpu_torch.cluster import APIServer
+    from k8s_gpu_scheduler_tpu_torch.config import SchedulerConfig
+    from k8s_gpu_scheduler_tpu_torch.plugins import (
+        GangPlugin, PreemptionPlugin, TPUPlugin)
+    from k8s_gpu_scheduler_tpu_torch.registry.inventory import (
+        NodeInventory, node_key)
+    from k8s_gpu_scheduler_tpu_torch.sched import Profile, Scheduler
+
+    server = APIServer()
+    reg = SchedRegistry()
+    for i in range(n_nodes):
+        labels = {o.LABEL_SLICE_GROUP: f"sg-{i // SCHED_SLICE}",
+                  o.LABEL_WORKER_INDEX: str(i % SCHED_SLICE)}
+        if i < SCHED_HOT:
+            labels["zone"] = "hot"
+        ann = ({o.ANN_RESHAPE_STATE: "applying"}
+               if f"v5e-{i}" == SCHED_RESHAPING else {})
+        server.create(sched_node(o, f"v5e-{i}", i, labels=labels,
+                                 annotations=ann))
+        reg.data[node_key(f"v5e-{i}")] = NodeInventory(
+            node_name=f"v5e-{i}", utilization=(i % 10) / 10.0).to_json()
+    # bench_mixed's operating point: 10 % node sampling at this fleet size.
+    sched = Scheduler(server, profile=Profile(), config=SchedulerConfig(
+        backoff_initial_s=0.05, backoff_max_s=0.5,
+        percentage_of_nodes_to_score=10))
+    tpu = TPUPlugin(sched.handle, registry=reg)
+    gang = GangPlugin(sched.handle)
+    sched.profile = Profile(
+        pre_filter=[tpu, gang], filter=[tpu, gang], score=[tpu, gang],
+        reserve=[tpu, gang], permit=[gang], post_bind=[tpu, gang],
+        post_filter=[PreemptionPlugin(sched.handle,
+                                      filter_plugins=[tpu, gang], tpu=tpu)])
+    hist = sched.metrics.histogram("tpu_sched_e2e_duration_seconds")
+    total = SCHED_HOT + n_single + 4 * n_gangs + SCHED_HOT
+    sched.start()
+    try:
+        for i in range(SCHED_HOT):
+            sched_submit(o, server, f"filler-{i}", 8, selector={"zone": "hot"},
+                         owner="StatefulSet/fillers")
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and hist.count < SCHED_HOT:
+            time.sleep(0.02)
+        if hist.count != SCHED_HOT:
+            raise SystemExit(f"23b: fillers not placed ({hist.count})")
+        rng = np.random.default_rng(0)
+        events = [("single", i) for i in range(n_single)]
+        for j, pos in enumerate(sorted(
+                rng.choice(len(events), n_gangs, replace=False),
+                reverse=True)):
+            events.insert(pos, ("gang", j))
+        t0 = time.perf_counter()
+        arrival = 0.0
+        for kind, idx in events:
+            arrival += rng.exponential(1.0 / rate)
+            lag = arrival - (time.perf_counter() - t0)
+            if lag > 0:
+                time.sleep(lag)
+            if kind == "single":
+                sched_submit(o, server, f"job-{idx}",
+                             SCHED_CHIP_MIX[idx % 4])
+            else:
+                server.create(o.PodGroup(
+                    metadata=o.ObjectMeta(name=f"gang-{idx}"), min_member=4,
+                    schedule_timeout_s=60.0))
+                for m in range(4):
+                    sched_submit(o, server, f"gang-{idx}-{m}", 8,
+                                 group=f"gang-{idx}")
+        for i in range(SCHED_HOT):
+            sched_submit(o, server, f"preemptor-{i}", 8,
+                         selector={"zone": "hot"}, priority=100)
+        deadline = time.monotonic() + SCHED_TIMEOUT
+        while time.monotonic() < deadline and hist.count < total:
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+        bound = hist.count
+    finally:
+        sched.stop()
+    pods = server.list("Pod")
+    by_node, groups = {}, {}
+    node_group = {n.metadata.name: n.metadata.labels[o.LABEL_SLICE_GROUP]
+                  for n in server.list("Node")}
+    for p in pods:
+        if p.spec.node_name:
+            by_node[p.spec.node_name] = (
+                by_node.get(p.spec.node_name, 0) + p.spec.tpu_chips())
+            if p.pod_group():
+                groups.setdefault(p.pod_group(), set()).add(
+                    node_group[p.spec.node_name])
+    drift = [(name, by_node.get(name, 0), info.requested_tpu)
+             for name, info in sched.cache.snapshot().items()
+             if by_node.get(name, 0) != info.requested_tpu
+             or info.requested_tpu != sum(p.spec.tpu_chips()
+                                          for p in info.pods)]
+    cyc = sched.metrics.histogram("tpu_sched_scheduling_cycle_seconds")
+    st = dict(
+        nodes=n_nodes, expected_binds=total, binds=bound,
+        unbound=[p.metadata.name for p in pods if not p.spec.node_name],
+        overcommitted=[n for n, c in by_node.items() if c > 8],
+        fillers_left=[p.metadata.name for p in pods
+                      if p.metadata.name.startswith("filler-")],
+        reshaping_chips=by_node.get(SCHED_RESHAPING, 0),
+        cache_drift=drift[:10],
+        gangs_spanning=sorted(g for g, s in groups.items() if len(s) != 1),
+        gangs=len(groups), wall_s=wall, pods_per_s=bound / wall,
+        e2e_p50_ms=1e3 * (hist.quantile(0.5) or 0),
+        e2e_p99_ms=1e3 * (hist.quantile(0.99) or 0),
+        cycle_p50_ms=1e3 * (cyc.quantile(0.5) or 0),
+        cycle_p99_ms=1e3 * (cyc.quantile(0.99) or 0))
+    for cls in ("single", "gang", "preempting"):
+        h = sched.metrics.histogram(
+            f"tpu_sched_e2e_duration_seconds_class_{cls}")
+        st[f"{cls}_binds"] = h.count
+        st[f"{cls}_p50_ms"] = 1e3 * (h.quantile(0.5) or 0)
+        st[f"{cls}_p99_ms"] = 1e3 * (h.quantile(0.99) or 0)
+    log(f"  23b ({card}; host {cpu}): {json.dumps(st)}")
+    if (bound != total or st["unbound"] or st["overcommitted"]
+            or st["fillers_left"] or st["reshaping_chips"] or drift
+            or st["gangs_spanning"] or st["gangs"] != n_gangs):
+        raise SystemExit(f"23b: {json.dumps(st)}")
+    return st
+
+
+def handoff_cluster():
+    """23c's cluster, through the entry point a user calls
+    (``cmd.scheduler.build_scheduler``): a v5e host carved into two 2x2
+    partitions (``tpu.sched/slice.config``), a 4-chip serving pod that
+    lands on one of them, and a four-host slice group for a StatefulSet
+    gang of four. Returns every pod's node and ConfigMap data."""
+    from k8s_gpu_scheduler_tpu_torch.api import objects as o
+    from k8s_gpu_scheduler_tpu_torch.cluster import APIServer
+    from k8s_gpu_scheduler_tpu_torch.cmd.scheduler import build_scheduler
+    from k8s_gpu_scheduler_tpu_torch.config import SchedulerConfig
+
+    server = APIServer()
+    server.create(sched_node(o, "v5e-shared", 0, labels={"pool": "shared"},
+                             annotations={o.ANN_SLICE_CONFIG: "2x2"}))
+    for i in range(4):
+        server.create(sched_node(o, f"v5e-gang-{i}", 1 + i, labels={
+            o.LABEL_SLICE_GROUP: "sg-gang", o.LABEL_WORKER_INDEX: str(i)}))
+    sched = build_scheduler(server, SchedulerConfig(
+        backoff_initial_s=0.05, backoff_max_s=0.5, permit_timeout_s=30.0),
+        allow_simulated_reshape=True)
+    sched.start()
+    try:
+        sched_submit(o, server, "llama-serve-0", 4,
+                     selector={"pool": "shared"})
+        server.create(o.PodGroup(metadata=o.ObjectMeta(name="llama-gang"),
+                                 min_member=4))
+        for m in range(4):
+            sched_submit(o, server, f"llama-gang-{m}", 8, group="llama-gang",
+                         owner="StatefulSet/llama-gang", dns="llama-gang")
+        deadline = time.monotonic() + 30
+        while not all(p.spec.node_name for p in server.list("Pod")):
+            if time.monotonic() > deadline:
+                raise SystemExit("23c: the handoff cluster did not bind")
+            time.sleep(0.02)
+    finally:
+        sched.stop()
+        sched._reshaper.stop()
+    return ({p.metadata.name: p.spec.node_name for p in server.list("Pod")},
+            {c.metadata.name: dict(c.data) for c in server.list("ConfigMap")})
+
+
+def phase_sched_handoff(dev, card, cpu) -> dict:
+    """23c: the serving pod's injected ConfigMap as the environment of
+    ``main --serve`` on the card (one wave): the serve line, K1 launched,
+    the allocator's cap equal, to the byte, to ``enforcement.hbm_fraction``
+    of the injected limit, and the throttle built from the injected duty share
+    slept. ``main --serve`` builds JAX's engine (no prefix cache, whole
+    prompts), whose prefills never take K2's path; so the same pod
+    environment then serves one wave of shared-prefix requests on the
+    production engine options (phase 3's: prefix cache, page 64), which
+    launch K1 and K2. Every gang member's injected TPU_WORKER_ID and
+    TPU_WORKER_HOSTNAMES parse through ``parallel/distributed.py`` to its
+    rank and the gang's size."""
+    import dataclasses
+    import signal
+
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        LlamaConfig, init_params)
+    from k8s_gpu_scheduler_tpu_torch.models.serving import ContinuousBatcher
+    from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
+    from k8s_gpu_scheduler_tpu_torch.parallel import distributed
+    from k8s_gpu_scheduler_tpu_torch.utils import enforcement
+
+    t0 = time.perf_counter()
+    nodes, cms = handoff_cluster()
+    t_sched = time.perf_counter() - t0
+    env = cms["cm-llama-serve-0"]
+    log(f"  23c scheduled in {t_sched:.2f} s ({card}; host {cpu}): "
+        f"llama-serve-0 -> {nodes['llama-serve-0']}, injected "
+        f"{json.dumps(env)}")
+    if not {"TPU_HBM_LIMIT_BYTES", "TPU_DUTY_CYCLE_PERCENTAGE",
+            "TPU_VISIBLE_CHIPS", "TPU_WORKER_ID"} <= set(env):
+        raise SystemExit(f"23c: no sharing limits injected: {env}")
+    ranks = []
+    for m in range(4):
+        data = cms[f"cm-llama-gang-{m}"]
+        addrs = distributed.worker_addresses(data)
+        me = distributed.self_worker_id(addrs, {"HOSTNAME": f"llama-gang-{m}"})
+        ranks.append(me)
+        log(f"    gang member {m} on {nodes[f'llama-gang-{m}']}: rank {me} "
+            f"of {len(addrs)} (TPU_WORKER_ID {data.get('TPU_WORKER_ID')}, "
+            f"TPU_WORKER_COUNT {data.get('TPU_WORKER_COUNT')})")
+        if me != int(data["TPU_WORKER_ID"]) or len(addrs) != 4 or \
+                int(data["TPU_WORKER_COUNT"]) != 4:
+            raise SystemExit(f"23c: gang member {m}: {data}")
+    if sorted(ranks) != [0, 1, 2, 3]:
+        raise SystemExit(f"23c: gang ranks {ranks}")
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    want = enforcement.hbm_fraction(env, total)
+    slept = []
+    real_pace = enforcement.DutyCycleThrottle.pace
+
+    def pace(self, active_s):
+        s = real_pace(self, active_s)
+        slept.append((self.pct, active_s, s))
+        return s
+
+    saved = {k: os.environ.get(k) for k in env}
+    prev = signal.getsignal(signal.SIGTERM)
+    out = {}
+    enforcement.DutyCycleThrottle.pace = pace
+    os.environ.update(env)
+    try:
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        code, lines, c, _ = run_main(dev, ["--serve"], 1)
+        got = torch.cuda.get_per_process_memory_fraction(0)
+        waves = [ln for ln in lines if ln.startswith("llama serve qps=")]
+        out["main"] = st = dict(
+            exit=code, wave_lines=waves, launches=c, fraction=got,
+            fraction_computed=want, total_memory=total,
+            cap_bytes=got * total, computed_bytes=want * total,
+            throttle=slept[:], wall_s=(
+                time.perf_counter() - t1))
+        log(f"  23c main --serve ({card}): {json.dumps(st)}")
+        if code != 0 or len(waves) != 1 \
+                or not allocator_cap_matches(got, want, total) \
+                or not any(s > 0 for _, _, s in slept) \
+                or c["paged_decode_attention"] <= 0 \
+                or any(c[k] for k in PLAIN):
+            raise SystemExit(f"23c main --serve: {json.dumps(st)}")
+        # The production engine's options under the same injected limits.
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        torch.cuda.empty_cache()
+        slept.clear()
+        throttle = enforcement.apply_env_limits(device=dev)
+        cfg = dataclasses.replace(LlamaConfig.serve(), decode_attn="fused")
+        model = init_params(cfg, torch.Generator().manual_seed(0), dev)
+        rng = np.random.default_rng(23)
+        prompts = shared_prefix_traffic(rng, cfg.vocab, 32, HANDOFF_SYS, 128)
+        eng = ContinuousBatcher(model, cfg, n_slots=8, max_len=cfg.max_seq,
+                                chunk=64, prefill_bucket=512,
+                                kv_layout="paged", page_size=64,
+                                prefix_cache=True, device=dev)
+        drive(eng, prompts[:1], 64)                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        da.reset_counters()
+        t2 = time.perf_counter()
+        with throttle:
+            streams = drive(eng, prompts, 64)
+            torch.cuda.synchronize()
+        c = da.counters()
+        got = torch.cuda.get_per_process_memory_fraction(0)
+        out["engine"] = st = dict(
+            requests=len(prompts), launches=c, fraction=got,
+            fraction_computed=want, throttle=slept[:],
+            wall_s=time.perf_counter() - t2,
+            peak_allocated=torch.cuda.max_memory_allocated(dev),
+            malformed=malformed(streams, 64, cfg.vocab))
+        log(f"  23c production engine ({card}): {json.dumps(st)}")
+        if not allocator_cap_matches(got, want, total) \
+                or c["paged_decode_attention"] <= 0 \
+                or c["paged_prefill_attention"] <= 0 \
+                or any(c[k] for k in PLAIN) or st["malformed"] \
+                or not any(s > 0 for _, _, s in slept):
+            raise SystemExit(f"23c production engine: {json.dumps(st)}")
+        del eng, model
+    finally:
+        enforcement.DutyCycleThrottle.pace = real_pace
+        signal.signal(signal.SIGTERM, prev)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        torch.cuda.empty_cache()
+    out["gang_ranks"] = ranks
+    out["injected"] = env
+    return out
+
+
+def phase_scheduler(dev, card) -> dict:
+    cpu = host_cpu()
+    t0 = time.perf_counter()
+    cli = phase_sched_cli(card, cpu)
+    t1 = time.perf_counter()
+    mixed = phase_sched_mixed(card, cpu)
+    t2 = time.perf_counter()
+    handoff = phase_sched_handoff(dev, card, cpu)
+    log(f"  phase 23: 23a {t1 - t0:.1f} s, 23b {t2 - t1:.1f} s, 23c "
+        f"{time.perf_counter() - t2:.1f} s ({card}; host {cpu})")
+    return dict(cli=cli, mixed=mixed, handoff=handoff)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     args = sys.argv[1:]
@@ -5621,6 +6100,11 @@ def main() -> int:
               "audit and tp steady states on two ranks, 22d the CLI on the "
               "seeded fixtures")
         phase_graft_rest(dev, card)
+    if run(23):
+        phase("phase 23: the scheduler's control plane: 23a the entry "
+              "point, 23b bench_mixed's 1,024 nodes in memory, 23c a placed "
+              "pod's injected environment served on the card")
+        phase_scheduler(dev, card)
     if chosen is not None:
         log(json.dumps({"card": card, "kernel_cases": cases}))
         log(f"chip_smoke: phases {sorted(chosen)} in "

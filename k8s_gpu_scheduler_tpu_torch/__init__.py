@@ -4,7 +4,8 @@ This package sits beside the JAX package and keeps its module names:
 ``ops/`` holds the transformer primitives and the paged attention entry
 points (each a hand-written CUDA kernel for Hopper plus its plain PyTorch
 version), ``models/`` holds the Llama decoder and the paged, prefix-cached
-``ContinuousBatcher``. It imports ``torch`` and ``numpy`` only — never
+``ContinuousBatcher``; ``api/``, ``cluster/``, ``sched/``, ``plugins/`` and
+``cmd/`` hold the scheduler's control plane that places the pods. It imports ``torch`` and ``numpy`` only — never
 ``jax`` and nothing of the JAX package, whose numpy-only modules it keeps
 trimmed copies of.
 

@@ -1229,3 +1229,63 @@ def test_traffic_contracts_on_card(cuda):
         if name in want:
             assert st["launched"].get(want[name]), (name, st["launched"])
         assert not any(k.endswith("_reference") for k in st["launched"])
+
+
+@pytest.mark.gpu
+def test_scheduler_handoff_caps_the_allocator(cuda):
+    """The handoff from the port's scheduler to a pod on the card: a 4-chip
+    pod placed on one of two 2x2 partitions of a v5e host gets
+    TPU_HBM_LIMIT_BYTES and TPU_DUTY_CYCLE_PERCENTAGE in its ConfigMap,
+    and that environment caps the card's allocator at exactly the
+    fraction ``enforcement.hbm_fraction`` computes from the card's
+    memory (chip_smoke phase 23c serves ``main --serve`` under it)."""
+    import time
+
+    from k8s_gpu_scheduler_tpu_torch.api import objects as o
+    from k8s_gpu_scheduler_tpu_torch.cluster import APIServer
+    from k8s_gpu_scheduler_tpu_torch.cmd.scheduler import build_scheduler
+    from k8s_gpu_scheduler_tpu_torch.config import SchedulerConfig
+    from k8s_gpu_scheduler_tpu_torch.utils import enforcement
+
+    server = APIServer()
+    server.create(o.Node(
+        metadata=o.ObjectMeta(name="v5e-shared", labels={
+            o.LABEL_TPU_ACCELERATOR: "tpu-v5-lite-podslice",
+            o.LABEL_TPU_TOPOLOGY: "2x4"},
+            annotations={o.ANN_SLICE_CONFIG: "2x2"}),
+        status=o.NodeStatus(allocatable={o.TPU_RESOURCE: 8})))
+    server.create(o.ConfigMap(metadata=o.ObjectMeta(name="cm-pod")))
+    server.create(o.Pod(
+        metadata=o.ObjectMeta(name="pod"),
+        spec=o.PodSpec(containers=[o.Container(
+            env_from=[o.ConfigMapRef("cm-pod")],
+            resources=o.ResourceRequirements(
+                requests={o.TPU_RESOURCE: 4}))])))
+    sched = build_scheduler(server, SchedulerConfig(),
+                            allow_simulated_reshape=True)
+    sched.start()
+    try:
+        deadline = time.monotonic() + 30
+        while not server.get("Pod", "pod").spec.node_name:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+    finally:
+        sched.stop()
+        sched._reshaper.stop()
+    env = server.get("ConfigMap", "cm-pod").data
+    assert env["TPU_VISIBLE_CHIPS"] == "0,1,2,3"
+    assert env["TPU_DUTY_CYCLE_PERCENTAGE"] == "50"
+    assert int(env["TPU_HBM_LIMIT_BYTES"]) == 4 * (16 << 30)
+    card = torch.device("cuda", torch.cuda.current_device())
+    total = torch.cuda.get_device_properties(card).total_memory
+    want = enforcement.hbm_fraction(env, total)
+    try:
+        got = enforcement.apply_hbm_limit(env, card)
+        assert got == want == min(1.0, (16 << 30) / total)
+        # The allocator keeps its cap in whole bytes: the fraction it
+        # reports is that cap over the card's bytes.
+        cap = torch.cuda.get_per_process_memory_fraction(card) * total
+        assert round(cap) == int(want * total)
+        assert enforcement.duty_throttle(env).pct == 50
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, card)

@@ -32,6 +32,16 @@ FLEET_SLICE = ["k8s_gpu_scheduler_tpu_torch." + m for m in (
     "registry", "registry.client", "registry.inventory", "utils",
     "utils.checkpoint", "utils.enforcement", "utils.retry")]
 
+# The modules of the scheduler's control-plane slice: copies of the JAX
+# package's framework-free api/cluster/sched/plugins/cmd modules, which
+# must still import nothing of it.
+SCHED_SLICE = ["k8s_gpu_scheduler_tpu_torch." + m for m in (
+    "api", "api.objects", "api.topology", "cluster", "cluster.apiserver",
+    "cluster.informers", "cluster.resources", "sched", "sched.cache",
+    "sched.framework", "sched.queue", "sched.reshaper", "sched.scheduler",
+    "plugins", "plugins.gang", "plugins.preemption", "plugins.tpu", "cmd",
+    "cmd.scheduler", "config", "registry.inventory")]
+
 JAX_PKG = re.compile(
     r"^\s*(from|import)\s+k8s_gpu_scheduler_tpu(\.|\b)"
     r"|import_module\(\s*['\"]k8s_gpu_scheduler_tpu(\.|\b)", re.M)
@@ -62,7 +72,8 @@ def test_every_module_imports_with_jax_blocked():
         "determinism", "smem", "wirecompat", "alias", "steady",
         "entrypoints", "__main__")} <= set(MODULES)
     assert set(FLEET_SLICE) <= set(MODULES)
-    assert len(MODULES) >= 14 + len(FLEET_SLICE)
+    assert set(SCHED_SLICE) <= set(MODULES)
+    assert len(MODULES) >= 14 + len(FLEET_SLICE) + len(SCHED_SLICE) - 2
 
 
 @pytest.mark.parametrize("path", SOURCES,
