@@ -391,6 +391,22 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    slept) and then of one wave of 32 shared-prefix requests on the
    production engine options (K1 and K2 launched, same fraction, the
    throttle slept).
+24. the SLO-scored, in-cluster scheduler over the REST adapter
+   (``cluster/kubeapi.py``) against ``tests/fakekube.py`` as a separate
+   process: (a) 23b's storm with every list, watch and bind an HTTP
+   round trip, held to 23b's invariants (the cache against the API state
+   read over REST), its rates printed beside 23b's from the same run
+   (23b runs first when phase 23 does not); (b) two ``build_scheduler(...,
+   leader_elect=True)`` replicas with a 3 s lease, the port's gRPC
+   ``RecommenderServer`` on copies of its seed matrices and a Prometheus
+   stub answering JAX's series, scheduling test_e2e's gang and SLO pod:
+   the leader binds the gang, is stopped, the standby takes the lease
+   within its duration and binds the SLO pod on the recommender's
+   predictions (exactly one binder a pod, no degraded score); (c) the SLO
+   pod's ConfigMap, read back through ``KubeAPIServer.get``, is the
+   environment of one wave of ``main --serve`` (its line, K1 launched,
+   no plain call, the memory cap equal to ``enforcement.hbm_fraction``'s
+   to the byte, the throttle slept).
 
 ``--profile`` adds profiled serving runs (speculative and the contiguous
 engine) and one profiled training step: the card's busy
@@ -415,6 +431,7 @@ launches on the main path, error and times; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -5550,15 +5567,20 @@ def allocator_cap_matches(got: float, want: float, total: int) -> bool:
     return want is not None and round(got * total) == int(want * total)
 
 
+def repo_root() -> str:
+    """The checkout that holds the port's package (and ``tests/``)."""
+    import k8s_gpu_scheduler_tpu_torch as pkg
+
+    return os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__)))
+
+
 def phase_sched_cli(card, cpu) -> dict:
     """23a: ``python -m k8s_gpu_scheduler_tpu_torch.cmd.scheduler --demo 8
     --once --metrics-port 0`` exits 0 with one ``scheduled`` line a pod
     (the CPU test holds the lines to the JAX module's)."""
     import re
 
-    import k8s_gpu_scheduler_tpu_torch as pkg
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__)))
+    root = repo_root()
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "k8s_gpu_scheduler_tpu_torch.cmd.scheduler",
@@ -5630,23 +5652,12 @@ def sched_submit(o, server, name, chips, selector=None, priority=None,
 def phase_sched_mixed(card, cpu, n_nodes=SCHED_NODES,
                       n_single=SCHED_SINGLES, n_gangs=SCHED_GANGS,
                       rate=SCHED_RATE) -> dict:
-    """23b: bench_mixed's run against the in-memory API server: fillers
-    saturate the hot zone, a Poisson storm of singletons and four-member
-    gangs, then two higher-priority preemptors evict the fillers. Gates:
-    every pod bound, zero-sum chip accounting, the cache agreeing with the
-    API server, the fillers gone, nothing on the reshaping node, every
-    gang on one slice group."""
+    """23b: bench_mixed's run against the in-memory API server (its
+    cluster built here, the storm by ``sched_storm``)."""
     from k8s_gpu_scheduler_tpu_torch.api import objects as o
     from k8s_gpu_scheduler_tpu_torch.cluster import APIServer
-    from k8s_gpu_scheduler_tpu_torch.config import SchedulerConfig
-    from k8s_gpu_scheduler_tpu_torch.plugins import (
-        GangPlugin, PreemptionPlugin, TPUPlugin)
-    from k8s_gpu_scheduler_tpu_torch.registry.inventory import (
-        NodeInventory, node_key)
-    from k8s_gpu_scheduler_tpu_torch.sched import Profile, Scheduler
 
     server = APIServer()
-    reg = SchedRegistry()
     for i in range(n_nodes):
         labels = {o.LABEL_SLICE_GROUP: f"sg-{i // SCHED_SLICE}",
                   o.LABEL_WORKER_INDEX: str(i % SCHED_SLICE)}
@@ -5656,6 +5667,30 @@ def phase_sched_mixed(card, cpu, n_nodes=SCHED_NODES,
                if f"v5e-{i}" == SCHED_RESHAPING else {})
         server.create(sched_node(o, f"v5e-{i}", i, labels=labels,
                                  annotations=ann))
+    return sched_storm("23b", card, cpu, server, n_nodes, n_single, n_gangs,
+                       rate)
+
+
+def sched_storm(label, card, cpu, server, n_nodes, n_single, n_gangs,
+                rate) -> dict:
+    """bench_mixed's storm against ``server`` (the in-memory API server
+    for 23b, the REST adapter for 24a), whose nodes are already there:
+    fillers saturate the hot zone, a Poisson storm of singletons and
+    four-member gangs, then two higher-priority preemptors evict the
+    fillers. Gates: every pod bound, zero-sum chip accounting, the cache
+    agreeing with the API server's state (read through ``server``), the
+    fillers gone, nothing on the reshaping node, every gang on one slice
+    group."""
+    from k8s_gpu_scheduler_tpu_torch.api import objects as o
+    from k8s_gpu_scheduler_tpu_torch.config import SchedulerConfig
+    from k8s_gpu_scheduler_tpu_torch.plugins import (
+        GangPlugin, PreemptionPlugin, TPUPlugin)
+    from k8s_gpu_scheduler_tpu_torch.registry.inventory import (
+        NodeInventory, node_key)
+    from k8s_gpu_scheduler_tpu_torch.sched import Profile, Scheduler
+
+    reg = SchedRegistry()
+    for i in range(n_nodes):
         reg.data[node_key(f"v5e-{i}")] = NodeInventory(
             node_name=f"v5e-{i}", utilization=(i % 10) / 10.0).to_json()
     # bench_mixed's operating point: 10 % node sampling at this fleet size.
@@ -5680,7 +5715,7 @@ def phase_sched_mixed(card, cpu, n_nodes=SCHED_NODES,
         while time.monotonic() < deadline and hist.count < SCHED_HOT:
             time.sleep(0.02)
         if hist.count != SCHED_HOT:
-            raise SystemExit(f"23b: fillers not placed ({hist.count})")
+            raise SystemExit(f"{label}: fillers not placed ({hist.count})")
         rng = np.random.default_rng(0)
         events = [("single", i) for i in range(n_single)]
         for j, pos in enumerate(sorted(
@@ -5751,11 +5786,75 @@ def phase_sched_mixed(card, cpu, n_nodes=SCHED_NODES,
         st[f"{cls}_binds"] = h.count
         st[f"{cls}_p50_ms"] = 1e3 * (h.quantile(0.5) or 0)
         st[f"{cls}_p99_ms"] = 1e3 * (h.quantile(0.99) or 0)
-    log(f"  23b ({card}; host {cpu}): {json.dumps(st)}")
+    log(f"  {label} ({card}; host {cpu}): {json.dumps(st)}")
     if (bound != total or st["unbound"] or st["overcommitted"]
             or st["fillers_left"] or st["reshaping_chips"] or drift
             or st["gangs_spanning"] or st["gangs"] != n_gangs):
-        raise SystemExit(f"23b: {json.dumps(st)}")
+        raise SystemExit(f"{label}: {json.dumps(st)}")
+    return st
+
+
+@contextlib.contextmanager
+def injected_environment(env, dev):
+    """A placed pod's injected ConfigMap as this process's environment,
+    with ``DutyCycleThrottle.pace`` recording each sleep: yields the list
+    of (percent, active s, slept s). Restores the environment, the pacer,
+    the SIGTERM handler and the allocator's fraction."""
+    import signal
+
+    from k8s_gpu_scheduler_tpu_torch.utils import enforcement
+
+    slept = []
+    real_pace = enforcement.DutyCycleThrottle.pace
+
+    def pace(self, active_s):
+        s = real_pace(self, active_s)
+        slept.append((self.pct, active_s, s))
+        return s
+
+    saved = {k: os.environ.get(k) for k in env}
+    prev = signal.getsignal(signal.SIGTERM)
+    enforcement.DutyCycleThrottle.pace = pace
+    os.environ.update(env)
+    try:
+        yield slept
+    finally:
+        enforcement.DutyCycleThrottle.pace = real_pace
+        signal.signal(signal.SIGTERM, prev)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        torch.cuda.empty_cache()
+
+
+def serve_one_wave(dev, card, env, label, slept) -> dict:
+    """One wave of ``main --serve`` under ``injected_environment(env)``:
+    gates the wave line, K1 launched with no plain call, the allocator's
+    cap equal, to the byte, to ``enforcement.hbm_fraction`` of the injected
+    limit, and the throttle slept."""
+    from k8s_gpu_scheduler_tpu_torch.utils import enforcement
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    want = enforcement.hbm_fraction(env, total)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    code, lines, c, _ = run_main(dev, ["--serve"], 1)
+    got = torch.cuda.get_per_process_memory_fraction(0)
+    waves = [ln for ln in lines if ln.startswith("llama serve qps=")]
+    st = dict(exit=code, wave_lines=waves, launches=c, fraction=got,
+              fraction_computed=want, total_memory=total,
+              cap_bytes=got * total, computed_bytes=want * total,
+              throttle=slept[:], wall_s=time.perf_counter() - t1)
+    log(f"  {label} main --serve ({card}): {json.dumps(st)}")
+    if code != 0 or len(waves) != 1 \
+            or not allocator_cap_matches(got, want, total) \
+            or not any(s > 0 for _, _, s in slept) \
+            or c["paged_decode_attention"] <= 0 \
+            or any(c[k] for k in PLAIN):
+        raise SystemExit(f"{label} main --serve: {json.dumps(st)}")
     return st
 
 
@@ -5813,7 +5912,6 @@ def phase_sched_handoff(dev, card, cpu) -> dict:
     TPU_WORKER_HOSTNAMES parse through ``parallel/distributed.py`` to its
     rank and the gang's size."""
     import dataclasses
-    import signal
 
     from k8s_gpu_scheduler_tpu_torch.models.llama import (
         LlamaConfig, init_params)
@@ -5847,41 +5945,12 @@ def phase_sched_handoff(dev, card, cpu) -> dict:
     if sorted(ranks) != [0, 1, 2, 3]:
         raise SystemExit(f"23c: gang ranks {ranks}")
 
-    total = torch.cuda.get_device_properties(dev).total_memory
-    want = enforcement.hbm_fraction(env, total)
-    slept = []
-    real_pace = enforcement.DutyCycleThrottle.pace
-
-    def pace(self, active_s):
-        s = real_pace(self, active_s)
-        slept.append((self.pct, active_s, s))
-        return s
-
-    saved = {k: os.environ.get(k) for k in env}
-    prev = signal.getsignal(signal.SIGTERM)
     out = {}
-    enforcement.DutyCycleThrottle.pace = pace
-    os.environ.update(env)
-    try:
-        torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        code, lines, c, _ = run_main(dev, ["--serve"], 1)
-        got = torch.cuda.get_per_process_memory_fraction(0)
-        waves = [ln for ln in lines if ln.startswith("llama serve qps=")]
-        out["main"] = st = dict(
-            exit=code, wave_lines=waves, launches=c, fraction=got,
-            fraction_computed=want, total_memory=total,
-            cap_bytes=got * total, computed_bytes=want * total,
-            throttle=slept[:], wall_s=(
-                time.perf_counter() - t1))
-        log(f"  23c main --serve ({card}): {json.dumps(st)}")
-        if code != 0 or len(waves) != 1 \
-                or not allocator_cap_matches(got, want, total) \
-                or not any(s > 0 for _, _, s in slept) \
-                or c["paged_decode_attention"] <= 0 \
-                or any(c[k] for k in PLAIN):
-            raise SystemExit(f"23c main --serve: {json.dumps(st)}")
+    with injected_environment(env, dev) as slept:
+        out["main"] = serve_one_wave(dev, card, env, "23c", slept)
         # The production engine's options under the same injected limits.
+        want = out["main"]["fraction_computed"]
+        total = out["main"]["total_memory"]
         torch.cuda.set_per_process_memory_fraction(1.0, dev)
         torch.cuda.empty_cache()
         slept.clear()
@@ -5918,16 +5987,6 @@ def phase_sched_handoff(dev, card, cpu) -> dict:
                 or not any(s > 0 for _, _, s in slept):
             raise SystemExit(f"23c production engine: {json.dumps(st)}")
         del eng, model
-    finally:
-        enforcement.DutyCycleThrottle.pace = real_pace
-        signal.signal(signal.SIGTERM, prev)
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        torch.cuda.set_per_process_memory_fraction(1.0, dev)
-        torch.cuda.empty_cache()
     out["gang_ranks"] = ranks
     out["injected"] = env
     return out
@@ -5944,6 +6003,317 @@ def phase_scheduler(dev, card) -> dict:
     log(f"  phase 23: 23a {t1 - t0:.1f} s, 23b {t2 - t1:.1f} s, 23c "
         f"{time.perf_counter() - t2:.1f} s ({card}; host {cpu})")
     return dict(cli=cli, mixed=mixed, handoff=handoff)
+
+
+# -- phase 24: the SLO-scored, in-cluster scheduler ------------------------
+# The same control plane over the REST adapter (cluster/kubeapi.py) against
+# tests/fakekube.py in a process of its own, as bench.py runs it: 24a is
+# 23b's storm over HTTP, 24b two leader-elected replicas of build_scheduler
+# with the recommender's gRPC server and a Prometheus stub as live
+# sidecars, 24c the SLO pod's injected ConfigMap served on the card.
+REST_LEASE_S = 3.0              # 24b: the replicas' lease (whole seconds:
+#                                 the Lease carries it as an integer)
+REST_TIMEOUT = 30.0             # 24b: seconds a wave or a takeover may take
+REST_DUTY = {"v5e-0": 35.0, "v5e-1": 62.5}   # 24b: the stub's duty cycles
+
+
+def start_fakekube(*args):
+    """``tests/fakekube.py ARGS`` in a process of its own: (process, base
+    URL). Run by its path, not as ``-m tests.fakekube``: a ``tests``
+    package installed in site-packages shadows the repository's
+    directory, which has no ``__init__.py``."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(repo_root(), "tests", "fakekube.py"),
+         *args], cwd=repo_root(), stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline().strip()
+    if not line.startswith("PORT "):
+        stop_process(proc)
+        raise SystemExit(f"24: fakekube did not start ({line!r})")
+    return proc, f"http://127.0.0.1:{line.split()[1]}"
+
+
+def stop_process(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=10)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def phase_rest_mixed(card, cpu, n_nodes=SCHED_NODES, n_single=SCHED_SINGLES,
+                     n_gangs=SCHED_GANGS, rate=SCHED_RATE) -> dict:
+    """24a: 23b's storm (``sched_storm``) over the REST adapter: the
+    nodes come from fakekube (``--slice-size 4 --hot-nodes 2``), the
+    reshaping node is marked through ``mutate``, and every list, watch,
+    bind and PostBind patch is an HTTP round trip."""
+    from k8s_gpu_scheduler_tpu_torch.api import objects as o
+    from k8s_gpu_scheduler_tpu_torch.cluster.kubeapi import KubeAPIServer
+
+    proc, url = start_fakekube("--nodes", str(n_nodes), "--slice-size",
+                               str(SCHED_SLICE), "--hot-nodes", str(SCHED_HOT))
+    try:
+        server = KubeAPIServer(base_url=url)
+
+        def mark(n):
+            n.metadata.annotations[o.ANN_RESHAPE_STATE] = "applying"
+        server.mutate("Node", SCHED_RESHAPING, "default", mark)
+        return sched_storm("24a", card, cpu, server, n_nodes, n_single,
+                           n_gangs, rate)
+    finally:
+        stop_process(proc)
+
+
+class PromStub:
+    """A Prometheus instant-query endpoint: ``/api/v1/query`` answers each
+    of JAX's TPU series (``metrics.client.TPU_SERIES``) for the nodes in
+    ``duty``, one sample a node, filtered by a ``node="..."`` matcher."""
+
+    def __init__(self, duty):
+        import threading
+        import urllib.parse
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        from k8s_gpu_scheduler_tpu_torch.metrics.client import TPU_SERIES
+
+        self.queries = []
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802
+                url = urllib.parse.urlsplit(self.path)
+                query = urllib.parse.parse_qs(url.query).get("query", [""])[0]
+                stub.queries.append(query)
+                series = query.split("{")[0]
+                want = query.split('node="')[1].split('"')[0] \
+                    if 'node="' in query else None
+                result = [{"metric": {"__name__": series, "node": n,
+                                      "device_id": "0"},
+                           "value": [time.time(), str(v)]}
+                          for n, v in sorted(duty.items())
+                          if series in TPU_SERIES and want in (None, n)]
+                body = json.dumps({"status": "success", "data": {
+                    "resultType": "vector", "result": result}}).encode()
+                code = 200 if url.path == "/api/v1/query" else 404
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+
+    def stop(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def closed_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def rest_replica(url, cfg, name):
+    """One replica of ``cmd.scheduler.build_scheduler(...,
+    leader_elect=True)`` with a REST adapter of its own. Two replicas in
+    one process would share the elector's identity (host and pid), so
+    each gets its name, and the lease is cut to ``REST_LEASE_S``; the
+    elector reads these at run time. The recommender client's answers
+    are counted."""
+    from k8s_gpu_scheduler_tpu_torch.cluster.kubeapi import KubeAPIServer
+    from k8s_gpu_scheduler_tpu_torch.cmd.scheduler import build_scheduler
+
+    sched = build_scheduler(KubeAPIServer(base_url=url), cfg,
+                            leader_elect=True)
+    el = sched.elector
+    el.identity = name
+    el.lease_duration_s = REST_LEASE_S
+    el.renew_period_s = REST_LEASE_S / 3.0
+    el.retry_period_s = REST_LEASE_S / 5.0
+    el.renew_deadline_s = 0.8 * REST_LEASE_S
+    tpu = sched.profile.score[0]
+    calls = []
+    if tpu.recommender is not None:
+        real = tpu.recommender.impute_configurations
+
+        def counted(index):
+            calls.append(index)
+            return real(index)
+        tpu.recommender.impute_configurations = counted
+    return sched, tpu, calls
+
+
+def rest_wait(what, fn, timeout=REST_TIMEOUT):
+    deadline = time.monotonic() + timeout
+    while not fn():
+        if time.monotonic() > deadline:
+            raise SystemExit(f"24b: {what} not within {timeout} s")
+        time.sleep(0.01)
+
+
+def phase_rest_replicas(card, cpu) -> dict:
+    """24b: two leader-elected replicas on one fakekube schedule
+    test_e2e's workload (a 2-member gang of 4-chip pods, then the
+    ``llama3-8b-serve-0`` pod with SLO 5) on two v5e hosts carved 2x2,
+    with the recommender's gRPC server and a Prometheus stub as live
+    sidecars (no registry). The leader binds the gang and is stopped; the
+    standby takes the lease and binds the SLO pod. The result holds the
+    SLO pod's ConfigMap read back through ``KubeAPIServer.get``."""
+    import shutil
+
+    import grpc
+
+    from k8s_gpu_scheduler_tpu_torch.api import objects as o
+    from k8s_gpu_scheduler_tpu_torch.cluster.kubeapi import KubeAPIServer
+    from k8s_gpu_scheduler_tpu_torch.config import SchedulerConfig
+    from k8s_gpu_scheduler_tpu_torch.recommender import server as rserver
+
+    log(f"  24b gRPC {grpc.__version__}: the recommender over the real wire")
+    data = os.path.join(os.path.dirname(rserver.__file__), "data")
+    tmp = tempfile.mkdtemp(prefix="recommender_")
+    for name in ("configurations_train.tsv", "interference_train.tsv"):
+        shutil.copy(os.path.join(data, name), tmp)
+    rec = rserver.RecommenderServer(
+        os.path.join(tmp, "configurations_train.tsv"),
+        os.path.join(tmp, "interference_train.tsv"), port=0).start()
+    prom = PromStub(REST_DUTY)
+    proc, url = start_fakekube("--nodes", "2", "--slice-size", "2")
+    replicas = []
+    try:
+        api = KubeAPIServer(base_url=url)
+        for n in ("v5e-0", "v5e-1"):
+            api.mutate("Node", n, "default", lambda node: node.metadata
+                       .annotations.update({o.ANN_SLICE_CONFIG: "2x2"}))
+        cfg = SchedulerConfig(backoff_initial_s=0.05, backoff_max_s=0.5,
+                              permit_timeout_s=REST_TIMEOUT)
+        cfg.registry.port = closed_port()           # no registry: degraded
+        cfg.recommender.host, cfg.recommender.port = "127.0.0.1", rec.port
+        cfg.metrics.url = prom.url
+        replicas = [rest_replica(url, cfg, f"replica-{k}") for k in "ab"]
+        (a, tpu_a, calls_a), (b, tpu_b, calls_b) = replicas
+        if tpu_a.recommender is None or tpu_b.recommender is None \
+                or tpu_a.prom is None:
+            raise SystemExit("24b: a sidecar client was not built")
+        a.start()
+        if not a.elector.wait_until_leader(REST_TIMEOUT):
+            raise SystemExit("24b: replica-a never led")
+        b.start()
+        api.create(o.PodGroup(metadata=o.ObjectMeta(name="gang"),
+                              min_member=2, schedule_timeout_s=REST_TIMEOUT))
+        for i in range(2):
+            api.create(o.ConfigMap(metadata=o.ObjectMeta(name=f"cm-gang-{i}")))
+            api.create(o.Pod(
+                metadata=o.ObjectMeta(name=f"gang-{i}",
+                                      labels={o.LABEL_POD_GROUP: "gang"}),
+                spec=o.PodSpec(containers=[o.Container(
+                    env_from=[o.ConfigMapRef(f"cm-gang-{i}")],
+                    resources=o.ResourceRequirements(
+                        requests={o.TPU_RESOURCE: 4}))])))
+        rest_wait("the gang bound", lambda: all(
+            api.get("Pod", f"gang-{i}").spec.node_name for i in range(2)))
+        # Midway: stop the leader (a clean stop releases the lease).
+        t0 = time.perf_counter()
+        a.stop()
+        a._reshaper.stop()
+        rest_wait("the standby's takeover", b.elector.is_leader,
+                  REST_LEASE_S)
+        gap = time.perf_counter() - t0
+        api.create(o.ConfigMap(metadata=o.ObjectMeta(name="cm-solo")))
+        api.create(o.Pod(
+            metadata=o.ObjectMeta(name="llama3-8b-serve-0"),
+            spec=o.PodSpec(containers=[o.Container(
+                env=[o.EnvVar("SLO", "5"),
+                     o.EnvVar("WORKLOAD_NAME", "llama3_8b_serve")],
+                env_from=[o.ConfigMapRef("cm-solo")],
+                resources=o.ResourceRequirements(
+                    requests={o.TPU_RESOURCE: 2}))])))
+        rest_wait("the SLO pod bound", lambda: api.get(
+            "Pod", "llama3-8b-serve-0").spec.node_name)
+        rest_wait("the SLO pod's PostBind", lambda: "TPU_VISIBLE_CHIPS" in
+                  api.get("ConfigMap", "cm-solo").data)
+        b.stop()
+        b._reshaper.stop()
+
+        def count(s, metric, **labels):
+            return s.metrics.counter(metric).value(**labels)
+        binds = [count(s, "tpu_sched_attempts_total", result="scheduled")
+                 for s, _, _ in replicas]
+        pods = {p.metadata.name: p.spec.node_name for p in api.list("Pod")}
+        cms = {c.metadata.name: dict(c.data) for c in api.list("ConfigMap")}
+        lease = api.get("Lease", "tpu-scheduler")
+        st = dict(
+            pods=pods, binds=binds, failover_s=gap,
+            lease=[lease.holder_identity, lease.lease_duration_s,
+                   lease.lease_transitions],
+            recommender_calls=[len(calls_a), len(calls_b)],
+            slo_pod_scored="llama3-8b-serve-0" in calls_b,
+            degraded=[count(s, "tpu_sched_score_degraded_total",
+                            client="recommender") for s, _, _ in replicas],
+            prom_queries=len(prom.queries), injected=cms)
+        log(f"  24b ({card}; host {cpu}): {json.dumps(st)}")
+        gang_env = [cms[f"cm-gang-{i}"] for i in range(2)]
+        if binds != [2, 1] or not all(pods.values()) \
+                or gap > REST_LEASE_S or not st["slo_pod_scored"] \
+                or any(st["degraded"]) or not st["prom_queries"] \
+                or not all("TPU_VISIBLE_CHIPS" in e for e in cms.values()) \
+                or sorted(e.get("TPU_WORKER_ID") for e in gang_env) != \
+                ["0", "1"] \
+                or {e.get("TPU_WORKER_COUNT") for e in gang_env} != {"2"} \
+                or len({e.get("TPU_WORKER_HOSTNAMES") for e in gang_env}) != 1:
+            raise SystemExit(f"24b: {json.dumps(st)}")
+        st["configmap"] = dict(api.get("ConfigMap", "cm-solo").data)
+        return st
+    finally:
+        for s, _, _ in replicas:
+            s.stop()
+            s._reshaper.stop()
+        stop_process(proc)
+        rec.stop()
+        prom.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_rest_handoff(dev, card, env) -> dict:
+    """24c: the SLO pod's ConfigMap (read back through the REST adapter)
+    as the environment of one wave of ``main --serve``."""
+    if not {"TPU_HBM_LIMIT_BYTES", "TPU_DUTY_CYCLE_PERCENTAGE",
+            "TPU_VISIBLE_CHIPS", "TPU_WORKER_ID"} <= set(env):
+        raise SystemExit(f"24c: no sharing limits injected: {env}")
+    with injected_environment(env, dev) as slept:
+        return serve_one_wave(dev, card, env, "24c", slept)
+
+
+def phase_rest_scheduler(dev, card, mixed=None) -> dict:
+    """Phase 24; ``mixed``: 23b's result from this run (23b runs here when
+    phase 23 did not)."""
+    cpu = host_cpu()
+    t0 = time.perf_counter()
+    if mixed is None:
+        mixed = phase_sched_mixed(card, cpu)
+    t1 = time.perf_counter()
+    rest = phase_rest_mixed(card, cpu)
+    keys = ("pods_per_s", "e2e_p50_ms", "e2e_p99_ms", "cycle_p50_ms",
+            "cycle_p99_ms")
+    log(f"  24a over REST against 23b in memory ({card}; host {cpu}): "
+        + json.dumps({k: [rest[k], mixed[k]] for k in keys}))
+    t2 = time.perf_counter()
+    replicas = phase_rest_replicas(card, cpu)
+    t3 = time.perf_counter()
+    handoff = phase_rest_handoff(dev, card, replicas["configmap"])
+    log(f"  phase 24: 23b {t1 - t0:.1f} s, 24a {t2 - t1:.1f} s, 24b "
+        f"{t3 - t2:.1f} s, 24c {time.perf_counter() - t3:.1f} s ({card}; "
+        f"host {cpu})")
+    return dict(mixed=rest, replicas=replicas, handoff=handoff)
 
 
 def main() -> int:
@@ -6100,11 +6470,18 @@ def main() -> int:
               "audit and tp steady states on two ranks, 22d the CLI on the "
               "seeded fixtures")
         phase_graft_rest(dev, card)
+    sched = {}
     if run(23):
         phase("phase 23: the scheduler's control plane: 23a the entry "
               "point, 23b bench_mixed's 1,024 nodes in memory, 23c a placed "
               "pod's injected environment served on the card")
-        phase_scheduler(dev, card)
+        sched = phase_scheduler(dev, card)
+    if run(24):
+        phase("phase 24: the SLO-scored, in-cluster scheduler over REST: 24a "
+              "bench_mixed's 1,024 nodes against fakekube, 24b two "
+              "leader-elected replicas with the recommender and Prometheus "
+              "sidecars, 24c the SLO pod's environment served on the card")
+        phase_rest_scheduler(dev, card, sched.get("mixed"))
     if chosen is not None:
         log(json.dumps({"card": card, "kernel_cases": cases}))
         log(f"chip_smoke: phases {sorted(chosen)} in "

@@ -1,21 +1,20 @@
 """tpu-scheduler entry point of the port (copy of the JAX package's
 ``cmd/scheduler.py``): it wires every layer of the control plane,
 
-  config (env) → registry client → reshaper → TPU + Gang + Preemption
-  plugins → Profile → Scheduler → metrics exporter
+  config (env) → registry client → recommender client → metrics client →
+  reshaper → TPU + Gang + Preemption plugins → Profile → Scheduler →
+  metrics exporter
 
 Every sidecar is optional with graceful degradation: no registry →
 metrics-fallback scoring, no recommender → utilization scoring, no
-Prometheus → neutral scores. The recommender's and Prometheus' clients
-are not ported yet (they come with slice B of the scheduler's port, the
-SLO-scored in-cluster scheduler), so ``build_scheduler`` always takes the
-degraded path for them, with a warning saying so; ``TPUPlugin`` still
-takes such clients (``recommender=``, ``prom=``) from a caller.
+Prometheus → neutral scores.
 
 ``--demo N`` boots the in-memory API server with a demo topology (one v5e
-host, one 4-host v5p slice) and N single-chip pods. ``--in-cluster``,
-``--apiserver`` and ``--leader-elect`` need the REST adapter and the
-leader elector, which slice B brings: they raise ``NotImplementedError``.
+host, one 4-host v5p slice) and N single-chip pods. ``--in-cluster``
+schedules against the kube-apiserver named by the pod's service account,
+``--apiserver URL`` against an explicit one (``cluster/kubeapi.py``), and
+``--leader-elect`` takes a coordination Lease before scheduling
+(``sched/leaderelection.py``), so two replicas fail over.
 """
 from __future__ import annotations
 
@@ -31,26 +30,31 @@ from ..sched import Profile, Scheduler, SliceReshaper
 
 log = logging.getLogger("tpu-scheduler")
 
-SLICE_B = "slice B of the scheduler's port (the SLO-scored, in-cluster scheduler)"
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"{SLICE_B}")
-
 
 def build_scheduler(server, config: SchedulerConfig,
                     metrics: Registry | None = None,
                     leader_elect: bool = False,
                     allow_simulated_reshape: bool = False) -> Scheduler:
     """Wire plugins + sidecar clients into a ready-to-start Scheduler."""
+    elector = None
     if leader_elect:
-        raise not_ported("leader election (--leader-elect)")
-    sched = Scheduler(server, profile=Profile(), config=config,
-                      metrics=metrics)
+        import os
+        import socket
 
-    # Bounded-retry visibility: the registry client counts each backoff
-    # retry here (utils/retry.py on_retry hook), labeled per client.
+        from ..sched import LeaderElector
+
+        elector = LeaderElector(
+            server,
+            identity=f"{socket.gethostname()}_{os.getpid()}",
+            name=config.scheduler_name,
+        )
+    sched = Scheduler(server, profile=Profile(), config=config,
+                      metrics=metrics, elector=elector)
+
+    # Bounded-retry visibility: both control-plane clients count each
+    # backoff retry here (utils/retry.py on_retry hook), labeled per
+    # client — the flap-rate signal that distinguishes "the registry is
+    # restarting" from "scoring went degraded" on one dashboard.
     rpc_retries = sched.metrics.counter(
         "tpu_sched_rpc_retries_total",
         "Bounded control-plane RPC retries, by client")
@@ -71,21 +75,40 @@ def build_scheduler(server, config: SchedulerConfig,
         registry = None
         log.warning("registry unavailable (%s) — metrics-fallback scoring", e)
 
-    # The JAX package's degraded path when neither client is reachable.
-    log.warning("recommender unavailable (its client is not ported yet; "
-                "%s) — utilization scoring", SLICE_B)
-    log.warning("metrics endpoint unavailable (the Prometheus client is "
-                "not ported yet; %s)", SLICE_B)
+    recommender = None
+    try:
+        from ..recommender.client import Client as RecommenderClient
+
+        recommender = RecommenderClient(
+            config.recommender.host, config.recommender.port,
+            timeout_s=config.recommender.timeout_s,
+            on_retry=lambda: rpc_retries.inc(client="recommender"),
+        )
+        recommender.impute_configurations("startup-probe")
+        log.info("recommender connected at %s:%d",
+                 config.recommender.host, config.recommender.port)
+    except Exception as e:  # noqa: BLE001
+        recommender = None
+        log.warning("recommender unavailable (%s) — utilization scoring", e)
+
+    prom = None
+    try:
+        from ..metrics.client import PromClient
+
+        prom = PromClient(config.metrics.url,
+                          timeout_s=config.metrics.query_timeout_s)
+    except Exception as e:  # noqa: BLE001
+        log.warning("metrics endpoint unavailable (%s)", e)
 
     # Without a registry, reshape confirmation can only be SIMULATED.
     # Demo mode opts in (taking ~2 s so the applying→idle window shows);
-    # otherwise the reshaper refuses instead — a timer must never stand
+    # in-cluster the reshaper refuses instead — a timer must never stand
     # in for a hardware observation.
     reshaper = SliceReshaper(sched.descriptor, registry=registry,
                              auto_confirm_delay_s=0.0 if registry else 2.0,
                              simulate_without_registry=allow_simulated_reshape)
-    tpu = TPUPlugin(sched.handle, registry=registry, prom=None,
-                    recommender=None, reshaper=reshaper,
+    tpu = TPUPlugin(sched.handle, registry=registry, prom=prom,
+                    recommender=recommender, reshaper=reshaper,
                     metrics=sched.metrics)
     gang = GangPlugin(sched.handle)
     preempt = PreemptionPlugin(sched.handle, filter_plugins=[tpu, gang], tpu=tpu)
@@ -156,15 +179,15 @@ def main(argv=None) -> int:
                         help="boot an in-memory demo cluster with N pods")
     parser.add_argument("--in-cluster", action="store_true",
                         help="schedule against the real kube-apiserver "
-                             "(service-account auth; not ported yet)")
+                             "(service-account auth)")
     parser.add_argument("--apiserver", default=None, metavar="URL",
                         help="explicit apiserver base URL (implies "
-                             "--in-cluster; not ported yet)")
+                             "--in-cluster; for dev/kind clusters)")
     parser.add_argument("--metrics-port", type=int, default=10251,
                         help="Prometheus exporter port (0 = disabled)")
     parser.add_argument("--leader-elect", action="store_true",
                         help="acquire a coordination Lease before scheduling "
-                             "(not ported yet)")
+                             "(run replicas: 2 for HA)")
     parser.add_argument("--once", action="store_true",
                         help="exit after the demo pods are all scheduled")
     parser.add_argument("-v", "--verbose", action="store_true")
@@ -178,14 +201,16 @@ def main(argv=None) -> int:
         parser.error("pick a mode: --demo N (in-memory) or --in-cluster/"
                      "--apiserver URL (real kube-apiserver)")
 
-    if args.in_cluster or args.apiserver:
-        raise not_ported("the REST adapter to a kube-apiserver "
-                         "(--in-cluster/--apiserver)")
-    if args.leader_elect:
-        raise not_ported("leader election (--leader-elect)")
-    server = demo_cluster(args.demo)
+    if args.demo is not None:
+        server = demo_cluster(args.demo)
+    else:
+        from ..cluster.kubeapi import KubeAPIServer
+
+        server = KubeAPIServer(base_url=args.apiserver)
+        log.info("connected to kube-apiserver at %s", server.base_url)
     config = SchedulerConfig.from_env()
-    sched = build_scheduler(server, config, allow_simulated_reshape=True)
+    sched = build_scheduler(server, config, leader_elect=args.leader_elect,
+                            allow_simulated_reshape=args.demo is not None)
 
     exporter = None
     if args.metrics_port:

@@ -1,6 +1,11 @@
-"""Metrics layer of the port: the Prometheus text-format exporter and
-the serving-pool export and the fleet router's metric names (copy of the
-JAX package's exporter)."""
+"""Metrics layer of the port (copies of the JAX package's ``metrics/``
+modules): the Prometheus instant-query client with its concurrent
+TPU-series fan-out (consumer side), and the text-format exporter with the
+serving-pool export and the fleet router's metric names (producer side)."""
+from .client import (
+    HBM_BANDWIDTH_UTIL, HBM_TOTAL, HBM_USED, MXU_DUTY_CYCLE, MetricsError,
+    PromClient, Sample, TENSORCORE_UTIL, TPU_SERIES, parse_response,
+)
 from .exporter import (
     DECODE_FALLBACK_TOTAL, FLEET_COUNTERS, FLEET_GAUGES, FLEET_HISTOGRAMS, DEFAULT_BUCKETS, PHASE_BUCKETS, PHASE_HISTOGRAM, PREFIX_HIT_BUCKETS,
     PREFIX_HIT_HISTOGRAM, PROMOTED_HIT_HISTOGRAM, SERVING_POOL_GAUGES,
@@ -10,6 +15,16 @@ from .exporter import (
 )
 
 __all__ = [
+    "HBM_BANDWIDTH_UTIL",
+    "HBM_TOTAL",
+    "HBM_USED",
+    "MXU_DUTY_CYCLE",
+    "MetricsError",
+    "PromClient",
+    "Sample",
+    "TENSORCORE_UTIL",
+    "TPU_SERIES",
+    "parse_response",
     "Counter",
     "DECODE_FALLBACK_TOTAL",
     "DEFAULT_BUCKETS",

@@ -18,9 +18,10 @@ plugin, pkg/plugins/gpu_plugin/gpu_plugins.go:455-930).
   partitioning whose predicted QPS still meets the pod's SLO and records
   it for PostBind.
 
-The recommender and Prometheus clients are not ported yet; the plugin
-takes any objects that follow ``PredictionClient`` and the Prometheus
-client's ``node_duty_cycle``."""
+``cmd/scheduler.py`` wires in the recommender's gRPC client
+(``recommender/client.py``) and the Prometheus client
+(``metrics/client.py``); the plugin takes any objects that follow
+``PredictionClient`` and the Prometheus client's ``node_duty_cycle``."""
 from __future__ import annotations
 
 import logging

@@ -1,7 +1,7 @@
 """Scheduler control plane of the port (copies of the JAX package's
 ``sched/`` modules): queue, cache with chip accounting, plugin extension
-points, the reshaper and the scheduling/binding cycle. The leader
-elector (``sched/leaderelection.py``) is not ported yet."""
+points, the reshaper, the scheduling/binding cycle and the leader
+elector."""
 from .cache import Cache, NodeInfo
 from .framework import (
     CycleState,
@@ -20,6 +20,7 @@ from .framework import (
     Status,
     WaitingPod,
 )
+from .leaderelection import LeaderElector
 from .queue import SchedulingQueue, pod_priority
 from .reshaper import SliceReshaper
 from .scheduler import Scheduler
@@ -46,4 +47,5 @@ __all__ = [
     "pod_priority",
     "SliceReshaper",
     "Scheduler",
+    "LeaderElector",
 ]

@@ -1289,3 +1289,107 @@ def test_scheduler_handoff_caps_the_allocator(cuda):
         assert enforcement.duty_throttle(env).pct == 50
     finally:
         torch.cuda.set_per_process_memory_fraction(1.0, card)
+
+
+@pytest.mark.gpu
+def test_rest_placed_pod_serves_on_the_card(cuda):
+    """24c's handoff at a small size: a scheduler leader-elected over the
+    REST adapter (``cluster/kubeapi.py`` against ``tests/fakekube.py``)
+    scores an SLO pod on the recommender's gRPC predictions and places it
+    on a 2x2 partition; its ConfigMap, read back over REST, caps the
+    card's allocator at ``enforcement.hbm_fraction``'s bytes, and a
+    paged engine (tiny config) serves a wave under its throttle through
+    K1, with no plain call."""
+    import os
+    import shutil
+    import tempfile
+    import time
+
+    from fakekube import FakeKube
+
+    from k8s_gpu_scheduler_tpu_torch.api import objects as o
+    from k8s_gpu_scheduler_tpu_torch.cluster.kubeapi import KubeAPIServer
+    from k8s_gpu_scheduler_tpu_torch.cmd.scheduler import build_scheduler
+    from k8s_gpu_scheduler_tpu_torch.config import SchedulerConfig
+    from k8s_gpu_scheduler_tpu_torch.recommender import server as rserver
+    from k8s_gpu_scheduler_tpu_torch.utils import enforcement
+
+    data = os.path.join(os.path.dirname(rserver.__file__), "data")
+    tmp = tempfile.mkdtemp()
+    for name in ("configurations_train.tsv", "interference_train.tsv"):
+        shutil.copy(os.path.join(data, name), tmp)
+    rec = rserver.RecommenderServer(
+        os.path.join(tmp, "configurations_train.tsv"),
+        os.path.join(tmp, "interference_train.tsv"), port=0).start()
+    fake = FakeKube()
+    fake.add_node("v5e-0")
+    api = KubeAPIServer(base_url=fake.url)
+    api.mutate("Node", "v5e-0", "default", lambda n: n.metadata.annotations
+               .update({o.ANN_SLICE_CONFIG: "2x2"}))
+    cfg = SchedulerConfig(backoff_initial_s=0.05)
+    cfg.registry.port = 1
+    cfg.recommender.host, cfg.recommender.port = "127.0.0.1", rec.port
+    cfg.metrics.url = "http://127.0.0.1:1"
+    sched = build_scheduler(api, cfg, leader_elect=True)
+    calls = []
+    tpu = sched.profile.score[0]
+    real = tpu.recommender.impute_configurations
+    tpu.recommender.impute_configurations = lambda ix: calls.append(ix) \
+        or real(ix)
+    api.create(o.ConfigMap(metadata=o.ObjectMeta(name="cm-solo")))
+    api.create(o.Pod(
+        metadata=o.ObjectMeta(name="llama3-8b-serve-0"),
+        spec=o.PodSpec(containers=[o.Container(
+            env=[o.EnvVar("SLO", "5"),
+                 o.EnvVar("WORKLOAD_NAME", "llama3_8b_serve")],
+            env_from=[o.ConfigMapRef("cm-solo")],
+            resources=o.ResourceRequirements(requests={o.TPU_RESOURCE: 2}))])))
+    sched.start()
+    try:
+        deadline = time.monotonic() + 30
+        while "TPU_VISIBLE_CHIPS" not in api.get("ConfigMap", "cm-solo").data:
+            assert time.monotonic() < deadline
+            time.sleep(0.02)
+        env = dict(api.get("ConfigMap", "cm-solo").data)
+    finally:
+        sched.stop()
+        sched._reshaper.stop()
+        rec.stop()
+        fake.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert "llama3-8b-serve-0" in calls
+    assert fake.binding_posts == [("default", "llama3-8b-serve-0", "v5e-0")]
+    assert env["TPU_DUTY_CYCLE_PERCENTAGE"] == "50"
+    card = torch.device("cuda", torch.cuda.current_device())
+    total = torch.cuda.get_device_properties(card).total_memory
+    want = enforcement.hbm_fraction(env, total)
+    mcfg = LlamaConfig(vocab=256, d_model=128, n_layers=2, n_heads=2,
+                       n_kv_heads=1, d_ff=256, max_seq=128,
+                       dtype=torch.float32, decode_attn="fused", remat=False)
+    try:
+        throttle = enforcement.apply_env_limits(env, card)
+        cap = torch.cuda.get_per_process_memory_fraction(card) * total
+        assert round(cap) == int(want * total)
+        slept = []
+        real_pace = throttle.pace
+        throttle.pace = lambda a: slept.append(real_pace(a)) or slept[-1]
+        model = init_params(mcfg, torch.Generator().manual_seed(0), card)
+        eng = ContinuousBatcher(model, mcfg, n_slots=4, max_len=128, chunk=8,
+                                prefill_bucket=32, kv_layout="paged",
+                                page_size=16, device=card)
+        rng = np.random.default_rng(24)
+        for _ in range(4):
+            eng.submit(list(rng.integers(0, mcfg.vocab, 20)), 16)
+        da.reset_counters()
+        with throttle:
+            done = eng.run()
+            torch.cuda.synchronize()
+        c = da.counters()
+        assert len(done) == 4 and all(len(s) == 16 for s in done.values())
+        assert c["paged_decode_attention"] > 0, c
+        assert not (c["paged_decode_reference"]
+                    or c["dense_prefill_reference"]), c
+        assert slept and slept[-1] > 0
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, card)
+        torch.cuda.empty_cache()

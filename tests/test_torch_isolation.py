@@ -42,6 +42,15 @@ SCHED_SLICE = ["k8s_gpu_scheduler_tpu_torch." + m for m in (
     "plugins", "plugins.gang", "plugins.preemption", "plugins.tpu", "cmd",
     "cmd.scheduler", "config", "registry.inventory")]
 
+# The modules of the SLO-scored, in-cluster scheduler: the REST adapter,
+# the leader elector, the recommender's codec, imputer, server and client,
+# and the Prometheus client — copies of the JAX package's, which must
+# still import nothing of it.
+INCLUSTER_SLICE = ["k8s_gpu_scheduler_tpu_torch." + m for m in (
+    "cluster.kubeapi", "sched.leaderelection", "recommender.wire",
+    "recommender.model", "recommender.server", "recommender.client",
+    "recommender.collector", "metrics", "metrics.client")]
+
 JAX_PKG = re.compile(
     r"^\s*(from|import)\s+k8s_gpu_scheduler_tpu(\.|\b)"
     r"|import_module\(\s*['\"]k8s_gpu_scheduler_tpu(\.|\b)", re.M)
@@ -73,6 +82,7 @@ def test_every_module_imports_with_jax_blocked():
         "entrypoints", "__main__")} <= set(MODULES)
     assert set(FLEET_SLICE) <= set(MODULES)
     assert set(SCHED_SLICE) <= set(MODULES)
+    assert set(INCLUSTER_SLICE) <= set(MODULES)
     assert len(MODULES) >= 14 + len(FLEET_SLICE) + len(SCHED_SLICE) - 2
 
 

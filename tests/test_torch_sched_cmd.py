@@ -2,9 +2,10 @@
 ``python -m <package>.cmd.scheduler --demo 8 --once --metrics-port 0``
 exits 0 with the same ``scheduled <pod> -> <node>`` lines (each in a
 subprocess, since ``main`` sets the interpreter's switch interval and
-signal handlers); the options that need the REST adapter or the leader
-elector raise ``NotImplementedError`` naming slice B; and
-``build_scheduler`` wires the JAX package's profile."""
+signal handlers); ``--in-cluster`` (a TLS fakekube behind a patched
+service account), ``--apiserver URL`` and ``--leader-elect`` each
+schedule, alone and together; and ``build_scheduler`` wires the JAX
+package's profile, sidecar clients and elector."""
 import os
 import pathlib
 import re
@@ -39,9 +40,11 @@ def test_demo_once_lines_equal_jax():
     assert jcode == tcode == 0, (jerr, terr)
     assert tlines == jlines
     assert tlines == [f"scheduled demo-{i} -> v5e-0" for i in range(8)]
-    # The degraded paths are named, the unported clients as unported.
-    assert "recommender unavailable" in terr
-    assert "not ported yet" in terr and "slice B" in terr
+    # The degraded paths are named as JAX names them.
+    for line in ("registry unavailable", "recommender unavailable",
+                 "utilization scoring"):
+        assert line in jerr and line in terr
+    assert "not ported" not in terr
 
 
 @pytest.fixture
@@ -59,19 +62,121 @@ def process_state():
         signal.signal(s, h)
 
 
+@pytest.fixture
+def sidecars_down(monkeypatch):
+    """No registry, recommender or Prometheus answers: fail fast."""
+    monkeypatch.setenv("TPU_SCHED_REGISTRY_PORT", "1")
+    monkeypatch.setenv("TPU_SCHED_RECOMMENDER_PORT", "1")
+    monkeypatch.setenv("TPU_SCHED_METRICS_URL", "http://127.0.0.1:1")
+
+
+def submit_pods(api, n):
+    from k8s_gpu_scheduler_tpu_torch.api import objects as o
+
+    for i in range(n):
+        api.create(o.ConfigMap(metadata=o.ObjectMeta(name=f"cm-{i}")))
+        api.create(o.Pod(metadata=o.ObjectMeta(name=f"pod-{i}"),
+                         spec=o.PodSpec(containers=[o.Container(
+                             env_from=[o.ConfigMapRef(f"cm-{i}")],
+                             resources=o.ResourceRequirements(
+                                 requests={o.TPU_RESOURCE: 2}))])))
+
+
 @pytest.mark.parametrize("argv", [
-    ["--in-cluster"], ["--apiserver", "http://127.0.0.1:1"],
+    ["--in-cluster"], ["--apiserver", "URL"],
     ["--demo", "2", "--leader-elect"], ["--in-cluster", "--leader-elect"]],
     ids=["in-cluster", "apiserver", "leader-elect", "both"])
-def test_unported_options_refuse_naming_slice_b(argv, process_state):
-    with pytest.raises(NotImplementedError, match="slice B"):
-        tcmd.main(argv)
+def test_options_run(argv, process_state, sidecars_down, tmp_path,
+                     monkeypatch, caplog):
+    """Each option schedules every pod with ``--once`` and exits 0; with
+    ``--leader-elect`` the run took the Lease and released it."""
+    import logging
+
+    from test_torch_sched_rest import service_account, tls_fake
+    from tests.fakekube import FakeKube
+
+    from k8s_gpu_scheduler_tpu_torch.cluster.kubeapi import KubeAPIServer
+
+    caplog.set_level(logging.INFO, logger="tpu-scheduler")
+    fake, demo = None, []
+    if "--in-cluster" in argv:
+        fake, port, cert = tls_fake(tmp_path)
+        service_account(tmp_path, monkeypatch, "torch", port, cert)
+        api = KubeAPIServer()
+    elif "--apiserver" in argv:
+        fake = FakeKube()
+        argv = ["--apiserver", fake.url]
+        api = KubeAPIServer(base_url=fake.url)
+    else:
+        real = tcmd.demo_cluster
+        monkeypatch.setattr(tcmd, "demo_cluster",
+                            lambda n: demo.append(real(n)) or demo[-1])
+    try:
+        if fake is not None:
+            for i in range(2):
+                fake.add_node(f"v5e-{i}")
+            submit_pods(api, 3)
+        assert tcmd.main(argv + ["--once", "--metrics-port", "0"]) == 0
+        lines = [r.getMessage() for r in caplog.records
+                 if r.getMessage().startswith("scheduled ")]
+        server = api if fake is not None else demo[0]
+        pods = server.list("Pod")
+        assert len(lines) == len(pods) >= 2
+        assert all(p.spec.node_name for p in pods)
+        if "--leader-elect" in argv:
+            lease = server.get("Lease", "tpu-scheduler", "default")
+            # Released at stop: a standby need not wait out the duration.
+            assert lease.holder_identity == ""
+            assert lease.lease_duration_s == 15.0
+        if fake is not None:
+            assert len(fake.binding_posts) == 3
+            assert all("TPU_VISIBLE_CHIPS" in c.data
+                       for c in server.list("ConfigMap"))
+    finally:
+        if fake is not None:
+            fake.close()
 
 
-def test_leader_elect_refused_by_build_scheduler():
-    server = tcmd.demo_cluster(1)
-    with pytest.raises(NotImplementedError, match="slice B"):
-        tcmd.build_scheduler(server, SchedulerConfig(), leader_elect=True)
+def test_leader_elect_by_build_scheduler(sidecars_down):
+    """``build_scheduler(leader_elect=True)`` builds JAX's elector (the
+    host and process as identity, the scheduler's name as the Lease),
+    which leads, schedules and releases."""
+    import socket
+    import time
+
+    from k8s_gpu_scheduler_tpu.cmd import scheduler as jcmd
+    from k8s_gpu_scheduler_tpu.config import SchedulerConfig as JConfig
+
+    from k8s_gpu_scheduler_tpu_torch.sched import LeaderElector
+
+    electors = []
+    for cmd, cfg in ((jcmd, JConfig(backoff_initial_s=0.02)),
+                     (tcmd, SchedulerConfig(backoff_initial_s=0.02))):
+        sched = cmd.build_scheduler(cmd.demo_cluster(0), cfg,
+                                    leader_elect=True)
+        el = sched.elector
+        electors.append((type(el).__name__, el.identity, el.name,
+                         el.namespace, el.lease_duration_s, el.renew_period_s,
+                         el.retry_period_s, el.renew_deadline_s))
+        sched._reshaper.stop()
+    assert electors[0] == electors[1]
+    assert electors[1][1] == f"{socket.gethostname()}_{os.getpid()}"
+    server = tcmd.demo_cluster(2)
+    sched = tcmd.build_scheduler(server, SchedulerConfig(
+        backoff_initial_s=0.02), leader_elect=True,
+        allow_simulated_reshape=True)
+    assert isinstance(sched.elector, LeaderElector)
+    sched.start()
+    try:
+        assert sched.elector.wait_until_leader(5)
+        deadline = time.monotonic() + 10
+        while not all(p.spec.node_name for p in server.list("Pod")):
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+    finally:
+        sched.stop()
+        sched._reshaper.stop()
+    assert server.get("Lease", "tpu-scheduler").holder_identity == ""
 
 
 def test_no_mode_is_a_usage_error(process_state, capsys):
@@ -102,7 +207,9 @@ def test_build_scheduler_profile_matches_jax(monkeypatch):
                 {point: [type(p).__name__ for p in getattr(prof, point)]
                  for point in ("pre_filter", "filter", "post_filter", "score",
                                "reserve", "permit", "post_bind")},
-                tpu.registry, tpu.recommender, tpu.prom,
+                tpu.registry, tpu.recommender,
+                (type(tpu.prom).__name__, tpu.prom.base_url,
+                 tpu.prom.timeout_s), sched.elector,
                 sched._reshaper.auto_confirm_delay_s,
                 sched._reshaper.simulate_without_registry,
                 [type(p).__name__ for p in
@@ -110,11 +217,11 @@ def test_build_scheduler_profile_matches_jax(monkeypatch):
         finally:
             sched.stop()
             sched._reshaper.stop()
-    # JAX builds a Prometheus client object without contacting it; the
-    # port has none yet.
+    # Both build a Prometheus client without contacting it; the
+    # recommender's startup probe fails, so both score without it.
     jshape, tshape = shapes
-    assert jshape[:3] == tshape[:3] and jshape[4:] == tshape[4:]
-    assert tshape[3] is None
+    assert jshape == tshape
+    assert tshape[2] is None and tshape[3][0] == "PromClient"
     assert tshape[0]["pre_filter"] == ["TPUPlugin", "GangPlugin"]
 
 

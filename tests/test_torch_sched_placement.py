@@ -200,15 +200,18 @@ def wait_for(fn, what, timeout=30.0):
         time.sleep(0.005)
 
 
-def run(side, spec, registry, demo=False):
+def run(side, spec, registry, demo=False, recommender=None):
     """Schedule ``spec`` (or ``demo_cluster(8)``) with one package; return
-    what the comparison reads and what the invariants read."""
+    what the comparison reads and what the invariants read.
+    ``recommender``: the client ``build_scheduler`` gets (a double of the
+    seeded rows by default)."""
     cmd = mod(side, "cmd.scheduler")
     o = mod(side, "api.objects")
     cfg = mod(side, "config").SchedulerConfig(
         backoff_initial_s=0.02, backoff_max_s=0.1, permit_timeout_s=20.0)
     reg = MemRegistry(registry)
-    rec = FakeRecommender(CONF, INTF)
+    rec = recommender if recommender is not None else \
+        FakeRecommender(CONF, INTF)
     prom = FakeProm({"v5e-07": 10.0, "v5e-19": 95.0, "n017": 50.0})
     if demo:
         server = cmd.demo_cluster(8)
@@ -216,16 +219,15 @@ def run(side, spec, registry, demo=False):
         server = mod(side, "cluster").APIServer()
         for n in build_objects(side, spec):
             server.create(n)
-    patches = [mock.patch.object(mod(side, "registry.client"), "Client",
-                                 lambda *a, **k: reg)]
-    if side == "jax":
-        # The JAX entry point builds its gRPC and Prometheus clients here;
-        # the port has neither yet, and takes the doubles on its plugin.
-        patches += [
-            mock.patch.object(mod(side, "recommender.client"), "Client",
-                              lambda *a, **k: rec),
-            mock.patch.object(mod(side, "metrics.client"), "PromClient",
-                              lambda *a, **k: prom)]
+    # The entry point builds its registry, gRPC and Prometheus clients
+    # here: each package gets the same doubles.
+    patches = [
+        mock.patch.object(mod(side, "registry.client"), "Client",
+                          lambda *a, **k: reg),
+        mock.patch.object(mod(side, "recommender.client"), "Client",
+                          lambda *a, **k: rec),
+        mock.patch.object(mod(side, "metrics.client"), "PromClient",
+                          lambda *a, **k: prom)]
     for p in patches:
         p.start()
     try:
@@ -234,9 +236,6 @@ def run(side, spec, registry, demo=False):
         for p in patches:
             p.stop()
     tpu = sched.profile.score[0]
-    if side == "torch":
-        assert tpu.recommender is None and tpu.prom is None
-        tpu.recommender, tpu.prom = rec, prom
     assert (tpu.registry, tpu.recommender, tpu.prom) == (reg, rec, prom)
     preempt = sched.profile.post_filter[0]
     preemptions = []

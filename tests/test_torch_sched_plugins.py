@@ -4,7 +4,8 @@ equal bit for bit), the interference match, the SLO parses, min-max
 normalization, and one node's whole decision (partition, right-sizing,
 sharing limits, utilization score with the ``_UNFETCHED`` registry
 sentinel and the Prometheus fallback) through test doubles of the
-recommender and Prometheus clients, which the port does not have yet."""
+recommender and Prometheus clients (``tests/test_torch_recommender.py``
+holds the real clients across the packages)."""
 import importlib
 
 import numpy as np
