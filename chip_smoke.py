@@ -160,9 +160,9 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    training branch at 32 layers must refuse before allocating.
 11. the fleet at bench_fleet's TPU configuration on one card: 3 replicas
    of a 4-layer model (d_model 1024, 16 heads, vocab 32000), 8 slots,
-   chunk 8, bucket 128, page 64, int8 KV, the prefix cache; 96 requests
-   over 3 hot 128-token system prompts, Poisson 2.0 a router step,
-   max_new 48. Affinity (one forced shed mid-trace) and round-robin
+   chunk 8, bucket 128, page 64, int8 KV, the prefix cache; the first 48
+   of its 96 requests (cut for the time limit) over 3 hot 128-token
+   system prompts, Poisson 2.0 a router step, max_new 48. Affinity (one forced shed mid-trace) and round-robin
    through ``Router.submit``/``step``: K1 and K2 launch, no plain
    version, affinity's prefix-hit rate above round-robin's, ≥ 1 request
    migrated; prints fleet tokens/s and TTFT p50 by policy and class.
@@ -330,7 +330,8 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    printed.
 21. graftcheck for the port (``k8s_gpu_scheduler_tpu_torch/analysis/``).
    (a) ``python -m k8s_gpu_scheduler_tpu_torch.analysis`` in a process
-   of its own: over the port's tree (every pass, the dynamic ones on the
+   of its own, started before phases 17-20's rank worlds and run beside
+   them (when they run): over the port's tree (every pass, the dynamic ones on the
    card at the tiny config) it exits 0, over
    ``tests/data/graftcheck_torch/`` it exits 1 with every seeded rule;
    each pass's seconds are printed. (b) For every kernel instantiation
@@ -407,6 +408,22 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    environment of one wave of ``main --serve`` (its line, K1 launched,
    no plain call, the memory cap equal to ``enforcement.hbm_fraction``'s
    to the byte, the throttle slept).
+25. the node agent (``agent/``): (a) the port's prober
+   (``agent/csrc/tpuprobe.cpp``, built with g++) with no fake file and no
+   device glob reads the card through NVML: one chip a card, each total
+   within 1 MiB of nvidia-smi's, ``hbm_used`` following 8 GiB allocated
+   and freed, and a duty cycle of at least 0.5 while K5 loops at
+   train-8b (launched through its wrapper and counted, no plain call),
+   lower 2 s after; (b) 1,023 ``Publisher``s on fake files at 23b's
+   utilizations and one reading the card under K5 write into one
+   kvstored (``native/kvstore/kvstore.cpp``, built with g++):
+   ``list_inventories`` returns all 1,024, the card's inventory is what
+   its prober printed, every node has its heartbeat, the port's
+   ``TPUPlugin`` scores each node at 100·(1 − utilization) and the card
+   below every less busy node, a publish after the load is a change and
+   raises the card's score, and the re-exporter's text parses back to the
+   probe; (c) the metrics logger and ``registryctl --get`` of the card's
+   node, run by module name.
 
 ``--profile`` adds profiled serving runs (speculative and the contiguous
 engine) and one profiled training step: the card's busy
@@ -2433,6 +2450,8 @@ FLEET_ENGINE = dict(n_slots=8, max_len=2048, chunk=8, prefill_bucket=128,
                     kv_layout="paged", page_size=64, kv_dtype="int8",
                     prefix_cache=True)
 FLEET_REQUESTS = 96             # bench_fleet's TPU trace
+FLEET_RUN = 48                  # phases 11 and 12a drive its first 48 (96
+                                # before the script's time limit forced it)
 
 
 def fleet_trace(vocab, n_req, rate=2.0, n_classes=3, page=64, seed=0,
@@ -2642,7 +2661,7 @@ def fleet_drive(router, sched, clock=None, shed_at=None):
         time.perf_counter() - t0, t
 
 
-def phase_fleet(dev, card, dtype, n_req=FLEET_REQUESTS) -> dict:
+def phase_fleet(dev, card, dtype, n_req=FLEET_RUN) -> dict:
     """Phase 11: bench_fleet's TPU configuration on one card: 3 replicas,
     affinity (with one forced shed) and round-robin on one Poisson
     trace, every stream whole and against a single engine's
@@ -2652,7 +2671,8 @@ def phase_fleet(dev, card, dtype, n_req=FLEET_REQUESTS) -> dict:
     from k8s_gpu_scheduler_tpu_torch.ops import decode_attention as da
 
     cfg, model = fleet_model(dev, dtype)
-    sched, classes = fleet_trace(cfg.vocab, n_req)
+    sched, classes = fleet_trace(cfg.vocab, FLEET_REQUESTS)
+    sched, classes = sched[:n_req], classes[:n_req]
     prompts, budgets = [p for _, p, _ in sched], [m for _, _, m in sched]
     ref = drive(ContinuousBatcher(model, cfg, device=dev, **FLEET_ENGINE),
                 prompts, budgets)
@@ -2704,7 +2724,7 @@ def phase_fleet(dev, card, dtype, n_req=FLEET_REQUESTS) -> dict:
     return out
 
 
-def phase_fleet_chaos(dev, card, dtype, n_req=FLEET_REQUESTS) -> dict:
+def phase_fleet_chaos(dev, card, dtype, n_req=FLEET_RUN) -> dict:
     """Phase 12a: bench_fleet_chaos's shape. A ``FaultProxy`` around r1
     makes its ``step`` raise ``ReplicaCrashed`` from its 10th call on, so
     the router declares it dead, replays its journaled requests on the
@@ -2726,7 +2746,7 @@ def phase_fleet_chaos(dev, card, dtype, n_req=FLEET_REQUESTS) -> dict:
     from k8s_gpu_scheduler_tpu_torch.utils.retry import RetryPolicy
 
     cfg, model = fleet_model(dev, dtype)
-    sched, _ = fleet_trace(cfg.vocab, n_req)
+    sched = fleet_trace(cfg.vocab, FLEET_REQUESTS)[0][:n_req]
     prompts, budgets = [p for _, p, _ in sched], [m for _, _, m in sched]
     spread = logit_spread(model, cfg, dev)
 
@@ -5112,30 +5132,54 @@ GRAFT_STEADY = {
     "train_steady_state": FLASH}
 
 
-def graft_cli(runs, timeout=600):
-    """The port's graftcheck CLI (its ``main``) on each argument list in
-    ``runs``, one after another in one process of its own from the tree's
-    root: [(exit code, its JSON line, stderr)]."""
+def graft_cli_spawn(runs) -> subprocess.Popen:
+    """Start the port's graftcheck CLI (its ``main``) on each argument list
+    in ``runs``, one after another in one process of its own from the
+    tree's root; ``graft_cli_wait`` reads it. The process is killed when
+    the script exits before reading it."""
+    import atexit
+
     root = os.path.dirname(os.path.abspath(__file__))
     code = (
-        "import contextlib, io, json\n"
+        "import contextlib, io, json, time\n"
+        "t0 = time.perf_counter()\n"
         "from k8s_gpu_scheduler_tpu_torch.analysis.__main__ import main\n"
         f"for args in {[list(r) for r in runs]!r}:\n"
         "    out, err = io.StringIO(), io.StringIO()\n"
         "    with contextlib.redirect_stdout(out), "
         "contextlib.redirect_stderr(err):\n"
         "        rc = main(['--json', *args])\n"
-        "    print(json.dumps([rc, out.getvalue(), err.getvalue()]), "
-        "flush=True)\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
-                          capture_output=True, text=True, timeout=timeout)
-    done = [json.loads(line) for line in proc.stdout.splitlines()
+        "    print(json.dumps([rc, out.getvalue(), err.getvalue(), "
+        "time.perf_counter() - t0]), flush=True)\n")
+    # Files, not pipes: nothing reads the process until 21a, and a full
+    # pipe would stop it.
+    files = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=root,
+                            stdout=files[0], stderr=files[1], text=True)
+    proc.files = files
+    atexit.register(proc.kill)
+    return proc
+
+
+def graft_cli_wait(proc, n_runs, timeout=600):
+    """[(exit code, its JSON line, stderr)] of ``graft_cli_spawn``'s
+    ``n_runs`` runs, and the process's own seconds for all of them."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SystemExit(f"21a: the CLI's process took over {timeout} s")
+    for f in proc.files:
+        f.seek(0)
+    stdout, stderr = (f.read() for f in proc.files)
+    done = [json.loads(line) for line in stdout.splitlines()
             if line.startswith("[")]
-    if len(done) != len(runs):
+    if len(done) != n_runs:
         raise SystemExit(f"21a: the CLI's process failed ({proc.returncode})"
-                         f":\n{proc.stderr[-4000:]}")
-    return [(rc, json.loads(out.splitlines()[0]) if out else {}, err)
-            for rc, out, err in done]
+                         f":\n{stderr[-4000:]}")
+    return ([(rc, json.loads(out.splitlines()[0]) if out else {}, err)
+             for rc, out, err, _ in done], done[-1][3])
 
 
 def graft_size(dev, kv_dtype):
@@ -5159,15 +5203,25 @@ def graft_size(dev, kv_dtype):
 
 
 _GRAFT_CLI: dict = {}
+GRAFT_CLI_RUNS = ([], [GRAFT_FIXTURES])     # the tree, the seeded fixtures
+
+
+def graft_cli_start() -> None:
+    """Start the CLI over the tree and over the seeded fixtures once (21a
+    and 22d read the same runs). ``main`` starts it before the rank
+    worlds of phases 17-20, whose gloo transfers leave the card and most
+    of the host's cores idle, so the CLI runs beside them."""
+    if "proc" not in _GRAFT_CLI:
+        _GRAFT_CLI["proc"] = graft_cli_spawn(GRAFT_CLI_RUNS)
 
 
 def graft_cli_runs():
-    """The CLI over the tree and over the seeded fixtures, run once (21a
-    and 22d read the same runs), with its wall seconds."""
-    if not _GRAFT_CLI:
-        t0 = time.perf_counter()
-        _GRAFT_CLI["runs"] = graft_cli([[], [GRAFT_FIXTURES]])
-        _GRAFT_CLI["seconds"] = time.perf_counter() - t0
+    """The CLI's runs (``graft_cli_start``), with the seconds its process
+    took for them."""
+    graft_cli_start()
+    if "runs" not in _GRAFT_CLI:
+        _GRAFT_CLI["runs"], _GRAFT_CLI["seconds"] = graft_cli_wait(
+            _GRAFT_CLI["proc"], len(GRAFT_CLI_RUNS))
     return _GRAFT_CLI["runs"], _GRAFT_CLI["seconds"]
 
 
@@ -6316,6 +6370,394 @@ def phase_rest_scheduler(dev, card, mixed=None) -> dict:
     return dict(mixed=rest, replicas=replicas, handoff=handoff)
 
 
+# -- phase 25: the node agent -----------------------------------------------------
+
+AGENT_NODES = 1024              # 25b: 23b's cluster size, this card's node one
+AGENT_CARD_NODE = "h100-0"      # 25b: the node whose agent reads this card
+AGENT_LOAD_S = 3.0              # 25a: seconds K5 loops at train-8b
+AGENT_PROBE_AT_S = 1.0          # 25a, 25b: a probe this far into the load
+AGENT_SETTLE_S = 2.0            # 25a, 25b: wait after the load (NVML's
+#                                 sample window is 1/6 s to 1 s)
+AGENT_BUSY = 0.5                # 25a: least duty cycle a probe under K5 reads
+AGENT_TOUCH = 8 << 30           # 25a: bytes allocated, touched and freed
+AGENT_MOVE = 15 << 29           # 25a: least move of hbm_used (7.5 GiB)
+AGENT_MGET = 512                # 25b: list_inventories' keys an MGET
+AGENT_THREADS = 8               # 25b: fake-file agents publishing at once
+PROBER_ENV = ("TPUPROBE_BIN", "TPUPROBE_FAKE", "TPUPROBE_DEV_GLOB",
+              "TPUPROBE_NVML_LIB")
+
+
+@contextlib.contextmanager
+def k5_busy(dev):
+    """K5 (``flash_forward``, causal, bf16, at train-8b: B 8, T 2048,
+    32/8 heads, hd 128) launched in a loop on a thread of its own while the
+    block runs, synchronised every 16 launches, so the card is busy from
+    the block's start and idle a few ms after its end."""
+    import threading
+
+    from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import flash_forward
+
+    gen = torch.Generator(dev).manual_seed(25)
+    q = torch.randn((8, 2048, 32, 128), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((8, 2048, 8, 128), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    stop, errors = threading.Event(), []
+
+    def loop():
+        try:
+            while not stop.is_set():
+                for _ in range(16):
+                    flash_forward(q, k, v, True, True)
+                torch.cuda.synchronize(dev)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    th = threading.Thread(target=loop, name="k5-load", daemon=True)
+    th.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        th.join(timeout=60)
+        torch.cuda.synchronize(dev)
+    if errors or th.is_alive():
+        raise SystemExit(f"25: the K5 load failed: {errors or 'it hung'}")
+
+
+def run_prober(exe, label, card) -> tuple:
+    """One ``--once`` probe: (chips, exec ms). Fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(exe), "--once"], capture_output=True,
+                          text=True, timeout=30)
+    ms = 1e3 * (time.perf_counter() - t0)
+    log(f"  25a {label}: {proc.stdout.strip()} exit {proc.returncode} in "
+        f"{ms:.3f} ms ({card})")
+    if proc.returncode != 0:
+        raise SystemExit(f"25a: the prober exited {proc.returncode}: "
+                         f"{proc.stderr.strip()}")
+    return json.loads(proc.stdout)["chips"], ms
+
+
+def phase_agent_prober(dev, card) -> dict:
+    """25a: the port's prober, with no fake file and no device glob, reads
+    the node's cards through NVML. Gates: one chip a card (ids 0..n-1);
+    each total within 1 MiB of nvidia-smi's and at least the card's total
+    as CUDA reports it; the chips' ``hbm_used`` rising and falling by 7.5
+    GiB around 8 GiB allocated, touched and freed; a probe 1 s into 3 s of
+    counted K5 launches (no plain call) reading a duty cycle of at least
+    0.5, and one 2 s after the load below it."""
+    import gc
+
+    from k8s_gpu_scheduler_tpu_torch.agent import _build
+    from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
+        counters, reset_counters)
+
+    t0 = time.perf_counter()
+    exe = _build.build()
+    log(f"  25a built {exe.name} in {time.perf_counter() - t0:.2f} s")
+    n = torch.cuda.device_count()
+    idle, ms = run_prober(exe, "idle", card)
+    probe_ms = [ms]
+    mib = [int(x) for x in subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.total",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()]
+    cuda_total = torch.cuda.mem_get_info(dev)[1]
+    if [c["device_id"] for c in idle] != list(range(n)) or len(mib) != n:
+        raise SystemExit(f"25a: {len(idle)} chips, {len(mib)} in nvidia-smi, "
+                         f"{n} CUDA devices")
+    for c, m in zip(idle, mib):
+        if (abs(c["hbm_total"] - m * 1048576) > 1048576
+                or c["hbm_total"] < cuda_total):
+            raise SystemExit(f"25a: hbm_total {c['hbm_total']} against "
+                             f"nvidia-smi {m} MiB, CUDA {cuda_total} B")
+
+    def used(chips):
+        return sum(c["hbm_used"] for c in chips)
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()       # so the 8 GiB are a fresh allocation
+    base, ms = run_prober(exe, "before 8 GiB", card)
+    probe_ms.append(ms)
+    x = torch.empty(AGENT_TOUCH, dtype=torch.uint8, device=dev)
+    x.fill_(1)
+    torch.cuda.synchronize(dev)
+    held, ms = run_prober(exe, "8 GiB held", card)
+    probe_ms.append(ms)
+    del x
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    freed, ms = run_prober(exe, "8 GiB freed", card)
+    probe_ms.append(ms)
+    rise, fall = used(held) - used(base), used(held) - used(freed)
+
+    reset_counters()
+    with k5_busy(dev):
+        t0 = time.perf_counter()
+        time.sleep(AGENT_PROBE_AT_S)
+        busy, ms = run_prober(exe, f"{AGENT_PROBE_AT_S:g} s into K5", card)
+        probe_ms.append(ms)
+        time.sleep(max(0.0, AGENT_LOAD_S - (time.perf_counter() - t0)))
+    load_s = time.perf_counter() - t0
+    c = counters()
+    time.sleep(AGENT_SETTLE_S)
+    after, ms = run_prober(exe, f"{AGENT_SETTLE_S:g} s after K5", card)
+    probe_ms.append(ms)
+    duty = max(ch["duty_cycle"] for ch in busy)
+    duty_after = max(ch["duty_cycle"] for ch in after)
+    st = dict(chips=n, hbm_total=[ch["hbm_total"] for ch in idle],
+              nvidia_smi_mib=mib, cuda_total=cuda_total, used_rise=rise,
+              used_fall=fall, duty_busy=duty, duty_after=duty_after,
+              load_s=load_s, k5_launches=c["flash_forward"],
+              plain_calls=c["flash_forward_reference"], probe_ms=probe_ms)
+    log(f"  25a ({card}): {json.dumps(st)}")
+    if (rise < AGENT_MOVE or fall < AGENT_MOVE or duty < AGENT_BUSY
+            or not duty_after < duty or c["flash_forward"] == 0
+            or c["flash_forward_reference"]):
+        raise SystemExit(f"25a: {json.dumps(st)}")
+    return st
+
+
+def wait_listening(port, timeout=30.0) -> None:
+    import socket
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=0.3).close()
+            return
+        except OSError:
+            time.sleep(0.05)
+    raise SystemExit(f"25b: nothing listens on :{port}")
+
+
+def phase_agent_cluster(dev, card, cpu, probed) -> dict:
+    """25b and 25c. 1,023 of the port's ``Publisher``s, each execing the
+    port's prober on a fake file at utilization (i % 10) / 10 (23b's
+    registry), 8 at a time, and one whose ``Scraper`` reads this card
+    through NVML, published while K5 loops, all into one kvstored. Gates: one
+    ``list_inventories`` returns all 1,024 (in MGETs of 512 keys); the
+    card node's inventory is the chips its prober printed; every node has
+    its heartbeat key; the port's ``TPUPlugin(registry=Client)`` scores
+    every node at exactly 100·(1 − utilization), the card node below
+    every node less busy than it; a publish after the load is a change
+    and raises the card's score; the re-exporter's text parses back to
+    the probed values. Then 25c (``phase_agent_tools``) against the same
+    kvstored."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from k8s_gpu_scheduler_tpu_torch.agent import Publisher, Scraper, _build
+    from k8s_gpu_scheduler_tpu_torch.agent.deviceplugin import (
+        parse_prom_text)
+    from k8s_gpu_scheduler_tpu_torch.api import objects as o
+    from k8s_gpu_scheduler_tpu_torch.cluster import APIServer
+    from k8s_gpu_scheduler_tpu_torch.config import SchedulerConfig
+    from k8s_gpu_scheduler_tpu_torch.metrics.client import (
+        HBM_TOTAL, HBM_USED, MXU_DUTY_CYCLE)
+    from k8s_gpu_scheduler_tpu_torch.metrics.exporter import Registry
+    from k8s_gpu_scheduler_tpu_torch.ops.flash_attention import (
+        counters, reset_counters)
+    from k8s_gpu_scheduler_tpu_torch.plugins import TPUPlugin
+    from k8s_gpu_scheduler_tpu_torch.registry.client import Client
+    from k8s_gpu_scheduler_tpu_torch.registry.inventory import (
+        HEARTBEAT_SUFFIX, list_inventories, node_key, read_inventory)
+    from k8s_gpu_scheduler_tpu_torch.sched import (
+        CycleState, Profile, Scheduler)
+
+    t_phase = time.perf_counter()
+    card_node = AGENT_CARD_NODE
+    names = [f"v5e-{i}" for i in range(AGENT_NODES - 1)] + [card_node]
+    port = closed_port()
+    kv = subprocess.Popen([str(_build.build_kvstored()), "--port", str(port),
+                           "--requirepass", "pw"],
+                          stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        wait_listening(port)
+        reg = Client("127.0.0.1", port, password="pw")
+        with tempfile.TemporaryDirectory() as tmp:
+            fakes = []
+            for level in range(10):
+                path = os.path.join(tmp, f"duty-{level}.json")
+                with open(path, "w") as f:
+                    json.dump({"chips": [
+                        {"device_id": i, "duty_cycle": level / 10.0,
+                         "hbm_used": level << 30, "hbm_total": 16 << 30}
+                        for i in range(8)]}, f)
+                fakes.append(path)
+            def publish(i):          # one fake-file agent: its publish ms
+                pub = Publisher(reg, scraper=Scraper(fake_file=fakes[i % 10]),
+                                node_name=names[i],
+                                accelerator="tpu-v5-lite-podslice",
+                                topology="2x4")
+                t0 = time.perf_counter()
+                if not pub.publish_once(force=True):
+                    raise SystemExit(f"25b: {names[i]} did not publish")
+                return 1e3 * (time.perf_counter() - t0)
+            with ThreadPoolExecutor(AGENT_THREADS) as pool:
+                publish_ms = list(pool.map(publish, range(AGENT_NODES - 1)))
+        scraper, printed = Scraper(), []
+        probe = scraper.scrape
+
+        def scrape():              # keeps what each probe printed, parsed
+            chips = probe()
+            printed.append([dataclasses.asdict(c) for c in chips])
+            return chips
+        scraper.scrape = scrape
+        metrics = Registry()
+        card_pub = Publisher(reg, scraper=scraper, node_name=card_node,
+                             accelerator=torch.cuda.get_device_name(dev),
+                             metrics_registry=metrics)
+        reset_counters()
+        with k5_busy(dev):
+            time.sleep(AGENT_PROBE_AT_S)
+            t0 = time.perf_counter()
+            if not card_pub.publish_once(force=True):
+                raise SystemExit("25b: the card's node did not publish")
+            publish_ms.append(1e3 * (time.perf_counter() - t0))
+        load = counters()
+
+        mgets, real_mget = [], reg.mget
+        reg.mget = lambda *keys: mgets.append(len(keys)) or real_mget(*keys)
+        t0 = time.perf_counter()
+        invs = list_inventories(reg)
+        list_ms = 1e3 * (time.perf_counter() - t0)
+        del reg.mget
+        keys = set(reg.get_keys("node/*"))
+        no_heartbeat = [n for n in names
+                        if node_key(n) + HEARTBEAT_SUFFIX not in keys]
+        busy_inv = invs.get(card_node)
+        if (sorted(invs) != sorted(names) or no_heartbeat
+                or mgets != [AGENT_MGET] * (AGENT_NODES // AGENT_MGET)
+                or busy_inv is None
+                or [dataclasses.asdict(c) for c in busy_inv.chips]
+                != printed[-1]
+                or load["flash_forward"] == 0
+                or load["flash_forward_reference"]):
+            raise SystemExit(f"25b: {len(invs)} inventories, MGETs {mgets}, "
+                             f"no heartbeat {no_heartbeat[:5]}, card "
+                             f"{busy_inv} against {printed}, K5 {load}")
+
+        sched = Scheduler(APIServer(), profile=Profile(),
+                          config=SchedulerConfig())
+        for i, name in enumerate(names):
+            sched.cache.add_node(sched_node(o, name, i))
+        plugin = TPUPlugin(sched.handle, registry=reg)
+        pod = o.Pod(metadata=o.ObjectMeta(name="agent-probe"),
+                    spec=o.PodSpec(containers=[o.Container(
+                        resources=o.ResourceRequirements(
+                            requests={o.TPU_RESOURCE: 1}))]))
+
+        def scores(nodes):
+            state = CycleState()
+            plugin.pre_filter(state, pod)
+            return {n: plugin.score(state, pod, n)[0] for n in nodes}
+
+        def expected(inv):
+            return 100.0 * (1.0 - max(0.0, min(1.0, inv.utilization)))
+        t0 = time.perf_counter()
+        busy = scores(names)
+        score_ms = 1e3 * (time.perf_counter() - t0)
+        off = [n for n in names if busy[n] != expected(invs[n])]
+        u_card = busy_inv.utilization
+        not_above = [n for n in names if invs[n].utilization < u_card
+                     and not busy[n] > busy[card_node]]
+        below = sum(invs[n].utilization < u_card for n in names)
+        time.sleep(AGENT_SETTLE_S)
+        changed = card_pub.publish_once()
+        idle_inv = read_inventory(reg, card_node)
+        idle_score = scores([card_node])[card_node]
+        samples = {(name, lab.get("node"), lab.get("device_id")): v
+                   for name, lab, v in parse_prom_text(metrics.expose())}
+        exported = [tuple(samples.get((series, card_node,
+                                       str(c["device_id"])))
+                          for series in (MXU_DUTY_CYCLE, HBM_USED, HBM_TOTAL))
+                    for c in printed[-1]]
+        probed_vals = [(round(100.0 * c["duty_cycle"], 3),
+                        float(c["hbm_used_bytes"]),
+                        float(c["hbm_total_bytes"])) for c in printed[-1]]
+        st = dict(
+            nodes=len(invs), mget_keys=mgets, publish_p50_ms=float(
+                np.percentile(publish_ms, 50)),
+            publish_p99_ms=float(np.percentile(publish_ms, 99)),
+            card_publish_ms=publish_ms[-1], list_ms=list_ms,
+            score_1024_ms=score_ms, k5_launches=load["flash_forward"],
+            card_busy_utilization=u_card, card_busy_score=busy[card_node],
+            nodes_less_busy=below, scored_off=off[:5],
+            not_above_card=not_above[:5], changed_after_load=changed,
+            card_idle_utilization=idle_inv.utilization,
+            card_idle_score=idle_score, reexported=exported)
+        log(f"  25b ({card}; host {cpu}): {json.dumps(st)}")
+        if (off or not_above or not changed
+                or not idle_score > busy[card_node]
+                or idle_score != expected(idle_inv)
+                or exported != probed_vals):
+            raise SystemExit(f"25b: {json.dumps(st)}")
+        t_tools = time.perf_counter()
+        st["tools"] = phase_agent_tools(card, port, probed,
+                                        reg.get(node_key(card_node)))
+        st["b_s"] = t_tools - t_phase
+        st["c_s"] = time.perf_counter() - t_tools
+        return st
+    finally:
+        stop_process(kv)
+
+
+def phase_agent_tools(card, port, probed, card_value) -> dict:
+    """25c: the metrics logger (3 samples, 0.2 s apart) and ``registryctl
+    --get`` of the card's node, each run by module name from the
+    repository's root as an operator would, in parallel."""
+    from k8s_gpu_scheduler_tpu_torch.agent.metrics_logger import COLUMNS
+
+    root = repo_root()
+    out = os.path.join(root, "build", "agent", f"metrics-{os.getpid()}.tsv")
+    env = {**os.environ, "PYTHONPATH": root}
+    argvs = [["k8s_gpu_scheduler_tpu_torch.agent.metrics_logger",
+              "--samples", "3", "--interval", "0.2", "-o", out],
+             ["k8s_gpu_scheduler_tpu_torch.registry.ctl", "--host",
+              "127.0.0.1", "--port", str(port), "--password", "pw", "--get",
+              f"node/{AGENT_CARD_NODE}"]]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", *a], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for a in argvs]
+    (lo, le), (co, ce) = (p.communicate(timeout=120) for p in procs)
+    wall = time.perf_counter() - t0
+    rows = []
+    if os.path.exists(out):
+        with open(out) as f:
+            rows = [ln.split("\t") for ln in f.read().splitlines()]
+        os.remove(out)
+    totals = dict(enumerate(probed["hbm_total"]))   # 25a's, by device id
+    bad_rows = [r for r in rows[1:] if len(r) != len(COLUMNS)
+                or int(r[4]) != totals.get(int(r[1]))]
+    st = dict(logger_exit=procs[0].returncode, logger_line=lo.strip(),
+              tsv_rows=len(rows), ctl_exit=procs[1].returncode,
+              ctl_is_inventory=co.strip() == card_value, wall_s=wall)
+    log(f"  25c ({card}): {json.dumps(st)}")
+    if (procs[0].returncode or procs[1].returncode
+            or rows[:1] != [list(COLUMNS)]
+            or len(rows) != 1 + 3 * probed["chips"] or bad_rows
+            or co.strip() != card_value):
+        raise SystemExit(f"25c: {json.dumps(st)} {bad_rows[:3]}\n"
+                         f"{le[-2000:]}\n{ce[-2000:]}")
+    return st
+
+
+def phase_agent(dev, card) -> dict:
+    """Phase 25: 25a, then 25b and 25c."""
+    for var in PROBER_ENV:             # the prober reads the card itself
+        os.environ.pop(var, None)
+    t0 = time.perf_counter()
+    probed = phase_agent_prober(dev, card)
+    t1 = time.perf_counter()
+    cluster = phase_agent_cluster(dev, card, host_cpu(), probed)
+    log(f"  phase 25: 25a {t1 - t0:.1f} s, 25b {cluster['b_s']:.1f} s, 25c "
+        f"{cluster['c_s']:.1f} s ({card})")
+    return dict(prober=probed, cluster=cluster)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     args = sys.argv[1:]
@@ -6450,6 +6892,8 @@ def main() -> int:
             "gang): 20a an NCCL world of one, 20b-c a gloo world of two "
             "ranks sharing the card, 20d two gang workers on the card")
         worlds["20"] = phase_gang_serving(dev, card)
+    if run(21, 22):
+        graft_cli_start()               # beside the rank worlds
     if worlds:
         phase(f"phases {', '.join(worlds)}: their NCCL worlds of one as one "
               f"world, then their gloo worlds of two as one")
@@ -6482,6 +6926,12 @@ def main() -> int:
               "leader-elected replicas with the recommender and Prometheus "
               "sidecars, 24c the SLO pod's environment served on the card")
         phase_rest_scheduler(dev, card, sched.get("mixed"))
+    if run(25):
+        phase("phase 25: the node agent: 25a the port's prober reads the "
+              "card through NVML under K5, 25b 1,024 agents publish into "
+              "kvstored and the scheduler scores the card's node on its "
+              "own duty cycle, 25c the metrics logger and registryctl")
+        phase_agent(dev, card)
     if chosen is not None:
         log(json.dumps({"card": card, "kernel_cases": cases}))
         log(f"chip_smoke: phases {sorted(chosen)} in "

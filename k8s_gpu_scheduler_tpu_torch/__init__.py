@@ -14,6 +14,13 @@ they raise unless the caller asked for the CPU (``device.resolve_device``).
 On a CPU tensor every kernel wrapper runs its plain version; on a CUDA
 tensor it launches the kernel or raises.
 """
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # Imported at first use: the node agent, the registry CLI and the
+    # scheduler import subpackages of this one and never need torch.
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1393,3 +1393,37 @@ def test_rest_placed_pod_serves_on_the_card(cuda):
     finally:
         torch.cuda.set_per_process_memory_fraction(1.0, card)
         torch.cuda.empty_cache()
+
+
+# -- the node agent --------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_prober_reports_the_cards_through_nvml(cuda, monkeypatch):
+    """The port's prober, with no fake file and no device glob, reads the
+    node's cards through NVML: one chip a card, ids 0..n-1, each total
+    within 1 MiB of ``nvidia-smi``'s memory.total (MiB), and a live
+    ``Scraper`` parses the same count."""
+    import json
+    import subprocess
+
+    from k8s_gpu_scheduler_tpu_torch.agent import Scraper, _build
+
+    for var in ("TPUPROBE_FAKE", "TPUPROBE_DEV_GLOB", "TPUPROBE_NVML_LIB",
+                "TPUPROBE_BIN"):
+        monkeypatch.delenv(var, raising=False)
+    proc = subprocess.run([str(_build.build()), "--once"],
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    chips = json.loads(proc.stdout)["chips"]
+    n = torch.cuda.device_count()
+    assert [c["device_id"] for c in chips] == list(range(n))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.total",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()
+    assert len(smi) == n
+    for c, mib in zip(chips, smi):
+        assert abs(c["hbm_total"] - int(mib) * 1048576) <= 1048576, (c, mib)
+        assert 0.0 <= c["duty_cycle"] <= 1.0
+        assert 0 < c["hbm_used"] <= c["hbm_total"]
+    assert len(Scraper().scrape()) == n

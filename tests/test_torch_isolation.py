@@ -51,6 +51,15 @@ INCLUSTER_SLICE = ["k8s_gpu_scheduler_tpu_torch." + m for m in (
     "recommender.model", "recommender.server", "recommender.client",
     "recommender.collector", "metrics", "metrics.client")]
 
+# The modules of the node side: the agent (scraper, device-plugin source,
+# publisher, metrics logger and the prober's build helper), the registry
+# CLI and pod discovery — copies of the JAX package's, which must still
+# import nothing of it.
+AGENT_SLICE = ["k8s_gpu_scheduler_tpu_torch." + m for m in (
+    "agent", "agent.scrape", "agent.deviceplugin", "agent.publisher",
+    "agent.metrics_logger", "agent._build", "registry.ctl",
+    "utils.discovery")]
+
 JAX_PKG = re.compile(
     r"^\s*(from|import)\s+k8s_gpu_scheduler_tpu(\.|\b)"
     r"|import_module\(\s*['\"]k8s_gpu_scheduler_tpu(\.|\b)", re.M)
@@ -83,6 +92,7 @@ def test_every_module_imports_with_jax_blocked():
     assert set(FLEET_SLICE) <= set(MODULES)
     assert set(SCHED_SLICE) <= set(MODULES)
     assert set(INCLUSTER_SLICE) <= set(MODULES)
+    assert set(AGENT_SLICE) <= set(MODULES)
     assert len(MODULES) >= 14 + len(FLEET_SLICE) + len(SCHED_SLICE) - 2
 
 
@@ -92,6 +102,27 @@ def test_sources_reference_no_jax(path):
     text = path.read_text()
     assert not JAX_PKG.search(text), "imports the JAX package"
     assert not JAX.search(text), "imports jax"
+
+
+# The port builds and execs its own node prober (agent/csrc/tpuprobe.cpp),
+# never the JAX package's.
+PROBER_SOURCES = sorted(p for p in PORT.rglob("*") if p.is_file() and
+                        p.suffix in (".py", ".cpp", ".cu", ".cuh", ".h")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
+JAX_PROBER = re.compile(r"native[/\\]tpuprobe")
+
+
+@pytest.mark.parametrize("path", PROBER_SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_name_no_jax_prober(path):
+    assert not JAX_PROBER.search(path.read_text()), \
+        "names the JAX package's prober"
+
+
+def test_prober_scan_has_teeth():
+    assert PORT / "agent" / "csrc" / "tpuprobe.cpp" in PROBER_SOURCES
+    assert JAX_PROBER.search('os.path.join("native/tpuprobe", "tpuprobe")')
+    assert not JAX_PROBER.search("agent/csrc/tpuprobe.cpp")
 
 
 def test_scan_has_teeth():

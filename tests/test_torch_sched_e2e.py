@@ -5,8 +5,11 @@ the registry), the fakekube apiserver as a subprocess, and the port's
 scheduler over the REST adapter with the TPU and Gang plugins and the
 real registry and recommender clients. A gang and an SLO-scored
 singleton are scheduled, and the device environment injected into their
-ConfigMaps is checked. The node inventories are published through the
-port's ``registry.publish_inventory``, the write the node agent makes."""
+ConfigMaps is checked. The node inventories are published by the port's
+node agents (``agent.Publisher`` over ``agent.Scraper``, execing the
+port's prober on a fake metrics file), as ``tests/test_e2e.py`` runs the
+JAX package's."""
+import json
 import os
 import pathlib
 import shutil
@@ -20,23 +23,18 @@ import pytest
 from test_torch_sched_rest import start_fakekube, stop
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-KVSTORE = ROOT / "native" / "kvstore"
 DATA = ROOT / "k8s_gpu_scheduler_tpu_torch" / "recommender" / "data"
 
 
-def kvstored(tmp_path):
-    """The registry's server binary: the repo's build if there is one,
-    else a private build (no race with another test's ``make``)."""
-    built = KVSTORE / "kvstored"
-    if built.exists():
-        return str(built)
+def kvstored():
+    """The registry's server binary, built by the port's helper into
+    ``build/`` (renamed into place: no race with another test's build or
+    ``make``)."""
     if shutil.which("g++") is None:
         pytest.fail("g++ is needed to build native/kvstore")
-    out = tmp_path / "kvstored"
-    subprocess.run(["g++", "-std=c++17", "-O2", "-pthread", "-o", str(out),
-                    str(KVSTORE / "kvstore.cpp")], check=True,
-                   capture_output=True, timeout=300)
-    return str(out)
+    from k8s_gpu_scheduler_tpu_torch.agent import _build
+
+    return str(_build.build_kvstored())
 
 
 def free_port():
@@ -78,9 +76,7 @@ def test_all_real_components_schedule_a_gang(tmp_path):
     from k8s_gpu_scheduler_tpu_torch.recommender.client import (
         Client as RecomClient,
     )
-    from k8s_gpu_scheduler_tpu_torch.registry import (
-        ChipInfo, NodeInventory, publish_inventory,
-    )
+    from k8s_gpu_scheduler_tpu_torch.agent import Publisher, Scraper
     from k8s_gpu_scheduler_tpu_torch.registry.client import Client
     from k8s_gpu_scheduler_tpu_torch.sched import Profile, Scheduler
 
@@ -89,7 +85,7 @@ def test_all_real_components_schedule_a_gang(tmp_path):
         # 1. the registry
         kv_port = free_port()
         procs.append(subprocess.Popen(
-            [kvstored(tmp_path), "--port", str(kv_port), "--requirepass", "pw"],
+            [kvstored(), "--port", str(kv_port), "--requirepass", "pw"],
             stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
         assert wait_port(kv_port), "kvstored did not come up"
 
@@ -115,15 +111,21 @@ def test_all_real_components_schedule_a_gang(tmp_path):
         kube, url = start_fakekube("--nodes", "2", "--slice-size", "2")
         procs.append(kube)
 
-        # 4. the node inventories, as the agent publishes them
-        reg = Client("127.0.0.1", kv_port, password="pw")
+        # 4. real agents: the port's prober -> Publisher -> kvstored
+        fake = tmp_path / "chips.json"
+        fake.write_text(json.dumps({"chips": [
+            {"device_id": i, "duty_cycle": 0.1 * i, "hbm_used": 1,
+             "hbm_total": 16} for i in range(8)
+        ]}))
+        agent_reg = Client("127.0.0.1", kv_port, password="pw")
         for node in ("v5e-0", "v5e-1"):
-            publish_inventory(reg, NodeInventory(
+            assert Publisher(
+                agent_reg, scraper=Scraper(fake_file=str(fake)),
                 node_name=node, accelerator="tpu-v5-lite-podslice",
-                topology="2x4", utilization=0.35, published_at=time.time(),
-                chips=[ChipInfo(device_id=i, duty_cycle=0.1 * i,
-                                hbm_used_bytes=1, hbm_total_bytes=16)
-                       for i in range(8)]))
+                topology="2x4",
+            ).publish_once(force=True)
+        assert {k for k in agent_reg.get_keys("node/*")} == {
+            f"node/v5e-{i}{s}" for i in range(2) for s in ("", "/heartbeat")}
 
         # 5. the scheduler over REST with the real registry + recommender
         server = KubeAPIServer(base_url=url)
