@@ -322,7 +322,16 @@ imports nothing of JAX. Phases, each of which fails the run on error:
    as the two workers of a gloo gang on the card: each prints JAX's
    multi-process wave line twice; ``--int8``, ``--temperature``, ``--top-k`` and
    ``--eos-id`` on a gang exit with JAX's message before anything is
-   allocated.
+   allocated. (e) Weight-only int8 on the gang's mesh, in (a)'s and (b)'s
+   worlds: one card's int8 ``generate`` of (a)'s weights (bf16, and f32
+   at 2 layers; 16 new tokens) against each rank's at tp 2 and at fsdp
+   2, where the rank quantizes its own blocks
+   (``quantize_llama_params(model, mesh=)``, the scale's max taken over
+   the ranks that split K): every ``q`` and
+   scale equals the cut of one card's quantization (``torch.equal`` on
+   the card) and the rank's bytes are ``rank_leaf_shapes(int8=True)``'s;
+   K4 launches, split counts, cache bytes and stream rules as (b); each
+   int8 ``generate``'s wall is printed beside the bf16 leg's.
    The rank worlds of phases 17-20 are started by ``parallel.spawn``,
    once for all of them: their NCCL worlds of one are the jobs of one
    world, in phase order, and then their gloo worlds of two are the jobs
@@ -2572,7 +2581,7 @@ def parting_gaps(model, prompts, streams, ref, int8=True) -> list:
             continue
         pos = next(j for j, (a, b) in enumerate(zip(s, r)) if a != b)
         x = torch.tensor([[int(t) for t in list(p) + r[:pos]]],
-                         device=model.lm_head.device)
+                         device=model.device)
         lg = dense_logits(model, x, int8=int8)[0, -1]
         gaps.append((lg.max() - torch.minimum(lg[s[pos]], lg[r[pos]])
                      ).item())
@@ -4756,6 +4765,12 @@ GANG_MAIN_WAVES = 2             # 20d: wave lines read from each worker
 GANG_MAIN_ARGV = ["--serve", "--max-new", "16"]   # 20d: JAX's defaults but
                                 # max_new (64): each token at tp 2 gathers
                                 # the o/down blocks through gloo
+# 20e: the int8 leg's meshes in the world of two (fsdp 2 is where a
+# scale's max crosses ranks: fsdp splits K of q/k/v/gate/up and the head).
+GANG_INT8 = (("tp2", {"tp": 2}), ("fsdp2", {"fsdp": 2}))
+GANG_INT8_NEW = 16              # 20e: new tokens, cut from 64 (at 64 the leg
+                                # took ~50 s: each fsdp 2 token gathers every
+                                # weight and the embedding through gloo)
 GANG_REFUSED = (["--int8"], ["--temperature", "0.7"], ["--top-k", "5"],
                 ["--eos-id", "3"])
 GANG_REFUSAL = ("--int8/--temperature/--top-k/--eos-id need the continuous "
@@ -4833,6 +4848,7 @@ def gang_world_one(rank, world):
     """20a, an NCCL world of one: the serve config's ``generate`` through
     a size-1 mesh and with ``mesh=None`` (bf16 and f32), and the one-card
     references of 20b and 20c."""
+    from k8s_gpu_scheduler_tpu_torch.ops.quant import quantize_llama_params
     from k8s_gpu_scheduler_tpu_torch.parallel import MeshSpec, make_mesh
 
     dev = tp_rank_device()
@@ -4846,15 +4862,58 @@ def gang_world_one(rank, world):
         if not key.startswith("gqa"):
             out[key + " mesh"] = gang_generate(model, cfg, prompts, new,
                                                mesh)
+            out[key + " int8"] = gang_generate(
+                quantize_llama_params(model), cfg, prompts, GANG_INT8_NEW,
+                None)
         del model
         torch.cuda.empty_cache()
     return out
 
 
+def int8_rank_check(model, cfg, dev, mesh) -> dict:
+    """20e: a rank's int8 model (``quantize_llama_params(..., mesh=)`` of
+    its ``card_init(..., mesh=)`` blocks) against the cut of one card's
+    quantization of the same draws, every ``q``, scale and plain leaf
+    compared with ``torch.equal`` on the card (a scale's cut keeps K's
+    row whole), and its bytes against ``rank_leaf_shapes(int8=True)``."""
+    from k8s_gpu_scheduler_tpu_torch.models.llama import (
+        rank_layout, rank_leaf_shapes)
+    from k8s_gpu_scheduler_tpu_torch.ops.quant import quantize_llama_params
+    from k8s_gpu_scheduler_tpu_torch.parallel.mesh import MeshAxes
+
+    ax = MeshAxes.of(mesh)
+    layout = rank_layout(cfg, ax.sizes, ax.index)
+    whole = quantize_llama_params(card_init(cfg, dev))
+    ref = {**dict(whole.named_parameters()), **dict(whole.named_buffers())}
+    held = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    differ = []
+    for name, t in held.items():
+        base, _, part = name.rpartition(".")
+        if part in ("q", "s") and base in layout:
+            whole_name, region = layout[base]
+            whole_name += "." + part
+            if part == "s":
+                region = region[:-2] + (slice(None),) + region[-1:]
+        else:
+            whole_name, region = layout[name]
+        if not torch.equal(t, ref[whole_name][region]):
+            differ.append(name)
+    want = sum(int(np.prod(shape)) * torch.empty(0, dtype=dt).element_size()
+               for shape, dt in rank_leaf_shapes(cfg, ax.sizes,
+                                                 int8=True).values())
+    got = sum(t.numel() * t.element_size() for t in held.values())
+    del whole, ref
+    torch.cuda.empty_cache()
+    return dict(leaves=len(held), differ=differ, bytes=got, want_bytes=want)
+
+
 def gang_world_two(rank, world):
     """20b-c, a gloo world of two ranks sharing the card: the serve config
     at tp 2 and at dp 2, and the GQA config at tp 2, each rank's blocks
-    (``card_init(..., mesh=)``) of 20a's weights."""
+    (``card_init(..., mesh=)``) of 20a's weights; 20e, the serve config's
+    int8 at tp 2 and fsdp 2, each rank quantizing its own blocks of them
+    (``quantize_llama_params(..., mesh=)``)."""
+    from k8s_gpu_scheduler_tpu_torch.ops.quant import quantize_llama_params
     from k8s_gpu_scheduler_tpu_torch.parallel import MeshSpec, make_mesh
 
     dev = tp_rank_device()
@@ -4870,6 +4929,18 @@ def gang_world_two(rank, world):
             new = GANG_GQA_NEW if key.startswith("gqa") else GANG_NEW
             out[f"{name} {key}"] = gang_generate(
                 model, cfg, gang_prompts(key, cfg.vocab), new, mesh)
+            del model
+            torch.cuda.empty_cache()
+    for name, axes in GANG_INT8:
+        mesh = make_mesh(MeshSpec.for_devices(world, **axes), dev.type)
+        for key in ("bf16", "f32"):
+            cfg = cfgs[key]
+            model = quantize_llama_params(card_init(cfg, dev, mesh=mesh),
+                                          mesh=mesh)
+            st = gang_generate(model, cfg, gang_prompts(key, cfg.vocab),
+                               GANG_INT8_NEW, mesh)
+            st["int8"] = int8_rank_check(model, cfg, dev, mesh)
+            out[f"{name} {key} int8"] = st
             del model
             torch.cuda.empty_cache()
     return out
@@ -4944,6 +5015,81 @@ def phase_gang_streams(card, one, ranks, dev) -> dict:
                 f"{json.dumps(out[f'20 {run}'])}")
         del model
         torch.cuda.empty_cache()
+    return out
+
+
+def phase_gang_int8(card, one, ranks, dev) -> dict:
+    """20e's checks: one card's int8 launches; on every rank at tp 2 and
+    fsdp 2, ``q`` and ``s`` exactly the cut of one card's quantization
+    and the bytes ``rank_leaf_shapes(int8=True)`` counts, K4 launched
+    (max_new - 1) x layers times under one card's split counts with no
+    plain call, half one card's cache; f32 streams identical to one
+    card's int8 streams, bf16 parting only at near-ties, under
+    ``TP_PART_CAP``. Logs each int8 ``generate``'s wall beside the bf16
+    leg's."""
+    from k8s_gpu_scheduler_tpu_torch.ops.quant import quantize_llama_params
+
+    cfgs = gang_configs()
+    out = {}
+    for key in ("bf16", "f32"):
+        check_gang_launches(f"20e one card {key} int8", one[key + " int8"],
+                            cfgs[key], GANG_INT8_NEW)
+    for name, _ in GANG_INT8:
+        for key in ("bf16", "f32"):
+            run, ref = f"{name} {key} int8", one[f"{key} int8"]
+            for r, res in enumerate(ranks):
+                st, q = res[run], res[run]["int8"]
+                check_gang_launches(f"20e {run} rank {r}", st, cfgs[key],
+                                    GANG_INT8_NEW)
+                if q["differ"] or q["bytes"] != q["want_bytes"]:
+                    raise SystemExit(
+                        f"20e {run} rank {r}: leaves differing from the cut "
+                        f"of one card's quantization {q['differ'][:8]}, "
+                        f"bytes {q['bytes']} (want {q['want_bytes']})")
+                if st["splits"] != ref["splits"] or st["cache_bytes"] != [
+                        ref["cache_bytes"][0] // 2] or \
+                        st["streams"] != ranks[0][run]["streams"]:
+                    raise SystemExit(
+                        f"20e {run} rank {r}: splits {st['splits']} (one "
+                        f"card {ref['splits']}), cache {st['cache_bytes']} "
+                        f"(one card {ref['cache_bytes']}), or its streams "
+                        f"differ from rank 0's")
+            log(f"  [{card}] 20e {run}: rank 0 "
+                f"{json.dumps({k: v for k, v in ranks[0][run].items() if k != 'streams'})}; "
+                f"rank 1 int8 {json.dumps(ranks[1][run]['int8'])}")
+    for name, _ in GANG_INT8:
+        run = f"{name} f32 int8"
+        out[f"20e {run}"] = check_streams(
+            f"20e {run}", torch.float32, ranks[0][run]["streams"],
+            one["f32 int8"]["streams"], None, None, None, 0.0)
+    cfg = cfgs["bf16"]
+    model = quantize_llama_params(card_init(cfg, dev))
+    spread = logit_spread(model, cfg, dev)
+    prompts = gang_prompts("bf16", cfg.vocab)
+    for name, _ in GANG_INT8:
+        run = f"{name} bf16 int8"
+        streams, ref = ranks[0][run]["streams"], one["bf16 int8"]["streams"]
+        log(f"  [{card}] 20e {run}: first differing token of each parting "
+            f"stream: {tp_partings(streams, ref)}")
+        out[f"20e {run}"] = check_streams(
+            f"20e {run}", torch.bfloat16, streams, ref, prompts, model,
+            spread, TP_PART_CAP)
+        log(f"  [{card}] 20e {run} against one card's int8: "
+            f"{json.dumps(out[f'20e {run}'])}")
+    del model
+    torch.cuda.empty_cache()
+    for key in ("bf16", "f32"):
+        walls = {"one card": (one[key + " int8"]["wall_s"],
+                              one[key]["wall_s"])}
+        walls.update({name: (ranks[0][f"{name} {key} int8"]["wall_s"],
+                             ranks[0][f"tp2 {key}"]["wall_s"])
+                      for name, _ in GANG_INT8})
+        log(f"  [{card}] 20e {key} generate wall, int8 ({GANG_INT8_NEW} new "
+            f"tokens) / the {key} leg's ({GANG_NEW}; 20a one card, 20b tp 2 "
+            f"for both meshes), s and ms a new token: " + ", ".join(
+                f"{k} {a:.3f} / {b:.3f} ({1e3 * a / GANG_INT8_NEW:.1f} / "
+                f"{1e3 * b / GANG_NEW:.1f})" for k, (a, b) in walls.items()))
+        out[f"20e {key} walls"] = walls
     return out
 
 
@@ -5085,8 +5231,9 @@ def phase_gang_main(dev, card) -> dict:
 def phase_gang_serving(dev, card) -> dict:
     """Phase 20 (see the module docstring)."""
     log(f"  cuts: 20c llama3_8b widths at {GANG_GQA_LAYERS} layers and "
-        f"{GANG_GQA_NEW} new tokens; f32 runs at {GANG_F32_LAYERS} layers; "
-        f"no width cut")
+        f"{GANG_GQA_NEW} new tokens; f32 runs (20e's int8 too) at "
+        f"{GANG_F32_LAYERS} layers; 20e at {GANG_INT8_NEW} new tokens; no "
+        f"width cut")
     torch.cuda.empty_cache()
     (one,) = yield World(gang_world_one, 1, "nccl", (), GANG_TIMEOUT)
     cfgs = gang_configs()
@@ -5102,6 +5249,7 @@ def phase_gang_serving(dev, card) -> dict:
             f"{a['wall_s']:.3f} / {b['wall_s']:.3f} s")
     ranks = yield World(gang_world_two, 2, "gloo", (), GANG_TIMEOUT)
     out = phase_gang_streams(card, one, ranks, dev)
+    out.update(phase_gang_int8(card, one, ranks, dev))
     out["20c k4"] = phase_gang_k4(dev, card)
     out["20d"] = phase_gang_main(dev, card)
     return out
@@ -6890,7 +7038,8 @@ def main() -> int:
     if run(20):
         log("phase 20: gang serving (generate on a mesh, main --serve on a "
             "gang): 20a an NCCL world of one, 20b-c a gloo world of two "
-            "ranks sharing the card, 20d two gang workers on the card")
+            "ranks sharing the card, 20d two gang workers on the card, 20e "
+            "int8 weights in 20a's and 20b's worlds")
         worlds["20"] = phase_gang_serving(dev, card)
     if run(21, 22):
         graft_cli_start()               # beside the rank worlds

@@ -63,9 +63,12 @@ def params_from_numpy(tree: Dict, cfg: LlamaConfig, device="cuda",
     weight_sharding=True)``; int8 leaves are cut after quantisation: a
     column slice takes its scale columns, a row slice keeps the scale
     whole); ``"training"``, every leaf by ``models.llama.param_specs`` (a
-    rank of ``make_train_step(cfg, mesh, ...)``; an MoE model's router
-    columns and expert stacks over ep), each rank's block the same slice
-    of the unsharded tree; ``"pipeline"``, a stage's layers of every
+    rank of ``make_train_step(cfg, mesh, ...)`` or of ``generate(mesh=)``;
+    an MoE model's router columns and expert stacks over ep), each rank's
+    block the same slice of the unsharded tree, an int8 leaf of a tree
+    quantized whole (JAX's ``quantize_llama_params``) cut by
+    ``models.llama.int8_specs`` (``q`` as the weight, the scale's columns
+    with it); ``"pipeline"``, a stage's layers of every
     block leaf and every other leaf whole (a rank of a mesh with a ``pp``
     axis, ``models.pipeline``)."""
     device = resolve_device(device)

@@ -55,8 +55,9 @@ from ..ops.attention import dense_attention, ring_attention, ulysses_attention
 from ..ops.flash_attention import flash_attention_diff
 from ..ops.layers import apply_rope, rms_norm, rope_freqs, swiglu
 from ..ops.moe import moe_ffn, moe_ffn_dropless
-from ..ops.quant import qdot
-from ..parallel.collectives import all_gather, all_reduce, all_reduce_, copy_to
+from ..ops.quant import Int8Weight, qdot
+from ..parallel.collectives import (
+    all_gather, all_max_, all_reduce, all_reduce_, copy_to)
 
 
 @dataclass(frozen=True)
@@ -305,7 +306,6 @@ def sliced_for_serving(model: Llama, sizes: Dict[str, int],
     ``model``. A model whose sliced leaves are already this rank's size
     (``bridge.params_from_numpy(..., mesh=)``) is returned as it is; the
     source is never changed."""
-    from ..ops.quant import Int8Weight
     from ..parallel.sharding import rank_slice
 
     specs = serving_weight_specs(model)["blocks"]
@@ -343,11 +343,24 @@ def sliced_for_serving(model: Llama, sizes: Dict[str, int],
     return out
 
 
+def int8_specs(spec: tuple) -> Dict[str, tuple]:
+    """The specs of an int8 ``{"q","s"}`` leaf whose weight takes ``spec``
+    (``param_specs``, over ``[..., K, N]``): ``q`` takes ``spec`` and the
+    scale ``s [..., 1, N]`` the same with K's axis dropped, as the serving
+    rule does: a column slice takes its scale columns, a row slice keeps
+    the scale whole."""
+    return {"q": spec, "s": spec[:-2] + (None,) + spec[-1:]}
+
+
 def map_weight_tree(params, specs, fn):
     """Walk a params tree and its mirror-shaped spec tree together
     (nested dicts with array — or int8 ``{"q","s"}`` — leaves, the shape
-    ``serving_weight_specs`` emits): ``fn(leaf, spec)`` at each leaf."""
+    ``serving_weight_specs`` emits): ``fn(leaf, spec)`` at each leaf. An
+    int8 leaf under one weight's spec (``param_specs``) walks
+    ``int8_specs`` of it."""
     if isinstance(params, Mapping):
+        if isinstance(specs, tuple):
+            specs = int8_specs(specs)
         return {k: map_weight_tree(params[k], specs[k], fn) for k in params}
     return fn(params, specs)
 
@@ -356,8 +369,6 @@ def sliced_weight_bytes(model: Llama) -> int:
     """Bytes of ``model``'s tensors that ``serving_weight_specs`` slices
     (an int8 leaf's ``q``, and its scale with a column slice); 0 for an
     MoE model, which serves with replicated weights only."""
-    from ..ops.quant import Int8Weight
-
     if model.cfg.n_experts > 1:
         return 0
     specs = serving_weight_specs(model)["blocks"]
@@ -500,15 +511,30 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     return model
 
 
-def rank_leaf_shapes(cfg: LlamaConfig, sizes: Mapping[str, int]
+def rank_leaf_shapes(cfg: LlamaConfig, sizes: Mapping[str, int],
+                     int8: bool = False
                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of each of a rank's leaves on a mesh of axis
     ``sizes`` (``rank_layout``): the whole shape with each dim divided by
-    the sizes of the axes its spec names, or a stage's layers whole."""
+    the sizes of the axes its spec names, or a stage's layers whole.
+    ``int8``: of the rank's ``ops.quant.quantize_llama_params(model,
+    mesh=)``, each quantized leaf as ``<name>.q`` (int8) and ``<name>.s``
+    (f32, K cut to 1), the names of its buffers."""
+    from ..ops.quant import BLOCK_WEIGHTS
+
     dtypes = dict((n, p.dtype) for n, p in
                   rank_model(cfg, sizes).named_parameters())
-    return {name: (tuple(s.stop - s.start for s in region), dtypes[name])
-            for name, (_, region) in rank_layout(cfg, sizes).items()}
+    out = {}
+    for name, (_, region) in rank_layout(cfg, sizes).items():
+        shape = tuple(s.stop - s.start for s in region)
+        if int8 and (name == "lm_head"
+                     or name.rpartition(".")[2] in BLOCK_WEIGHTS):
+            out[name + ".q"] = (shape, torch.int8)
+            out[name + ".s"] = (shape[:-2] + (1,) + shape[-1:],
+                                torch.float32)
+        else:
+            out[name] = (shape, dtypes[name])
+    return out
 
 
 def attn_sublayer(cfg: LlamaConfig, x: torch.Tensor, blk: Block,
@@ -704,10 +730,8 @@ def _nll_sharded(logits: torch.Tensor, targets: torch.Tensor, ax
     if tp is None:
         return (torch.logsumexp(logits, dim=-1)
                 - logits.gather(-1, targets[..., None])[..., 0])
-    import torch.distributed as dist
-
     rows = logits.shape[-1]
-    m = all_reduce_(logits.detach().amax(dim=-1), tp, dist.ReduceOp.MAX)
+    m = all_max_(logits.detach().amax(dim=-1), tp)
     lse = m + torch.log(all_reduce(
         torch.exp(logits - m[..., None]).sum(dim=-1), tp))
     local = targets - ax.index["tp"] * rows
@@ -775,9 +799,11 @@ def make_optimizer(model: Llama, lr: float = 3e-4) -> torch.optim.AdamW:
 
 def require_rank_blocks(model: Llama, want: Tuple[int, ...]) -> None:
     """Refuse a model on a mesh that is not a rank's training blocks:
-    its first ``wq`` must be the rank's block of it, shaped ``want``
-    (``rank_leaf_shapes``)."""
+    its first ``wq`` (an int8 weight's ``q``) must be the rank's block of
+    it, shaped ``want`` (``rank_leaf_shapes``)."""
     wq = model.blocks[0].wq
+    if isinstance(wq, Int8Weight):
+        wq = wq.q
     got = tuple(wq.shape) if isinstance(wq, torch.Tensor) else \
         type(wq).__name__
     if got != tuple(want):

@@ -108,12 +108,12 @@ from ..ops.decode_attention import (
 )
 from ..ops.layers import apply_rope, rms_norm, rope_freqs
 from ..ops.moe import moe_ffn_dropless
-from ..ops.quant import Int8Weight, qdot
+from ..ops.quant import Int8Weight, Weight, qdot
 from ..parallel.collectives import all_gather
 from ..parallel.sharding import rank_slice
 from ..testing.faults import Preempted
 from .llama import (
-    Block, Llama, LlamaConfig, mlp_sublayer, rank_leaf_shapes,
+    Block, Llama, LlamaConfig, int8_specs, mlp_sublayer, rank_leaf_shapes,
     require_rank_blocks, sliced_for_serving, sliced_weight_bytes,
 )
 from .paging import NULL_PAGE, HostTierStore, PageAllocator
@@ -278,7 +278,9 @@ def generate(model: Llama, prompt, cfg: LlamaConfig, max_new: int,
     ``mesh`` (a ``DeviceMesh`` of more than one rank; call on every rank
     with the same prompt): ``model`` holds this rank's blocks of the
     training layout (``init_params(..., mesh=)`` or
-    ``bridge.params_from_numpy(..., mesh=, specs="training")``), the
+    ``bridge.params_from_numpy(..., mesh=, specs="training")``; int8:
+    ``quantize_llama_params(model, mesh=)`` of them, or
+    ``params_from_numpy`` of a tree quantized whole), the
     batch splits over (dp, fsdp) and the kv heads over tp, as the JAX
     package's ``CACHE_SPEC`` lays out its cache. A rank decodes its rows
     through K4 on its heads, planned for one card's batch and heads, and
@@ -332,7 +334,12 @@ def make_server_step(cfg: LlamaConfig, mesh, max_new: int,
 # among equals, as one card's ``argmax`` does. A rank's rows stay its own
 # from the prefill on; the tokens are gathered over (dp, fsdp) once, at
 # the end. An MoE block gathers its router and expert stacks whole and
-# routes dropless, as every serving path does.
+# routes dropless, as every serving path does. An int8 model
+# (``ops.quant.quantize_llama_params(model, mesh=)``, or a tree quantized
+# whole cut by ``bridge.params_from_numpy(..., specs="training")``) holds
+# each leaf's ``q`` on the weight's spec and its scale on
+# ``llama.int8_specs``'s; the two are gathered apart (``_gathered``) and
+# multiplied by ``qdot``/``qeinsum``, as on one card.
 
 # The cache's layout, the JAX package's ``CACHE_SPEC``: the batch over
 # (dp, fsdp), the kv heads over tp.
@@ -372,6 +379,19 @@ def _whole(w: torch.Tensor, spec: tuple, ax) -> torch.Tensor:
         if axis is not None:
             w = all_gather(w, dim, ax.group(axis))
     return w
+
+
+def _gathered(w: Weight, spec: tuple, ax) -> Weight:
+    """``_whole`` of a plain weight; of an int8 weight, the pair gathered
+    apart: ``q`` over the axes of ``spec``, the scale over those of its
+    own spec (``int8_specs``: never over K's, which every rank's scale
+    spans already), for ``qdot``/``qeinsum`` to multiply as one card's
+    ``forward_with_cache`` does."""
+    if not isinstance(w, Int8Weight):
+        return _whole(w, spec, ax)
+    specs = int8_specs(spec)
+    return {"q": _whole(w.q, specs["q"], ax),
+            "s": _whole(w.s, specs["s"], ax)}
 
 
 def _embed_sharded(table: torch.Tensor, tokens: torch.Tensor, ax
@@ -417,9 +437,10 @@ def _forward_cache_sharded(model: Llama, tokens: torch.Tensor,
     """``forward_with_cache`` on a rank of a mesh (the comment above
     ``CACHE_SPEC``): tokens [B_l, t] of this rank's rows → (logits
     [B_l, t, vocab/tp] f32, cache)."""
-    fsdp, tp = ax.group("fsdp"), ax.group("tp")
+    tp = ax.group("tp")
     n_tp, hd = ax.size("tp"), cfg.head_dim
     heads, kv_heads = cfg.n_heads // n_tp, cfg.n_kv_heads // n_tp
+    rows = ("fsdp", None)                   # q/k/v, gate/up, the lm_head
     B, t = tokens.shape
     # cache['len'] is a host int the loop advances:
     # graftcheck: ignore[host-sync-in-dispatch]
@@ -430,9 +451,9 @@ def _forward_cache_sharded(model: Llama, tokens: torch.Tensor,
     k_all, v_all = cache["k"], cache["v"]
     for layer, blk in enumerate(model.blocks):
         h = rms_norm(x, blk.attn_norm)
-        q = (h @ all_gather(blk.wq, 0, fsdp)).reshape(B, t, heads, hd)
-        k = (h @ all_gather(blk.wk, 0, fsdp)).reshape(B, t, kv_heads, hd)
-        v = (h @ all_gather(blk.wv, 0, fsdp)).reshape(B, t, kv_heads, hd)
+        q = qdot(h, _gathered(blk.wq, rows, ax)).reshape(B, t, heads, hd)
+        k = qdot(h, _gathered(blk.wk, rows, ax)).reshape(B, t, kv_heads, hd)
+        v = qdot(h, _gathered(blk.wv, rows, ax)).reshape(B, t, kv_heads, hd)
         q, k = apply_rope(q, angles), apply_rope(k, angles)
         k_all[layer, :, pos:pos + t] = k
         v_all[layer, :, pos:pos + t] = v
@@ -441,23 +462,23 @@ def _forward_cache_sharded(model: Llama, tokens: torch.Tensor,
                                 plan_batch=plan_batch,
                                 plan_kv_heads=cfg.n_kv_heads)
         attn = all_gather(attn, 2, tp).reshape(B, t, cfg.n_heads * hd)
-        x = x + attn @ _whole(blk.wo, ("tp", "fsdp"), ax)
+        x = x + qdot(attn, _gathered(blk.wo, ("tp", "fsdp"), ax))
         h = rms_norm(x, blk.mlp_norm)
         if cfg.n_experts > 1:
             x = x + moe_ffn_dropless(
                 h, _whole(blk.router, ("fsdp", "ep"), ax),
-                _whole(blk.w_gate, ("ep", "fsdp", "tp"), ax),
-                _whole(blk.w_up, ("ep", "fsdp", "tp"), ax),
-                _whole(blk.w_down, ("ep", "tp", "fsdp"), ax),
+                _gathered(blk.w_gate, ("ep", "fsdp", "tp"), ax),
+                _gathered(blk.w_up, ("ep", "fsdp", "tp"), ax),
+                _gathered(blk.w_down, ("ep", "tp", "fsdp"), ax),
                 top_k=cfg.moe_top_k)
         else:
             act = torch.nn.functional.silu(
-                h @ all_gather(blk.w_gate, 0, fsdp)) * (
-                h @ all_gather(blk.w_up, 0, fsdp))
-            x = x + all_gather(act, 2, tp) @ _whole(blk.w_down,
-                                                    ("tp", "fsdp"), ax)
+                qdot(h, _gathered(blk.w_gate, rows, ax))) * qdot(
+                h, _gathered(blk.w_up, rows, ax))
+            x = x + qdot(all_gather(act, 2, tp),
+                         _gathered(blk.w_down, ("tp", "fsdp"), ax))
     x = rms_norm(x, model.final_norm)
-    logits = (x @ all_gather(model.lm_head, 0, fsdp)).float()
+    logits = qdot(x, _gathered(model.lm_head, rows, ax)).float()
     return logits, {"k": k_all, "v": v_all, "len": pos + t}
 
 

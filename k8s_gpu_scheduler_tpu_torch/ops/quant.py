@@ -48,7 +48,13 @@ def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     all-zero channel (scale floored). ``torch.round`` rounds half to even,
     as ``jnp.round`` does."""
     w32 = w.float()
-    s = torch.clamp(w32.abs().amax(dim=-2, keepdim=True) / 127.0, min=1e-8)
+    return _quantize(w32, w32.abs().amax(dim=-2, keepdim=True))
+
+
+def _quantize(w32: torch.Tensor, amax: torch.Tensor
+              ) -> Dict[str, torch.Tensor]:
+    """``quantize_weight``'s rule from the per-channel ``max|w|``."""
+    s = torch.clamp(amax / 127.0, min=1e-8)
     q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
     return {"q": q, "s": s}
 
@@ -92,18 +98,41 @@ def qeinsum(spec: str, x: torch.Tensor, w: Weight) -> torch.Tensor:
     return y.view(E, B, T, N).transpose(0, 1)
 
 
-def quantize_llama_params(model: nn.Module) -> nn.Module:
+def quantize_llama_params(model: nn.Module, mesh=None) -> nn.Module:
     """A copy of a ``models.llama.Llama`` with every block matmul weight
     (expert stacks included) and the lm_head replaced by ``Int8Weight``
     modules (the JAX function's tree rewrite, on modules). The source model
-    is left untouched."""
+    is left untouched.
+
+    ``mesh`` (a mesh of more than one rank; every rank calls this):
+    ``model`` is this rank's training blocks (``init_params(..., mesh=)``)
+    and each scale still spans the whole contraction dim K: the rank's
+    ``max|w|`` over its rows is max-reduced over the axes that split K in
+    ``param_specs`` (fsdp for q/k/v/gate/up and the lm_head, tp for o and
+    down, the same for the expert stacks), so every rank holds exactly its
+    cut of the one-card quantization, ``q`` and ``s``, and no rank ever
+    holds a whole leaf."""
+    from ..models.llama import _mesh_axes, _spec_axes, leaf_specs
+    from ..parallel.collectives import all_max_
+
+    ax = _mesh_axes(mesh)
+    specs = leaf_specs(model.cfg) if ax is not None else {}
+
+    def quantize(name: str, w: torch.Tensor) -> Int8Weight:
+        w32 = w.detach().float()
+        amax = w32.abs().amax(dim=-2, keepdim=True)
+        if ax is not None:                  # K's axes, in one order
+            for axis in sorted(_spec_axes(specs[name][-2:-1])):
+                all_max_(amax, ax.group(axis))
+        return Int8Weight(**_quantize(w32, amax))
+
     out = copy.deepcopy(model)
-    for blk in out.blocks:
+    for i, blk in enumerate(out.blocks):
         for name in BLOCK_WEIGHTS:
             w = getattr(blk, name)
             delattr(blk, name)
-            setattr(blk, name, Int8Weight(**quantize_weight(w)))
+            setattr(blk, name, quantize(f"blocks.{i}.{name}", w))
     w = out.lm_head
     del out.lm_head
-    out.lm_head = Int8Weight(**quantize_weight(w))
+    out.lm_head = quantize("lm_head", w)
     return out

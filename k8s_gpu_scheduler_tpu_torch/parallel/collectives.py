@@ -70,6 +70,13 @@ def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM
     return x
 
 
+def all_max_(x: torch.Tensor, group) -> torch.Tensor:
+    """In place, outside autograd: the elementwise max of ``x`` over
+    ``group`` (``all_reduce_`` with ``ReduceOp.MAX``; exact, as a max
+    is)."""
+    return all_reduce_(x, group, op=dist.ReduceOp.MAX)
+
+
 def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n, dim = _n(group), dim % x.dim()
     x = x.contiguous()

@@ -17,7 +17,9 @@ PORT = ROOT / "k8s_gpu_scheduler_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py",
     ROOT / "tests" / "torch_tp_workers.py",
-    ROOT / "tests" / "torch_train_workers.py"] + sorted(
+    ROOT / "tests" / "torch_train_workers.py",
+    ROOT / "tests" / "torch_gang_workers.py",
+    ROOT / "tests" / "torch_gang_int8_workers.py"] + sorted(
     (ROOT / "tests" / "data" / "graftcheck_torch").glob("*.py"))
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(
